@@ -5,23 +5,38 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line (any failure raises and exits
-non-zero):
+Grids are named NXxNY, as the repository names them (``Params(nx=...,
+ny=...)``): 131072x128 is 131072 columns by 128 rows. Phases, each
+printing JSON lines (any failure raises and exits non-zero):
 
 1. device  - the card (nvidia-smi name and power limit), torch, CUDA;
-2. build   - nvcc builds lbm_tpu_torch/csrc/*.cu into build/lbm_tpu_torch/;
-3. kernel  - the kernel against its plain PyTorch version on the card:
-             one step at 1024x1024 (scene mask), 128x128, a ragged
-             100x130 wall-less mask and the 131072x128 stress shape;
-             all three BGK associations at 256x256; 200 steps at
-             1024x1024; bit-identical repeat runs;
+2. build   - nvcc builds lbm_tpu_torch/csrc/*.cu (one nvcc per source,
+             in parallel) into build/lbm_tpu_torch/;
+3. kernel  - every kernel against its plain PyTorch version on the card,
+             one line per grid: the one-step kernel for one step, the
+             depth kernel for one call at D = 2, 4, 8 and the resident
+             kernel for one call at G = 16, against n steps of the plain
+             version, at 1024x1024 (scene mask), 128x128 (and an odd
+             G = 5 there), a ragged 100x130 wall-less mask, 16384x1024,
+             131072x128 (the stress scene's orientation) and 128x131072
+             (transposed); all three BGK associations at 256x256; then
+             200 steps at 1024x1024 of every kernel through the runner
+             against the one-step kernel, with bit-identical repeats;
 4. scene   - the reference's 1024x1024 scene (20000 steps) through the
-             port's CLI with --kernel auto on cuda: exactly one step and
-             one reduce launch per step, and within the 0.3 % drift
-             budget of goldens/1024x1024.final_state.f64.npz;
-5. timing  - median per-step time of the kernel and of the plain version
-             at 1024x1024, with CUDA events: as the runner's loop drives
-             them, and device time alone.
+             port's CLI, once per plan: --kernel auto, the one-step
+             kernel pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=1), the
+             resident kernel forced (LBM_RESIDENT=1) and a depth pinned
+             (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=...). Launch counts equal
+             the plan's, and each run is within the 0.3 % drift budget
+             of goldens/1024x1024.final_state.f64.npz;
+5. stress  - 16384x1024 with generated walls and the scene's forcing,
+             2000 steps through the runner: every depth and the resident
+             kernel against the one-step kernel;
+6. timing  - per-step time of every kernel configuration at 128x128,
+             256x256, 512x512, 1024x1024 and 16384x1024 with CUDA
+             events, as the runner drives them and as device time alone
+             (the numbers the planner's automatic choice is set from);
+             the plain version at 1024x1024.
 
 Then the kernels line, the nvidia-smi line, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2
@@ -33,6 +48,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -40,7 +56,7 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
-NX = NY = 1024
+SCENE = "1024x1024"
 ITERS = 20000
 GOLDEN = REPO / "goldens" / "1024x1024.final_state.f64.npz"
 SCENE_DIR = REPO / "build" / "lbm_tpu_torch" / "smoke_scene"
@@ -53,6 +69,31 @@ MODES = {
     "reference_order": {"LBM_PAIRED_EQ": "0"},
     "omega_absorbed": {"LBM_OMEGA_EQ": "1"},
 }
+PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH")
+DEPTHS = (2, 4, 8)
+KERNEL_G = 16
+# Kernel-phase grids (NXxNY) and their masks: the scene's, the
+# generator's walls, or random and wall-less (periodic in both axes).
+KERNEL_CASES = [("1024x1024", "scene"), ("128x128", "walls"),
+                ("100x130", "random"), ("16384x1024", "walls"),
+                ("131072x128", "walls"), ("128x131072", "walls")]
+STRESS, STRESS_ITERS = "16384x1024", 2000
+TRAJ_STEPS = 200
+TIMING_GRIDS = ("128x128", "256x256", "512x512", "1024x1024", "16384x1024")
+# Plans driven through the CLI on the scene; the depth pin is the depth
+# auto does not take at 1024x1024, so the scene runs every kernel.
+SCENE_PLANS = {
+    "auto": {},
+    "step": {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "1"},
+    "resident": {"LBM_RESIDENT": "1"},
+    "depth": {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
+}
+
+
+def grid(name: str) -> tuple[int, int]:
+    """``(nx, ny)`` of a grid named NXxNY."""
+    nx, ny = name.split("x")
+    return int(nx), int(ny)
 
 
 def emit(obj) -> None:
@@ -64,10 +105,27 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def scene_params(iters=ITERS):
+@contextlib.contextmanager
+def env(**values):
+    """Set the given environment variables and clear the other plan and
+    association pins for the duration; restore everything after."""
+    keys = set(PLAN_ENV) | {"LBM_PAIRED_EQ", "LBM_OMEGA_EQ"} | set(values)
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def scene_params(name=SCENE, iters=ITERS):
     from lbm_tpu_torch.params import Params
 
-    return Params(nx=NX, ny=NY, max_iters=iters, reynolds_dim=10,
+    nx, ny = grid(name)
+    return Params(nx=nx, ny=ny, max_iters=iters, reynolds_dim=10,
                   density=0.1, accel=0.01, omega=1.85)
 
 
@@ -76,19 +134,29 @@ def scene_mask():
     walls plus one full-height column at x = nx // 3."""
     from lbm_tpu_torch.obstacles import generate_obstacles
 
-    mask = generate_obstacles(NX, NY)
-    mask[:, NX // 3] = True
+    nx, ny = grid(SCENE)
+    mask = generate_obstacles(nx, ny)
+    mask[:, nx // 3] = True
     return mask
 
 
-def random_case(torch, ny, nx, p, seed, mask_kind="walls"):
+def random_case(torch, name, p, seed, mask_kind="walls", state="uniform"):
     """Seeded device state whose forced row fails the guard in places,
-    and its mask: the generator's walls, the 1024x1024 scene's, or
-    random and wall-less (periodic in both axes)."""
+    and its mask. ``state``: "uniform", each value in [0.01, 0.2] (far
+    from equilibrium; at omega 1.85 such a state is unstable, so it is
+    held for one step only), or "perturbed", the scene's equilibrium at
+    rest with each value moved by up to +-10 % (stable, for many-step
+    comparisons)."""
     from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.state import initial_state
 
+    nx, ny = grid(name)
     g = torch.Generator(device="cuda").manual_seed(seed)
-    cells = torch.rand((9, ny, nx), generator=g, device="cuda") * 0.19 + 0.01
+    noise = torch.rand((9, ny, nx), generator=g, device="cuda")
+    if state == "uniform":
+        cells = noise * 0.19 + 0.01
+    else:
+        cells = initial_state(p, "cuda") * (1.0 + 0.2 * (noise - 0.5))
     fail = torch.rand(nx, generator=g, device="cuda") < 0.3
     cells[6, ny - 2][fail] = float(p.accel_w2)
     if mask_kind == "walls":
@@ -100,19 +168,49 @@ def random_case(torch, ny, nx, p, seed, mask_kind="walls"):
     return cells.contiguous(), mask
 
 
-def compare_step(torch, fused, cells, mask, p):
-    """One kernel step against the plain version: errors, and whether
-    cells meet rtol/atol and tot_u meets its rtol."""
-    args = (mask, p.accel_w1, p.accel_w2, p.omega)
-    got, got_tot = fused.fused_step(cells, *args)
-    want, want_tot = fused.fused_step_plain(cells, *args)
+def compare(torch, got, got_tots, want, want_tots):
+    """Errors of a kernel's cells and tots against the plain version's,
+    and whether cells meet rtol/atol and every tot its rtol."""
     torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "kernel output not finite")
     err = (got - want).abs()
     ok = bool((err <= ATOL + RTOL * want.abs()).all())
-    tot_rel = abs(float(got_tot) - float(want_tot)) / abs(float(want_tot))
-    check(bool(torch.isfinite(got).all()), "kernel output not finite")
+    tot_rel = float(((got_tots - want_tots).abs() / want_tots.abs()).max())
     return {"max_abs_err": float(err.max()), "cells_ok": ok,
             "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
+
+
+def compare_kernels(torch, name, kind, p, seed, odd_g=False):
+    """Every kernel against n plain steps: the one-step kernel for one
+    step of a uniform state, the many-step kernels for one call on a
+    perturbed one (same seed, same mask)."""
+    from lbm_tpu_torch.ops import fused, fused_depth, resident
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    cells, mask = random_case(torch, name, p, seed, kind, "uniform")
+    args = (mask, p.accel_w1, p.accel_w2, p.omega)
+    res = {}
+    got, tot = fused.fused_step(cells, *args)
+    want, want_tot = ref_ops.fused_step(cells, *args)
+    res["fused_step"] = compare(torch, got, tot[None], want, want_tot[None])
+    del cells, got, want
+
+    cells, _ = random_case(torch, name, p, seed, kind, "perturbed")
+    keep = {*DEPTHS, KERNEL_G} | ({5} if odd_g else set())
+    plain, tots, c = {}, [], cells
+    for n in range(1, max(keep) + 1):
+        c, tot = ref_ops.fused_step(c, *args)
+        tots.append(tot)
+        if n in keep:
+            plain[n] = c
+    tots = torch.stack(tots)
+    for d in DEPTHS:
+        got, t = fused_depth.fused_depth(cells, *args, d)
+        res[f"depth D={d}"] = compare(torch, got, t, plain[d], tots[:d])
+    for g in sorted(keep - set(DEPTHS)):
+        got, t = resident.resident(cells, *args, g)
+        res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
+    return res
 
 
 def phase_device(torch):
@@ -136,114 +234,194 @@ def phase_build():
     _build.load()
     log = path.with_suffix(".log")
     ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln] if log.exists() else []
+             if "registers" in ln or "spill" in ln or "Compiling" in ln
+             ] if log.exists() else []
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
+          "sources": [s.name for s in _build.sources()],
           "nvcc_flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
 
 
 def phase_kernel(torch):
-    import os
-
-    from lbm_tpu_torch.ops import fused
     from lbm_tpu_torch.runner import simulate
     from lbm_tpu_torch.state import initial_state
 
-    p = scene_params(iters=200)
-    worst = 0.0
-    cases = [("1024x1024-scene", NY, NX, "scene"),
-             ("128x128", 128, 128, "walls"),
-             ("100x130-wall-less", 100, 130, "random"),
-             ("131072x128", 131072, 128, "walls")]
-    for i, (name, ny, nx, kind) in enumerate(cases):
-        cells, mask = random_case(torch, ny, nx, p, seed=i, mask_kind=kind)
-        res = compare_step(torch, fused, cells, mask, p)
-        emit({"phase": "kernel", "case": f"step {name}", **res})
-        check(res["cells_ok"] and res["tot_ok"], f"kernel != plain at {name}")
-        worst = max(worst, res["max_abs_err"])
-        del cells, mask
+    worst = {}
+
+    def record(res, where):
+        for name, r in res.items():
+            kernel = name.split()[0]
+            worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs_err"])
+            check(r["cells_ok"] and r["tot_ok"], f"{name} != plain at {where}")
+
+    for i, (name, kind) in enumerate(KERNEL_CASES):
+        p = scene_params(name, iters=200)
+        with env():
+            res = compare_kernels(torch, name, kind, p, seed=i,
+                                  odd_g=name == "128x128")
+        nx, ny = grid(name)
+        emit({"phase": "kernel", "grid": name, "nx": nx, "ny": ny,
+              "mask": kind, **res})
+        record(res, name)
         torch.cuda.empty_cache()
 
-    saved = {k: os.environ.pop(k, None) for k in ("LBM_PAIRED_EQ", "LBM_OMEGA_EQ")}
-    try:
-        for i, (mode, env) in enumerate(MODES.items()):
-            os.environ.pop("LBM_PAIRED_EQ", None)
-            os.environ.pop("LBM_OMEGA_EQ", None)
-            os.environ.update(env)
-            cells, mask = random_case(torch, 256, 256, p, seed=10 + i)
-            res = compare_step(torch, fused, cells, mask, p)
-            emit({"phase": "kernel", "case": f"step 256x256 {mode}", **res})
-            check(res["cells_ok"] and res["tot_ok"], f"kernel != plain, {mode}")
-            worst = max(worst, res["max_abs_err"])
-    finally:
-        for k, v in saved.items():
-            os.environ.pop(k, None)
-            if v is not None:
-                os.environ[k] = v
+    for i, (mode, mode_env) in enumerate(MODES.items()):
+        p = scene_params("256x256", iters=200)
+        with env(**mode_env):
+            res = compare_kernels(torch, "256x256", "walls", p, seed=10 + i)
+        emit({"phase": "kernel", "grid": "256x256", "mode": mode, **res})
+        record(res, f"256x256 {mode}")
 
+    # TRAJ_STEPS steps of each plan through the runner, twice, against
+    # the one-step kernel and the plain version.
+    n = TRAJ_STEPS
+    p = scene_params(iters=n)
     mask = torch.from_numpy(scene_mask()).cuda()
     c0 = initial_state(p, "cuda")
-    ck, ak = simulate(p, c0, mask, kernel="cuda", n_iters=200)
-    ck2, ak2 = simulate(p, c0, mask, kernel="cuda", n_iters=200)
-    cr, ar = simulate(p, c0, mask, kernel="reference", n_iters=200)
-    av_rel = float(((ak - ar).abs() / ar.abs()).max())
-    same = bool(torch.equal(ck, ck2) and torch.equal(ak, ak2))
-    emit({"phase": "kernel", "case": "200 steps 1024x1024",
-          "av_vels_max_rel_err": av_rel,
-          "cells_max_abs_err": float((ck - cr).abs().max()),
-          "bit_identical_repeat": same})
-    check(av_rel <= TRAJ_RTOL, "200-step av_vels disagree")
-    check(same, "two kernel runs differ")
+    with env():
+        cr, ar = simulate(p, c0, mask, kernel="reference", n_iters=n)
+    runs = {}
+    plans = {"step": SCENE_PLANS["step"], "resident": SCENE_PLANS["resident"],
+             **{f"depth D={d}": {"LBM_RESIDENT": "0",
+                                 "LBM_PALLAS_DEPTH": str(d)} for d in DEPTHS}}
+    for label, plan_env in plans.items():
+        with env(**plan_env):
+            ck, ak = simulate(p, c0, mask, kernel="cuda", n_iters=n)
+            ck2, ak2 = simulate(p, c0, mask, kernel="cuda", n_iters=n)
+        runs[label] = (ck, ak, bool(torch.equal(ck, ck2)
+                                    and torch.equal(ak, ak2)))
+    k1c, k1a, _ = runs["step"]
+    for label, (ck, ak, same) in runs.items():
+        out = {"phase": "kernel", "case": f"{n} steps {SCENE} {label}",
+               "av_vels_max_rel_err_vs_step": float(
+                   ((ak - k1a).abs() / k1a.abs()).max()),
+               "av_vels_max_rel_err_vs_plain": float(
+                   ((ak - ar).abs() / ar.abs()).max()),
+               "cells_max_abs_err_vs_plain": float((ck - cr).abs().max()),
+               "cells_bit_identical_to_step": bool(torch.equal(ck, k1c)),
+               "bit_identical_repeat": same}
+        emit(out)
+        check(out["av_vels_max_rel_err_vs_step"] <= TRAJ_RTOL,
+              f"{n}-step av_vels of {label} disagree with the step kernel")
+        check(out["av_vels_max_rel_err_vs_plain"] <= TRAJ_RTOL,
+              f"{n}-step av_vels of {label} disagree with the plain version")
+        check(same, f"two runs of {label} differ")
     return worst
+
+
+def expected_launches(parts):
+    """Launch counts a planned run must show, per kernel."""
+    n = {"step": 0, "reduce": 0, "depth": 0, "resident": 0}
+    for seg in parts:
+        n[seg.kernel] += seg.launches
+        if seg.kernel in ("step", "depth"):
+            n["reduce"] += seg.launches
+    return n
 
 
 def phase_scene(torch, np):
     from lbm_tpu_torch import cli
     from lbm_tpu_torch import io as lio
     from lbm_tpu_torch.obstacles import write_obstacles
-    from lbm_tpu_torch.ops import fused
+    from lbm_tpu_torch.ops import fused, plan
 
     golden = np.load(GOLDEN)
+    nx, ny = grid(SCENE)
     mask = scene_mask()
-    check(np.array_equal(mask, golden["u"].reshape(NY, NX) == 0),
+    check(np.array_equal(mask, golden["u"].reshape(ny, nx) == 0),
           "scene mask differs from the golden's zero-velocity cells")
     SCENE_DIR.mkdir(parents=True, exist_ok=True)
     params, obs = SCENE_DIR / "input_1024x1024.params", SCENE_DIR / "obstacles.dat"
     av_file, fs_file = SCENE_DIR / "av_vels.dat", SCENE_DIR / "final_state.dat"
-    params.write_text(f"{NX}\n{NY}\n{ITERS}\n10\n0.1\n0.01\n1.85\n")
+    params.write_text(f"{nx}\n{ny}\n{ITERS}\n10\n0.1\n0.01\n1.85\n")
     write_obstacles(obs, mask)
 
-    fused.reset_launches()
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc = cli.main([str(params), str(obs), "--kernel", "auto",
-                       "--device", "cuda", "--av-vels-file", str(av_file),
-                       "--final-state-file", str(fs_file)])
-    launches = dict(fused.LAUNCHES)
-    lines = out.getvalue().splitlines()
-    print("\n".join(lines), flush=True)
-    check(rc == 0, f"CLI exit {rc}")
-    check(launches == {"step": ITERS, "reduce": ITERS},
-          f"expected {ITERS} launches of each kernel, got {launches}")
-    check(lines[0] == "==done==", "stdout contract")
-    reynolds = float(lines[1].split()[-1])
-    compute = float(lines[3].split()[-2])
+    total = {}
+    for label, plan_env in SCENE_PLANS.items():
+        with env(**plan_env):
+            parts = plan.segments(ny, nx, ITERS)
+            want = expected_launches(parts)
+            fused.reset_launches()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main([str(params), str(obs), "--kernel", "auto",
+                               "--device", "cuda", "--av-vels-file",
+                               str(av_file), "--final-state-file",
+                               str(fs_file)])
+            launches = dict(fused.LAUNCHES)
+        lines = out.getvalue().splitlines()
+        print("\n".join(lines), flush=True)
+        check(rc == 0, f"CLI exit {rc} ({label})")
+        check(launches == want,
+              f"{label}: launches {launches} differ from the plan's {want}")
+        for seg in parts:
+            check(launches[seg.kernel] > 0, f"{label}: {seg.kernel} idle")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(lines[0] == "==done==", "stdout contract")
+        reynolds = float(lines[1].split()[-1])
+        compute = float(lines[3].split()[-2])
 
-    av = lio.load_av_vels(av_file)
-    fs = lio.load_final_state(fs_file)
-    d_av = lio._diff(golden["av_vels"], av, DRIFT_BUDGET_PCT)
-    d_p = lio._diff(golden["pressure"], fs[:, 2], DRIFT_BUDGET_PCT)
-    re_rel = abs(reynolds - float(golden["reynolds"])) / float(golden["reynolds"])
-    emit({"phase": "scene", "launches": launches, "reynolds": reynolds,
-          "reynolds_rel_err": re_rel,
-          "av_vels_max_pct": d_av.max_diff_pcnt,
-          "pressure_max_pct": d_p.max_diff_pcnt,
-          "drift_budget_pct": DRIFT_BUDGET_PCT,
-          "compute_s": compute, "glups": NX * NY * ITERS / compute / 1e9,
-          "timings_s": {ln.split()[1].lower(): float(ln.split()[-2])
-                        for ln in lines[2:6]}})
-    check(not d_av.failed and not d_p.failed, "outside the drift budget")
-    check(re_rel <= 1e-3, "Reynolds number off")
-    return launches
+        av = lio.load_av_vels(av_file)
+        fs = lio.load_final_state(fs_file)
+        d_av = lio._diff(golden["av_vels"], av, DRIFT_BUDGET_PCT)
+        d_p = lio._diff(golden["pressure"], fs[:, 2], DRIFT_BUDGET_PCT)
+        re_rel = abs(reynolds - float(golden["reynolds"])) / float(golden["reynolds"])
+        emit({"phase": "scene", "plan": label, "env": plan_env,
+              "segments": plan.describe(parts), "launches": launches,
+              "reynolds": reynolds, "reynolds_rel_err": re_rel,
+              "av_vels_max_pct": d_av.max_diff_pcnt,
+              "pressure_max_pct": d_p.max_diff_pcnt,
+              "drift_budget_pct": DRIFT_BUDGET_PCT,
+              "compute_s": compute, "glups": nx * ny * ITERS / compute / 1e9,
+              "timings_s": {ln.split()[1].lower(): float(ln.split()[-2])
+                            for ln in lines[2:6]}})
+        check(not d_av.failed and not d_p.failed,
+              f"{label}: outside the drift budget")
+        check(re_rel <= 1e-3, f"{label}: Reynolds number off")
+    return total
+
+
+def phase_stress(torch):
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import simulate
+    from lbm_tpu_torch.state import initial_state
+
+    p = scene_params(STRESS, iters=STRESS_ITERS)
+    nx, ny = grid(STRESS)
+    mask = torch.from_numpy(generate_obstacles(nx, ny)).cuda()
+    c0 = initial_state(p, "cuda")
+    plans = {"step": SCENE_PLANS["step"], "resident": SCENE_PLANS["resident"],
+             **{f"depth D={d}": {"LBM_RESIDENT": "0",
+                                 "LBM_PALLAS_DEPTH": str(d)} for d in DEPTHS}}
+    base = None
+    for label, plan_env in plans.items():
+        with env(**plan_env):
+            parts = plan.segments(ny, nx, STRESS_ITERS)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cells, av = simulate(p, c0, mask, kernel="cuda")
+            seconds = time.perf_counter() - t0
+        check(bool(torch.isfinite(cells).all()), f"stress {label} not finite")
+        out = {"phase": "stress", "grid": STRESS, "plan": label,
+               "segments": plan.describe(parts), "seconds": seconds,
+               "glups": nx * ny * STRESS_ITERS / seconds / 1e9}
+        if base is None:
+            base = (cells, av)
+        else:
+            err = (cells - base[0]).abs()
+            out.update(
+                av_vels_max_rel_err=float(((av - base[1]).abs()
+                                           / base[1].abs()).max()),
+                cells_max_abs_err=float(err.max()),
+                cells_ok=bool((err <= ATOL + RTOL * base[0].abs()).all()),
+                cells_bit_identical_to_step=bool(torch.equal(cells, base[0])))
+            check(out["av_vels_max_rel_err"] <= TRAJ_RTOL and out["cells_ok"],
+                  f"stress {label} disagrees with the step kernel")
+        emit(out)
+        del cells, av
+    del base
+    torch.cuda.empty_cache()
 
 
 # ~50 ms of device sleep (at H100 clocks) ahead of a batch: the host
@@ -252,10 +430,13 @@ def phase_scene(torch, np):
 SLEEP_CYCLES = 100_000_000
 
 
-def _median_ms(torch, fn, device_only, steps=20, batches=25, warmup=20):
-    """Median over batches of (CUDA-event time of ``steps`` calls)/steps,
-    with min and max. ``device_only``: pre-fill the queue first."""
-    for _ in range(warmup):
+def _median_ms(torch, fn, spc, device_only, steps=200, batches=10):
+    """Median over batches of (CUDA-event time of one batch)/steps, with
+    min and max, where ``fn`` runs ``spc`` steps and a batch is
+    ``max(1, steps // spc)`` calls, after one warm-up batch.
+    ``device_only``: pre-fill the queue first."""
+    calls = max(1, steps // spc)
+    for _ in range(calls):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -265,79 +446,89 @@ def _median_ms(torch, fn, device_only, steps=20, batches=25, warmup=20):
         if device_only:
             torch.cuda._sleep(SLEEP_CYCLES)
         a.record()
-        for _ in range(steps):
+        for _ in range(calls):
             fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / steps)
+        times.append(a.elapsed_time(b) / (calls * spc))
     return statistics.median(times), min(times), max(times)
 
 
-def phase_timing(torch, np):
-    from lbm_tpu_torch.ops import _build, fused
+def phase_timing(torch):
+    from lbm_tpu_torch.ops import fused, fused_depth, resident
     from lbm_tpu_torch.ops import reference as ref_ops
 
-    p = scene_params()
-    cells, mask = random_case(torch, NY, NX, p, seed=99, mask_kind="scene")
-    spare = torch.empty_like(cells)
-    av = torch.empty(1, device="cuda")
-    st = fused.FusedStep(mask, p.accel_w1, p.accel_w2, p.omega)
-    lib, stream = _build.load(), torch.cuda.current_stream().cuda_stream
-    w1, w2, om = st.w1, st.w2, st.omega
+    results = []
+    for name in TIMING_GRIDS:
+        p = scene_params(name)
+        cells, mask = random_case(
+            torch, name, p, seed=99, state="perturbed",
+            mask_kind="scene" if name == SCENE else "walls")
+        w = (mask, p.accel_w1, p.accel_w2, p.omega)
+        bufs = [cells, torch.empty_like(cells)]
+        av = torch.zeros(100, device="cuda")  # room for G=100
+        with env():
+            impls = {"step": fused.FusedStep(*w),
+                     **{f"depth D={d}": fused_depth.FusedDepth(*w, d)
+                        for d in DEPTHS},
+                     **{f"resident G={g}": resident.Resident(*w, g)
+                        for g in (16, 100)}}
 
-    def kernel_step():  # the wrapper, as the runner calls it: both launches
-        st.step(cells, spare, av, 0, 1.0)
+        def caller(impl):
+            def fn():
+                # As the runner drives it: the result becomes the input.
+                bufs[:] = impl.run(bufs[0], bufs[1], av, 0, 1.0)
+            return fn
 
-    def plain_step():
-        new, tot = ref_ops.fused_step(cells, mask, w1, w2, om)
-        av[0] = tot
+        order = list(impls) + list(reversed(impls))
+        loop, dev = {}, {}
+        for label in order:
+            impl = impls[label]
+            loop.setdefault(label, []).append(
+                _median_ms(torch, caller(impl), impl.steps_per_call, False)[0])
+        for label in order:
+            impl = impls[label]
+            dev.setdefault(label, []).append(
+                _median_ms(torch, caller(impl), impl.steps_per_call, True)[0])
+        out = {"phase": "timing", "grid": name,
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "method": "CUDA events; median over 10 batches of ~200 steps "
+                         "after one warm-up batch, configurations in turns "
+                         "(forward, then reverse); device: queue pre-filled "
+                         "behind a device sleep"}
+        if name == SCENE:
+            st = impls["step"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                st.run(bufs[0], bufs[1], av, 0, 1.0)
+            out["host_enqueue_us_per_step"] = (time.perf_counter() - t0) / 200 * 1e6
 
-    def step_only():
-        lib.lbm_fused_step(cells.data_ptr(), spare.data_ptr(),
-                           st._mask_u8.data_ptr(), st._partials.data_ptr(),
-                           NY, NX, NY - 2, w1, w2, om, st.mode, st._index,
-                           stream)
+            def plain_step():
+                new, tot = ref_ops.fused_step(bufs[0], *w)
+                av[0] = tot
 
-    def reduce_only():
-        lib.lbm_reduce_tot(st._partials.data_ptr(), st._partials.numel(),
-                           np.float32(1.0), av.data_ptr(), st._index, stream)
+            def reduce_only():
+                st._reduce(st._partials, 1, av, 0, 1.0)
 
-    def reduce_plain():
-        av[0] = st._partials.sum()
+            def reduce_plain():
+                av[0] = st._partials.sum()
 
-    # In turns on one card: plain / kernel / kernel / plain, first as the
-    # runner's loop drives them (host launches included), then device
-    # time alone.
-    loop, dev = {}, {}
-    for name, fn in [("plain", plain_step), ("kernel", kernel_step),
-                     ("kernel", kernel_step), ("plain", plain_step)]:
-        loop.setdefault(name, []).append(_median_ms(torch, fn, False))
-    for name, fn in [("plain", plain_step), ("kernel", kernel_step),
-                     ("kernel", kernel_step), ("plain", plain_step),
-                     ("step_kernel", step_only), ("reduce_kernel", reduce_only),
-                     ("reduce_plain", reduce_plain)]:
-        dev.setdefault(name, []).append(_median_ms(torch, fn, True))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        kernel_step()
-    enqueue_us = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    step_only()
-    reduce_only()
-    reduce_err = abs(float(av[0]) - float(st._partials.sum()))
-    out = {
-        "phase": "timing", "shape": f"{NY}x{NX}",
-        "loop_ms_per_step": {k: [r[0] for r in v] for k, v in loop.items()},
-        "device_ms_per_step": {k: [r[0] for r in v] for k, v in dev.items()},
-        "kernel_loop_min_max_ms": [list(r[1:]) for r in loop["kernel"]],
-        "host_enqueue_us_per_step": enqueue_us,
-        "method": "CUDA events; median over 25 batches of 20 calls after "
-                  "20 warm-up calls; device: queue pre-filled behind a "
-                  "device sleep",
-    }
-    emit(out)
-    return out, reduce_err
+            out["plain_loop_ms_per_step"] = [
+                _median_ms(torch, plain_step, 1, False, steps=20)[0]]
+            out["plain_device_ms_per_step"] = [
+                _median_ms(torch, plain_step, 1, True, steps=20)[0]]
+            out["reduce_device_ms"] = _median_ms(torch, reduce_only, 1, True)[0]
+            out["reduce_plain_device_ms"] = _median_ms(
+                torch, reduce_plain, 1, True)[0]
+            torch.cuda.synchronize()
+            st._reduce(st._partials, 1, av, 0, 1.0)
+            out["reduce_abs_err"] = abs(float(av[0]) - float(st._partials.sum()))
+        emit(out)
+        results.append(out)
+        del cells, bufs, impls
+        torch.cuda.empty_cache()
+    return {r["grid"]: r for r in results}
 
 
 def main() -> int:
@@ -349,27 +540,42 @@ def main() -> int:
         return 2
     import numpy as np
 
+    import lbm_tpu_torch  # noqa: F401  (fails here, before any output,
+    # when the package is not beside this script)
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device(torch)
     phase_build()
     worst = phase_kernel(torch)
     launches = phase_scene(torch, np)
-    timing, reduce_err = phase_timing(torch, np)
+    phase_stress(torch)
+    timing = phase_timing(torch)
     check("jax" not in sys.modules, "the port imported jax")
-    dev = timing["device_ms_per_step"]
+    t = timing[SCENE]
+    dev = {k: statistics.median(v) for k, v in t["device_ms_per_step"].items()}
+    plain = statistics.median(t["plain_device_ms_per_step"])
     emit({"kernels": [
         {"name": "fused_step", "route": "cuda",
          "source": "lbm_tpu_torch/csrc/fused_step.cu",
          "replaces": "lbm_tpu/ops/pallas_fused.py:205",
-         "launches": launches["step"], "max_abs_err": worst,
-         "ms": statistics.median(dev["kernel"]),
-         "plain_ms": statistics.median(dev["plain"])},
+         "launches": launches["step"], "max_abs_err": worst["fused_step"],
+         "ms": dev["step"], "plain_ms": plain},
         {"name": "reduce_tot", "route": "cuda",
          "source": "lbm_tpu_torch/csrc/fused_step.cu",
          "replaces": "lbm_tpu/ops/pallas_fused.py:396",
-         "launches": launches["reduce"], "max_abs_err": reduce_err,
-         "ms": dev["reduce_kernel"][0], "plain_ms": dev["reduce_plain"][0]},
+         "launches": launches["reduce"], "max_abs_err": t["reduce_abs_err"],
+         "ms": t["reduce_device_ms"], "plain_ms": t["reduce_plain_device_ms"]},
+        {"name": "fused_depth", "route": "cuda",
+         "source": "lbm_tpu_torch/csrc/fused_depth.cu",
+         "replaces": "lbm_tpu/ops/pallas_fused.py:653",
+         "launches": launches["depth"], "max_abs_err": worst["depth"],
+         "ms": dev["depth D=4"], "plain_ms": plain},
+        {"name": "resident", "route": "cuda",
+         "source": "lbm_tpu_torch/csrc/resident.cu",
+         "replaces": "lbm_tpu/ops/pallas_resident.py:74",
+         "launches": launches["resident"], "max_abs_err": worst["resident"],
+         "ms": dev["resident G=100"], "plain_ms": plain},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

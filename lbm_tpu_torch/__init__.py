@@ -2,9 +2,10 @@
 
 The same D2Q9 BGK lattice-Boltzmann solver, scene files and output
 formats as :mod:`lbm_tpu`, run with PyTorch on a CUDA device. The
-per-step update (guarded forcing of row ny-2, pull streaming,
-bounce-back, BGK collision and the |u| reduction) is one hand-written
-CUDA kernel (``csrc/fused_step.cu``) on a GPU, and plain PyTorch ops
+update (guarded forcing of row ny-2, pull streaming, bounce-back, BGK
+collision and the |u| reduction) runs in hand-written CUDA kernels on a
+GPU (``csrc/``: one step, D steps or G steps per launch, chosen by
+:mod:`lbm_tpu_torch.ops.plan`), and as plain PyTorch ops
 (:mod:`lbm_tpu_torch.ops.reference`) on the CPU.
 
 The package imports ``torch`` and never ``jax``. The numpy-only scene

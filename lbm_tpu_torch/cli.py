@@ -3,7 +3,8 @@
 The stdout contract of ``python -m lbm_tpu``: ``==done==``, the Reynolds
 number and the four elapsed-time lines, then ``final_state.dat`` and
 ``av_vels.dat`` in the same byte formats. The resolved kernel and device
-go to stderr on one line.
+go to stderr on one line, with the planned segments of a ``cuda`` run
+(for example ``resident G=100 x200``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 from lbm_tpu_torch import io as lio
 from lbm_tpu_torch import runner
 from lbm_tpu_torch.obstacles import load_obstacles
+from lbm_tpu_torch.ops import plan
 from lbm_tpu_torch.params import load_params
 
 
@@ -70,7 +72,11 @@ def _main(argv: list[str] | None = None) -> int:
     obstacles = load_obstacles(args.obstaclefile, params.nx, params.ny)
     device = runner._resolve_device(args.device)
     kernel = runner._resolve_kernel(args.kernel, params, device)
-    print(f"kernel: {kernel} on {device} ({args.precision})", file=sys.stderr)
+    line = f"kernel: {kernel} on {device} ({args.precision})"
+    if kernel == "cuda":
+        iters = params.max_iters if args.iters is None else args.iters
+        line += ": " + plan.describe(runner.plan_run(params, kernel, iters))
+    print(line, file=sys.stderr)
 
     result = runner.run_simulation(
         params, obstacles, kernel=kernel, n_iters=args.iters, device=device

@@ -1,0 +1,227 @@
+// D D2Q9 BGK timesteps per pass over device memory (D = 2, 4 or 8), on a
+// CUDA device (sm_90a).
+//
+// Replaces the TPU kernel lbm_tpu/ops/pallas_fused.py::_kernel_fused
+// (launched by _pallas_step_fused): temporal blocking, where each block
+// loads a window of the lattice, runs D steps on it on chip, and writes
+// its tile once, so device-memory bytes per step fall by about D. tot_u
+// counts owned cells only, one value per stage, so per-step av_vels stay
+// exact.
+//
+// What bounds it: one-step-per-pass (fused_step.cu) moves 73 B per
+// cell-step and is memory-bound. Here a pass moves the window in (37 B a
+// cell, the window is larger than the tile) and the tile out (36 B a cell)
+// for D steps, and the on-chip work grows with the recomputed halo. The
+// design:
+//
+// - A block owns a TX x TY output tile and loads the (TX+2D) x (TY+2D)
+//   window of all 9 speeds and the mask into dynamic shared memory, with
+//   periodic indices (so a grid smaller than one window simply repeats
+//   cells, each computed consistently). The TPU kernel's full-lane row
+//   blocks do not fit here: a 1024-wide 9-speed row stack is 36 KB a row,
+//   so x is tiled too and gets its own D-wide halo.
+// - Stage s (1..D) runs lbm_cell.cuh's update over the window shrunk by s
+//   cells on each side, from one shared buffer into the other; its
+//   neighbours lie in stage s-1's region. Stage D's region is exactly the
+//   tile, and it stores straight to device memory.
+// - Forcing needs no special case at window edges or in the halo: each
+//   window row knows whether its global row is the forced row, and the
+//   cell update forces the pulled copy from that row at every stage.
+// - Each stage's owned, in-grid |u| is reduced by a fixed shared-memory
+//   tree into partials[s][block]; lbm_reduce_tot (fused_step.cu) then sums
+//   each stage's row of partials in a fixed order. No float atomics.
+// - Tile shapes keep both shared buffers near 92-110 KB, so two blocks fit
+//   an SM (227 KB), each of 512 threads (40 registers): 9-13 % faster per
+//   step than 256 threads on the H100 (PERF.md).
+//
+// Plain C interface, bound with ctypes by lbm_tpu_torch/ops/fused_depth.py.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "lbm_cell.cuh"
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kMaxDevices = 64;
+
+// Periodic index: v mod n in [0, n), for any int v.
+__device__ __forceinline__ int wrap(int v, int n) {
+    const int m = v % n;
+    return m < 0 ? m + n : m;
+}
+
+template <int D> struct Tile;
+template <> struct Tile<2> { static constexpr int X = 32, Y = 32; };
+template <> struct Tile<4> { static constexpr int X = 32, Y = 24; };
+template <> struct Tile<8> { static constexpr int X = 32, Y = 16; };
+
+template <int D>
+struct Window {
+    static constexpr int W = Tile<D>::X + 2 * D;
+    static constexpr int H = Tile<D>::Y + 2 * D;
+    static constexpr int C = W * H;
+    // Two 9-speed float buffers, the mask, and a forced-row flag per row.
+    static constexpr size_t kBytes =
+        2 * 9 * (size_t)C * sizeof(float) + (size_t)C + (size_t)H;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                   const uint8_t* __restrict__ mask,
+                   float* __restrict__ partials, int ny, int nx,
+                   int accel_row, float w1, float w2, float omega,
+                   int mode) {
+    constexpr int TX = Tile<D>::X, TY = Tile<D>::Y;
+    constexpr int WW = Window<D>::W, WH = Window<D>::H, WC = Window<D>::C;
+    extern __shared__ float smem[];
+    float* buf_a = smem;
+    float* buf_b = smem + 9 * WC;
+    uint8_t* wmask = reinterpret_cast<uint8_t*>(smem + 18 * WC);
+    uint8_t* frow = wmask + WC;
+    __shared__ float red[kThreads];
+
+    const int tid = threadIdx.x;
+    const int n_blocks = gridDim.x * gridDim.y;
+    const int block = blockIdx.y * gridDim.x + blockIdx.x;
+    // Global coordinates of window cell (0, 0); negative near the origin.
+    const int y0 = blockIdx.y * TY - D;
+    const int x0 = blockIdx.x * TX - D;
+    const size_t plane = (size_t)ny * (size_t)nx;
+
+    for (int idx = tid; idx < WC; idx += kThreads) {
+        const int r = idx / WW, c = idx - r * WW;
+        const size_t o = (size_t)wrap(y0 + r, ny) * nx + wrap(x0 + c, nx);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) buf_a[k * WC + idx] = src[k * plane + o];
+        wmask[idx] = mask[o];
+    }
+    for (int r = tid; r < WH; r += kThreads) {
+        frow[r] = wrap(y0 + r, ny) == accel_row;
+    }
+    __syncthreads();
+
+    auto solid = [&](int o) { return wmask[o] != 0; };
+    const float* cur = buf_a;
+    float* nxt = buf_b;
+#pragma unroll 1
+    for (int s = 1; s <= D; ++s) {
+        const int rw = WW - 2 * s, rh = WH - 2 * s;
+        auto ld = [&](int k, int o) { return cur[k * WC + o]; };
+        float acc = 0.0f;
+        // Walk the region's cells tid, tid + kThreads, ... in row-major
+        // order, stepping (row, col) without a division per cell.
+        const int step_r = kThreads / rw, step_c = kThreads % rw;
+        int r = tid / rw + s, c = tid % rw + s;
+        for (; r < s + rh; r += step_r, c += step_c) {
+            if (c >= s + rw) {
+                c -= rw;
+                if (++r >= s + rh) break;
+            }
+            float out[9];
+            const float um = lbm_cell_update<int>(
+                ld, solid, r * WW, (r - 1) * WW, (r + 1) * WW, c, c - 1,
+                c + 1, frow[r] != 0, frow[r - 1] != 0, frow[r + 1] != 0, w1,
+                w2, omega, mode, out);
+            // Owned: inside the tile (rows/cols D..D+T-1 of the window)
+            // and inside the grid (a ragged last tile overhangs it).
+            const int gy = y0 + r, gx = x0 + c;
+            const bool owned = r >= D && r < D + TY && c >= D && c < D + TX &&
+                               gy < ny && gx < nx;
+            if (owned) acc += um;
+            if (s < D) {
+#pragma unroll
+                for (int k = 0; k < 9; ++k) nxt[k * WC + r * WW + c] = out[k];
+            } else if (owned) {
+                // Stage D's region is the tile itself.
+                const size_t o = (size_t)gy * nx + gx;
+#pragma unroll
+                for (int k = 0; k < 9; ++k) dst[k * plane + o] = out[k];
+            }
+        }
+        red[tid] = acc;
+        lbm_tree_sum<kThreads>(red, tid);  // also orders nxt's writes
+        if (tid == 0) partials[(size_t)(s - 1) * n_blocks + block] = red[0];
+        const float* t = cur;
+        cur = nxt;
+        nxt = const_cast<float*>(t);
+    }
+}
+
+dim3 depth_grid(int depth, int ny, int nx) {
+    int tx, ty;
+    switch (depth) {
+        case 2: tx = Tile<2>::X; ty = Tile<2>::Y; break;
+        case 4: tx = Tile<4>::X; ty = Tile<4>::Y; break;
+        default: tx = Tile<8>::X; ty = Tile<8>::Y; break;
+    }
+    return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty);
+}
+
+template <int D>
+cudaError_t launch(const float* src, float* dst, const uint8_t* mask,
+                   float* partials, int ny, int nx, int accel_row, float w1,
+                   float w2, float omega, int mode, int device,
+                   cudaStream_t stream) {
+    // Above 48 KB, dynamic shared memory needs an opt-in, once per device.
+    static bool opted_in[kMaxDevices] = {};
+    const size_t bytes = Window<D>::kBytes;
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!opted_in[device]) {
+        cudaError_t err = cudaFuncSetAttribute(
+            fused_depth_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)bytes);
+        if (err != cudaSuccess) return err;
+        opted_in[device] = true;
+    }
+    fused_depth_kernel<D><<<depth_grid(D, ny, nx), kThreads, bytes, stream>>>(
+        src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Tot_u partials per stage (one per block) the depth kernel writes; it
+// writes depth rows of them. 0 for a depth it does not take.
+int lbm_depth_num_partials(int depth, int ny, int nx) {
+    if (depth != 2 && depth != 4 && depth != 8) return 0;
+    const dim3 g = depth_grid(depth, ny, nx);
+    return (int)(g.x * g.y);
+}
+
+// Largest ny a launch at this depth accepts (grid y is at most 65535).
+int lbm_depth_max_rows(int depth) {
+    return depth == 2 ? 65535 * Tile<2>::Y
+         : depth == 4 ? 65535 * Tile<4>::Y
+                      : 65535 * Tile<8>::Y;
+}
+
+// dst = depth steps of src; partials[s * n + b] = block b's sum of owned
+// fluid |u| in stage s, n = lbm_depth_num_partials(depth, ny, nx).
+int lbm_fused_depth(const float* src, float* dst, const uint8_t* mask,
+                    float* partials, int ny, int nx, int accel_row,
+                    float w1, float w2, float omega, int mode, int depth,
+                    int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (depth) {
+        case 2:
+            return (int)launch<2>(src, dst, mask, partials, ny, nx,
+                                  accel_row, w1, w2, omega, mode, device, s);
+        case 4:
+            return (int)launch<4>(src, dst, mask, partials, ny, nx,
+                                  accel_row, w1, w2, omega, mode, device, s);
+        case 8:
+            return (int)launch<8>(src, dst, mask, partials, ny, nx,
+                                  accel_row, w1, w2, omega, mode, device, s);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
+}
+
+}  // extern "C"

@@ -15,20 +15,18 @@
 //   kernel's edge-row arrays, DMA double-buffering and 0/1-indicator
 //   products exist for its tiles and sequential grid and are not carried
 //   over. Neighbouring blocks' rows are re-read through L1/L2, not HBM.
-// - Forcing is applied to the pulled copy: a speed whose source row is
-//   ny-2 adds its delta when the SOURCE cell passes the guard (fluid, and
-//   its pre-forcing speeds 3, 6, 7 each strictly above their weight). That
-//   equals forcing first and streaming after, with no extra pass or
-//   in-place write; only destination rows ny-3..ny-1 take the branch.
+// - The cell update is lbm_cell.cuh's, shared with the many-step kernels:
+//   forcing on the pulled copy (only destination rows ny-3..ny-1 take the
+//   branch), bounce-back, and BGK in the association given at run time
+//   (0 paired, 1 reference order, 2 omega-absorbed). Built without
+//   --use_fast_math (division and sqrt stay IEEE) and with -fmad=false
+//   (no multiply-add contraction), so every kernel rounds each cell as
+//   the plain PyTorch version does.
 // - tot_u is deterministic: each block reduces its fluid |u| in a fixed
 //   shared-memory tree into one partial; lbm_reduce_tot sums the partials
-//   in a fixed order in one block and writes scale * sum to the device.
+//   in a fixed order, one block per row of partials (one row here, one per
+//   stage for fused_depth.cu), and writes scale * sum to the device.
 //   No float atomics, so repeated runs are bit-identical.
-// - The BGK association is a runtime argument (0 paired, 1 reference
-//   order, 2 omega-absorbed), written term by term as
-//   lbm_tpu/ops/reference.py::_bgk_update_planes. Build without
-//   --use_fast_math: division and sqrt stay IEEE; nvcc's default FMA
-//   contraction is allowed.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/fused.py. Every
 // entry point launches on the caller's stream, allocates nothing and
@@ -37,22 +35,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lbm_cell.cuh"
+
 namespace {
 
 constexpr int kBX = 32;
 constexpr int kBY = 8;
 constexpr int kThreads = kBX * kBY;
 constexpr int kReduceThreads = 1024;
-
-// Fixed-order tree over kN shared floats; the sum ends in buf[0].
-template <int kN>
-__device__ __forceinline__ void tree_sum(float* buf, int tid) {
-#pragma unroll
-    for (int s = kN / 2; s > 0; s >>= 1) {
-        if (tid < s) buf[tid] += buf[tid + s];
-        __syncthreads();
-    }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
@@ -75,121 +65,35 @@ fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
         const int ie = (i == nx - 1) ? 0 : i + 1;   // cx = -1
         const size_t rj = (size_t)j * nx, rm = (size_t)jm * nx,
                      rp = (size_t)jp * nx;
-
-        // The forcing guard of a source cell on row accel_row.
-        auto forced = [&](size_t o) -> bool {
-            return !mask[o] && (src[3 * plane + o] - w1 > 0.0f) &&
-                   (src[6 * plane + o] - w2 > 0.0f) &&
-                   (src[7 * plane + o] - w2 > 0.0f);
-        };
-
-        const float s0 = src[0 * plane + rj + i];
-        float s1 = src[1 * plane + rj + iw];
-        const float s2 = src[2 * plane + rm + i];
-        float s3 = src[3 * plane + rj + ie];
-        const float s4 = src[4 * plane + rp + i];
-        float s5 = src[5 * plane + rm + iw];
-        float s6 = src[6 * plane + rm + ie];
-        float s7 = src[7 * plane + rp + ie];
-        float s8 = src[8 * plane + rp + iw];
-        // Deltas: +w1 on 1, -w1 on 3, +w2 on 5 and 8, -w2 on 6 and 7
-        // (x + (-w) is exactly x - w in IEEE arithmetic).
-        if (j == accel_row) {
-            if (forced(rj + iw)) s1 = s1 + w1;
-            if (forced(rj + ie)) s3 = s3 - w1;
-        }
-        if (jm == accel_row) {
-            if (forced(rm + iw)) s5 = s5 + w2;
-            if (forced(rm + ie)) s6 = s6 - w2;
-        }
-        if (jp == accel_row) {
-            if (forced(rp + ie)) s7 = s7 - w2;
-            if (forced(rp + iw)) s8 = s8 + w2;
-        }
-
-        const float rho = s0 + s1 + s2 + s3 + s4 + s5 + s6 + s7 + s8;
-        const float u_x = (s1 + s5 + s8 - (s3 + s6 + s7)) / rho;
-        const float u_y = (s2 + s5 + s6 - (s4 + s7 + s8)) / rho;
-        const float u_sq = u_x * u_x + u_y * u_y;
-
-        const float w0 = 4.0f / 9.0f, wa = 1.0f / 9.0f, wd = 1.0f / 36.0f;
-        float f[9];
-        if (mode == 1) {
-            // Reference order: w * rho * (1 + uc*3 + uc*uc*4.5 - u_sq*1.5).
-            const float sq = u_sq * 1.5f;
-            const float ra = wa * rho, rd = wd * rho;
-            auto feq = [&](float wr, float uc) {
-                return wr * (1.0f + uc * 3.0f + (uc * uc) * 4.5f - sq);
-            };
-            f[0] = w0 * rho * (1.0f - sq);
-            f[1] = feq(ra, u_x);
-            f[2] = feq(ra, u_y);
-            f[3] = feq(ra, -u_x);
-            f[4] = feq(ra, -u_y);
-            f[5] = feq(rd, u_x + u_y);
-            f[6] = feq(rd, -u_x + u_y);
-            f[7] = feq(rd, -u_x + -u_y);
-            f[8] = feq(rd, u_x + -u_y);
-        } else {
-            // Paired: feq_k = E + O, feq_opp(k) = E - O; mode 2 folds
-            // omega into the weight constants.
-            const float scale = (mode == 2) ? omega : 1.0f;
-            const float base = 1.0f - u_sq * 1.5f;
-            const float wrho_a = (wa * scale) * rho;
-            const float wrho_d = (wd * scale) * rho;
-            const float odd_a = 3.0f * wrho_a;
-            const float odd_d = 3.0f * wrho_d;
-            auto pair = [&](float wrho, float oddw, float uc, float& plus,
-                            float& minus) {
-                const float even = wrho * (base + (uc * uc) * 4.5f);
-                const float odd = oddw * uc;
-                plus = even + odd;
-                minus = even - odd;
-            };
-            f[0] = (w0 * scale) * rho * base;
-            pair(wrho_a, odd_a, u_x, f[1], f[3]);
-            pair(wrho_a, odd_a, u_y, f[2], f[4]);
-            pair(wrho_d, odd_d, u_x + u_y, f[5], f[7]);
-            pair(wrho_d, odd_d, u_y - u_x, f[6], f[8]);
-        }
-
-        const float s[9] = {s0, s1, s2, s3, s4, s5, s6, s7, s8};
-        const int opp[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-        const size_t o = rj + i;
-        const bool obstacle = mask[o] != 0;
-        const float one_m_omega = 1.0f - omega;
+        auto ld = [&](int k, size_t o) { return src[k * plane + o]; };
+        auto solid = [&](size_t o) { return mask[o] != 0; };
+        float out[9];
+        umag = lbm_cell_update<size_t>(
+            ld, solid, rj, rm, rp, (size_t)i, (size_t)iw, (size_t)ie,
+            j == accel_row, jm == accel_row, jp == accel_row, w1, w2, omega,
+            mode, out);
 #pragma unroll
-        for (int k = 0; k < 9; ++k) {
-            float out;
-            if (obstacle) {
-                out = s[opp[k]];
-            } else if (mode == 2) {
-                out = s[k] * one_m_omega + f[k];
-            } else {
-                out = s[k] + omega * (f[k] - s[k]);
-            }
-            dst[k * plane + o] = out;
-        }
-        umag = obstacle ? 0.0f : sqrtf(u_sq);
+        for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = out[k];
     }
 
     red[tid] = umag;
-    __syncthreads();
-    tree_sum<kThreads>(red, tid);
+    lbm_tree_sum<kThreads>(red, tid);
     if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
 }
 
+// out[b] = scale * sum(partials[b*n : (b+1)*n]) for each block b, summed
+// in a fixed order: one block per row of partials.
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_tot_kernel(const float* __restrict__ partials, int n, float scale,
                   float* __restrict__ out) {
     __shared__ float red[kReduceThreads];
     const int tid = threadIdx.x;
+    const float* row = partials + (size_t)blockIdx.x * n;
     float acc = 0.0f;
-    for (int p = tid; p < n; p += kReduceThreads) acc += partials[p];
+    for (int p = tid; p < n; p += kReduceThreads) acc += row[p];
     red[tid] = acc;
-    __syncthreads();
-    tree_sum<kReduceThreads>(red, tid);
-    if (tid == 0) *out = red[0] * scale;
+    lbm_tree_sum<kReduceThreads>(red, tid);
+    if (tid == 0) out[blockIdx.x] = red[0] * scale;
 }
 
 dim3 step_grid(int ny, int nx) {
@@ -226,12 +130,14 @@ int lbm_fused_step(const float* src, float* dst, const uint8_t* mask,
     return (int)cudaGetLastError();
 }
 
-// *out = scale * sum(partials[0:n]), summed in a fixed order.
-int lbm_reduce_tot(const float* partials, int n, float scale, float* out,
-                   int device, void* stream) {
+// out[r] = scale * sum(partials[r*n : (r+1)*n]) for r < rows, each
+// summed in a fixed order.
+int lbm_reduce_tot(const float* partials, int n, int rows, float scale,
+                   float* out, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    reduce_tot_kernel<<<1, kReduceThreads, 0, (cudaStream_t)stream>>>(
+    if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
+    reduce_tot_kernel<<<rows, kReduceThreads, 0, (cudaStream_t)stream>>>(
         partials, n, scale, out);
     return (int)cudaGetLastError();
 }

@@ -1,0 +1,136 @@
+// The D2Q9 BGK update of one lattice cell, shared by every kernel in this
+// directory (fused_step.cu, fused_depth.cu, resident.cu), so all of them
+// compute each cell with the same code. Built with -fmad=false (see
+// lbm_tpu_torch/ops/_build.py), the same code gives the same bits in
+// every kernel.
+//
+// One call pulls the cell's nine incoming speeds, forces the pulled copy
+// of any speed whose source row is the forced row (the source cell must
+// pass the guard: fluid, and its pre-forcing speeds 3, 6, 7 each strictly
+// above their weight), then applies bounce-back or BGK relaxation in one
+// of three associations, written term by term as
+// lbm_tpu/ops/reference.py::_bgk_update_planes:
+//   mode 0 paired, mode 1 reference order, mode 2 omega-absorbed.
+// Forcing the pulled copy equals forcing first and streaming after, with
+// no extra pass or in-place write.
+//
+// The caller says where the lattice lives. ld(k, o) is speed k of the site
+// with linear index o; solid(o) is that site's obstacle flag. A site's
+// index is a row offset plus a column: rc/rm/rp are the offsets of the
+// cell's own row, the row below (j-1, source of cy=+1) and the row above
+// (j+1, source of cy=-1); ic/iw/ie are its own column, the column to the
+// west (i-1, source of cx=+1) and to the east (i+1, source of cx=-1).
+// fc/fm/fp say whether rows rc/rm/rp are the forced row. The new speeds
+// go to out[9]; the return value is |u|, 0 for an obstacle.
+
+#pragma once
+
+template <class I, class Load, class Solid>
+__device__ __forceinline__ float lbm_cell_update(
+    const Load& ld, const Solid& solid, I rc, I rm, I rp, I ic, I iw, I ie,
+    bool fc, bool fm, bool fp, float w1, float w2, float omega, int mode,
+    float out[9]) {
+    // The forcing guard of a source site on the forced row.
+    auto forced = [&](I o) -> bool {
+        return !solid(o) && (ld(3, o) - w1 > 0.0f) &&
+               (ld(6, o) - w2 > 0.0f) && (ld(7, o) - w2 > 0.0f);
+    };
+
+    const float s0 = ld(0, rc + ic);
+    float s1 = ld(1, rc + iw);
+    const float s2 = ld(2, rm + ic);
+    float s3 = ld(3, rc + ie);
+    const float s4 = ld(4, rp + ic);
+    float s5 = ld(5, rm + iw);
+    float s6 = ld(6, rm + ie);
+    float s7 = ld(7, rp + ie);
+    float s8 = ld(8, rp + iw);
+    // Deltas: +w1 on 1, -w1 on 3, +w2 on 5 and 8, -w2 on 6 and 7
+    // (x + (-w) is exactly x - w in IEEE arithmetic).
+    if (fc) {
+        if (forced(rc + iw)) s1 = s1 + w1;
+        if (forced(rc + ie)) s3 = s3 - w1;
+    }
+    if (fm) {
+        if (forced(rm + iw)) s5 = s5 + w2;
+        if (forced(rm + ie)) s6 = s6 - w2;
+    }
+    if (fp) {
+        if (forced(rp + ie)) s7 = s7 - w2;
+        if (forced(rp + iw)) s8 = s8 + w2;
+    }
+
+    const float rho = s0 + s1 + s2 + s3 + s4 + s5 + s6 + s7 + s8;
+    const float u_x = (s1 + s5 + s8 - (s3 + s6 + s7)) / rho;
+    const float u_y = (s2 + s5 + s6 - (s4 + s7 + s8)) / rho;
+    const float u_sq = u_x * u_x + u_y * u_y;
+
+    const float w0 = 4.0f / 9.0f, wa = 1.0f / 9.0f, wd = 1.0f / 36.0f;
+    float f[9];
+    if (mode == 1) {
+        // Reference order: w * rho * (1 + uc*3 + uc*uc*4.5 - u_sq*1.5).
+        const float sq = u_sq * 1.5f;
+        const float ra = wa * rho, rd = wd * rho;
+        auto feq = [&](float wr, float uc) {
+            return wr * (1.0f + uc * 3.0f + (uc * uc) * 4.5f - sq);
+        };
+        f[0] = w0 * rho * (1.0f - sq);
+        f[1] = feq(ra, u_x);
+        f[2] = feq(ra, u_y);
+        f[3] = feq(ra, -u_x);
+        f[4] = feq(ra, -u_y);
+        f[5] = feq(rd, u_x + u_y);
+        f[6] = feq(rd, -u_x + u_y);
+        f[7] = feq(rd, -u_x + -u_y);
+        f[8] = feq(rd, u_x + -u_y);
+    } else {
+        // Paired: feq_k = E + O, feq_opp(k) = E - O; mode 2 folds
+        // omega into the weight constants.
+        const float scale = (mode == 2) ? omega : 1.0f;
+        const float base = 1.0f - u_sq * 1.5f;
+        const float wrho_a = (wa * scale) * rho;
+        const float wrho_d = (wd * scale) * rho;
+        const float odd_a = 3.0f * wrho_a;
+        const float odd_d = 3.0f * wrho_d;
+        auto pair = [&](float wrho, float oddw, float uc, float& plus,
+                        float& minus) {
+            const float even = wrho * (base + (uc * uc) * 4.5f);
+            const float odd = oddw * uc;
+            plus = even + odd;
+            minus = even - odd;
+        };
+        f[0] = (w0 * scale) * rho * base;
+        pair(wrho_a, odd_a, u_x, f[1], f[3]);
+        pair(wrho_a, odd_a, u_y, f[2], f[4]);
+        pair(wrho_d, odd_d, u_x + u_y, f[5], f[7]);
+        pair(wrho_d, odd_d, u_y - u_x, f[6], f[8]);
+    }
+
+    const float s[9] = {s0, s1, s2, s3, s4, s5, s6, s7, s8};
+    const int opp[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+    const bool obstacle = solid(rc + ic);
+    const float one_m_omega = 1.0f - omega;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+        if (obstacle) {
+            out[k] = s[opp[k]];
+        } else if (mode == 2) {
+            out[k] = s[k] * one_m_omega + f[k];
+        } else {
+            out[k] = s[k] + omega * (f[k] - s[k]);
+        }
+    }
+    return obstacle ? 0.0f : sqrtf(u_sq);
+}
+
+// Fixed-order tree over kN shared floats; the sum ends in buf[0]. The
+// caller has written buf[0:kN] and not yet synchronised.
+template <int kN>
+__device__ __forceinline__ void lbm_tree_sum(float* buf, int tid) {
+    __syncthreads();
+#pragma unroll
+    for (int s = kN / 2; s > 0; s >>= 1) {
+        if (tid < s) buf[tid] += buf[tid + s];
+        __syncthreads();
+    }
+}

@@ -3,8 +3,10 @@
 ``nvcc`` compiles every ``lbm_tpu_torch/csrc/*.cu`` into one shared
 library with a plain C interface, on first use, into
 ``build/lbm_tpu_torch/`` beside the package (a directory ``.gitignore``
-lists). The library is named by a hash of the sources and the flags, so
-an edit rebuilds it; it is loaded with ``ctypes``. Nothing here runs at
+lists): one ``nvcc -c`` per source, all started together, then one link.
+The library is named by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edit rebuilds it; it is loaded
+with ``ctypes``. Nothing here runs at
 import time: a CPU-only machine imports this module and never builds.
 """
 
@@ -23,11 +25,15 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "lbm_tpu_torch"
 
 # sm_90a (Hopper with its architecture-specific features); no
-# --use_fast_math, so division and sqrt stay IEEE; nvcc's default FMA
-# contraction stays on. -Xptxas -v reports registers/spills in the log.
+# --use_fast_math, so division and sqrt stay IEEE. -fmad=false: no
+# multiply-add contraction, so each kernel rounds every operation as
+# written, in the order of the plain PyTorch version. With contraction
+# on, ptxas fused a different set of multiply-adds in each kernel (and
+# after a refactor of one), so kernels sharing lbm_cell.cuh disagreed in
+# the last bit. -Xptxas -v reports registers/spills in the log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -41,10 +47,25 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_reduce_tot": (
-        [_c_void_p, _c_int, _c_float, _c_void_p, _c_int, _c_void_p], _c_int
+        [_c_void_p, _c_int, _c_int, _c_float, _c_void_p, _c_int, _c_void_p],
+        _c_int,
     ),
     "lbm_num_partials": ([_c_int, _c_int], _c_int),
     "lbm_max_rows": ([], _c_int),
+    "lbm_fused_depth": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
+        _c_int,
+    ),
+    "lbm_depth_num_partials": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_depth_max_rows": ([_c_int], _c_int),
+    "lbm_resident": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+         _c_int, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int,
+         _c_float, _c_int, _c_int, _c_void_p],
+        _c_int,
+    ),
+    "lbm_resident_blocks": ([_c_int, _c_int, _c_int], _c_int),
     "lbm_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -53,6 +74,10 @@ _lib = None
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -65,17 +90,23 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"liblbm_kernels-{h.hexdigest()[:16]}.so"
 
 
-def nvcc_command(out: Path | None = None) -> list[str]:
+def compile_commands(obj_dir: Path) -> list[list[str]]:
+    """One ``nvcc -c`` per source, its object in ``obj_dir``."""
+    return [[nvcc_path(), *NVCC_FLAGS, "-c", "-o",
+             str(obj_dir / f"{src.stem}.o"), str(src)] for src in sources()]
+
+
+def link_command(obj_dir: Path, out: Path | None = None) -> list[str]:
     out = library_path() if out is None else out
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-            *(str(s) for s in sources())]
+    return [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(out),
+            *(str(obj_dir / f"{src.stem}.o") for src in sources())]
 
 
 def build() -> tuple[Path, float]:
@@ -85,21 +116,36 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Build under a private name and rename: concurrent builds never
+    # Build under private names and rename: concurrent builds never
     # load a half-written library.
+    obj_dir = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
-    res = subprocess.run(nvcc_command(tmp), capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {res.returncode}) building {out.name}:\n"
-            + (res.stderr or res.stdout)[-4000:]
+    try:
+        procs = [(cmd, _start(cmd)) for cmd in compile_commands(obj_dir)]
+        results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+        if all(rc == 0 for _, _, rc in results):
+            cmd = link_command(obj_dir, tmp)
+            p = _start(cmd)
+            results.append((cmd, p.communicate()[0], p.returncode))
+        out.with_suffix(".log").write_text(
+            "".join(f"$ {' '.join(cmd)}\n{text}" for cmd, text, _ in results)
         )
-    os.replace(tmp, out)
-    return out, seconds
+        for cmd, text, rc in results:
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed (exit {rc}) on {cmd[-1]} "
+                                   f"building {out.name}:\n{text[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(obj_dir, ignore_errors=True)
+    return out, time.perf_counter() - t0
+
+
+def _start(cmd: list[str]) -> subprocess.Popen:
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
 
 
 def load() -> ctypes.CDLL:

@@ -1,7 +1,8 @@
 """The fused-step kernel's wrapper: one timestep of the lattice in one
 CUDA launch (``csrc/fused_step.cu``, the port of
-``lbm_tpu/ops/pallas_fused.py::_kernel``), plus a one-block launch that
-sums the per-block tot_u partials on the device.
+``lbm_tpu/ops/pallas_fused.py::_kernel``), plus a launch that sums the
+per-block tot_u partials on the device. Also what every kernel wrapper
+shares (:class:`LatticeKernel`) and the launch counts of all of them.
 
 A tensor on the CPU runs the plain version, :mod:`.reference`; that is
 the only case the plain version stands in for the kernel. A CUDA tensor
@@ -17,8 +18,12 @@ from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.state import D2Q9
 
-# Launch counts, one per kernel; incremented only where a kernel launches.
-LAUNCHES = {"step": 0, "reduce": 0}
+# Launch counts of every kernel of the package, one per kernel: the
+# one-step kernel, the tot_u reduce (launched by FusedStep and by
+# fused_depth.FusedDepth), the depth kernel and the resident kernel. Each
+# wrapper increments its kernel's count where it launches it, nowhere
+# else.
+LAUNCHES = {"step": 0, "reduce": 0, "depth": 0, "resident": 0}
 
 
 def reset_launches() -> None:
@@ -26,17 +31,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-class FusedStep:
-    """The step kernel bound to one obstacle mask and scene constants.
+class LatticeKernel:
+    """What the kernel wrappers share: one obstacle mask, the scene
+    constants, the association mode (``LBM_PAIRED_EQ`` / ``LBM_OMEGA_EQ``,
+    read at construction, as the JAX package reads it when it traces a
+    run), the device, the checks on what a kernel takes, and on a CUDA
+    mask the built kernel library.
 
-    ``step(src, dst, out, t, scale)`` writes one timestep of ``src``
-    into ``dst`` and ``scale * tot_u`` into ``out[t]``: the runner's
-    ping-pong buffers and its on-device av_vels. The association mode
-    (``LBM_PAIRED_EQ`` / ``LBM_OMEGA_EQ``) is read at construction, as
-    the JAX package reads it when it traces a run. On a CUDA mask this
-    builds the kernel library on first use and allocates the tot_u
-    partials once; the kernel itself allocates nothing.
+    ``run(a, b, out, t, scale)`` advances the lattice in ``a`` by
+    ``steps_per_call`` steps, using ``b`` as the other buffer, writes
+    ``scale * tot_u`` of each step into ``out[t:t + steps_per_call]``
+    and returns ``(cells, spare)``: the buffer holding the result and
+    the other one.
     """
+
+    steps_per_call = 1
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega):
         if mask.dtype != torch.bool or mask.dim() != 2:
@@ -54,21 +63,15 @@ class FusedStep:
         if self.device.type == "cpu":
             return
         if self.device.type != "cuda":
-            raise ValueError(f"no fused-step kernel for device {self.device}")
-        ny, nx = mask.shape
+            raise ValueError(f"no CUDA kernel for device {self.device}")
         self._lib = _build.load()
-        if ny > self._lib.lbm_max_rows():
-            raise ValueError(
-                f"{ny} rows exceed the kernel's limit of "
-                f"{self._lib.lbm_max_rows()}"
-            )
         self._mask_u8 = mask.to(torch.uint8).contiguous()
-        self._partials = torch.empty(
-            self._lib.lbm_num_partials(ny, nx), dtype=torch.float32,
-            device=self.device,
-        )
         self._index = self.device.index if self.device.index is not None \
             else torch.cuda.current_device()
+
+    @property
+    def on_cpu(self) -> bool:
+        return self.device.type == "cpu"
 
     def _check(self, t: torch.Tensor, name: str, shape) -> None:
         if t.device != self.device:
@@ -81,35 +84,81 @@ class FusedStep:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-    def step(self, src, dst, out, t: int = 0, scale=1.0) -> None:
+    def _check_call(self, src, dst, out, t: int) -> None:
         self._check(src, "src", self.shape)
         self._check(dst, "dst", self.shape)
         self._check(out, "out", out.shape)
-        if out.dim() != 1 or not 0 <= t < out.shape[0]:
-            raise ValueError(f"out[{t}] is not an element of a 1-D tensor "
-                             f"of {out.shape[0] if out.dim() else 0}")
+        n = self.steps_per_call
+        if out.dim() != 1 or t < 0 or t + n > out.shape[0]:
+            raise ValueError(
+                f"out[{t}:{t + n}] is not a slice of a 1-D tensor of "
+                f"{out.shape[0] if out.dim() else 0}"
+            )
         if src.data_ptr() == dst.data_ptr():
             raise ValueError("src and dst must be distinct buffers")
-        if self.device.type == "cpu":
+
+    def _stream(self):
+        return torch.cuda.current_stream(self.device).cuda_stream
+
+    def _scale(self, scale) -> float:
+        return float(np.float32(scale))
+
+    def _reduce(self, partials, rows: int, out, t: int, scale) -> None:
+        """``out[t + r] = scale * sum(row r of partials)`` for
+        ``r < rows``: one launch of the fixed-order reduce kernel."""
+        lib = self._lib
+        _build.check(lib, lib.lbm_reduce_tot(
+            partials.data_ptr(), partials.numel() // rows, rows,
+            np.float32(scale), out.data_ptr() + 4 * t, self._index,
+            self._stream(),
+        ), "tot_u reduce launch")
+        LAUNCHES["reduce"] += 1
+
+
+class FusedStep(LatticeKernel):
+    """The one-step kernel: ``step(src, dst, out, t, scale)`` writes one
+    timestep of ``src`` into ``dst`` and ``scale * tot_u`` into
+    ``out[t]``. On a CUDA mask this builds the kernel library on first
+    use and allocates the tot_u partials once; the kernel itself
+    allocates nothing."""
+
+    def __init__(self, mask: torch.Tensor, w1, w2, omega):
+        super().__init__(mask, w1, w2, omega)
+        if self.on_cpu:
+            return
+        ny, nx = mask.shape
+        if ny > self._lib.lbm_max_rows():
+            raise ValueError(
+                f"{ny} rows exceed the kernel's limit of "
+                f"{self._lib.lbm_max_rows()}"
+            )
+        self._partials = torch.empty(
+            self._lib.lbm_num_partials(ny, nx), dtype=torch.float32,
+            device=self.device,
+        )
+
+    def step(self, src, dst, out, t: int = 0, scale=1.0) -> None:
+        self._check_call(src, dst, out, t)
+        if self.on_cpu:
             new, tot = ref_ops.fused_step(
                 src, self.mask, self.w1, self.w2, self.omega
             )
             dst.copy_(new)
-            out[t] = tot * float(np.float32(scale))
+            out[t] = tot * self._scale(scale)
             return
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
-        stream = torch.cuda.current_stream(self.device).cuda_stream
+        stream = self._stream()
         _build.check(lib, lib.lbm_fused_step(
             src.data_ptr(), dst.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), ny, nx, (ny - 2) % ny,
             self.w1, self.w2, self.omega, self.mode, self._index, stream,
         ), "fused step launch")
         LAUNCHES["step"] += 1
-        _build.check(lib, lib.lbm_reduce_tot(
-            self._partials.data_ptr(), self._partials.numel(),
-            np.float32(scale), out.data_ptr() + 4 * t, self._index, stream,
-        ), "tot_u reduce launch")
-        LAUNCHES["reduce"] += 1
+        self._reduce(self._partials, 1, out, t, scale)
+
+    def run(self, a, b, out, t: int = 0, scale=1.0):
+        self.step(a, b, out, t, scale)
+        return b, a
 
 
 def fused_step(cells, obstacles, w1, w2, omega):

@@ -1,0 +1,151 @@
+"""The depth kernel's wrapper: ``depth`` timesteps of the lattice in one
+CUDA launch (``csrc/fused_depth.cu``, the port of
+``lbm_tpu/ops/pallas_fused.py::_kernel_fused``), plus one launch of the
+fixed-order reduce that writes the ``depth`` tot_u values on the device.
+
+A tensor on the CPU runs the plain version,
+:func:`.reference.multi_step`; a CUDA tensor launches the kernel or
+raises. :func:`fused_depth_emulated` is the kernel's tiling in plain
+PyTorch (window, periodic gather, shrinking stage regions, owned-cell
+tot_u per stage), so the tile and halo logic is tested where no card
+exists.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops import reference as ref_ops
+from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel
+from lbm_tpu_torch.state import D2Q9
+
+# Depths the kernel is built for, and each depth's (TY, TX) output tile
+# (csrc/fused_depth.cu, Tile<D>).
+DEPTHS = (8, 4, 2)
+TILES = {2: (32, 32), 4: (24, 32), 8: (16, 32)}
+
+
+class FusedDepth(LatticeKernel):
+    """The depth kernel bound to one mask: ``run(a, b, out, t, scale)``
+    writes ``depth`` steps of ``a`` into ``b`` and returns ``(b, a)``."""
+
+    def __init__(self, mask: torch.Tensor, w1, w2, omega, depth: int):
+        if depth not in DEPTHS:
+            raise ValueError(f"depth {depth} not in {DEPTHS}")
+        super().__init__(mask, w1, w2, omega)
+        self.depth = self.steps_per_call = depth
+        if self.on_cpu:
+            return
+        ny, nx = mask.shape
+        limit = self._lib.lbm_depth_max_rows(depth)
+        if ny > limit:
+            raise ValueError(
+                f"{ny} rows exceed the depth-{depth} kernel's limit of {limit}"
+            )
+        n = self._lib.lbm_depth_num_partials(depth, ny, nx)
+        self._partials = torch.empty(
+            depth * n, dtype=torch.float32, device=self.device
+        )
+
+    def run(self, a, b, out, t: int = 0, scale=1.0):
+        self._check_call(a, b, out, t)
+        d = self.depth
+        if self.on_cpu:
+            new, tots = ref_ops.multi_step(
+                a, self.mask, self.w1, self.w2, self.omega, d
+            )
+            b.copy_(new)
+            out[t:t + d] = tots * self._scale(scale)
+            return b, a
+        lib, ny, nx = self._lib, self.shape[1], self.shape[2]
+        _build.check(lib, lib.lbm_fused_depth(
+            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+            self._partials.data_ptr(), ny, nx, (ny - 2) % ny,
+            self.w1, self.w2, self.omega, self.mode, d, self._index,
+            self._stream(),
+        ), f"depth-{d} launch")
+        LAUNCHES["depth"] += 1
+        self._reduce(self._partials, d, out, t, scale)
+        return b, a
+
+
+def fused_depth(cells, obstacles, w1, w2, omega, depth: int):
+    """``depth`` timesteps: ``(new_cells, tots)`` with ``tots`` the
+    (depth,) per-step tot_u. Launches the kernel on a CUDA tensor; runs
+    :func:`.reference.multi_step` on a CPU tensor."""
+    kernel = FusedDepth(obstacles, w1, w2, omega, depth)
+    new = torch.empty_like(cells)
+    tots = torch.empty(depth, dtype=torch.float32, device=cells.device)
+    kernel.run(cells, new, tots)
+    return new, tots
+
+
+def fused_depth_plain(cells, obstacles, w1, w2, omega, depth: int):
+    """The kernel's plain version: :func:`.reference.multi_step`."""
+    return ref_ops.multi_step(cells, obstacles, w1, w2, omega, depth)
+
+
+def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
+                         tile: tuple[int, int] | None = None):
+    """The depth kernel's tiling in plain PyTorch: for each ``(TY, TX)``
+    tile (default :data:`TILES`), gather the periodic window of
+    ``depth`` cells more on each side, run ``depth`` stages on it, each
+    over the window shrunk by one more cell per side, forcing the pulled
+    copy from the forced row, and keep the tile. tot_u of each stage
+    counts the tile's in-grid fluid cells only. Returns
+    ``(new_cells, tots)``; cells are bit-identical to
+    :func:`.reference.multi_step`, tots differ by summation order."""
+    ty, tx = TILES[depth] if tile is None else tile
+    _, ny, nx = cells.shape
+    np_type = ref_ops._np_type(cells.dtype)
+    w1f, w2f = float(np_type(w1)), float(np_type(w2))
+    accel_row = (ny - 2) % ny
+    new = torch.empty_like(cells)
+    tots = torch.zeros(depth, dtype=cells.dtype)
+    for by in range(math.ceil(ny / ty)):
+        for bx in range(math.ceil(nx / tx)):
+            # The tile's in-grid height and width (the last tile of a
+            # ragged grid overhangs it).
+            hy, hx = min(ty, ny - by * ty), min(tx, nx - bx * tx)
+            rows = torch.arange(by * ty - depth, (by + 1) * ty + depth) % ny
+            cols = torch.arange(bx * tx - depth, (bx + 1) * tx + depth) % nx
+            win = cells[:, rows][:, :, cols]
+            wmask = obstacles[rows][:, cols]
+            forced = rows == accel_row
+            for s in range(1, depth + 1):
+                win, umag, wmask, forced = _stage(
+                    win, wmask, forced, w1f, w2f, omega
+                )
+                # Owned cells sit depth - s cells in from this region.
+                own = (slice(depth - s, depth - s + hy),
+                       slice(depth - s, depth - s + hx))
+                tots[s - 1] += umag[own][~wmask[own]].sum()
+            new[:, by * ty:by * ty + hy, bx * tx:bx * tx + hx] = \
+                win[:, :hy, :hx]
+    return new, tots
+
+
+def _stage(win, wmask, forced, w1: float, w2: float, omega):
+    """One stage on a (9, H, W) window with its mask and forced-row
+    flags: the updated (9, H-2, W-2) interior, its |u|, and the
+    interior's mask and flags."""
+    h, w = win.shape[1] - 2, win.shape[2] - 2
+    # The forcing guard of each source cell on the forced row.
+    ok = (~wmask & (win[3] - w1 > 0) & (win[6] - w2 > 0)
+          & (win[7] - w2 > 0) & forced[:, None])
+    delta = (0.0, w1, 0.0, -w1, 0.0, w2, -w2, -w2, w2)
+    pulled = []
+    for k in range(D2Q9.Q):
+        # Speed k at interior (r, c) pulls window (r + 1 - cy, c + 1 - cx).
+        cy, cx = int(D2Q9.CY[k]), int(D2Q9.CX[k])
+        src = (slice(1 - cy, 1 - cy + h), slice(1 - cx, 1 - cx + w))
+        v = win[k][src]
+        if delta[k]:
+            v = torch.where(ok[src], v + delta[k], v)
+        pulled.append(v)
+    inner = wmask[1:-1, 1:-1]
+    planes, umag = ref_ops._bgk_update_planes(pulled, inner, omega)
+    return torch.stack(planes), umag, inner, forced[1:-1]

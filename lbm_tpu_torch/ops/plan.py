@@ -1,0 +1,186 @@
+"""The segment planner: which kernel runs which steps of a run.
+
+The twin of the JAX package's planning functions, with the same env pins
+and meanings:
+
+- ``lbm_tpu.ops.pallas_resident``: ``resident_prefs``,
+  ``resident_gsteps``, ``_pinned_steps`` and ``_G_PREF``;
+- ``lbm_tpu.ops.pallas_fused``: ``_depth_preference``, ``plan_split`` /
+  ``plan_iters`` and the kernel choice of ``make_carry_step``;
+- ``lbm_tpu.runner._segments``.
+
+Pins: ``LBM_RESIDENT`` ("0" disables the resident kernel, "1" forces
+it), ``LBM_RESIDENT_STEPS`` (pins G; must be a positive even integer, as
+for the JAX package's two-buffer kernel) and ``LBM_PALLAS_DEPTH`` (caps
+the depth kernel's D and prefers the cap; 1 leaves the one-step kernel).
+
+What the automatic choice prefers is measured on the H100, not carried
+over from the TPU's VMEM gates (PERF.md, "Where the time goes"). The
+TPU's in-place single-buffer resident mode and ``LBM_RESIDENT_SHIFT``
+are VMEM workarounds and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+from lbm_tpu_torch.ops.fused_depth import DEPTHS
+
+# G per resident launch, most preferred first: the JAX package's list.
+# Large G amortises the launch; the list stays divisor-rich so official
+# iteration counts (20000, 40000, 2000) plan as one segment, and stops at
+# 16 so that a small exact divisor never takes a whole run from the
+# main + tail split at G=100.
+G_PREF = (100, 64, 50, 32, 20, 16)
+
+# Automatic choice, set from chip_smoke.py's timing phase on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md, "Where the time goes"). The resident
+# kernel makes one full pass over its two buffers per step and removes
+# the per-step launches; it is the fastest kernel up to 512x512, where
+# both buffers sit in the 50 MB L2, and loses to the depth kernel from
+# 1024x1024 (two 37.7 MB buffers) up. D=4 is the depth kernel's best at
+# 1024x1024 and 16384x1024, D=2 its next.
+RESIDENT_AUTO_MAX_CELLS = 512 * 512
+AUTO_DEPTHS = (4, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """``steps`` steps of one kernel, ``steps_per_call`` per launch:
+    ``kernel`` is "step" (one step per launch), "depth" (D per launch)
+    or "resident" (G per launch)."""
+
+    kernel: str
+    steps_per_call: int
+    steps: int
+
+    @property
+    def launches(self) -> int:
+        return self.steps // self.steps_per_call
+
+    def describe(self) -> str:
+        size = {"depth": f" D={self.steps_per_call}",
+                "resident": f" G={self.steps_per_call}"}.get(self.kernel, "")
+        return f"{self.kernel}{size} x{self.launches}"
+
+
+def _pinned_steps() -> int | None:
+    """The ``LBM_RESIDENT_STEPS`` pin, or None; an invalid, non-positive
+    or odd value raises, as the JAX package's two-buffer mode does."""
+    pin = os.environ.get("LBM_RESIDENT_STEPS")
+    if not pin:
+        return None
+    try:
+        g = int(pin)
+    except ValueError:
+        raise ValueError(f"LBM_RESIDENT_STEPS={pin!r} is not an integer") \
+            from None
+    if g < 1:
+        raise ValueError(f"LBM_RESIDENT_STEPS={g} must be positive")
+    if g % 2:
+        raise ValueError(
+            f"LBM_RESIDENT_STEPS={g}: the two-buffer resident kernel steps "
+            "in pairs and needs an even count"
+        )
+    return g
+
+
+def resident_prefs(ny: int, nx: int) -> tuple[int, ...] | None:
+    """G preferences, most preferred first, when the resident kernel
+    applies to an ny x nx lattice; else None. ``LBM_RESIDENT`` "0"
+    disables, "1" forces; unset, the measured size rule decides."""
+    env = os.environ.get("LBM_RESIDENT")
+    if env is not None and env in ("0", "", "false"):
+        return None
+    if env is None and ny * nx > RESIDENT_AUTO_MAX_CELLS:
+        return None
+    pin = _pinned_steps()
+    return (pin,) if pin else G_PREF
+
+
+def resident_gsteps(ny: int, nx: int, n_iters: int | None) -> int | None:
+    """The first preferred G that divides ``n_iters``, or None."""
+    prefs = resident_prefs(ny, nx)
+    if not prefs or not n_iters:
+        return None
+    return next((g for g in prefs if n_iters % g == 0), None)
+
+
+def depth_preference(ny: int, nx: int) -> list[int]:
+    """Depths to try, most preferred first. ``LBM_PALLAS_DEPTH`` caps
+    the depth and prefers the cap (1 or less: none, the one-step kernel
+    only); unset, the measured rule."""
+    env = os.environ.get("LBM_PALLAS_DEPTH")
+    if env is not None:
+        dmax = int(env)
+        return [d for d in DEPTHS if d <= dmax]
+    return list(AUTO_DEPTHS)
+
+
+def plan_iters(ny: int, nx: int, iters: int) -> tuple[int, int]:
+    """``(main, tail)``: split ``iters`` so the main part runs at the
+    preferred granularity. A count some preferred G divides is one
+    resident segment; otherwise a resident main at the first G. When
+    the resident kernel does not apply, or the count is shorter than
+    that G, a depth main at the first preferred D that the count
+    exceeds without dividing it, unless an earlier D divides it.
+    ``(iters, 0)`` when no split helps.
+
+    One difference from the JAX package's ``plan_split``, which tries
+    only its first depth: a count shorter than the first D tries the
+    next, so a tail never leaves more than one step to the one-step
+    kernel (the smallest D is 2)."""
+    prefs = resident_prefs(ny, nx)
+    if prefs and iters > 0:
+        if resident_gsteps(ny, nx, iters):
+            return iters, 0
+        main = iters - iters % prefs[0]
+        if main:
+            return main, iters % prefs[0]
+    for d in depth_preference(ny, nx):
+        if iters % d == 0:
+            break
+        if iters > d:
+            return iters - iters % d, iters % d
+    return iters, 0
+
+
+def select(ny: int, nx: int, n_iters: int) -> tuple[str, int]:
+    """``(kernel, steps_per_call)`` for a segment of ``n_iters`` steps:
+    the resident kernel at the first preferred G that divides it, else
+    the depth kernel at the first preferred D that divides it, else the
+    one-step kernel."""
+    g = resident_gsteps(ny, nx, n_iters)
+    if g:
+        return "resident", g
+    for d in depth_preference(ny, nx):
+        if n_iters % d == 0:
+            return "depth", d
+    return "step", 1
+
+
+def segments(ny: int, nx: int, iters: int) -> list[Segment]:
+    """Plan a run of ``iters`` steps as segments that sum to ``iters``.
+    One segment when a preferred granularity divides ``iters``;
+    otherwise a main segment and the tail re-planned, so any count runs
+    at full speed with at most one step on the one-step kernel (for
+    example 1099 steps with the resident kernel: 1000 at G=100, 96 at
+    G=32, then 2 at D=2 and 1 single step)."""
+    if iters < 1:
+        raise ValueError(f"iteration count must be positive, got {iters}")
+    parts = []
+    remaining = iters
+    while remaining > 0:
+        main, tail = plan_iters(ny, nx, remaining)
+        if not tail:
+            break
+        parts.append(Segment(*select(ny, nx, main), main))
+        remaining = tail
+    if remaining > 0:
+        parts.append(Segment(*select(ny, nx, remaining), remaining))
+    return parts
+
+
+def describe(parts: list[Segment]) -> str:
+    return ", ".join(seg.describe() for seg in parts)

@@ -183,3 +183,16 @@ def fused_step(cells, obstacles, w1, w2, omega, accel_row: int | None = None):
     collide-stream pass. Returns ``(new_cells, tot_u)``."""
     cells = accelerate_flow(cells, obstacles, w1, w2, accel_row)
     return collide_stream(cells, obstacles, omega)
+
+
+def multi_step(cells, obstacles, w1, w2, omega, n: int):
+    """``n`` timesteps: ``n`` calls of :func:`fused_step`. Returns
+    ``(cells, tots)`` with ``tots`` the (n,) per-step tot_u, not yet
+    scaled by 1/fluid. The plain version of the many-step kernels."""
+    if n < 1:
+        raise ValueError(f"step count must be positive, got {n}")
+    tots = []
+    for _ in range(n):
+        cells, tot = fused_step(cells, obstacles, w1, w2, omega)
+        tots.append(tot)
+    return cells, torch.stack(tots)

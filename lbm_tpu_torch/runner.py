@@ -1,7 +1,10 @@
 """The simulation loop, the main-path twin of :mod:`lbm_tpu.runner`: one
-device, one kernel launch (plus one reduce launch) per timestep, with
-av_vels kept on the device, scaled by 1/fluid cells each step, and
-copied to the host once at the end.
+device; the run planned into segments (:mod:`.ops.plan`, the twin of
+``lbm_tpu.runner._segments``), each stepped by one of three CUDA
+kernels (one step, D steps or G steps per launch), with av_vels kept on
+the device, scaled by 1/fluid cells each step, and copied to the host
+once at the end. The plain path (``reference``, and float64) steps one
+timestep at a time.
 
 Not ported yet (ROADMAP 1.9-1.11): checkpoint/resume, chunking, the
 debug loop, tracing and sharding.
@@ -16,7 +19,7 @@ import torch
 
 from lbm_tpu_torch.obstacles import num_non_obstacles_r
 from lbm_tpu_torch.observables import calc_reynolds
-from lbm_tpu_torch.ops import fused
+from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.params import Params
 from lbm_tpu_torch.profiling import PhaseTimers
@@ -71,9 +74,28 @@ def _resolve_kernel(kernel: str, params: Params, device: torch.device) -> str:
     return kernel
 
 
+def plan_run(params: Params, kernel: str, iters: int):
+    """The segments a run of ``iters`` steps takes under ``kernel`` (as
+    resolved): :func:`.ops.plan.segments` for ``cuda``, one plain
+    segment for ``reference``."""
+    if kernel == "cuda":
+        return plan.segments(params.ny, params.nx, iters)
+    return [plan.Segment("reference", 1, iters)]
+
+
+def _make_impl(seg: plan.Segment, mask, w1, w2, omega):
+    if seg.kernel == "resident":
+        return resident.Resident(mask, w1, w2, omega, seg.steps_per_call)
+    if seg.kernel == "depth":
+        return fused_depth.FusedDepth(mask, w1, w2, omega, seg.steps_per_call)
+    return fused.FusedStep(mask, w1, w2, omega)
+
+
 class _Simulation:
     """One run's device state: the ping-pong lattice buffers, the mask,
-    av_vels and the step implementation, all allocated once."""
+    av_vels and the planned segments' kernels, all allocated once. The
+    ``cuda`` path also runs on CPU tensors, where every kernel wrapper
+    takes its plain version."""
 
     def __init__(self, params: Params, cells, mask, kernel: str, iters: int):
         self.params, self.kernel = params, kernel
@@ -84,9 +106,11 @@ class _Simulation:
         )
         self.av_vels = torch.empty(iters, dtype=cells.dtype, device=cells.device)
         self.iters = iters
+        self.segments = plan_run(params, kernel, iters)
         w1, w2, omega = params.accel_w1, params.accel_w2, params.omega
         if kernel == "cuda":
-            self._stepper = fused.FusedStep(mask, w1, w2, omega)
+            self._impls = [(_make_impl(seg, mask, w1, w2, omega), seg.steps)
+                           for seg in self.segments]
             self._spare = torch.empty_like(self.cells)
         else:
             self._ref = (w1, w2, omega)
@@ -94,10 +118,12 @@ class _Simulation:
     def run(self) -> None:
         cells, av, inv = self.cells, self.av_vels, self.inv_fluid
         if self.kernel == "cuda":
-            stepper, spare = self._stepper, self._spare
-            for t in range(self.iters):
-                stepper.step(cells, spare, av, t, inv)
-                cells, spare = spare, cells
+            spare, t = self._spare, 0
+            for impl, n in self._impls:
+                spc = impl.steps_per_call
+                for _ in range(n // spc):
+                    cells, spare = impl.run(cells, spare, av, t, inv)
+                    t += spc
         else:
             w1, w2, omega = self._ref
             scale = float(inv)
@@ -133,8 +159,8 @@ def run_simulation(
     state, the trajectory, the Reynolds number and the phase times.
 
     ``kernel``: ``auto``, ``reference`` (plain PyTorch ops) or ``cuda``
-    (the hand-written kernel). ``device``: where the state lives; a CUDA
-    device must exist.
+    (the hand-written kernels, as :func:`plan_run` plans them).
+    ``device``: where the state lives; a CUDA device must exist.
     """
     timers = PhaseTimers()
     timers.start("total")

@@ -1,5 +1,5 @@
-"""The CUDA kernel against its plain version, on the card. Skips where
-no CUDA device is present. This file imports no jax, so on a machine
+"""The CUDA kernels against their plain versions, on the card. Skips
+where no CUDA device is present. This file imports no jax, so on a machine
 without it run it alone, without the JAX package's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from lbm_tpu_torch.obstacles import generate_obstacles
-from lbm_tpu_torch.ops import fused
+from lbm_tpu_torch.ops import fused, fused_depth, resident
 from lbm_tpu_torch.params import Params
 from lbm_tpu_torch.state import initial_state
 
@@ -32,11 +32,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(ny, nx, walls, seed=0):
+def _case(nx, ny, walls, seed=0, perturbed=False):
+    """A seeded state, uniform in [0.01, 0.2] (held for one step only:
+    at omega 1.85 it is unstable) or, ``perturbed``, the equilibrium at
+    rest with each value moved by up to +-10 % (stable over many
+    steps), and its mask."""
     p = Params(nx=nx, ny=ny, max_iters=200, reynolds_dim=10,
                density=0.1, accel=0.01, omega=1.85)
     rng = np.random.default_rng(seed)
     cells = rng.uniform(0.01, 0.2, (9, ny, nx)).astype(np.float32)
+    if perturbed:
+        eq = initial_state(p).numpy()
+        cells = (eq * (1 + 0.2 * (rng.random(eq.shape) - 0.5))).astype(np.float32)
     cells[6, ny - 2, rng.random(nx) < 0.3] = np.float32(p.accel_w2)
     mask = generate_obstacles(nx, ny) if walls else rng.random((ny, nx)) < 0.15
     return p, cells, mask
@@ -44,8 +51,8 @@ def _case(ny, nx, walls, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("shape", [(128, 128, True), (100, 130, False)],
-                         ids=["128x128", "100x130-wall-less"])
+@pytest.mark.parametrize("shape", [(128, 128, True), (130, 100, False)],
+                         ids=["128x128", "130x100-wall-less"])
 def test_kernel_step_matches_plain(cuda, shape, mode, monkeypatch):
     monkeypatch.delenv("LBM_PAIRED_EQ", raising=False)
     monkeypatch.delenv("LBM_OMEGA_EQ", raising=False)
@@ -77,4 +84,68 @@ def test_kernel_trajectory_matches_plain_and_is_deterministic(cuda):
     cr, ar = simulate(p, c0, m, kernel="reference")
     assert torch.equal(ck, ck2) and torch.equal(ak, ak2)
     np.testing.assert_allclose(ak.cpu().numpy(), ar.cpu().numpy(),
+                               rtol=TRAJ_RTOL)
+
+
+def _set_mode(monkeypatch, mode):
+    monkeypatch.delenv("LBM_PAIRED_EQ", raising=False)
+    monkeypatch.delenv("LBM_OMEGA_EQ", raising=False)
+    for k, v in MODES[mode].items():
+        monkeypatch.setenv(k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("grid", [128, 256], ids=["128x128", "256x256"])
+@pytest.mark.parametrize("kernel,steps", [
+    ("depth", 2), ("depth", 4), ("depth", 8), ("resident", 16),
+    ("resident", 5),
+], ids=["depth-2", "depth-4", "depth-8", "resident-16", "resident-5"])
+def test_many_step_kernel_matches_multi_step(cuda, grid, mode, kernel, steps,
+                                              monkeypatch):
+    _set_mode(monkeypatch, mode)
+    p, cells, mask = _case(grid, grid, True, seed=grid + steps, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    args = (m, p.accel_w1, p.accel_w2, p.omega, steps)
+    run = fused_depth.fused_depth if kernel == "depth" else resident.resident
+    before = dict(fused.LAUNCHES)
+    got, got_tots = run(c, *args)
+    want, want_tots = fused_depth.fused_depth_plain(c, *args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[kernel] == before[kernel] + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_tots.cpu().numpy(),
+                               want_tots.cpu().numpy(), rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [
+    {"LBM_RESIDENT": "1"}, {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "4"},
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
+], ids=["resident", "depth-4", "depth-8"])
+def test_planned_runs_match_the_step_kernel(cuda, env, monkeypatch):
+    """203 steps (a main segment and a tail) through the runner: the
+    same cells as the one-step kernel, av_vels within the trajectory
+    bound, and bit-identical repeats."""
+    from lbm_tpu_torch.runner import simulate
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(128, 128, True)
+    m = torch.from_numpy(mask).to(cuda)
+    c0 = initial_state(p, cuda)
+    monkeypatch.setenv("LBM_RESIDENT", "0")
+    monkeypatch.setenv("LBM_PALLAS_DEPTH", "1")
+    ck, ak = simulate(p, c0, m, kernel="cuda", n_iters=203)
+    monkeypatch.delenv("LBM_PALLAS_DEPTH")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cg, ag = simulate(p, c0, m, kernel="cuda", n_iters=203)
+    cg2, ag2 = simulate(p, c0, m, kernel="cuda", n_iters=203)
+    assert torch.equal(cg, cg2) and torch.equal(ag, ag2)
+    np.testing.assert_allclose(cg.cpu().numpy(), ck.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(ag.cpu().numpy(), ak.cpu().numpy(),
                                rtol=TRAJ_RTOL)

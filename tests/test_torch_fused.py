@@ -4,6 +4,7 @@ run the wrapper's plain version, held here against the JAX package's
 The CUDA kernel itself is compared with the plain version on the card
 (tests/test_torch_cuda.py and chip_smoke.py)."""
 
+import importlib.util
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -137,12 +138,52 @@ def test_cuda_kernel_on_cpu_device_raises():
     assert trunner._resolve_kernel("auto", p, torch.device("cpu")) == "reference"
 
 
-def test_nvcc_command_targets_sm90a_and_lists_every_source():
-    cmd = _build.nvcc_command()
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "--use_fast_math" not in cmd
+def test_nvcc_command_targets_sm90a_and_lists_every_source(tmp_path):
+    """One ``nvcc -c`` per source, all for sm_90a without fast math,
+    then one link of every object into the hashed library."""
+    compiles = _build.compile_commands(tmp_path)
     srcs = sorted(Path(_build.CSRC).glob("*.cu"))
-    assert srcs and [Path(c) for c in cmd if c.endswith(".cu")] == srcs
-    out = Path(cmd[cmd.index("-o") + 1])
+    assert srcs and [Path(c[-1]) for c in compiles] == srcs
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
+        assert "--use_fast_math" not in cmd
+    link = _build.link_command(tmp_path)
+    assert "arch=compute_90a,code=sm_90a" in link and "-shared" in link
+    objs = [c[c.index("-o") + 1] for c in compiles]
+    assert [c for c in link if c.endswith(".o")] == objs
+    out = Path(link[link.index("-o") + 1])
     assert out.parent == Path(_build.PACKAGE_DIR).parent / "build" / "lbm_tpu_torch"
     assert out.name.endswith(".so") and out == _build.library_path()
+    # The shared header is part of the library's hash.
+    assert [h.name for h in _build.headers()] == ["lbm_cell.cuh"]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_grid_names_are_nx_by_ny():
+    """chip_smoke.py names grids NXxNY as the repository does: the
+    131072x128 stress scene is 131072 columns by 128 rows, as
+    tests/test_pallas.py builds it and lbm_tpu lays it out (a wide grid,
+    which its planner transposes)."""
+    from lbm_tpu.ops.pallas_fused import _transposed_layout
+
+    smoke = _chip_smoke()
+    assert smoke.grid("131072x128") == (131072, 128)
+    stress = _params(128, 131072)
+    assert (stress.nx, stress.ny) == smoke.grid("131072x128")
+    assert _transposed_layout(stress.ny, stress.nx)
+    assert not _transposed_layout(*reversed(smoke.grid("128x131072")))
+    names = [name for name, _ in smoke.KERNEL_CASES]
+    assert "131072x128" in names and "16384x1024" in names
+    for name in names + [smoke.SCENE, smoke.STRESS]:
+        nx, ny = smoke.grid(name)
+        p = smoke.scene_params(name)
+        assert (p.nx, p.ny) == (nx, ny)
+        if nx * ny <= 1 << 20:
+            assert generate_obstacles(nx, ny).shape == (ny, nx)

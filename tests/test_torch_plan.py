@@ -1,0 +1,175 @@
+"""The segment planner, lbm_tpu_torch.ops.plan, and the runner's walk over
+its segments, on the CPU. The pins behave as the JAX package's
+(tests/test_resident.py:206-238); the plan's segments always sum to the
+run and divide their steps per call; a CPU run over a main + tail plan
+(every wrapper takes its plain version on CPU tensors) writes av_vels at
+the right offsets and equals the unplanned run bit for bit."""
+
+import numpy as np
+import pytest
+import torch
+
+from lbm_tpu.obstacles import generate_obstacles
+from lbm_tpu.params import Params
+from lbm_tpu_torch import runner as trunner
+from lbm_tpu_torch.ops import plan
+from lbm_tpu_torch.state import initial_state
+
+torch.set_num_threads(2)
+
+PINS = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH")
+
+
+@pytest.fixture
+def pins(monkeypatch):
+    """Start from no pins; set them with ``pins(NAME=value, ...)``."""
+    for name in PINS:
+        monkeypatch.delenv(name, raising=False)
+
+    def set_pins(**values):
+        for name in PINS:
+            monkeypatch.delenv(name, raising=False)
+        for name, value in values.items():
+            monkeypatch.setenv(name, value)
+
+    return set_pins
+
+
+def _kinds(parts):
+    return [(s.kernel, s.steps_per_call, s.steps) for s in parts]
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"LBM_RESIDENT": "1"}, {"LBM_RESIDENT": "0"},
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "1"},
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
+    {"LBM_RESIDENT": "1", "LBM_RESIDENT_STEPS": "6"},
+], ids=["auto", "resident", "no-resident", "step-only", "depth-8",
+        "resident-pinned-6"])
+@pytest.mark.parametrize("ny,nx", [(64, 64), (1024, 1024), (1024, 16384)])
+def test_segments_cover_the_run_and_divide_their_calls(pins, env, ny, nx):
+    pins(**env)
+    for iters in [*range(1, 230), 1099, 2002, 20000, 20001, 40000, 39999]:
+        parts = plan.segments(ny, nx, iters)
+        assert sum(s.steps for s in parts) == iters
+        for s in parts:
+            assert s.steps > 0 and s.steps % s.steps_per_call == 0
+            assert s.kernel in ("step", "depth", "resident")
+        # The one-step kernel runs at most one tail step.
+        assert sum(s.steps for s in parts if s.kernel == "step") <= 1 or \
+            env.get("LBM_PALLAS_DEPTH") == "1"
+
+
+def test_official_lengths_plan_as_one_segment(pins):
+    for ny, nx in [(1024, 1024), (1024, 16384), (128, 131072), (128, 128)]:
+        for iters in (20000, 40000, 2000):
+            assert len(plan.segments(ny, nx, iters)) == 1
+
+
+def test_odd_length_plans_a_main_segment_and_a_short_tail(pins):
+    main, tail = plan.segments(1024, 1024, 20001)
+    assert main.steps == 20000 and main.kernel != "step"
+    assert tail == plan.Segment("step", 1, 1)
+    pins(LBM_RESIDENT="1")
+    assert _kinds(plan.segments(1024, 1024, 20001)) == [
+        ("resident", 100, 20000), ("step", 1, 1)]
+
+
+def test_resident_pins(pins):
+    """Off, forced, pinned; an odd or invalid pin raises (the JAX
+    package's _pinned_steps)."""
+    big = (1024, 1024)
+    pins(LBM_RESIDENT="1")
+    assert plan.resident_prefs(*big) == plan.G_PREF
+    assert plan.select(*big, 20) == ("resident", 20)
+    assert plan.plan_iters(*big, 20) == (20, 0)
+    assert plan.plan_iters(*big, 150) == (150, 0)  # G=50 divides
+    assert plan.plan_iters(*big, 101) == (100, 1)  # resident main + tail
+    pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS="10")
+    assert plan.resident_prefs(*big) == (10,)
+    assert plan.select(*big, 20) == ("resident", 10)
+    pins(LBM_RESIDENT="0")
+    assert plan.resident_prefs(64, 64) is None
+    assert plan.select(64, 64, 20)[0] != "resident"
+    for bad, match in [("7", "even"), ("0", "positive"), ("-2", "positive"),
+                       ("ten", "not an integer")]:
+        pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS=bad)
+        with pytest.raises(ValueError, match=match):
+            plan.segments(*big, 20)
+
+
+def test_depth_pins(pins):
+    pins(LBM_RESIDENT="0", LBM_PALLAS_DEPTH="1")
+    assert plan.depth_preference(1024, 1024) == []
+    assert _kinds(plan.segments(1024, 1024, 20)) == [("step", 1, 20)]
+    pins(LBM_RESIDENT="0", LBM_PALLAS_DEPTH="4")
+    assert plan.depth_preference(1024, 1024) == [4, 2]
+    assert _kinds(plan.segments(1024, 1024, 20000)) == [("depth", 4, 20000)]
+    assert _kinds(plan.segments(1024, 1024, 22)) == [
+        ("depth", 4, 20), ("depth", 2, 2)]
+    pins(LBM_RESIDENT="0", LBM_PALLAS_DEPTH="16")
+    assert plan.depth_preference(1024, 1024) == [8, 4, 2]
+    assert _kinds(plan.segments(1024, 1024, 21)) == [
+        ("depth", 8, 16), ("depth", 4, 4), ("step", 1, 1)]
+
+
+def test_automatic_choice_is_resident_small_and_depth_large(pins):
+    small = int(plan.RESIDENT_AUTO_MAX_CELLS ** 0.5)
+    assert plan.resident_prefs(small, small) == plan.G_PREF
+    assert plan.resident_prefs(small, small + 1) is None
+    assert plan.segments(small, small, 20000)[0].kernel == "resident"
+    assert plan.segments(1024, 16384, 20000)[0].kernel == "depth"
+
+
+def test_recursive_tails(pins):
+    """As lbm_tpu.runner._segments: 1099 steps with the resident kernel
+    forced is 1000 at G=100 and 96 at G=32 (lbm_tpu then runs 3 single
+    steps; here 2 at D=2 and 1 single step); 2002 is 2000 at G=100 and
+    a 2-step tail, never 1001 launches at G=2."""
+    pins(LBM_RESIDENT="1", LBM_PALLAS_DEPTH="4")
+    assert _kinds(plan.segments(64, 64, 1099)) == [
+        ("resident", 100, 1000), ("resident", 32, 96), ("depth", 2, 2),
+        ("step", 1, 1)]
+    segs = plan.segments(64, 64, 2002)
+    assert [s.steps for s in segs] == [2000, 2]
+    assert segs[0].steps_per_call == 100 and segs[1].kernel != "resident"
+    assert plan.describe(segs) == "resident G=100 x20, depth D=2 x1"
+    with pytest.raises(ValueError, match="positive"):
+        plan.segments(64, 64, 0)
+
+
+def _scene(iters):
+    p = Params(nx=48, ny=40, max_iters=iters, reynolds_dim=10,
+               density=0.1, accel=0.005, omega=1.85)
+    mask = generate_obstacles(p.nx, p.ny)
+    mask[:, p.nx // 3] = True
+    return p, torch.from_numpy(mask)
+
+
+def test_planned_cpu_run_equals_the_unplanned_run(pins):
+    """37 steps as resident 32 (G=16 x2), depth 4 and 1 single step: all
+    three wrappers, each writing its slice of av_vels, bit for bit the
+    plain one-step loop."""
+    pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS="16", LBM_PALLAS_DEPTH="4")
+    p, mask = _scene(37)
+    sim = trunner._Simulation(p, initial_state(p), mask, "cuda", 37)
+    assert _kinds(sim.segments) == [
+        ("resident", 16, 32), ("depth", 4, 4), ("step", 1, 1)]
+    base = trunner._Simulation(p, initial_state(p), mask, "reference", 37)
+    assert _kinds(base.segments) == [("reference", 1, 37)]
+    sim.av_vels.fill_(-1.0)
+    sim.run()
+    base.run()
+    assert torch.equal(sim.cells, base.cells)
+    assert torch.equal(sim.av_vels, base.av_vels)
+    assert (sim.av_vels > 0).all()
+
+
+def test_plan_run_for_each_kernel(pins):
+    p, _ = _scene(20000)
+    assert trunner.plan_run(p, "reference", 20000) == [
+        plan.Segment("reference", 1, 20000)]
+    pins(LBM_RESIDENT="1")
+    assert plan.describe(trunner.plan_run(p, "cuda", 20001)) == \
+        "resident G=100 x200, step x1"
+    assert np.isclose(sum(s.steps for s in trunner.plan_run(p, "cuda", 7)), 7)
