@@ -36,11 +36,32 @@ printing JSON lines (any failure raises and exits non-zero):
              256x256, 512x512, 1024x1024 and 16384x1024 with CUDA
              events, as the runner drives them and as device time alone
              (the numbers the planner's automatic choice is set from);
-             the plain version at 1024x1024.
+             the plain version at 1024x1024;
+7. shard_kernel - the row-sharded path's kernels, one call on every
+             shard against the plain shard step (halo.ReferenceShardImpl)
+             on the same inputs: the one-step kernel's seam mode, the
+             depth kernel's seam mode at each D every shard can hold, and
+             the ring kernel at G = 16, at 1024x1024 (scene mask),
+             16384x1024 and a walled 1024x1022 (wall pad 2) over 4 shards
+             on one card, a wall-less 100x130 over 4 (wrap pad 2, one-step
+             only) and 16x16 over 8 (the forced row on a shard edge);
+8. shard_scene - the 1024x1024 scene through run_simulation(mesh=) over
+             4 shards on one card, once per plan (auto: seam depth D=4;
+             ring: LBM_SHARD_RESIDENT=1; step: LBM_PALLAS_DEPTH=1), each
+             within the drift budget, bit-identical to the unsharded auto
+             run, with the plan's launch counts; the CLI with --devices 4
+             (its clamp note on a one-card machine); then a cross_card
+             line: the auto and ring runs across min(4, cards) cards, or
+             ``"run": false`` on one card;
+9. shard_timing - per-step time of the seam kernels (D = 1, 2, 4, 8) and
+             the ring (G = 16, 100) over 4 shards on one card at 1024x1024
+             and 16384x1024, beside the unsharded best; the halo copies
+             alone; the plain shard step at 1024x1024.
 
-Then the kernels line, the nvidia-smi line, and a last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2
-before printing anything.
+Then the kernels line (every kernel with its launches on its path, error
+against its plain version, time, plain time and bound), the nvidia-smi
+line, and a last line ``{"ok": true, "device": {...}}``. Without a CUDA
+device it exits 2 before printing anything.
 """
 
 from __future__ import annotations
@@ -69,7 +90,8 @@ MODES = {
     "reference_order": {"LBM_PAIRED_EQ": "0"},
     "omega_absorbed": {"LBM_OMEGA_EQ": "1"},
 }
-PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH")
+PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+            "LBM_SHARD_RESIDENT")
 DEPTHS = (2, 4, 8)
 KERNEL_G = 16
 # Kernel-phase grids (NXxNY) and their masks: the scene's, the
@@ -310,7 +332,8 @@ def phase_kernel(torch):
 
 def expected_launches(parts):
     """Launch counts a planned run must show, per kernel."""
-    n = {"step": 0, "reduce": 0, "depth": 0, "resident": 0}
+    n = {"step": 0, "reduce": 0, "depth": 0, "resident": 0, "step_seam": 0,
+         "depth_seam": 0, "ring": 0}
     for seg in parts:
         n[seg.kernel] += seg.launches
         if seg.kernel in ("step", "depth"):
@@ -335,7 +358,7 @@ def phase_scene(torch, np):
     params.write_text(f"{nx}\n{ny}\n{ITERS}\n10\n0.1\n0.01\n1.85\n")
     write_obstacles(obs, mask)
 
-    total = {}
+    per_plan = {}
     for label, plan_env in SCENE_PLANS.items():
         with env(**plan_env):
             parts = plan.segments(ny, nx, ITERS)
@@ -355,8 +378,7 @@ def phase_scene(torch, np):
               f"{label}: launches {launches} differ from the plan's {want}")
         for seg in parts:
             check(launches[seg.kernel] > 0, f"{label}: {seg.kernel} idle")
-        for k, v in launches.items():
-            total[k] = total.get(k, 0) + v
+        per_plan[label] = launches
         check(lines[0] == "==done==", "stdout contract")
         reynolds = float(lines[1].split()[-1])
         compute = float(lines[3].split()[-2])
@@ -378,7 +400,7 @@ def phase_scene(torch, np):
         check(not d_av.failed and not d_p.failed,
               f"{label}: outside the drift budget")
         check(re_rel <= 1e-3, f"{label}: Reynolds number off")
-    return total
+    return per_plan
 
 
 def phase_stress(torch):
@@ -531,6 +553,319 @@ def phase_timing(torch):
     return {r["grid"]: r for r in results}
 
 
+# The sharded path: P shards on one card (a mesh that repeats the device),
+# or across cards where the machine has more than one.
+SHARD_G = 16
+SHARD_CASES = [("1024x1024", "scene", 4), ("16384x1024", "walls", 4),
+               ("100x130", "random", 4), ("1024x1022", "walls", 4),
+               ("16x16", "walls", 8)]
+SHARD_SCENE_PLANS = {
+    "auto": {},
+    "ring": {"LBM_SHARD_RESIDENT": "1"},
+    "step": {"LBM_PALLAS_DEPTH": "1"},
+}
+SHARD_TIMING_GRIDS = ("1024x1024", "16384x1024")
+N_SHARDS = 4
+
+
+def shard_mesh(torch, n, cards=1):
+    from lbm_tpu_torch.parallel import decomp
+
+    devices = [torch.device("cuda", i % cards) for i in range(n)]
+    return decomp.make_mesh(n, devices=devices)
+
+
+def shard_case(torch, name, kind, n, seed):
+    """The perturbed kernel-phase state of grid ``name`` over ``n``
+    shards on one card, padded as the planner pads it: ``(plan, cells,
+    mesh)``."""
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.state import initial_state
+
+    p = scene_params(name, iters=200)
+    cells, mask = random_case(torch, name, p, seed, kind, "perturbed")
+    mesh = shard_mesh(torch, n)
+    sp = halo.plan_run(p, mask.cpu().numpy(), mesh, "cuda", SHARD_G)
+    if sp.pad:
+        full = initial_state(sp.params, "cuda")
+        full[:, sp.pad:] = cells
+        cells = full
+    return sp, cells, mesh
+
+
+def plain_shard_steps(ss, n, wrap_pad=0):
+    """The plain version of every shard kernel: ``n`` plain shard steps
+    (halo.ReferenceShardImpl) on the card."""
+    from lbm_tpu_torch.parallel import halo
+
+    ref = halo.ReferenceShardImpl(ss, wrap_pad)
+    for t in range(n):
+        ref.run(t)
+
+
+def phase_shard_kernel(torch):
+    """Each shard kernel for one call on every shard against the plain
+    shard steps on the same inputs."""
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    worst = {}
+    for i, (name, kind, n) in enumerate(SHARD_CASES):
+        sp, cells, mesh = shard_case(torch, name, kind, n, seed=20 + i)
+        h = sp.decomp.local_ny
+        kinds = [("step_seam", 1)]
+        if not sp.wrap_pad:
+            kinds += [("depth_seam", d) for d in DEPTHS if d <= h]
+            kinds += [("ring", SHARD_G)]
+        res = {}
+        with env():
+            for key, size in kinds:
+                ss = halo.ShardSet(sp.params, cells, sp.obstacles, mesh, SHARD_G)
+                plain = halo.ShardSet(sp.params, cells, sp.obstacles, mesh,
+                                      SHARD_G)
+                if key == "ring":
+                    impl = resident_ring.RingShardImpl(ss, size)
+                else:
+                    impl = halo.SeamShardImpl(ss, size, sp.wrap_pad)
+                impl.run(0)
+                ss.synchronize()
+                plain_shard_steps(plain, size, sp.wrap_pad)
+                torch.cuda.synchronize()
+                got, want = ss.gather()[:, sp.pad:], plain.gather()[:, sp.pad:]
+                check(bool(torch.isfinite(got).all()), f"{key} not finite")
+                err = (got - want).abs()
+                gt, wt = ss.av_vels(1.0)[:size], plain.av_vels(1.0)[:size]
+                tot_rel = float(((gt - wt).abs() / wt.abs()).max())
+                r = {"max_abs_err": float(err.max()),
+                     "cells_ok": bool((err <= ATOL + RTOL * want.abs()).all()),
+                     "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
+                label = {"step_seam": "step", "depth_seam": f"depth D={size}",
+                         "ring": f"ring G={size}"}[key]
+                res[label] = r
+                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+                check(r["cells_ok"] and r["tot_ok"],
+                      f"{label} != plain at {name} over {n}")
+                del ss, plain, impl, got, want, err
+        emit({"phase": "shard_kernel", "grid": name, "shards": n,
+              "rows_per_shard": h, "pad": f"{sp.mode} {sp.pad}", "mask": kind,
+              **res})
+        del cells
+        torch.cuda.empty_cache()
+    return worst
+
+
+def expected_shard_launches(parts, shards, cards=1):
+    """Launch counts a planned sharded run must show, per kernel."""
+    n = dict.fromkeys(expected_launches([]), 0)
+    for seg in parts:
+        if seg.kernel == "ring":
+            n["ring"] += seg.launches * cards
+        else:
+            n[f"{seg.kernel}_seam"] += seg.launches * shards
+            n["reduce"] += seg.launches * shards
+    return n
+
+
+def phase_shard_scene(torch, np):
+    """The 1024x1024 scene over 4 shards on one card through
+    run_simulation(mesh=), once per plan; each within the drift budget and
+    bit-identical to the unsharded auto run. Then the CLI's --devices 4,
+    and the same runs across cards where there are several."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.runner import run_simulation
+
+    golden = np.load(GOLDEN)
+    nx, ny = grid(SCENE)
+    p, mask = scene_params(), scene_mask()
+    with env():
+        base = run_simulation(p, mask)
+
+    def drive(label, plan_env, mesh):
+        with env(**plan_env):
+            sp = halo.plan_run(p, mask, mesh, "auto", ITERS)
+            want = expected_shard_launches(sp.segments, mesh.size,
+                                           len(set(mesh.devices)))
+            fused.reset_launches()
+            res = run_simulation(p, mask, mesh=mesh)
+            launches = dict(fused.LAUNCHES)
+        check(launches == want,
+              f"shard {label}: launches {launches} differ from the plan's {want}")
+        _, _, _, pressure = lio.final_state_fields(p, res.cells, mask)
+        d_av = lio._diff(golden["av_vels"], res.av_vels, DRIFT_BUDGET_PCT)
+        d_p = lio._diff(golden["pressure"], pressure.ravel(), DRIFT_BUDGET_PCT)
+        same = bool(np.array_equal(res.cells, base.cells))
+        out = {"plan": label, "env": plan_env, "shards": mesh.size,
+               "devices": halo.describe_mesh(mesh),
+               "segments": plan.describe(sp.segments) + " per shard",
+               "launches": launches, "av_vels_max_pct": d_av.max_diff_pcnt,
+               "pressure_max_pct": d_p.max_diff_pcnt,
+               "drift_budget_pct": DRIFT_BUDGET_PCT,
+               "cells_bit_identical_to_unsharded_auto": same,
+               "av_vels_max_rel_err_vs_unsharded": float(np.max(
+                   np.abs(res.av_vels - base.av_vels) / np.abs(base.av_vels))),
+               "reynolds": res.reynolds,
+               "compute_s": res.timings["compute"],
+               "glups": nx * ny * ITERS / res.timings["compute"] / 1e9,
+               "timings_s": res.timings}
+        check(not d_av.failed and not d_p.failed,
+              f"shard {label}: outside the drift budget")
+        check(same, f"shard {label}: cells differ from the unsharded run")
+        return out, launches
+
+    per_plan = {}
+    for label, plan_env in SHARD_SCENE_PLANS.items():
+        out, per_plan[label] = drive(label, plan_env, shard_mesh(torch, N_SHARDS))
+        emit({"phase": "shard_scene", "grid": SCENE, **out})
+
+    params, obs = SCENE_DIR / "input_1024x1024.params", SCENE_DIR / "obstacles.dat"
+    cmd = [sys.executable, "-m", "lbm_tpu_torch", str(params), str(obs),
+           "--devices", str(N_SHARDS), "--iters", "200",
+           "--av-vels-file", str(SCENE_DIR / "av_devices.dat"),
+           "--final-state-file", str(SCENE_DIR / "fs_devices.dat")]
+    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=REPO,
+                          timeout=300)
+    notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("note:")]
+    emit({"phase": "shard_scene", "cli": " ".join(cmd[1:]),
+          "rc": proc.returncode, "stderr": proc.stderr.splitlines()[-4:],
+          "notes": notes})
+    check(proc.returncode == 0, f"CLI --devices exit {proc.returncode}")
+    cards = torch.cuda.device_count()
+    if cards == 1:
+        check(notes == [f"note: using 1 devices (1 visible)"],
+              f"CLI --devices on one card: notes {notes}")
+
+    if cards > 1:
+        k = min(N_SHARDS, cards)
+        for label in ("auto", "ring"):
+            out, _ = drive(label, SHARD_SCENE_PLANS[label],
+                           shard_mesh(torch, k, cards=k))
+            emit({"phase": "cross_card", "cards": k, "run": True, **out})
+    else:
+        emit({"phase": "cross_card", "cards": 1, "run": False})
+    return per_plan
+
+
+def _median_ms_shards(torch, ss, fn, spc, device_only, steps=200, batches=10):
+    """:func:`_median_ms` for work on the shards' streams: the events sit
+    on the current stream, every shard stream starts after the first and
+    the second waits for every shard stream."""
+    calls = max(1, steps // spc)
+    for _ in range(calls):
+        fn()
+    ss.synchronize()
+    cur = torch.cuda.current_stream()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            # ~200 ms: a call of the one-step seam path over 4 shards
+            # enqueues 28 operations, and 200 calls outlast a 50 ms sleep.
+            torch.cuda._sleep(4 * SLEEP_CYCLES)
+        a.record(cur)
+        for sh in ss.shards:
+            sh.stream.wait_event(a)
+        for _ in range(calls):
+            fn()
+        for sh in ss.shards:
+            cur.wait_event(ss.record(sh))
+        b.record(cur)
+        b.synchronize()
+        times.append(a.elapsed_time(b) / (calls * spc))
+    return statistics.median(times), min(times), max(times)
+
+
+def phase_shard_timing(torch, timing):
+    """Per-step time of each shard kernel configuration over 4 shards on
+    one card, beside the unsharded best; the halo copies alone; the plain
+    shard step at 1024x1024."""
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    results = {}
+    for name in SHARD_TIMING_GRIDS:
+        p = scene_params(name)
+        cells, mask = random_case(
+            torch, name, p, seed=98, state="perturbed",
+            mask_kind="scene" if name == SCENE else "walls")
+        mesh = shard_mesh(torch, N_SHARDS)
+        ss = halo.ShardSet(p, cells, mask.cpu().numpy(), mesh, 100)
+        with env():
+            impls = {"seam D=1": halo.SeamShardImpl(ss, 1),
+                     **{f"seam D={d}": halo.SeamShardImpl(ss, d) for d in DEPTHS},
+                     **{f"ring G={g}": resident_ring.RingShardImpl(ss, g)
+                        for g in (16, 100)}}
+        order = list(impls) + list(reversed(impls))
+        loop, dev = {}, {}
+        for table, device_only in ((loop, False), (dev, True)):
+            for label in order:
+                impl = impls[label]
+                table.setdefault(label, []).append(_median_ms_shards(
+                    torch, ss, lambda: impl.run(0), impl.steps_per_call,
+                    device_only)[0])
+        copies = {}
+        for label in ("seam D=1", "seam D=4"):
+            impl = impls[label]
+            copies[label] = _median_ms_shards(
+                torch, ss, lambda: ss.exchange(impl.halos, impl.k), 1, True)[0]
+        unsharded = timing[name]["device_ms_per_step"]
+        best = min(unsharded, key=lambda k: statistics.median(unsharded[k]))
+        out = {"phase": "shard_timing", "grid": name, "shards": N_SHARDS,
+               "devices": halo.describe_mesh(mesh),
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "halo_copy_device_ms_per_call": copies,
+               "unsharded_best": {best: statistics.median(unsharded[best])},
+               "method": "CUDA events on the current stream, every shard "
+                         "stream joined; median over 10 batches of ~200 "
+                         "steps after one warm-up batch, configurations in "
+                         "turns (forward, then reverse); device: queue "
+                         "pre-filled behind a device sleep"}
+        if name == SCENE:
+            plain = halo.ShardSet(p, cells, mask.cpu().numpy(), mesh, 100)
+            ref = halo.ReferenceShardImpl(plain)
+            out["plain_device_ms_per_step"] = _median_ms(
+                torch, lambda: ref.run(0), 1, True, steps=20)[0]
+            del plain, ref
+        emit(out)
+        results[name] = out
+        del ss, impls, cells
+        torch.cuda.empty_cache()
+    return results
+
+
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its bytes over the HBM rate and its operations over the
+# float32 rate (NVIDIA's data sheet, H100 SXM at 700 W). A step of one
+# cell moves its 9 f32 speeds in and out and its mask byte, 73 B, each
+# input read once and each output written once; a kernel that runs n
+# steps per launch moves them once per n steps. Operations per cell-step:
+# 90, counted from lbm_cell.cuh's paired association (density 8, velocity
+# 12 with two divisions, u^2 3, equilibrium 36, relaxation 27, |u| and its
+# sum 4), the forcing branch aside.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_CELL_STEP = 90
+BYTES_PER_CELL_PASS = 73
+
+
+def bound(cells, steps_per_launch, extra_bytes=0):
+    """``(ms per step, "bytes" or "operations")`` for ``cells`` cells
+    stepped ``steps_per_launch`` steps per launch."""
+    t_bytes = (BYTES_PER_CELL_PASS * cells + extra_bytes) / HBM_BYTES_PER_S \
+        / steps_per_launch
+    t_ops = OPS_PER_CELL_STEP * cells / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_entry(name, source, replaces, launches, path, err, ms, plain_ms,
+                 bnd, library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
@@ -551,31 +886,73 @@ def main() -> int:
     launches = phase_scene(torch, np)
     phase_stress(torch)
     timing = phase_timing(torch)
+    shard_worst = phase_shard_kernel(torch)
+    shard_launches = phase_shard_scene(torch, np)
+    shard_timing = phase_shard_timing(torch, timing)
     check("jax" not in sys.modules, "the port imported jax")
+    check(not any(m == "lbm_tpu" or m.startswith("lbm_tpu.")
+                  for m in sys.modules), "the port imported lbm_tpu")
+
+    # Every kernel of the card's paths launched in the run of its path.
+    runs = {"fused_step": launches["step"]["step"],
+            "reduce_tot": launches["auto"]["reduce"],
+            "fused_depth": launches["auto"]["depth"],
+            "resident": launches["resident"]["resident"],
+            "fused_step_seam": shard_launches["step"]["step_seam"],
+            "fused_depth_seam": shard_launches["auto"]["depth_seam"],
+            "ring": shard_launches["ring"]["ring"]}
+    for kname, n in runs.items():
+        check(n > 0, f"{kname} was not launched on its path")
     t = timing[SCENE]
     dev = {k: statistics.median(v) for k, v in t["device_ms_per_step"].items()}
     plain = statistics.median(t["plain_device_ms_per_step"])
+    st = shard_timing[SCENE]
+    sdev = {k: statistics.median(v) for k, v in st["device_ms_per_step"].items()}
+    splain = st["plain_device_ms_per_step"]
+    nx, ny = grid(SCENE)
+    cells = nx * ny
+    partials = (nx // 32) * (ny // 8)
+    # Halo rows in per call over 4 shards: k rows each side, 37 B a cell.
+    halo_bytes = lambda k: N_SHARDS * 2 * k * nx * 37
+    on_scene = f"{SCENE} scene"
+    sharded = f"{SCENE} scene over {N_SHARDS} shards on one card"
     emit({"kernels": [
-        {"name": "fused_step", "route": "cuda",
-         "source": "lbm_tpu_torch/csrc/fused_step.cu",
-         "replaces": "lbm_tpu/ops/pallas_fused.py:205",
-         "launches": launches["step"], "max_abs_err": worst["fused_step"],
-         "ms": dev["step"], "plain_ms": plain},
-        {"name": "reduce_tot", "route": "cuda",
-         "source": "lbm_tpu_torch/csrc/fused_step.cu",
-         "replaces": "lbm_tpu/ops/pallas_fused.py:396",
-         "launches": launches["reduce"], "max_abs_err": t["reduce_abs_err"],
-         "ms": t["reduce_device_ms"], "plain_ms": t["reduce_plain_device_ms"]},
-        {"name": "fused_depth", "route": "cuda",
-         "source": "lbm_tpu_torch/csrc/fused_depth.cu",
-         "replaces": "lbm_tpu/ops/pallas_fused.py:653",
-         "launches": launches["depth"], "max_abs_err": worst["depth"],
-         "ms": dev["depth D=4"], "plain_ms": plain},
-        {"name": "resident", "route": "cuda",
-         "source": "lbm_tpu_torch/csrc/resident.cu",
-         "replaces": "lbm_tpu/ops/pallas_resident.py:74",
-         "launches": launches["resident"], "max_abs_err": worst["resident"],
-         "ms": dev["resident G=100"], "plain_ms": plain},
+        kernel_entry("fused_step", "lbm_tpu_torch/csrc/fused_step.cu",
+                     "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step"],
+                     f"{on_scene}, one-step plan", worst["fused_step"],
+                     dev["step"], plain, bound(cells, 1)),
+        kernel_entry("reduce_tot", "lbm_tpu_torch/csrc/fused_step.cu",
+                     "lbm_tpu/ops/pallas_fused.py:396", runs["reduce_tot"],
+                     f"{on_scene}, auto", t["reduce_abs_err"],
+                     t["reduce_device_ms"], t["reduce_plain_device_ms"],
+                     (max(4 * (partials + 1) / HBM_BYTES_PER_S,
+                          partials / F32_OPS_PER_S) * 1e3,
+                      "bytes" if 4 * (partials + 1) / HBM_BYTES_PER_S
+                      >= partials / F32_OPS_PER_S else "operations"),
+                     library_ms=t["reduce_plain_device_ms"]),
+        kernel_entry("fused_depth", "lbm_tpu_torch/csrc/fused_depth.cu",
+                     "lbm_tpu/ops/pallas_fused.py:653", runs["fused_depth"],
+                     f"{on_scene}, auto (D=4)", worst["depth"],
+                     dev["depth D=4"], plain, bound(cells, 4)),
+        kernel_entry("resident", "lbm_tpu_torch/csrc/resident.cu",
+                     "lbm_tpu/ops/pallas_resident.py:74", runs["resident"],
+                     f"{on_scene}, resident plan (G=100)", worst["resident"],
+                     dev["resident G=100"], plain, bound(cells, 100)),
+        kernel_entry("fused_step_seam", "lbm_tpu_torch/csrc/fused_step.cu",
+                     "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
+                     f"{sharded}, one-step plan", shard_worst["step_seam"],
+                     sdev["seam D=1"], splain,
+                     bound(cells, 1, halo_bytes(1))),
+        kernel_entry("fused_depth_seam", "lbm_tpu_torch/csrc/fused_depth.cu",
+                     "lbm_tpu/ops/pallas_fused.py:653",
+                     runs["fused_depth_seam"], f"{sharded}, auto (D=4)",
+                     shard_worst["depth_seam"], sdev["seam D=4"], splain,
+                     bound(cells, 4, halo_bytes(4))),
+        kernel_entry("ring", "lbm_tpu_torch/csrc/ring.cu",
+                     "lbm_tpu/parallel/resident_ring.py:241", runs["ring"],
+                     f"{sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
+                     shard_worst["ring"], sdev["ring G=100"], splain,
+                     bound(cells, 100)),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

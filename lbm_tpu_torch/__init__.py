@@ -6,11 +6,15 @@ update (guarded forcing of row ny-2, pull streaming, bounce-back, BGK
 collision and the |u| reduction) runs in hand-written CUDA kernels on a
 GPU (``csrc/``: one step, D steps or G steps per launch, chosen by
 :mod:`lbm_tpu_torch.ops.plan`), and as plain PyTorch ops
-(:mod:`lbm_tpu_torch.ops.reference`) on the CPU.
+(:mod:`lbm_tpu_torch.ops.reference`) on the CPU. With a mesh
+(``run_simulation(..., mesh=)``, the CLI's ``--devices``) the rows are
+sharded over a list of devices, which may repeat one card
+(:mod:`lbm_tpu_torch.parallel`: the seam modes of the one-step and depth
+kernels, and the ring kernel).
 
-The package imports ``torch`` and never ``jax``. The numpy-only scene
-layer (params, obstacles, .dat I/O) is re-exported from ``lbm_tpu`` so
-the byte formats cannot drift between the two packages.
+The package imports ``torch``, never ``jax`` and nothing of ``lbm_tpu``:
+the numpy-only scene layer (params, obstacles, .dat I/O, the checker) is
+the port's own copy, held byte-identical to ``lbm_tpu``'s by the tests.
 """
 
 __version__ = "0.1.0"
@@ -25,6 +29,8 @@ _EXPORTS = {
     "D2Q9": "lbm_tpu_torch.state",
     "SimulationResult": "lbm_tpu_torch.runner",
     "run_simulation": "lbm_tpu_torch.runner",
+    "Mesh": "lbm_tpu_torch.parallel.decomp",
+    "make_mesh": "lbm_tpu_torch.parallel.decomp",
 }
 
 
@@ -48,5 +54,7 @@ __all__ = [
     "D2Q9",
     "SimulationResult",
     "run_simulation",
+    "Mesh",
+    "make_mesh",
     "__version__",
 ]

@@ -4,7 +4,9 @@ The stdout contract of ``python -m lbm_tpu``: ``==done==``, the Reynolds
 number and the four elapsed-time lines, then ``final_state.dat`` and
 ``av_vels.dat`` in the same byte formats. The resolved kernel and device
 go to stderr on one line, with the planned segments of a ``cuda`` run
-(for example ``resident G=100 x200``).
+(for example ``resident G=100 x200``). ``--devices N`` shards the rows
+over N CUDA devices, clamped to the visible ones as the JAX package's
+``--devices`` is (the notes go to stderr).
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from lbm_tpu_torch import io as lio
 from lbm_tpu_torch import runner
 from lbm_tpu_torch.obstacles import load_obstacles
 from lbm_tpu_torch.ops import plan
+from lbm_tpu_torch.parallel import halo
+from lbm_tpu_torch.parallel.decomp import visible_devices
 from lbm_tpu_torch.params import load_params
 
 
@@ -38,6 +42,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--device", default="cuda",
         help="torch device for the lattice (cuda, cuda:N or cpu)",
+    )
+    p.add_argument(
+        "--devices",
+        type=int,
+        default=1,
+        help="shard the lattice rows over this many devices of --device's "
+             "type (1 = unsharded; clamped to the visible devices)",
     )
     p.add_argument(
         "--final-state-file", default=lio.FINAL_STATE_FILE, help="output path"
@@ -71,15 +82,31 @@ def _main(argv: list[str] | None = None) -> int:
     params = load_params(args.paramfile, dtype=dtype)
     obstacles = load_obstacles(args.obstaclefile, params.nx, params.ny)
     device = runner._resolve_device(args.device)
-    kernel = runner._resolve_kernel(args.kernel, params, device)
-    line = f"kernel: {kernel} on {device} ({args.precision})"
-    if kernel == "cuda":
-        iters = params.max_iters if args.iters is None else args.iters
-        line += ": " + plan.describe(runner.plan_run(params, kernel, iters))
+    iters = params.max_iters if args.iters is None else args.iters
+    mesh = None
+    if args.devices > 1:
+        # Clamp to the visible devices, pad or demote to a divisor: the
+        # policy lives in halo.resolve_mesh, as in the JAX package.
+        mesh, notes = halo.resolve_mesh(
+            params, obstacles, args.devices, args.kernel,
+            devices=visible_devices(device.type))
+        for note in notes:
+            print(note, file=sys.stderr)
+    if mesh is not None:
+        sp = halo.plan_run(params, obstacles, mesh, args.kernel, iters)
+        kernel = args.kernel
+        line = (f"kernel: {sp.kernel} on {mesh.device_type} "
+                f"({args.precision}): {halo.describe(sp, mesh)}")
+    else:
+        kernel = runner._resolve_kernel(args.kernel, params, device)
+        line = f"kernel: {kernel} on {device} ({args.precision})"
+        if kernel == "cuda":
+            line += ": " + plan.describe(runner.plan_run(params, kernel, iters))
     print(line, file=sys.stderr)
 
     result = runner.run_simulation(
-        params, obstacles, kernel=kernel, n_iters=args.iters, device=device
+        params, obstacles, kernel=kernel, n_iters=args.iters, device=device,
+        mesh=mesh,
     )
 
     t = result.timings

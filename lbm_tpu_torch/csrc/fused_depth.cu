@@ -30,6 +30,11 @@
 // - Each stage's owned, in-grid |u| is reduced by a fixed shared-memory
 //   tree into partials[s][block]; lbm_reduce_tot (fused_step.cu) then sums
 //   each stage's row of partials in a fixed order. No float atomics.
+// - Seam mode (a shard of a row-sharded lattice, the twin of
+//   _kernel_fused(seam=True)): the lattice is the shard's h rows, and the
+//   window rows outside them load from D-row halo buffers that the caller
+//   filled from the neighbouring shards. Forcing is by global row index at
+//   every stage. Tiles in the shard's interior are unchanged.
 // - Tile shapes keep both shared buffers near 92-110 KB, so two blocks fit
 //   an SM (227 KB), each of 512 threads (40 registers): 9-13 % faster per
 //   step than 256 threads on the H100 (PERF.md).
@@ -67,13 +72,24 @@ struct Window {
         2 * 9 * (size_t)C * sizeof(float) + (size_t)C + (size_t)H;
 };
 
-template <int D>
+// Halo inputs of the seam mode: k >= D rows on each side of a shard
+// ((9, k, nx) speeds, (k, nx) obstacle rows), raw, as lbm_seam.cuh
+// describes; the shard's first row has global index row0 of ny_global.
+struct Halo {
+    const float* s;
+    const float* n;
+    const uint8_t* mask_s;
+    const uint8_t* mask_n;
+    int k, row0, ny_global;
+};
+
+template <int D, bool kSeam>
 __global__ void __launch_bounds__(kThreads)
 fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
                    const uint8_t* __restrict__ mask,
                    float* __restrict__ partials, int ny, int nx,
                    int accel_row, float w1, float w2, float omega,
-                   int mode) {
+                   int mode, Halo halo) {
     constexpr int TX = Tile<D>::X, TY = Tile<D>::Y;
     constexpr int WW = Window<D>::W, WH = Window<D>::H, WC = Window<D>::C;
     extern __shared__ float smem[];
@@ -93,13 +109,29 @@ fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
 
     for (int idx = tid; idx < WC; idx += kThreads) {
         const int r = idx / WW, c = idx - r * WW;
-        const size_t o = (size_t)wrap(y0 + r, ny) * nx + wrap(x0 + c, nx);
+        const int x = wrap(x0 + c, nx), y = y0 + r;
+        if (!kSeam || (y >= 0 && y < ny)) {
+            const size_t o = (size_t)wrap(y, ny) * nx + x;
 #pragma unroll
-        for (int k = 0; k < 9; ++k) buf_a[k * WC + idx] = src[k * plane + o];
-        wmask[idx] = mask[o];
+            for (int k = 0; k < 9; ++k) buf_a[k * WC + idx] = src[k * plane + o];
+            wmask[idx] = mask[o];
+        } else {
+            // Out-of-shard rows come from the halos. Rows past the north
+            // halo (a ragged last tile) feed no owned cell within D
+            // stages; they repeat its last row.
+            const bool south = y < 0;
+            const int hr = south ? halo.k + y : min(y - ny, halo.k - 1);
+            const size_t o = (size_t)hr * nx + x, hplane = (size_t)halo.k * nx;
+            const float* hs = south ? halo.s : halo.n;
+#pragma unroll
+            for (int k = 0; k < 9; ++k) buf_a[k * WC + idx] = hs[k * hplane + o];
+            wmask[idx] = (south ? halo.mask_s : halo.mask_n)[o];
+        }
     }
+    // Forced rows by global index: row0 = 0 and ny_global = ny when
+    // periodic.
     for (int r = tid; r < WH; r += kThreads) {
-        frow[r] = wrap(y0 + r, ny) == accel_row;
+        frow[r] = wrap(halo.row0 + y0 + r, halo.ny_global) == accel_row;
     }
     __syncthreads();
 
@@ -160,25 +192,53 @@ dim3 depth_grid(int depth, int ny, int nx) {
     return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty);
 }
 
-template <int D>
+template <int D, bool kSeam>
 cudaError_t launch(const float* src, float* dst, const uint8_t* mask,
                    float* partials, int ny, int nx, int accel_row, float w1,
-                   float w2, float omega, int mode, int device,
-                   cudaStream_t stream) {
+                   float w2, float omega, int mode, const Halo& halo,
+                   int device, cudaStream_t stream) {
     // Above 48 KB, dynamic shared memory needs an opt-in, once per device.
     static bool opted_in[kMaxDevices] = {};
     const size_t bytes = Window<D>::kBytes;
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
     if (!opted_in[device]) {
         cudaError_t err = cudaFuncSetAttribute(
-            fused_depth_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            (int)bytes);
+            fused_depth_kernel<D, kSeam>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
         if (err != cudaSuccess) return err;
         opted_in[device] = true;
     }
-    fused_depth_kernel<D><<<depth_grid(D, ny, nx), kThreads, bytes, stream>>>(
-        src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode);
+    fused_depth_kernel<D, kSeam>
+        <<<depth_grid(D, ny, nx), kThreads, bytes, stream>>>(
+            src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode,
+            halo);
     return cudaGetLastError();
+}
+
+template <bool kSeam>
+int launch_depth(const float* src, float* dst, const uint8_t* mask,
+                 float* partials, int ny, int nx, int accel_row, float w1,
+                 float w2, float omega, int mode, int depth, const Halo& halo,
+                 int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = (cudaStream_t)stream;
+    switch (depth) {
+        case 2:
+            return (int)launch<2, kSeam>(src, dst, mask, partials, ny, nx,
+                                         accel_row, w1, w2, omega, mode, halo,
+                                         device, s);
+        case 4:
+            return (int)launch<4, kSeam>(src, dst, mask, partials, ny, nx,
+                                         accel_row, w1, w2, omega, mode, halo,
+                                         device, s);
+        case 8:
+            return (int)launch<8, kSeam>(src, dst, mask, partials, ny, nx,
+                                         accel_row, w1, w2, omega, mode, halo,
+                                         device, s);
+        default:
+            return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -206,22 +266,27 @@ int lbm_fused_depth(const float* src, float* dst, const uint8_t* mask,
                     float* partials, int ny, int nx, int accel_row,
                     float w1, float w2, float omega, int mode, int depth,
                     int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (depth) {
-        case 2:
-            return (int)launch<2>(src, dst, mask, partials, ny, nx,
-                                  accel_row, w1, w2, omega, mode, device, s);
-        case 4:
-            return (int)launch<4>(src, dst, mask, partials, ny, nx,
-                                  accel_row, w1, w2, omega, mode, device, s);
-        case 8:
-            return (int)launch<8>(src, dst, mask, partials, ny, nx,
-                                  accel_row, w1, w2, omega, mode, device, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    const Halo periodic{nullptr, nullptr, nullptr, nullptr, 0, 0, ny};
+    return launch_depth<false>(src, dst, mask, partials, ny, nx, accel_row,
+                               w1, w2, omega, mode, depth, periodic, device,
+                               stream);
+}
+
+// Seam mode: dst = depth steps of a shard's h rows src, out-of-shard rows
+// from the k-row halos (k >= depth) halo_s / halo_n and their mask rows;
+// row0 is the global index of the shard's first row and ny_global the
+// global (padded) row count. partials as lbm_fused_depth with ny = h.
+int lbm_fused_depth_seam(const float* src, float* dst, const uint8_t* mask,
+                         const float* halo_s, const float* halo_n,
+                         const uint8_t* hmask_s, const uint8_t* hmask_n,
+                         int k, float* partials, int h, int nx, int row0,
+                         int ny_global, float w1, float w2, float omega,
+                         int mode, int depth, int device, void* stream) {
+    if (k < depth || h < 1 || ny_global < h) return (int)cudaErrorInvalidValue;
+    const Halo halo{halo_s, halo_n, hmask_s, hmask_n, k, row0, ny_global};
+    return launch_depth<true>(src, dst, mask, partials, h, nx,
+                              (ny_global - 2) % ny_global, w1, w2, omega,
+                              mode, depth, halo, device, stream);
 }
 
 }  // extern "C"

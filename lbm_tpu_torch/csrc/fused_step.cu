@@ -27,6 +27,11 @@
 //   in a fixed order, one block per row of partials (one row here, one per
 //   stage for fused_depth.cu), and writes scale * sum to the device.
 //   No float atomics, so repeated runs are bit-identical.
+// - Seam mode (fused_step_seam_kernel, the twin of _kernel(seam=True,
+//   dynamic_accel=True) on a shard of a row-sharded lattice): rows j-1 of
+//   the first row and j+1 of the last come from halo buffers the caller
+//   filled from the neighbouring shards (lbm_seam.cuh), and the forced row
+//   is found by global row index.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/fused.py. Every
 // entry point launches on the caller's stream, allocates nothing and
@@ -36,6 +41,7 @@
 #include <stdint.h>
 
 #include "lbm_cell.cuh"
+#include "lbm_seam.cuh"
 
 namespace {
 
@@ -76,6 +82,34 @@ fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
         for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = out[k];
     }
 
+    red[tid] = umag;
+    lbm_tree_sum<kThreads>(red, tid);
+    if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
+}
+
+// Seam mode: one step of a shard's h rows, row -1 and row h from the halo
+// buffers (lbm_seam.cuh) instead of a periodic wrap, forcing by the global
+// rule. The same grid, cell code and partials as the periodic kernel. The
+// twin of _kernel(seam=True, dynamic_accel=True): JAX's i8 accel mask and
+// ACC_CH channel are replaced by the global-row rule.
+__global__ void __launch_bounds__(kThreads)
+fused_step_seam_kernel(SeamView v, float* __restrict__ dst,
+                       float* __restrict__ partials, int row0, int ny_global,
+                       int accel_row, float w1, float w2, float omega,
+                       int mode) {
+    __shared__ float red[kThreads];
+    const int i = blockIdx.x * kBX + threadIdx.x;
+    const int j = blockIdx.y * kBY + threadIdx.y;
+    const int tid = threadIdx.y * kBX + threadIdx.x;
+    float umag = 0.0f;
+    if (i < v.nx && j < v.h) {
+        float out[9];
+        umag = lbm_seam_cell(v, j, i, row0, ny_global, accel_row, w1, w2,
+                             omega, mode, out);
+        const size_t plane = (size_t)v.h * v.nx, o = (size_t)j * v.nx + i;
+#pragma unroll
+        for (int k = 0; k < 9; ++k) dst[k * plane + o] = out[k];
+    }
     red[tid] = umag;
     lbm_tree_sum<kThreads>(red, tid);
     if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
@@ -127,6 +161,27 @@ int lbm_fused_step(const float* src, float* dst, const uint8_t* mask,
     fused_step_kernel<<<step_grid(ny, nx), dim3(kBX, kBY), 0,
                         (cudaStream_t)stream>>>(
         src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode);
+    return (int)cudaGetLastError();
+}
+
+// Seam mode: dst = one step of a shard's h rows src, with k-row halos
+// halo_s / halo_n ((9, k, nx)) and their mask rows; row0 is the global
+// index of the shard's first row and ny_global the global (padded) row
+// count. partials as lbm_fused_step (lbm_num_partials(h, nx) of them).
+int lbm_fused_step_seam(const float* src, float* dst, const uint8_t* mask,
+                        const float* halo_s, const float* halo_n,
+                        const uint8_t* hmask_s, const uint8_t* hmask_n, int k,
+                        float* partials, int h, int nx, int row0,
+                        int ny_global, float w1, float w2, float omega,
+                        int mode, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    if (k < 1 || h < 1 || ny_global < h) return (int)cudaErrorInvalidValue;
+    const SeamView v{src, mask, halo_s, halo_n, hmask_s, hmask_n, h, nx, k};
+    fused_step_seam_kernel<<<step_grid(h, nx), dim3(kBX, kBY), 0,
+                             (cudaStream_t)stream>>>(
+        v, dst, partials, row0, ny_global, (ny_global - 2) % ny_global, w1,
+        w2, omega, mode);
     return (int)cudaGetLastError();
 }
 

@@ -19,11 +19,13 @@ from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.state import D2Q9
 
 # Launch counts of every kernel of the package, one per kernel: the
-# one-step kernel, the tot_u reduce (launched by FusedStep and by
-# fused_depth.FusedDepth), the depth kernel and the resident kernel. Each
-# wrapper increments its kernel's count where it launches it, nowhere
-# else.
-LAUNCHES = {"step": 0, "reduce": 0, "depth": 0, "resident": 0}
+# one-step kernel, the tot_u reduce (launched by the one-step and depth
+# wrappers in both modes), the depth kernel, the resident kernel, the
+# seam modes of the one-step and depth kernels (one launch per shard) and
+# the ring kernel (one launch per card). Each wrapper increments its
+# kernel's count where it launches it, nowhere else.
+LAUNCHES = {"step": 0, "reduce": 0, "depth": 0, "resident": 0,
+            "step_seam": 0, "depth_seam": 0, "ring": 0}
 
 
 def reset_launches() -> None:
@@ -158,6 +160,82 @@ class FusedStep(LatticeKernel):
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
         self.step(a, b, out, t, scale)
+        return b, a
+
+
+class SeamKernel(LatticeKernel):
+    """What the seam-mode wrappers share: a shard's mask rows, the static
+    obstacle rows of its k-row halos, the global index ``row0`` of its
+    first row and the global (padded) row count ``ny``."""
+
+    def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
+                 ny: int):
+        super().__init__(mask, w1, w2, omega)
+        k = hmask_s.shape[0]
+        for name, m in (("hmask_s", hmask_s), ("hmask_n", hmask_n)):
+            if m.dtype != torch.bool or tuple(m.shape) != (k, mask.shape[1]) \
+                    or m.device != mask.device:
+                raise ValueError(f"{name} must be a ({k}, {mask.shape[1]}) "
+                                 f"bool tensor on {mask.device}")
+        if not 0 <= row0 <= ny - mask.shape[0]:
+            raise ValueError(f"rows {row0}..{row0 + mask.shape[0] - 1} are "
+                             f"not inside a lattice of {ny} rows")
+        self.hmask_s, self.hmask_n = hmask_s, hmask_n
+        self.k, self.row0, self.ny = k, int(row0), int(ny)
+        self.halo_shape = (D2Q9.Q, k, mask.shape[1])
+        if not self.on_cpu:
+            self._hmask_u8 = (hmask_s.to(torch.uint8).contiguous(),
+                              hmask_n.to(torch.uint8).contiguous())
+
+    def _check_halos(self, halo_s, halo_n) -> None:
+        self._check(halo_s, "halo_s", self.halo_shape)
+        self._check(halo_n, "halo_n", self.halo_shape)
+
+    def _plain(self, a, halo_s, halo_n, n: int):
+        return ref_ops.halo_multi_step(
+            a, halo_s, halo_n, self.mask, self.hmask_s, self.hmask_n,
+            self.row0, self.ny, self.w1, self.w2, self.omega, n)
+
+
+class SeamStep(SeamKernel):
+    """The one-step kernel in seam mode, bound to one shard:
+    ``run(a, b, halo_s, halo_n, out, t, scale)`` writes one step of ``a``
+    into ``b`` with row -1 from the last row of ``halo_s`` and row h from
+    the first of ``halo_n``, ``scale * tot_u`` into ``out[t]``, and
+    returns ``(b, a)``. On a CPU tensor it runs the plain version,
+    :func:`.reference.halo_multi_step`."""
+
+    def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
+                 ny: int):
+        super().__init__(mask, hmask_s, hmask_n, w1, w2, omega, row0, ny)
+        if self.on_cpu:
+            return
+        h, nx = mask.shape
+        if h > self._lib.lbm_max_rows():
+            raise ValueError(f"{h} rows exceed the kernel's limit of "
+                             f"{self._lib.lbm_max_rows()}")
+        self._partials = torch.empty(self._lib.lbm_num_partials(h, nx),
+                                     dtype=torch.float32, device=self.device)
+
+    def run(self, a, b, halo_s, halo_n, out, t: int = 0, scale=1.0):
+        self._check_call(a, b, out, t)
+        self._check_halos(halo_s, halo_n)
+        if self.on_cpu:
+            new, tots = self._plain(a, halo_s, halo_n, 1)
+            b.copy_(new)
+            out[t] = tots[0] * self._scale(scale)
+            return b, a
+        lib, h, nx = self._lib, self.shape[1], self.shape[2]
+        _build.check(lib, lib.lbm_fused_step_seam(
+            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+            halo_s.data_ptr(), halo_n.data_ptr(),
+            self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
+            self.k, self._partials.data_ptr(), h, nx, self.row0, self.ny,
+            self.w1, self.w2, self.omega, self.mode, self._index,
+            self._stream(),
+        ), "seam step launch")
+        LAUNCHES["step_seam"] += 1
+        self._reduce(self._partials, 1, out, t, scale)
         return b, a
 
 

@@ -19,7 +19,7 @@ import torch
 
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import reference as ref_ops
-from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel
+from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel, SeamKernel
 from lbm_tpu_torch.state import D2Q9
 
 # Depths the kernel is built for, and each depth's (TY, TX) output tile
@@ -68,6 +68,58 @@ class FusedDepth(LatticeKernel):
             self._stream(),
         ), f"depth-{d} launch")
         LAUNCHES["depth"] += 1
+        self._reduce(self._partials, d, out, t, scale)
+        return b, a
+
+
+class FusedDepthSeam(SeamKernel):
+    """The depth kernel in seam mode, bound to one shard: ``run(a, b,
+    halo_s, halo_n, out, t, scale)`` writes ``depth`` steps of ``a`` into
+    ``b``, the window rows outside the shard from the ``depth``-row halos,
+    and returns ``(b, a)``. On a CPU tensor it runs the plain version,
+    :func:`.reference.halo_multi_step`."""
+
+    def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
+                 ny: int, depth: int):
+        if depth not in DEPTHS:
+            raise ValueError(f"depth {depth} not in {DEPTHS}")
+        super().__init__(mask, hmask_s, hmask_n, w1, w2, omega, row0, ny)
+        if self.k < depth:
+            raise ValueError(f"depth {depth} needs halos of {depth} rows, "
+                             f"got {self.k}")
+        self.depth = self.steps_per_call = depth
+        if self.on_cpu:
+            return
+        h, nx = mask.shape
+        limit = self._lib.lbm_depth_max_rows(depth)
+        if h > limit:
+            raise ValueError(
+                f"{h} rows exceed the depth-{depth} kernel's limit of {limit}"
+            )
+        n = self._lib.lbm_depth_num_partials(depth, h, nx)
+        self._partials = torch.empty(
+            depth * n, dtype=torch.float32, device=self.device
+        )
+
+    def run(self, a, b, halo_s, halo_n, out, t: int = 0, scale=1.0):
+        self._check_call(a, b, out, t)
+        self._check_halos(halo_s, halo_n)
+        d = self.depth
+        if self.on_cpu:
+            new, tots = self._plain(a, halo_s, halo_n, d)
+            b.copy_(new)
+            out[t:t + d] = tots * self._scale(scale)
+            return b, a
+        lib, h, nx = self._lib, self.shape[1], self.shape[2]
+        _build.check(lib, lib.lbm_fused_depth_seam(
+            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+            halo_s.data_ptr(), halo_n.data_ptr(),
+            self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
+            self.k, self._partials.data_ptr(), h, nx, self.row0, self.ny,
+            self.w1, self.w2, self.omega, self.mode, d, self._index,
+            self._stream(),
+        ), f"seam depth-{d} launch")
+        LAUNCHES["depth_seam"] += 1
         self._reduce(self._partials, d, out, t, scale)
         return b, a
 

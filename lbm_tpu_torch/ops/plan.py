@@ -48,8 +48,9 @@ AUTO_DEPTHS = (4, 2)
 @dataclasses.dataclass(frozen=True)
 class Segment:
     """``steps`` steps of one kernel, ``steps_per_call`` per launch:
-    ``kernel`` is "step" (one step per launch), "depth" (D per launch)
-    or "resident" (G per launch)."""
+    ``kernel`` is "step" (one step per launch), "depth" (D per launch),
+    "resident" (G per launch), "ring" (G per launch on every shard) or
+    "reference" (the plain path)."""
 
     kernel: str
     steps_per_call: int
@@ -61,7 +62,8 @@ class Segment:
 
     def describe(self) -> str:
         size = {"depth": f" D={self.steps_per_call}",
-                "resident": f" G={self.steps_per_call}"}.get(self.kernel, "")
+                "resident": f" G={self.steps_per_call}",
+                "ring": f" G={self.steps_per_call}"}.get(self.kernel, "")
         return f"{self.kernel}{size} x{self.launches}"
 
 
@@ -131,14 +133,19 @@ def plan_iters(ny: int, nx: int, iters: int) -> tuple[int, int]:
     only its first depth: a count shorter than the first D tries the
     next, so a tail never leaves more than one step to the one-step
     kernel (the smallest D is 2)."""
-    prefs = resident_prefs(ny, nx)
-    if prefs and iters > 0:
-        if resident_gsteps(ny, nx, iters):
+    return split(iters, resident_prefs(ny, nx), depth_preference(ny, nx))
+
+
+def split(iters: int, gprefs, depths) -> tuple[int, int]:
+    """:func:`plan_iters` for given G preferences (None: no G-step
+    kernel) and depths, most preferred first."""
+    if gprefs and iters > 0:
+        if any(iters % g == 0 for g in gprefs):
             return iters, 0
-        main = iters - iters % prefs[0]
+        main = iters - iters % gprefs[0]
         if main:
-            return main, iters % prefs[0]
-    for d in depth_preference(ny, nx):
+            return main, iters % gprefs[0]
+    for d in depths:
         if iters % d == 0:
             break
         if iters > d:
@@ -151,10 +158,16 @@ def select(ny: int, nx: int, n_iters: int) -> tuple[str, int]:
     the resident kernel at the first preferred G that divides it, else
     the depth kernel at the first preferred D that divides it, else the
     one-step kernel."""
-    g = resident_gsteps(ny, nx, n_iters)
+    return choose(n_iters, resident_prefs(ny, nx), depth_preference(ny, nx))
+
+
+def choose(n_iters: int, gprefs, depths, many: str = "resident"):
+    """:func:`select` for given G preferences and depths; ``many`` names
+    the G-step kernel ("resident", or "ring" on a sharded run)."""
+    g = next((g for g in gprefs or () if n_iters % g == 0), None)
     if g:
-        return "resident", g
-    for d in depth_preference(ny, nx):
+        return many, g
+    for d in depths:
         if n_iters % d == 0:
             return "depth", d
     return "step", 1
@@ -167,18 +180,26 @@ def segments(ny: int, nx: int, iters: int) -> list[Segment]:
     at full speed with at most one step on the one-step kernel (for
     example 1099 steps with the resident kernel: 1000 at G=100, 96 at
     G=32, then 2 at D=2 and 1 single step)."""
+    return plan_segments(iters, resident_prefs(ny, nx),
+                         depth_preference(ny, nx))
+
+
+def plan_segments(iters: int, gprefs, depths,
+                  many: str = "resident") -> list[Segment]:
+    """:func:`segments` for given G preferences and depths."""
     if iters < 1:
         raise ValueError(f"iteration count must be positive, got {iters}")
     parts = []
     remaining = iters
     while remaining > 0:
-        main, tail = plan_iters(ny, nx, remaining)
+        main, tail = split(remaining, gprefs, depths)
         if not tail:
             break
-        parts.append(Segment(*select(ny, nx, main), main))
+        parts.append(Segment(*choose(main, gprefs, depths, many), main))
         remaining = tail
     if remaining > 0:
-        parts.append(Segment(*select(ny, nx, remaining), remaining))
+        parts.append(Segment(*choose(remaining, gprefs, depths, many),
+                             remaining))
     return parts
 
 

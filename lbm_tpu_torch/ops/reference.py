@@ -86,6 +86,19 @@ def accelerate_flow(cells, obstacles, w1, w2, row: int | None = None):
     return out
 
 
+def accelerate_flow_dynamic(cells, obstacles, w1, w2, local_row: int,
+                            active: bool):
+    """Forcing on the shard-local row ``local_row``, applied only when
+    ``active``: the twin of the JAX function of the same name, where only
+    the shard that owns global row ny-2 forces it (the reference's
+    rank_accelerate flag, d2q9-bgk.c:242-243,498). The index is clipped
+    into the shard as JAX clips it; an inactive call returns ``cells``."""
+    if not active:
+        return cells
+    row = min(max(int(local_row), 0), cells.shape[1] - 1)
+    return accelerate_flow(cells, obstacles, w1, w2, row)
+
+
 def _bgk_update_planes(s, obstacles, omega):
     """BGK relaxation + bounce-back on the streamed planes ``s`` (a list
     of 9 (ny, nx) tensors), in the association that
@@ -176,6 +189,68 @@ def collide_stream(cells, obstacles, omega):
         for k in range(D2Q9.Q)
     ]
     return _bgk_update(s, obstacles, omega)
+
+
+def _pull_halo(ext, h: int):
+    """The nine streamed (h, nx) planes of the rows between the first and
+    last of ``ext`` (9, h + 2, nx): speed k at row j pulls ext row
+    j + 1 - cy, column i - cx with x periodic."""
+    return [
+        torch.roll(ext[k, 1 - int(D2Q9.CY[k]):1 - int(D2Q9.CY[k]) + h],
+                   int(D2Q9.CX[k]), dims=1)
+        for k in range(D2Q9.Q)
+    ]
+
+
+def collide_stream_halo(interior, south, north, obstacles, omega):
+    """One step of a shard's rows with explicit y-halos, the twin of the
+    JAX function of the same name. ``interior``: (9, H, nx) local rows;
+    ``south``/``north``: (9, 1, nx) rows below row 0 and above row H-1
+    (the reference's jj=0 and jj=num_rows+1 halo rows,
+    d2q9-bgk.c:279-283); x stays periodic. Returns ``(new, tot_u)``."""
+    h = interior.shape[1]
+    ext = torch.cat([south, interior, north], dim=1)
+    return _bgk_update(_pull_halo(ext, h), obstacles, omega)
+
+
+def halo_multi_step(cells, halo_s, halo_n, mask, hmask_s, hmask_n,
+                    row0: int, ny: int, w1, w2, omega, n: int):
+    """``n`` steps of a shard's (9, h, nx) rows from k-row halos: the
+    plain version of the seam modes of the one-step (k = n = 1) and depth
+    (k = n = D) kernels, on the inputs those kernels take.
+
+    ``halo_s`` holds the k rows below row 0 (global rows row0-k ..
+    row0-1), ``halo_n`` the k rows above row h-1, both raw (pre-step, not
+    forced); ``hmask_s``/``hmask_n`` are their (k, nx) obstacle rows.
+    Rows are forced by the global rule: a row whose global index is
+    ``(ny - 2) mod ny`` (``ny`` the global, padded row count) is forced
+    before each step, in the halos too. Each step consumes one halo row
+    per side. Returns ``(new_cells, tots)``, tots the (n,) per-step sums
+    of fluid |u| over the shard's own rows."""
+    k, h = halo_s.shape[1], cells.shape[1]
+    if not 1 <= n <= k or halo_n.shape[1] != k:
+        raise ValueError(f"{n} steps need halos of at least {n} rows, got "
+                         f"{halo_s.shape[1]} and {halo_n.shape[1]}")
+    win = torch.cat([halo_s, cells, halo_n], dim=1)
+    wmask = torch.cat([hmask_s, mask, hmask_n], dim=0)
+    accel = (ny - 2) % ny
+    forced = [i for i in range(h + 2 * k) if (row0 - k + i) % ny == accel]
+    tots = []
+    for s in range(n):
+        # The window is rows [s, h + 2k - s) of the first one.
+        rows = [i - s for i in forced if s <= i < h + 2 * k - s]
+        if rows:
+            win = win.clone()
+            for r in rows:
+                win[:, r] = _accelerated_row(win[:, r], wmask[r], w1, w2)
+        inner = wmask[1:-1]
+        planes, umag = _bgk_update_planes(_pull_halo(win, win.shape[1] - 2),
+                                          inner, omega)
+        # The shard's own rows sit k - s - 1 rows into the new window.
+        own = slice(k - s - 1, k - s - 1 + h)
+        tots.append(torch.sum(umag[own].masked_fill(inner[own], 0.0)))
+        win, wmask = torch.stack(planes), inner
+    return win[:, k - n:k - n + h].contiguous(), torch.stack(tots)
 
 
 def fused_step(cells, obstacles, w1, w2, omega, accel_row: int | None = None):

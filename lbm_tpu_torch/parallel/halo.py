@@ -1,0 +1,508 @@
+"""The row-sharded path, the twin of :mod:`lbm_tpu.parallel.halo`: the
+padding and mesh planners, the halo exchange, the per-shard step
+implementations and the sharded simulation.
+
+One controller drives every shard, as ``jax.shard_map`` does (not MPI).
+Each shard owns its rows on its device: two lattice buffers, its mask
+rows, the static mask rows of its halos, per-step tot_u, and on a GPU its
+own CUDA stream. Per call of a seam kernel:
+
+1. every receiving shard copies its neighbours' boundary rows into its
+   halo buffers, on its own stream after an event recorded on the
+   sender's (the twin of ``exchange_halos`` / ``_halo_seams``): the south
+   neighbour's top k rows and the north neighbour's bottom k rows, with
+   periodic wrap over the shard ring (a peer copy across cards, a
+   device-to-device copy on one);
+2. each shard's kernel steps its rows from its halos, forcing by global
+   row index; there is no device-wide synchronize per step.
+
+After the run the per-shard tot_u are summed over the shards in a fixed
+order (the twin of the one ``psum`` and of the reference's single
+``MPI_Reduce``) and scaled by 1 / fluid cells; the cells are gathered on
+the first shard's device (the ``device_get`` collate).
+
+Wall-less non-divisor runs pad the lattice with ``p`` obstacle rows inside
+shard 0 (the 'wrap' modes): shard 0 sends its row ``p`` north instead of
+row 0, and the south halo it receives refreshes pad row ``p - 1`` every
+step, so the wrap closes over the real lattice, bit-exact.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+
+import numpy as np
+import torch
+
+from lbm_tpu_torch.obstacles import num_non_obstacles_r
+from lbm_tpu_torch.ops import fused, fused_depth, plan
+from lbm_tpu_torch.ops import reference as ref_ops
+from lbm_tpu_torch.params import Params
+from lbm_tpu_torch.parallel import resident_ring
+from lbm_tpu_torch.parallel.decomp import (
+    Mesh, RowDecomposition, largest_divisor_leq, make_mesh, visible_devices,
+)
+from lbm_tpu_torch.state import D2Q9
+
+
+# --------------------------------------------------------------------------
+# Planners: pure Python over Params, the mask and the mesh size.
+# --------------------------------------------------------------------------
+
+
+def _resolve_kernel(kernel: str, params: Params, mesh: Mesh) -> str:
+    """``auto`` is ``cuda`` for float32 on CUDA devices, ``reference``
+    otherwise: one rule for every planner, so they never disagree."""
+    from lbm_tpu_torch.runner import KERNELS
+
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}")
+    if kernel == "auto":
+        f32_cuda = mesh.device_type == "cuda" and params.dtype == np.float32
+        return "cuda" if f32_cuda else "reference"
+    return kernel
+
+
+def resolve_shard_kernel(params: Params, mesh: Mesh, kernel: str) -> str:
+    """Resolve ``auto`` and refuse a float64 ``cuda`` request (the
+    kernels are float32-only). The TPU's per-shard 8-row alignment rule
+    is a Mosaic constraint and has no counterpart here."""
+    kernel = _resolve_kernel(kernel, params, mesh)
+    if kernel == "cuda" and params.dtype != np.float32:
+        raise ValueError("the cuda kernel is float32-only; use "
+                         "kernel='reference' with float64")
+    return kernel
+
+
+def plan_row_padding(params: Params, obstacles, mesh: Mesh,
+                     kernel: str) -> int:
+    """Rows of all-obstacle padding that make ny divide the mesh: the
+    equal-shard answer to the reference's uneven ``allocate_rows``
+    (d2q9-bgk.c:483-492). Exact behind full bounce-back wall rows at both
+    y boundaries: rows behind a wall never feed the interior. The pad
+    goes below row 0, so the forced row stays ny-2. Raises when padding
+    is needed but a boundary row has fluid cells; 0 when ny divides."""
+    n = mesh.size
+    ny = params.ny
+    ny_pad = -(-ny // n) * n
+    if ny_pad == ny:
+        return 0
+    obs = np.asarray(obstacles, dtype=bool)
+    if not (obs[0, :].all() and obs[-1, :].all()):
+        raise ValueError(
+            f"ny={ny} does not divide over {n} devices and the obstacle "
+            "mask has no full wall rows at both y boundaries, so "
+            "obstacle-row padding would change the physics; use a "
+            "divisor device count"
+        )
+    return ny_pad - ny
+
+
+def _wrap_fits(ny: int, n: int, unit: int):
+    """Smallest wrap pad to a multiple of ``unit`` rows that fits inside
+    shard 0 (pad <= local_ny - 1), or None."""
+    pad = -(-ny // unit) * unit - ny
+    local = (ny + pad) // n
+    return pad if 1 <= pad <= local - 1 else None
+
+
+def plan_padding_mode(params: Params, obstacles, mesh: Mesh, kernel: str):
+    """``('none'|'wall'|'wrap'|'wrap_ref', pad)``, as the JAX package
+    plans it off the TPU: 'none' when ny divides the mesh; 'wall' behind
+    full wall rows (:func:`plan_row_padding`); for a wall-less mask the
+    wrap discipline on the seam kernel ('wrap', kernel ``cuda``) or on
+    the plain shard step ('wrap_ref'). Raises when even the wrap pad does
+    not fit inside shard 0 (:func:`resolve_mesh` then takes a divisor)."""
+    n = mesh.size
+    k = _resolve_kernel(kernel, params, mesh)
+    try:
+        pad = plan_row_padding(params, obstacles, mesh, kernel)
+        return ("wall", pad) if pad else ("none", 0)
+    except ValueError:
+        pad = _wrap_fits(params.ny, n, n)
+        if pad is None:
+            raise
+        return ("wrap" if k == "cuda" else "wrap_ref"), pad
+
+
+def resolve_mesh(params: Params, obstacles, n_devices: int, kernel: str,
+                 devices=None):
+    """The CLI's device policy: clamp ``n_devices`` to ``devices``
+    (default: the visible CUDA devices), keep every device through
+    padding where :func:`plan_padding_mode` can, else demote to the
+    largest divisor of ny. Returns ``(mesh_or_None, notes)`` with the
+    JAX package's notes, word for word."""
+    if devices is None:
+        devices = visible_devices("cuda")
+    notes = []
+    visible = len(devices)
+    usable = min(n_devices, visible)
+    if usable != n_devices:
+        notes.append(f"note: using {usable} devices ({visible} visible)")
+    if usable <= 1:
+        return None, notes
+    mesh = make_mesh(usable, devices=devices)
+    try:
+        # The seam kernel takes any wrap pad that fits inside shard 0, so
+        # the JAX package's note on a demotion to the portable wrap has
+        # no case here.
+        plan_padding_mode(params, obstacles, mesh, kernel)
+    except ValueError:
+        fallback = largest_divisor_leq(params.ny, usable)
+        notes.append(
+            f"note: using {fallback} devices (ny={params.ny} over "
+            f"{usable} leaves no headroom for wrap padding; "
+            "divisor fallback)"
+        )
+        mesh = make_mesh(fallback, devices=devices) if fallback > 1 else None
+    return mesh, notes
+
+
+def pad_scene(params: Params, obstacles, pad: int):
+    """``pad`` all-obstacle rows below row 0 (the forced row stays at the
+    new ny-2)."""
+    obs = np.pad(np.asarray(obstacles, dtype=bool), ((pad, 0), (0, 0)),
+                 constant_values=True)
+    return dataclasses.replace(params, ny=params.ny + pad), obs
+
+
+def plan_sharding(params: Params, mesh: Mesh) -> RowDecomposition:
+    """The row plan (physical y over the mesh). Wide grids shard rows
+    too: the JAX package's transposed x-sharding waits for the port's
+    wide-grid layout."""
+    return RowDecomposition(ny=params.ny, n_shards=mesh.size)
+
+
+def shard_segments(params: Params, decomp: RowDecomposition, kernel: str,
+                   iters: int, wrap_pad: int = 0) -> list[plan.Segment]:
+    """The run as segments, the twin of ``_shard_segments``: the ring at
+    the first preferred G (``LBM_SHARD_RESIDENT=1``), else the depth
+    kernel at a preferred D that every shard can hold (D <= local rows),
+    else the one-step kernel, all in seam mode, planned as the
+    single-device planner plans (:func:`.ops.plan.plan_segments`). The
+    wrap discipline runs the one-step kernel only (its pad-row refresh
+    lands between steps); ``reference`` runs the plain shard step. The
+    single-device resident kernel never runs under a mesh."""
+    if kernel == "reference":
+        return [plan.Segment("reference", 1, iters)]
+    if wrap_pad:
+        return [plan.Segment("step", 1, iters)]
+    h, nx = decomp.local_ny, params.nx
+    depths = [d for d in plan.depth_preference(h, nx) if d <= h]
+    return plan.plan_segments(iters, resident_ring.ring_prefs(h, nx),
+                              depths, many="ring")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """What a sharded run will do: the padded scene, the resolved kernel,
+    the pad and its mode, and the per-shard segments."""
+
+    params: Params
+    obstacles: np.ndarray
+    kernel: str
+    mode: str
+    pad: int
+    wrap_pad: int
+    decomp: RowDecomposition
+    segments: list
+
+
+def plan_run(params: Params, obstacles, mesh: Mesh, kernel: str,
+             iters: int) -> ShardPlan:
+    """The padding plan (the twin of ``lbm_tpu.runner.run_simulation``'s
+    mesh branch) and the segments, from one owner for the runner and the
+    CLI's plan line."""
+    kernel = resolve_shard_kernel(params, mesh, kernel)
+    mode, pad = plan_padding_mode(params, obstacles, mesh, kernel)
+    obstacles = np.asarray(obstacles, dtype=bool)
+    if pad:
+        params, obstacles = pad_scene(params, obstacles, pad)
+    wrap_pad = pad if mode in ("wrap", "wrap_ref") else 0
+    if mode == "wrap_ref":
+        kernel = "reference"
+    decomp = plan_sharding(params, mesh)
+    segs = shard_segments(params, decomp, kernel, iters, wrap_pad)
+    return ShardPlan(params, obstacles, kernel, mode, pad, wrap_pad, decomp,
+                     segs)
+
+
+def describe_mesh(mesh: Mesh) -> str:
+    """``cuda:0 x4`` for four shards on one card; runs of equal devices
+    are grouped."""
+    runs = []
+    for d in mesh.devices:
+        if runs and runs[-1][0] == d:
+            runs[-1][1] += 1
+        else:
+            runs.append([d, 1])
+    return ", ".join(f"{d} x{n}" if n > 1 else str(d) for d, n in runs)
+
+
+def describe(sp: ShardPlan, mesh: Mesh) -> str:
+    """The plan line's tail: shards, pad and per-shard segments."""
+    pad = f", {sp.mode} pad {sp.pad}" if sp.pad else ""
+    return (f"{mesh.size} shards of {sp.decomp.local_ny} rows "
+            f"({describe_mesh(mesh)}){pad}: "
+            f"{plan.describe(sp.segments)} per shard")
+
+
+# --------------------------------------------------------------------------
+# Shards and the halo exchange.
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Shard:
+    """One shard's state on its device: the ping-pong lattice buffers
+    (the result is in ``cells``), its mask rows, per-step tot_u (not yet
+    scaled), its stream and an event recorded on it."""
+
+    index: int
+    device: torch.device
+    row0: int
+    mask: torch.Tensor
+    cells: torch.Tensor
+    spare: torch.Tensor
+    tots: torch.Tensor
+    stream: object = None
+    event: object = None
+
+
+class ShardSet:
+    """The shards of one run: ``cells`` (9, ny, nx) and ``mask`` (ny, nx)
+    split into ``mesh.size`` row blocks, each copied to its device."""
+
+    def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
+                 iters: int):
+        decomp = RowDecomposition(ny=params.ny, n_shards=mesh.size)
+        self.params, self.mesh, self.decomp = params, mesh, decomp
+        self.h, self.nx, self.ny = decomp.local_ny, params.nx, params.ny
+        self.device_type = mesh.device_type
+        self.mask_np = np.asarray(mask, dtype=bool)
+        if tuple(cells.shape) != (D2Q9.Q, params.ny, params.nx):
+            raise ValueError(f"cells have shape {tuple(cells.shape)}, "
+                             f"expected {(D2Q9.Q, params.ny, params.nx)}")
+        self.shards = []
+        for r, dev in enumerate(mesh.devices):
+            r0 = decomp.row0(r)
+            c = cells[:, r0:r0 + self.h].to(dev, copy=True).contiguous()
+            cuda = dev.type == "cuda"
+            self.shards.append(Shard(
+                index=r, device=dev, row0=r0,
+                mask=torch.from_numpy(self.mask_np[r0:r0 + self.h].copy()).to(dev),
+                cells=c, spare=torch.empty_like(c),
+                tots=torch.zeros(iters, dtype=c.dtype, device=dev),
+                stream=torch.cuda.Stream(dev) if cuda else None,
+                event=torch.cuda.Event() if cuda else None,
+            ))
+        self.synchronize()
+
+    def on(self, sh: Shard):
+        """Work on ``sh``'s stream (nothing to switch on the CPU)."""
+        if sh.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(sh.stream)
+
+    def record(self, sh: Shard):
+        """``sh``'s event, recorded on its stream now (None on the CPU)."""
+        if sh.event is not None:
+            sh.event.record(sh.stream)
+        return sh.event
+
+    def synchronize(self) -> None:
+        for dev in dict.fromkeys(self.mesh.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def halo_masks(self, r: int, k: int, wrap_pad: int = 0):
+        """Static (k, nx) obstacle rows of shard ``r``'s south and north
+        halos, from the rows the exchange sends it."""
+        south = [(self.shards[r].row0 - k + i) % self.ny for i in range(k)]
+        north = [(self.shards[r].row0 + self.h + i) % self.ny for i in range(k)]
+        if wrap_pad and r == len(self.shards) - 1:
+            north = [wrap_pad + i for i in range(k)]
+        dev = self.shards[r].device
+        return (torch.from_numpy(self.mask_np[south]).to(dev),
+                torch.from_numpy(self.mask_np[north]).to(dev))
+
+    def exchange(self, halos, k: int, wrap_pad: int = 0) -> None:
+        """Fill each shard's (9, k, nx) halos ``halos[r] = (south,
+        north)`` from its neighbours' current cells: the south
+        neighbour's top k rows, the north neighbour's bottom k rows (row
+        ``wrap_pad`` instead of row 0 for shard 0's when wrap-padded, and
+        shard 0's received south row then refreshes its pad row
+        ``wrap_pad - 1``)."""
+        shards, n, h = self.shards, len(self.shards), self.h
+        events = [self.record(sh) for sh in shards]
+        for r, sh in enumerate(shards):
+            south, north = shards[(r - 1) % n], shards[(r + 1) % n]
+            hs, hn = halos[r]
+            lo = wrap_pad if wrap_pad and north.index == 0 else 0
+            with self.on(sh):
+                for nb in (south, north):
+                    if sh.stream is not None:
+                        sh.stream.wait_event(events[nb.index])
+                self._copy(hs, south.cells[:, h - k:], sh, south)
+                self._copy(hn, north.cells[:, lo:lo + k], sh, north)
+                if wrap_pad and r == 0:
+                    sh.cells[:, wrap_pad - 1].copy_(hs[:, k - 1])
+
+    @staticmethod
+    def _copy(dst, src, recv: Shard, send: Shard) -> None:
+        if recv.device == send.device:
+            dst.copy_(src, non_blocking=True)
+            return
+        # A peer copy syncs with the current streams of both devices:
+        # make those the two shards' streams.
+        with torch.cuda.stream(send.stream):
+            dst.copy_(src, non_blocking=True)
+
+    def gather(self) -> torch.Tensor:
+        """The (9, ny, nx) lattice on the first shard's device."""
+        dev0 = self.shards[0].device
+        return torch.cat([sh.cells.to(dev0) for sh in self.shards], dim=1)
+
+    def av_vels(self, inv_fluid) -> torch.Tensor:
+        """Per-step tot_u summed over the shards in shard order, then
+        scaled by ``inv_fluid``."""
+        dev0 = self.shards[0].device
+        acc = self.shards[0].tots
+        for sh in self.shards[1:]:
+            acc = acc + sh.tots.to(dev0)
+        return acc * float(inv_fluid)
+
+
+# --------------------------------------------------------------------------
+# Per-shard step implementations: ``run(t)`` advances every shard by
+# ``steps_per_call`` steps and writes tot_u into ``shard.tots[t:...]``.
+# --------------------------------------------------------------------------
+
+
+class ReferenceShardImpl:
+    """The plain shard step, the twin of ``_ReferenceShardImpl``: the
+    owner of row ny-2 forces it, the forced boundary rows are exchanged,
+    shard 0 refreshes its pad row under the wrap discipline, and
+    :func:`.ops.reference.collide_stream_halo` steps each shard. Runs in
+    float32 and float64, on any device; it is also the plain version of
+    every seam kernel (D of its steps for depth D, G for the ring)."""
+
+    kernel = "reference"
+    steps_per_call = 1
+
+    def __init__(self, ss: ShardSet, wrap_pad: int = 0):
+        if wrap_pad and not (len(ss.shards) > 1 and 1 <= wrap_pad <= ss.h - 1):
+            raise ValueError(
+                f"wrap_pad={wrap_pad} must fit inside shard 0 "
+                f"(local_ny={ss.h}, {len(ss.shards)} shards)")
+        self.ss, self.wrap_pad = ss, wrap_pad
+
+    def run(self, t: int) -> None:
+        ss, w = self.ss, self.wrap_pad
+        p, n, h = ss.params, len(ss.shards), ss.h
+        forced = []
+        for sh in ss.shards:
+            lr = ss.decomp.local_accel_row(sh.index)
+            forced.append(ref_ops.accelerate_flow_dynamic(
+                sh.cells, sh.mask, p.accel_w1, p.accel_w2, lr, 0 <= lr < h))
+        tops = [c[:, h - 1:] for c in forced]
+        bots = [c[:, :1] for c in forced]
+        if w:
+            bots[0] = forced[0][:, w:w + 1]
+        new = []
+        for r, sh in enumerate(ss.shards):
+            south = tops[(r - 1) % n].to(sh.device)
+            north = bots[(r + 1) % n].to(sh.device)
+            c = forced[r]
+            if w and r == 0:
+                c = c.clone()
+                c[:, w - 1:w] = south
+            cells, tot = ref_ops.collide_stream_halo(c, south, north,
+                                                     sh.mask, p.omega)
+            sh.tots[t] = tot
+            new.append(cells)
+        for sh, cells in zip(ss.shards, new):
+            sh.cells = cells
+
+
+class SeamShardImpl:
+    """A seam kernel on every shard, the twin of ``_PallasShardImpl``
+    (``depth`` 1: the one-step kernel, else the depth kernel with
+    ``depth``-row halos) and, with ``wrap_pad``, of
+    ``_WrapPallasShardImpl`` (one-step only). Each call exchanges the
+    halos, then launches one kernel per shard on its stream."""
+
+    def __init__(self, ss: ShardSet, depth: int = 1, wrap_pad: int = 0):
+        if wrap_pad and (depth != 1 or not (
+                len(ss.shards) > 1 and 1 <= wrap_pad <= ss.h - 1)):
+            raise ValueError(
+                f"wrap_pad={wrap_pad} needs the one-step kernel and must fit "
+                f"inside shard 0 (local_ny={ss.h}, {len(ss.shards)} shards)")
+        if depth > ss.h:
+            raise ValueError(f"depth {depth} exceeds the {ss.h} rows a shard")
+        self.ss, self.k, self.wrap_pad = ss, depth, wrap_pad
+        self.kernel = "step" if depth == 1 else "depth"
+        self.steps_per_call = depth
+        p, nx = ss.params, ss.nx
+        self.halos, self.kernels = [], []
+        for sh in ss.shards:
+            ms, mn = ss.halo_masks(sh.index, depth, wrap_pad)
+            args = (sh.mask, ms, mn, p.accel_w1, p.accel_w2, p.omega,
+                    sh.row0, ss.ny)
+            self.kernels.append(fused.SeamStep(*args) if depth == 1
+                                else fused_depth.FusedDepthSeam(*args, depth))
+            shape = (D2Q9.Q, depth, nx)
+            self.halos.append((
+                torch.empty(shape, dtype=sh.cells.dtype, device=sh.device),
+                torch.empty(shape, dtype=sh.cells.dtype, device=sh.device)))
+
+    def run(self, t: int) -> None:
+        ss = self.ss
+        ss.exchange(self.halos, self.k, self.wrap_pad)
+        for sh, kern, (hs, hn) in zip(ss.shards, self.kernels, self.halos):
+            with ss.on(sh):
+                sh.cells, sh.spare = kern.run(sh.cells, sh.spare, hs, hn,
+                                              sh.tots, t)
+
+
+def make_impl(seg: plan.Segment, ss: ShardSet, wrap_pad: int = 0):
+    """The step implementation of one planned segment."""
+    if seg.kernel == "reference":
+        return ReferenceShardImpl(ss, wrap_pad)
+    if seg.kernel == "ring":
+        return resident_ring.RingShardImpl(ss, seg.steps_per_call)
+    return SeamShardImpl(ss, seg.steps_per_call, wrap_pad)
+
+
+class ShardedSimulation:
+    """One sharded run, the twin of ``make_sharded_simulate``: the
+    shards, the planned segments' implementations (all built once), and
+    ``run()`` walking the segments over every shard. ``kernel`` is the
+    resolved ``reference`` or ``cuda``; ``cuda`` on CPU tensors runs each
+    wrapper's plain version (the tests' way to drive the planned path
+    without a card)."""
+
+    def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
+                 kernel: str, iters: int, wrap_pad: int = 0):
+        self.ss = ShardSet(params, cells, mask, mesh, iters)
+        self.iters = iters
+        self.segments = shard_segments(params, self.ss.decomp, kernel, iters,
+                                       wrap_pad)
+        self.inv_fluid = num_non_obstacles_r(self.ss.mask_np,
+                                             dtype=params.dtype)
+        self._impls = [(make_impl(seg, self.ss, wrap_pad), seg.steps)
+                       for seg in self.segments]
+
+    def run(self) -> None:
+        t = 0
+        for impl, n in self._impls:
+            for _ in range(n // impl.steps_per_call):
+                impl.run(t)
+                t += impl.steps_per_call
+        self.ss.synchronize()
+
+    def result(self):
+        """``(cells, av_vels)`` on the first shard's device: the gathered
+        (9, ny, nx) lattice (padded, as stepped) and the trajectory."""
+        return self.ss.gather(), self.ss.av_vels(self.inv_fluid)

@@ -1,13 +1,19 @@
-"""The simulation loop, the main-path twin of :mod:`lbm_tpu.runner`: one
-device; the run planned into segments (:mod:`.ops.plan`, the twin of
-``lbm_tpu.runner._segments``), each stepped by one of three CUDA
-kernels (one step, D steps or G steps per launch), with av_vels kept on
-the device, scaled by 1/fluid cells each step, and copied to the host
-once at the end. The plain path (``reference``, and float64) steps one
-timestep at a time.
+"""The simulation loop, the twin of :mod:`lbm_tpu.runner`.
 
-Not ported yet (ROADMAP 1.9-1.11): checkpoint/resume, chunking, the
-debug loop, tracing and sharding.
+One device: the run planned into segments (:mod:`.ops.plan`, the twin of
+``lbm_tpu.runner._segments``), each stepped by one of three CUDA kernels
+(one step, D steps or G steps per launch), with av_vels kept on the
+device, scaled by 1/fluid cells each step, and copied to the host once at
+the end. The plain path (``reference``, and float64) steps one timestep
+at a time.
+
+A mesh (``run_simulation(..., mesh=)``): the lattice's rows sharded over
+the mesh's devices, padded where ny does not divide, and stepped by
+:mod:`.parallel.halo` (the seam modes of the one-step and depth kernels,
+or the ring kernel under ``LBM_SHARD_RESIDENT=1``).
+
+Not ported yet (ROADMAP 1.9, 1.10): checkpoint/resume, chunking, the
+debug loop and tracing.
 """
 
 from __future__ import annotations
@@ -154,6 +160,7 @@ def run_simulation(
     kernel: str = "auto",
     n_iters: int | None = None,
     device="cuda",
+    mesh=None,
 ) -> SimulationResult:
     """Run the scene from the equilibrium state and return the final
     state, the trajectory, the Reynolds number and the phase times.
@@ -161,6 +168,8 @@ def run_simulation(
     ``kernel``: ``auto``, ``reference`` (plain PyTorch ops) or ``cuda``
     (the hand-written kernels, as :func:`plan_run` plans them).
     ``device``: where the state lives; a CUDA device must exist.
+    ``mesh``: a :class:`.parallel.decomp.Mesh`; when given, the rows are
+    sharded over its devices (``device`` is then unused).
     """
     timers = PhaseTimers()
     timers.start("total")
@@ -168,6 +177,8 @@ def run_simulation(
     iters = params.max_iters if n_iters is None else n_iters
     if iters <= 0:
         raise ValueError(f"iteration count must be positive, got {iters}")
+    if mesh is not None:
+        return _run_sharded(params, obstacles, kernel, iters, mesh, timers)
     dev = _resolve_device(device)
     kernel = _resolve_kernel(kernel, params, dev)
     obstacles = np.asarray(obstacles, dtype=bool)
@@ -186,6 +197,50 @@ def run_simulation(
         cells_np = sim.cells.cpu().numpy()
         av_np = sim.av_vels.cpu().numpy()
         reynolds = float(calc_reynolds(params, sim.cells, mask))
+    timers.stop("total")
+    return SimulationResult(
+        cells=cells_np,
+        av_vels=av_np,
+        reynolds=reynolds,
+        timings=dict(timers.elapsed),
+        completed_steps=iters,
+    )
+
+
+def _run_sharded(params: Params, obstacles, kernel: str, iters: int, mesh,
+                 timers: PhaseTimers) -> SimulationResult:
+    """The mesh branch of :func:`run_simulation`, the twin of
+    ``lbm_tpu.runner.run_simulation``'s: plan the padding, step the
+    shards, gather, slice the pad rows off, and take the Reynolds number
+    on the unpadded lattice. A CUDA mesh without a card, or ``cuda`` on
+    a CPU mesh, raises; nothing moves to the CPU or to fewer shards."""
+    from lbm_tpu_torch.parallel import halo
+
+    for dev in dict.fromkeys(mesh.devices):
+        _resolve_device(dev)
+    if kernel == "cuda" and mesh.device_type != "cuda":
+        raise ValueError(
+            f"the cuda kernel needs CUDA devices, got a mesh on "
+            f"{mesh.device_type}; use --kernel reference on the CPU"
+        )
+    obstacles = np.asarray(obstacles, dtype=bool)
+    sp = halo.plan_run(params, obstacles, mesh, kernel, iters)
+    dev0 = mesh.devices[0]
+    sim = halo.ShardedSimulation(sp.params, initial_state(sp.params, dev0),
+                                 sp.obstacles, mesh, sp.kernel, iters,
+                                 sp.wrap_pad)
+    timers.stop("init")
+
+    with timers.phase("compute"):
+        sim.run()  # ends in a synchronize of every device of the mesh
+
+    with timers.phase("collate"):
+        cells, av = sim.result()
+        cells = cells[:, sp.pad:]
+        cells_np = cells.cpu().numpy()
+        av_np = av.cpu().numpy()
+        mask = torch.from_numpy(obstacles.copy()).to(dev0)
+        reynolds = float(calc_reynolds(params, cells, mask))
     timers.stop("total")
     return SimulationResult(
         cells=cells_np,

@@ -149,3 +149,93 @@ def test_planned_runs_match_the_step_kernel(cuda, env, monkeypatch):
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(ag.cpu().numpy(), ak.cpu().numpy(),
                                rtol=TRAJ_RTOL)
+
+
+def _shard_case(cuda, nx, ny, n, walls=True, seed=0):
+    """A perturbed state over ``n`` shards on one card, padded as the
+    planner pads it, and a second copy for the plain version."""
+    from lbm_tpu_torch.parallel import decomp, halo
+
+    p, cells, mask = _case(nx, ny, walls, seed=seed, perturbed=True)
+    mesh = decomp.make_mesh(n, devices=[cuda] * n)
+    sp = halo.plan_run(p, mask, mesh, "cuda", 16)
+    if sp.pad:
+        pad_cells = initial_state(sp.params).numpy()
+        pad_cells[:, sp.pad:] = cells
+        cells = pad_cells
+    c = torch.from_numpy(cells).to(cuda)
+    sets = [halo.ShardSet(sp.params, c, sp.obstacles, mesh, 16)
+            for _ in range(2)]
+    return sp, sets
+
+
+def _plain_steps(ss, n, wrap_pad=0):
+    from lbm_tpu_torch.parallel import halo
+
+    ref = halo.ReferenceShardImpl(ss, wrap_pad)
+    for t in range(n):
+        ref.run(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
+                                  "ring-16"])
+@pytest.mark.parametrize("case", [(128, 128, 4, True), (64, 16, 8, True),
+                                  (100, 130, 4, False), (128, 126, 4, True)],
+                         ids=["128x128/4", "64x16/8", "100x130/4-wrap",
+                              "128x126/4-wall-pad"])
+def test_shard_kernels_match_the_plain_shard_step(cuda, kind, case,
+                                                  monkeypatch):
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    _set_mode(monkeypatch, "paired")
+    nx, ny, n, walls = case
+    sp, (ss, plain) = _shard_case(cuda, nx, ny, n, walls)
+    name, _, size = kind.partition("-")
+    steps = int(size or 1)
+    if sp.wrap_pad and name != "step":
+        pytest.skip(f"{kind} does not run under the wrap discipline")
+    if name == "depth" and steps > ss.h:
+        pytest.skip(f"{kind} does not run on {ss.h}-row shards")
+    if name == "ring":
+        impl = resident_ring.RingShardImpl(ss, steps)
+        key = "ring"
+    else:
+        impl = halo.SeamShardImpl(ss, steps, sp.wrap_pad)
+        key = "step_seam" if name == "step" else "depth_seam"
+    before = dict(fused.LAUNCHES)
+    impl.run(0)
+    ss.synchronize()
+    _plain_steps(plain, steps, sp.wrap_pad)
+    if cuda.type == "cuda":
+        launched = fused.LAUNCHES[key] - before[key]
+        assert launched == (1 if name == "ring" else n)
+    got, want = ss.gather()[:, sp.pad:], plain.gather()[:, sp.pad:]
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(ss.av_vels(1.0)[:steps].cpu().numpy(),
+                               plain.av_vels(1.0)[:steps].cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [{}, {"LBM_SHARD_RESIDENT": "1"},
+                                 {"LBM_PALLAS_DEPTH": "1"}],
+                         ids=["auto", "ring", "step"])
+def test_sharded_runs_equal_the_unsharded_kernel_run(cuda, env, monkeypatch):
+    from lbm_tpu_torch.parallel import decomp
+    from lbm_tpu_torch.runner import run_simulation
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_SHARD_RESIDENT"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(128, 128, True)
+    base = run_simulation(p, mask, n_iters=203)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    mesh = decomp.make_mesh(4, devices=[cuda] * 4)
+    a = run_simulation(p, mask, n_iters=203, mesh=mesh)
+    b = run_simulation(p, mask, n_iters=203, mesh=mesh)
+    np.testing.assert_array_equal(a.cells, base.cells)
+    np.testing.assert_array_equal(a.cells, b.cells)
+    np.testing.assert_array_equal(a.av_vels, b.av_vels)
+    np.testing.assert_allclose(a.av_vels, base.av_vels, rtol=TRAJ_RTOL)

@@ -154,8 +154,9 @@ def test_nvcc_command_targets_sm90a_and_lists_every_source(tmp_path):
     out = Path(link[link.index("-o") + 1])
     assert out.parent == Path(_build.PACKAGE_DIR).parent / "build" / "lbm_tpu_torch"
     assert out.name.endswith(".so") and out == _build.library_path()
-    # The shared header is part of the library's hash.
-    assert [h.name for h in _build.headers()] == ["lbm_cell.cuh"]
+    # The shared headers are part of the library's hash.
+    assert [h.name for h in _build.headers()] == ["lbm_cell.cuh",
+                                                  "lbm_seam.cuh"]
 
 
 def _chip_smoke():
