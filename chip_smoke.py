@@ -6,46 +6,70 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 Grids are named NXxNY, as the repository names them (``Params(nx=...,
-ny=...)``): 131072x128 is 131072 columns by 128 rows. Phases, each
+ny=...)``): 131072x128 is 131072 columns by 128 rows. A wide grid (nx >=
+2 ny, nx a multiple of 8: ``ops.plan.transposed_layout``) runs under
+``auto`` on the transposed lattice (9, nx, ny), every kernel in column
+mode, and its mesh plan shards physical x (the x-plan). Phases, each
 printing JSON lines (any failure raises and exits non-zero):
 
 1. device  - the card (nvidia-smi name and power limit), torch, CUDA;
 2. build   - nvcc builds lbm_tpu_torch/csrc/*.cu (one nvcc per source,
              in parallel) into build/lbm_tpu_torch/;
-3. kernel  - every kernel against its plain PyTorch version on the card,
-             one line per grid: the one-step kernel for one step, the
-             depth kernel for one call at D = 2, 4, 8 and the resident
-             kernel for one call at G = 16, against n steps of the plain
-             version, at 1024x1024 (scene mask), 128x128 (and an odd
-             G = 5 there), a ragged 100x130 wall-less mask, 16384x1024,
-             131072x128 (the stress scene's orientation) and 128x131072
-             (transposed); all three BGK associations at 256x256; then
-             200 steps at 1024x1024 of every kernel through the runner
-             against the one-step kernel, with bit-identical repeats;
-4. scene   - the reference's 1024x1024 scene (20000 steps) through the
+3. kernel  - every kernel in row mode against its plain PyTorch version
+             on the card, one line per grid: the one-step kernel for one
+             step, the depth kernel for one call at D = 2, 4, 8 and the
+             resident kernel for one call at G = 16, against n steps of
+             the plain version, at 1024x1024 (scene mask), 128x128 (and an
+             odd G = 5 there), a ragged 100x130 wall-less mask,
+             16384x1024, 131072x128 and 128x131072, physical layout; all
+             three BGK associations at 256x256; then 200 steps at
+             1024x1024 of every kernel through the runner against the
+             one-step kernel, with bit-identical repeats;
+4. wide_kernel - the same calls in column mode on the transposed lattice
+             at 131072x128, 16384x1024, 1024x256 and a ragged wall-less
+             264x100, and all three associations at 512x128: max abs
+             error 0 against the plain version;
+5. scene   - the reference's 1024x1024 scene (20000 steps) through the
              port's CLI, once per plan: --kernel auto, the one-step
              kernel pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=1), the
              resident kernel forced (LBM_RESIDENT=1) and a depth pinned
              (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=...). Launch counts equal
              the plan's, and each run is within the 0.3 % drift budget
              of goldens/1024x1024.final_state.f64.npz;
-5. stress  - 16384x1024 with generated walls and the scene's forcing,
-             2000 steps through the runner: every depth and the resident
-             kernel against the one-step kernel;
-6. timing  - per-step time of every kernel configuration at 128x128,
-             256x256, 512x512, 1024x1024 and 16384x1024 with CUDA
-             events, as the runner drives them and as device time alone
-             (the numbers the planner's automatic choice is set from);
-             the plain version at 1024x1024;
-7. shard_kernel - the row-sharded path's kernels, one call on every
-             shard against the plain shard step (halo.ReferenceShardImpl)
-             on the same inputs: the one-step kernel's seam mode, the
-             depth kernel's seam mode at each D every shard can hold, and
-             the ring kernel at G = 16, at 1024x1024 (scene mask),
+6. wide_gate - 131072x128 with the generator's walls and the scene's
+             forcing, 500 steps, through the CLI under auto (the plan line
+             says "transposed"), the one-step plan, the resident plan and
+             the physical layout through the runner; 1024x256 (the
+             resident kernel's size, which the rule keeps physical) through
+             the CLI. Each within the 0.3 % budget of the port's plain
+             float64 run on the card (check.py's max %-diff of av_vels and
+             final pressure), its margin printed, launch counts equal the
+             plan's;
+7. stress  - 16384x1024 (transposed under auto) with generated walls
+             and the scene's forcing, 1000 steps through the runner:
+             every depth and the resident kernel against the one-step
+             kernel;
+8. timing  - per-step time of every kernel configuration at 128x128,
+             256x256, 512x512, 1024x1024 and 16384x1024 (physical layout)
+             with CUDA events, as the runner drives them and as device time
+             alone; the plain version at 1024x1024;
+9. wide_timing - the same, in both layouts (row mode on the physical
+             lattice, column mode on the transposed one): one-step,
+             D = 2, 4, 8 and resident G=100 at 131072x128 and 16384x1024,
+             D=4 and resident G=100 at 1024x256; the plain version on the
+             transposed lattice (the numbers the layout rule and the wide
+             depth rule are set from);
+10. shard_kernel - the sharded path's kernels, one call on every shard
+             against the plain shard step (halo.ReferenceShardImpl) on
+             the same inputs: the one-step kernel's seam mode, the depth
+             kernel's seam mode at each D every shard can hold, and the
+             ring kernel at G = 16. Row plan: 1024x1024 (scene mask),
              16384x1024 and a walled 1024x1022 (wall pad 2) over 4 shards
              on one card, a wall-less 100x130 over 4 (wrap pad 2, one-step
-             only) and 16x16 over 8 (the forced row on a shard edge);
-8. shard_scene - the 1024x1024 scene through run_simulation(mesh=) over
+             only) and 16x16 over 8 (the forced row on a shard edge).
+             x-plan (column mode): 131072x128, 16384x1024 and a wall-less
+             264x100 over 4, 64x16 over 8; max abs error 0;
+11. shard_scene - the 1024x1024 scene through run_simulation(mesh=) over
              4 shards on one card, once per plan (auto: seam depth D=4;
              ring: LBM_SHARD_RESIDENT=1; step: LBM_PALLAS_DEPTH=1), each
              within the drift budget, bit-identical to the unsharded auto
@@ -53,15 +77,24 @@ printing JSON lines (any failure raises and exits non-zero):
              (its clamp note on a one-card machine); then a cross_card
              line: the auto and ring runs across min(4, cards) cards, or
              ``"run": false`` on one card;
-9. shard_timing - per-step time of the seam kernels (D = 1, 2, 4, 8) and
+12. wide_shard - 131072x128 over 4 shards on one card (the x-plan), 200
+             steps under the same three plans, each bit-identical to the
+             unsharded (transposed) auto run, with the plan's launch
+             counts;
+13. shard_timing - per-step time of the seam kernels (D = 1, 2, 4, 8) and
              the ring (G = 16, 100) over 4 shards on one card at 1024x1024
-             and 16384x1024, beside the unsharded best; the halo copies
-             alone; the plain shard step at 1024x1024.
+             and 16384x1024 (row plan), beside the unsharded best; the halo
+             copies alone; the plain shard step at 1024x1024;
+14. wide_shard_timing - over 4 shards on one card, the x-plan against
+             the row plan at 131072x128 and 16384x1024 (seam D=1, D=4,
+             ring G=100), halo copies per call; the plain shard step of
+             the x-plan at 131072x128.
 
-Then the kernels line (every kernel with its launches on its path, error
-against its plain version, time, plain time and bound), the nvidia-smi
-line, and a last line ``{"ok": true, "device": {...}}``. Without a CUDA
-device it exits 2 before printing anything.
+Then the kernels line (every kernel, row and column modes, with its
+launches on its path, error against its plain version, time, plain time
+and bound), the nvidia-smi line, and a last line ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits 2 before printing
+anything. About 8 minutes on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -99,7 +132,7 @@ KERNEL_G = 16
 KERNEL_CASES = [("1024x1024", "scene"), ("128x128", "walls"),
                 ("100x130", "random"), ("16384x1024", "walls"),
                 ("131072x128", "walls"), ("128x131072", "walls")]
-STRESS, STRESS_ITERS = "16384x1024", 2000
+STRESS, STRESS_ITERS = "16384x1024", 1000
 TRAJ_STEPS = 200
 TIMING_GRIDS = ("128x128", "256x256", "512x512", "1024x1024", "16384x1024")
 # Plans driven through the CLI on the scene; the depth pin is the depth
@@ -110,6 +143,16 @@ SCENE_PLANS = {
     "resident": {"LBM_RESIDENT": "1"},
     "depth": {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
 }
+# The wide-grid path: the JAX package's wide stress grids (131072x128 and
+# 16384x1024, BENCH_r05.json), 1024x256 (a wide grid of the resident
+# kernel's size, where the layout rule keeps the physical layout) and a
+# ragged wall-less 264x100.
+WIDE, WIDE_RESIDENT = "131072x128", "1024x256"
+WIDE_KERNEL_CASES = [(WIDE, "walls"), ("16384x1024", "walls"),
+                     (WIDE_RESIDENT, "walls"), ("264x100", "random")]
+WIDE_MODES_GRID = "512x128"
+WIDE_GATE_ITERS = 500
+WIDE_TIMING_GRIDS = (WIDE, "16384x1024", WIDE_RESIDENT)
 
 
 def grid(name: str) -> tuple[int, int]:
@@ -143,12 +186,13 @@ def env(**values):
                 os.environ[k] = v
 
 
-def scene_params(name=SCENE, iters=ITERS):
+def scene_params(name=SCENE, iters=ITERS, dtype=None):
     from lbm_tpu_torch.params import Params
 
     nx, ny = grid(name)
+    extra = {} if dtype is None else {"dtype": dtype}
     return Params(nx=nx, ny=ny, max_iters=iters, reynolds_dim=10,
-                  density=0.1, accel=0.01, omega=1.85)
+                  density=0.1, accel=0.01, omega=1.85, **extra)
 
 
 def scene_mask():
@@ -202,35 +246,48 @@ def compare(torch, got, got_tots, want, want_tots):
             "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
 
 
-def compare_kernels(torch, name, kind, p, seed, odd_g=False):
+def transposed(cells, mask):
+    """The transposed lattice and mask of a physical state: the execution
+    layout of a wide grid, for the kernels' column mode."""
+    from lbm_tpu_torch.state import transpose_state
+
+    return transpose_state(cells), mask.T.contiguous()
+
+
+def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     """Every kernel against n plain steps: the one-step kernel for one
     step of a uniform state, the many-step kernels for one call on a
-    perturbed one (same seed, same mask)."""
+    perturbed one (same seed, same mask). ``axis`` 1: on the transposed
+    lattice, the kernels and the plain version in column mode."""
     from lbm_tpu_torch.ops import fused, fused_depth, resident
     from lbm_tpu_torch.ops import reference as ref_ops
 
     cells, mask = random_case(torch, name, p, seed, kind, "uniform")
+    if axis:
+        cells, mask = transposed(cells, mask)
     args = (mask, p.accel_w1, p.accel_w2, p.omega)
     res = {}
-    got, tot = fused.fused_step(cells, *args)
-    want, want_tot = ref_ops.fused_step(cells, *args)
+    got, tot = fused.fused_step(cells, *args, axis=axis)
+    want, want_tot = ref_ops.fused_step(cells, *args, axis=axis)
     res["fused_step"] = compare(torch, got, tot[None], want, want_tot[None])
     del cells, got, want
 
-    cells, _ = random_case(torch, name, p, seed, kind, "perturbed")
+    cells, pmask = random_case(torch, name, p, seed, kind, "perturbed")
+    if axis:
+        cells = transposed(cells, pmask)[0]
     keep = {*DEPTHS, KERNEL_G} | ({5} if odd_g else set())
     plain, tots, c = {}, [], cells
     for n in range(1, max(keep) + 1):
-        c, tot = ref_ops.fused_step(c, *args)
+        c, tot = ref_ops.fused_step(c, *args, axis=axis)
         tots.append(tot)
         if n in keep:
             plain[n] = c
     tots = torch.stack(tots)
     for d in DEPTHS:
-        got, t = fused_depth.fused_depth(cells, *args, d)
+        got, t = fused_depth.fused_depth(cells, *args, d, axis=axis)
         res[f"depth D={d}"] = compare(torch, got, t, plain[d], tots[:d])
     for g in sorted(keep - set(DEPTHS)):
-        got, t = resident.resident(cells, *args, g)
+        got, t = resident.resident(cells, *args, g, axis=axis)
         res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
     return res
 
@@ -330,12 +387,47 @@ def phase_kernel(torch):
     return worst
 
 
-def expected_launches(parts):
-    """Launch counts a planned run must show, per kernel."""
-    n = {"step": 0, "reduce": 0, "depth": 0, "resident": 0, "step_seam": 0,
-         "depth_seam": 0, "ring": 0}
+def phase_wide_kernel(torch):
+    """Every kernel's column mode against its plain version on the
+    transposed lattice: max abs error 0 (``-fmad=false``)."""
+    worst = {}
+
+    def record(res, where):
+        for name, r in res.items():
+            kernel = name.split()[0]
+            worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs_err"])
+            check(r["max_abs_err"] == 0.0 and r["tot_ok"],
+                  f"column mode {name} != plain at {where}")
+
+    for i, (name, kind) in enumerate(WIDE_KERNEL_CASES):
+        p = scene_params(name, iters=200)
+        with env():
+            res = compare_kernels(torch, name, kind, p, seed=40 + i, axis=1)
+        emit({"phase": "wide_kernel", "grid": name, "layout": "transposed",
+              "mask": kind, **res})
+        record(res, name)
+        torch.cuda.empty_cache()
+
+    for i, (mode, mode_env) in enumerate(MODES.items()):
+        p = scene_params(WIDE_MODES_GRID, iters=200)
+        with env(**mode_env):
+            res = compare_kernels(torch, WIDE_MODES_GRID, "walls", p,
+                                  seed=50 + i, axis=1)
+        emit({"phase": "wide_kernel", "grid": WIDE_MODES_GRID,
+              "layout": "transposed", "mode": mode, **res})
+        record(res, f"{WIDE_MODES_GRID} {mode}")
+    return worst
+
+
+def expected_launches(parts, cols=False):
+    """Launch counts a planned run must show, per kernel (``cols``: in
+    column mode, the transposed lattice of a wide grid)."""
+    from lbm_tpu_torch.ops import fused
+
+    n = dict.fromkeys(fused.LAUNCHES, 0)
+    suffix = "_cols" if cols else ""
     for seg in parts:
-        n[seg.kernel] += seg.launches
+        n[seg.kernel + suffix] += seg.launches
         if seg.kernel in ("step", "depth"):
             n["reduce"] += seg.launches
     return n
@@ -403,10 +495,126 @@ def phase_scene(torch, np):
     return per_plan
 
 
+def drift(np, ref_av, ref_pressure, av, pressure):
+    """check.py's max %-diff of av_vels and of final pressure against a
+    reference run, the 0.3 % budget and the margin left under it."""
+    from lbm_tpu_torch import io as lio
+
+    d_av = lio._diff(ref_av, np.asarray(av), DRIFT_BUDGET_PCT)
+    d_p = lio._diff(ref_pressure, np.asarray(pressure), DRIFT_BUDGET_PCT)
+    worst = max(abs(d_av.max_diff_pcnt), abs(d_p.max_diff_pcnt))
+    return ({"av_vels_max_pct": d_av.max_diff_pcnt,
+             "pressure_max_pct": d_p.max_diff_pcnt,
+             "drift_budget_pct": DRIFT_BUDGET_PCT,
+             "margin_pct": DRIFT_BUDGET_PCT - worst},
+            not (d_av.failed or d_p.failed))
+
+
+def phase_wide_gate(torch, np):
+    """Wide grids against the port's plain float64 run on the card (the
+    reference order), WIDE_GATE_ITERS steps from rest with the
+    generator's walls and the scene's forcing: 131072x128 through the CLI
+    under auto (transposed), the one-step and resident plans and the
+    physical layout through the runner; 1024x256 through the CLI (the
+    layout rule keeps it physical). Returns the launch counts of each
+    run."""
+    from lbm_tpu_torch import cli
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.obstacles import generate_obstacles, write_obstacles
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.state import initial_state
+
+    iters = WIDE_GATE_ITERS
+    runs = {}
+    for name in (WIDE, WIDE_RESIDENT):
+        nx, ny = grid(name)
+        p = scene_params(name, iters)
+        mask = generate_obstacles(nx, ny)
+        t0 = time.perf_counter()
+        with env():
+            ref = runner.run_simulation(scene_params(name, iters, np.float64),
+                                        mask, kernel="reference")
+        ref_s = time.perf_counter() - t0
+        ref_p = lio.final_state_fields(p, ref.cells, mask)[3].ravel()
+
+        out_dir = SCENE_DIR.parent / f"wide_{name}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        params_f, obs_f = out_dir / "scene.params", out_dir / "obstacles.dat"
+        av_f, fs_f = out_dir / "av_vels.dat", out_dir / "final_state.dat"
+        params_f.write_text(f"{nx}\n{ny}\n{iters}\n10\n0.1\n0.01\n1.85\n")
+        write_obstacles(obs_f, mask)
+        with env():
+            cols = runner.plan_layout(p, "cuda")
+            parts = runner.plan_run(p, "cuda", iters)
+            want = expected_launches(parts, cols=cols)
+            fused.reset_launches()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+                rc = cli.main([str(params_f), str(obs_f), "--av-vels-file",
+                               str(av_f), "--final-state-file", str(fs_f)])
+            launches = dict(fused.LAUNCHES)
+        lines, plan_line = out.getvalue().splitlines(), err.getvalue().strip()
+        check(rc == 0, f"wide CLI exit {rc} ({name}): {plan_line}")
+        check(cols == (name == WIDE), f"{name}: layout transposed={cols}")
+        check(plan_line == "kernel: cuda on cuda (float32)"
+              + (", transposed: " if cols else ": ") + plan.describe(parts),
+              f"{name} plan line: {plan_line}")
+        check(launches == want,
+              f"{name} auto: launches {launches} differ from the plan's {want}")
+        compute = float(lines[3].split()[-2])
+        d, ok = drift(np, ref.av_vels, ref_p, lio.load_av_vels(av_f),
+                      lio.load_final_state(fs_f)[:, 2])
+        emit({"phase": "wide_gate", "grid": name, "run": "CLI, auto",
+              "plan_line": plan_line, "steps": iters, "launches": launches,
+              **d, "compute_s": compute,
+              "glups": nx * ny * iters / compute / 1e9,
+              "reference": "plain float64 on the card", "reference_s": ref_s})
+        check(ok, f"{name} auto: outside the drift budget")
+        runs[(name, "auto")] = launches
+        if name != WIDE:
+            continue
+
+        # The one-step and resident plans and the physical layout, through
+        # the runner.
+        mask_d = torch.from_numpy(mask).cuda()
+        for label, plan_env, layout in (
+                ("step", {"LBM_PALLAS_DEPTH": "1"}, None),
+                ("resident", {"LBM_RESIDENT": "1"}, None),
+                ("physical", {}, False)):
+            with env(**plan_env):
+                parts = runner.plan_run(p, "cuda", iters, layout)
+                want = expected_launches(parts, cols=layout is None)
+                fused.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                cells, av = runner.simulate(p, initial_state(p, "cuda"),
+                                            mask_d, kernel="cuda",
+                                            transposed=layout)
+                seconds = time.perf_counter() - t0
+                launches = dict(fused.LAUNCHES)
+            check(launches == want, f"{name} {label}: launches {launches} "
+                  f"differ from the plan's {want}")
+            pressure = lio.final_state_fields(p, cells.cpu().numpy(), mask)[3]
+            d, ok = drift(np, ref.av_vels, ref_p, av.cpu().numpy(),
+                          pressure.ravel())
+            emit({"phase": "wide_gate", "grid": name,
+                  "run": f"runner, {label}", "env": plan_env,
+                  "layout": "physical" if layout is False else "transposed",
+                  "segments": plan.describe(parts), "launches": launches,
+                  **d, "seconds": seconds})
+            check(ok, f"{name} {label}: outside the drift budget")
+            runs[(name, label)] = launches
+            del cells, av
+        del ref, ref_p
+        torch.cuda.empty_cache()
+    return runs
+
+
 def phase_stress(torch):
     from lbm_tpu_torch.obstacles import generate_obstacles
     from lbm_tpu_torch.ops import plan
-    from lbm_tpu_torch.runner import simulate
+    from lbm_tpu_torch.runner import plan_layout, plan_run, simulate
     from lbm_tpu_torch.state import initial_state
 
     p = scene_params(STRESS, iters=STRESS_ITERS)
@@ -419,13 +627,15 @@ def phase_stress(torch):
     base = None
     for label, plan_env in plans.items():
         with env(**plan_env):
-            parts = plan.segments(ny, nx, STRESS_ITERS)
+            parts = plan_run(p, "cuda", STRESS_ITERS)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cells, av = simulate(p, c0, mask, kernel="cuda")
             seconds = time.perf_counter() - t0
         check(bool(torch.isfinite(cells).all()), f"stress {label} not finite")
         out = {"phase": "stress", "grid": STRESS, "plan": label,
+               "layout": "transposed" if plan_layout(p, "cuda")
+               else "physical",
                "segments": plan.describe(parts), "seconds": seconds,
                "glups": nx * ny * STRESS_ITERS / seconds / 1e9}
         if base is None:
@@ -476,6 +686,31 @@ def _median_ms(torch, fn, spc, device_only, steps=200, batches=10):
     return statistics.median(times), min(times), max(times)
 
 
+def time_turns(torch, calls, steps=200):
+    """Loop and device ms per step of each ``label: (fn, steps_per_call,
+    shard_set_or_None)``, measured in turns (every configuration forward,
+    then in reverse): ``(loop, device)``, each label to its two medians."""
+    order = list(calls) + list(reversed(calls))
+    loop, dev = {}, {}
+    for table, device_only in ((loop, False), (dev, True)):
+        for label in order:
+            fn, spc, ss = calls[label]
+            if ss is None:
+                ms = _median_ms(torch, fn, spc, device_only, steps)
+            else:
+                ms = _median_ms_shards(torch, ss, fn, spc, device_only, steps)
+            table.setdefault(label, []).append(ms[0])
+    return loop, dev
+
+
+def runner_call(impl, bufs, av):
+    """One call of a lattice kernel as the runner drives it: the result
+    becomes the input."""
+    def fn():
+        bufs[:] = impl.run(bufs[0], bufs[1], av, 0, 1.0)
+    return fn
+
+
 def phase_timing(torch):
     from lbm_tpu_torch.ops import fused, fused_depth, resident
     from lbm_tpu_torch.ops import reference as ref_ops
@@ -496,22 +731,9 @@ def phase_timing(torch):
                      **{f"resident G={g}": resident.Resident(*w, g)
                         for g in (16, 100)}}
 
-        def caller(impl):
-            def fn():
-                # As the runner drives it: the result becomes the input.
-                bufs[:] = impl.run(bufs[0], bufs[1], av, 0, 1.0)
-            return fn
-
-        order = list(impls) + list(reversed(impls))
-        loop, dev = {}, {}
-        for label in order:
-            impl = impls[label]
-            loop.setdefault(label, []).append(
-                _median_ms(torch, caller(impl), impl.steps_per_call, False)[0])
-        for label in order:
-            impl = impls[label]
-            dev.setdefault(label, []).append(
-                _median_ms(torch, caller(impl), impl.steps_per_call, True)[0])
+        loop, dev = time_turns(torch, {
+            label: (runner_call(impl, bufs, av), impl.steps_per_call, None)
+            for label, impl in impls.items()})
         out = {"phase": "timing", "grid": name,
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "method": "CUDA events; median over 10 batches of ~200 steps "
@@ -553,12 +775,75 @@ def phase_timing(torch):
     return {r["grid"]: r for r in results}
 
 
+def phase_wide_timing(torch):
+    """Per-step time of each kernel configuration on the wide grids in
+    both layouts (row mode on the physical lattice, column mode on the
+    transposed one), in turns within one call; the plain version on the
+    transposed lattice."""
+    from lbm_tpu_torch.ops import fused, fused_depth, resident
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    results = {}
+    for name in WIDE_TIMING_GRIDS:
+        p = scene_params(name)
+        cells, mask = random_case(torch, name, p, seed=97, state="perturbed")
+        av = torch.zeros(100, device="cuda")  # room for G=100
+        calls = {}
+        for layout, axis in (("physical", 0), ("transposed", 1)):
+            c, m = transposed(cells, mask) if axis else (cells, mask)
+            w = (m, p.accel_w1, p.accel_w2, p.omega)
+            bufs = [c.clone(), torch.empty_like(c)]
+            with env():
+                if name == WIDE_RESIDENT:
+                    impls = {"depth D=4": fused_depth.FusedDepth(*w, 4, axis),
+                             "resident G=100": resident.Resident(*w, 100, axis)}
+                else:
+                    impls = {"step": fused.FusedStep(*w, axis),
+                             **{f"depth D={d}": fused_depth.FusedDepth(
+                                 *w, d, axis) for d in DEPTHS},
+                             "resident G=100": resident.Resident(*w, 100, axis)}
+            for label, impl in impls.items():
+                calls[f"{layout} {label}"] = (runner_call(impl, bufs, av),
+                                              impl.steps_per_call, None)
+        loop, dev = time_turns(torch, calls,
+                               steps=200 if name == WIDE_RESIDENT else 100)
+        ct, mt = transposed(cells, mask)
+
+        def plain_step():
+            new, tot = ref_ops.fused_step(ct, mt, p.accel_w1, p.accel_w2,
+                                          p.omega, axis=1)
+            av[0] = tot
+
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        out = {"phase": "wide_timing", "grid": name,
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "transposed_over_physical_device": {
+                   k.split(" ", 1)[1]: med[k] / med["physical " + k.split(" ", 1)[1]]
+                   for k in med if k.startswith("transposed ")},
+               "plain_transposed_device_ms_per_step": _median_ms(
+                   torch, plain_step, 1, True, steps=4, batches=3)[0],
+               "method": "CUDA events; median over 10 batches of 100-200 "
+                         "steps after one warm-up batch, both layouts' "
+                         "configurations in turns (forward, then reverse); "
+                         "device: queue pre-filled behind a device sleep"}
+        emit(out)
+        results[name] = out
+        del cells, mask, calls, ct, mt
+        torch.cuda.empty_cache()
+    return results
+
+
 # The sharded path: P shards on one card (a mesh that repeats the device),
 # or across cards where the machine has more than one.
 SHARD_G = 16
-SHARD_CASES = [("1024x1024", "scene", 4), ("16384x1024", "walls", 4),
-               ("100x130", "random", 4), ("1024x1022", "walls", 4),
-               ("16x16", "walls", 8)]
+# (grid, mask, shards, axis): the row plan (axis 0, the kernels in row
+# mode), then the x-plan of wide grids (axis 1, column mode).
+SHARD_CASES = [("1024x1024", "scene", 4, 0), ("16384x1024", "walls", 4, 0),
+               ("100x130", "random", 4, 0), ("1024x1022", "walls", 4, 0),
+               ("16x16", "walls", 8, 0), (WIDE, "walls", 4, 1),
+               ("16384x1024", "walls", 4, 1), ("264x100", "random", 4, 1),
+               ("64x16", "walls", 8, 1)]
+WIDE_SHARD_ITERS = 200
 SHARD_SCENE_PLANS = {
     "auto": {},
     "ring": {"LBM_SHARD_RESIDENT": "1"},
@@ -575,10 +860,16 @@ def shard_mesh(torch, n, cards=1):
     return decomp.make_mesh(n, devices=devices)
 
 
-def shard_case(torch, name, kind, n, seed):
+def shard_case(torch, name, kind, n, seed, axis=0):
     """The perturbed kernel-phase state of grid ``name`` over ``n``
-    shards on one card, padded as the planner pads it: ``(plan, cells,
-    mesh)``."""
+    shards on one card: ``(plan, cells, mesh)``. The row plan (``axis``
+    0) pads as the planner pads it. The x-plan (``axis`` 1) pads nothing;
+    the planner takes it for wide grids above the resident kernel's size
+    (``ops.plan.transposed_layout``) and it is built on request for the
+    smaller ones."""
+    import dataclasses
+
+    from lbm_tpu_torch.ops import plan
     from lbm_tpu_torch.parallel import halo
     from lbm_tpu_torch.state import initial_state
 
@@ -586,6 +877,12 @@ def shard_case(torch, name, kind, n, seed):
     cells, mask = random_case(torch, name, p, seed, kind, "perturbed")
     mesh = shard_mesh(torch, n)
     sp = halo.plan_run(p, mask.cpu().numpy(), mesh, "cuda", SHARD_G)
+    if axis:
+        check(sp.transposed == plan.transposed_layout(p.ny, p.nx),
+              f"{name}/{n}: the planner's x-plan disagrees with the rule")
+        sp = dataclasses.replace(sp, params=p, obstacles=mask.cpu().numpy(),
+                                 mode="none", pad=0, wrap_pad=0,
+                                 transposed=True)
     if sp.pad:
         full = initial_state(sp.params, "cuda")
         full[:, sp.pad:] = cells
@@ -605,13 +902,16 @@ def plain_shard_steps(ss, n, wrap_pad=0):
 
 def phase_shard_kernel(torch):
     """Each shard kernel for one call on every shard against the plain
-    shard steps on the same inputs."""
+    shard steps on the same inputs, in row mode (the row plan) and in
+    column mode (the x-plan: error 0)."""
     from lbm_tpu_torch.parallel import halo, resident_ring
 
     worst = {}
-    for i, (name, kind, n) in enumerate(SHARD_CASES):
-        sp, cells, mesh = shard_case(torch, name, kind, n, seed=20 + i)
-        h = sp.decomp.local_ny
+    for i, (name, kind, n, axis) in enumerate(SHARD_CASES):
+        sp, cells, mesh = shard_case(torch, name, kind, n, seed=20 + i,
+                                     axis=axis)
+        h = (sp.params.nx if axis else sp.params.ny) // n
+        suffix = "_cols" if axis else ""
         kinds = [("step_seam", 1)]
         if not sp.wrap_pad:
             kinds += [("depth_seam", d) for d in DEPTHS if d <= h]
@@ -619,9 +919,9 @@ def phase_shard_kernel(torch):
         res = {}
         with env():
             for key, size in kinds:
-                ss = halo.ShardSet(sp.params, cells, sp.obstacles, mesh, SHARD_G)
-                plain = halo.ShardSet(sp.params, cells, sp.obstacles, mesh,
-                                      SHARD_G)
+                ss, plain = (halo.ShardSet(sp.params, cells, sp.obstacles,
+                                           mesh, SHARD_G, axis)
+                             for _ in range(2))
                 if key == "ring":
                     impl = resident_ring.RingShardImpl(ss, size)
                 else:
@@ -641,11 +941,14 @@ def phase_shard_kernel(torch):
                 label = {"step_seam": "step", "depth_seam": f"depth D={size}",
                          "ring": f"ring G={size}"}[key]
                 res[label] = r
-                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
-                check(r["cells_ok"] and r["tot_ok"],
-                      f"{label} != plain at {name} over {n}")
+                worst[key + suffix] = max(worst.get(key + suffix, 0.0),
+                                          r["max_abs_err"])
+                check(r["cells_ok"] and r["tot_ok"]
+                      and (not axis or r["max_abs_err"] == 0.0),
+                      f"{label} != plain at {name} over {n}, axis {axis}")
                 del ss, plain, impl, got, want, err
         emit({"phase": "shard_kernel", "grid": name, "shards": n,
+              "plan": "x-plan (column mode)" if axis else "row plan",
               "rows_per_shard": h, "pad": f"{sp.mode} {sp.pad}", "mask": kind,
               **res})
         del cells
@@ -653,14 +956,16 @@ def phase_shard_kernel(torch):
     return worst
 
 
-def expected_shard_launches(parts, shards, cards=1):
-    """Launch counts a planned sharded run must show, per kernel."""
-    n = dict.fromkeys(expected_launches([]), 0)
+def expected_shard_launches(parts, shards, cards=1, cols=False):
+    """Launch counts a planned sharded run must show, per kernel (``cols``:
+    the x-plan, in column mode)."""
+    n = expected_launches([])
+    suffix = "_cols" if cols else ""
     for seg in parts:
         if seg.kernel == "ring":
-            n["ring"] += seg.launches * cards
+            n["ring" + suffix] += seg.launches * cards
         else:
-            n[f"{seg.kernel}_seam"] += seg.launches * shards
+            n[f"{seg.kernel}_seam{suffix}"] += seg.launches * shards
             n["reduce"] += seg.launches * shards
     return n
 
@@ -746,6 +1051,51 @@ def phase_shard_scene(torch, np):
     return per_plan
 
 
+def phase_wide_shard(torch, np):
+    """131072x128 over 4 shards on one card (the x-plan) through
+    run_simulation(mesh=), once per plan, each bit-identical to the
+    unsharded auto run (transposed), with the plan's launch counts."""
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.runner import run_simulation
+
+    nx, ny = grid(WIDE)
+    iters = WIDE_SHARD_ITERS
+    p, mask = scene_params(WIDE, iters), generate_obstacles(nx, ny)
+    with env():
+        base = run_simulation(p, mask)
+    per_plan = {}
+    for label, plan_env in SHARD_SCENE_PLANS.items():
+        mesh = shard_mesh(torch, N_SHARDS)
+        with env(**plan_env):
+            sp = halo.plan_run(p, mask, mesh, "auto", iters)
+            want = expected_shard_launches(sp.segments, mesh.size,
+                                           cols=sp.transposed)
+            fused.reset_launches()
+            res = run_simulation(p, mask, mesh=mesh)
+            launches = dict(fused.LAUNCHES)
+        same = bool(np.array_equal(res.cells, base.cells))
+        emit({"phase": "wide_shard", "grid": WIDE, "plan": label,
+              "env": plan_env, "shards": mesh.size,
+              "describe": halo.describe(sp, mesh), "launches": launches,
+              "cells_bit_identical_to_unsharded_auto": same,
+              "av_vels_max_rel_err_vs_unsharded": float(np.max(
+                  np.abs(res.av_vels - base.av_vels) / np.abs(base.av_vels))),
+              "compute_s": res.timings["compute"],
+              "glups": nx * ny * iters / res.timings["compute"] / 1e9})
+        check(sp.transposed, f"wide shard {label}: not the x-plan")
+        check(launches == want, f"wide shard {label}: launches {launches} "
+              f"differ from the plan's {want}")
+        check(same, f"wide shard {label}: cells differ from the unsharded run")
+        check(float(np.max(np.abs(res.av_vels - base.av_vels)
+                           / np.abs(base.av_vels))) <= TRAJ_RTOL,
+              f"wide shard {label}: av_vels off the unsharded run")
+        per_plan[label] = launches
+        del res
+    return per_plan
+
+
 def _median_ms_shards(torch, ss, fn, spc, device_only, steps=200, batches=10):
     """:func:`_median_ms` for work on the shards' streams: the events sit
     on the current stream, every shard stream starts after the first and
@@ -795,14 +1145,9 @@ def phase_shard_timing(torch, timing):
                      **{f"seam D={d}": halo.SeamShardImpl(ss, d) for d in DEPTHS},
                      **{f"ring G={g}": resident_ring.RingShardImpl(ss, g)
                         for g in (16, 100)}}
-        order = list(impls) + list(reversed(impls))
-        loop, dev = {}, {}
-        for table, device_only in ((loop, False), (dev, True)):
-            for label in order:
-                impl = impls[label]
-                table.setdefault(label, []).append(_median_ms_shards(
-                    torch, ss, lambda: impl.run(0), impl.steps_per_call,
-                    device_only)[0])
+        loop, dev = time_turns(torch, {
+            label: (lambda impl=impl: impl.run(0), impl.steps_per_call, ss)
+            for label, impl in impls.items()})
         copies = {}
         for label in ("seam D=1", "seam D=4"):
             impl = impls[label]
@@ -829,6 +1174,69 @@ def phase_shard_timing(torch, timing):
         emit(out)
         results[name] = out
         del ss, impls, cells
+        torch.cuda.empty_cache()
+    return results
+
+
+def wide_auto_depth(name, shards=1):
+    """The depth ``auto`` plans on the transposed lattice of grid ``name``
+    (over ``shards`` shards of the x-plan: rows a shard)."""
+    from lbm_tpu_torch.ops import plan
+
+    nx, ny = grid(name)
+    with env():
+        return plan.depth_preference(nx // shards, ny)[0]
+
+
+def phase_wide_shard_timing(torch):
+    """Over 4 shards on one card, the x-plan (shards of physical columns,
+    column mode) against the row plan at the wide timing grids, in turns
+    within one call: seam D=1 and D=4 and the ring at G=100, the halo
+    copies per call; the plain shard step of the x-plan at 131072x128."""
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    results = {}
+    for name in WIDE_TIMING_GRIDS[:2]:
+        p = scene_params(name)
+        cells, mask = random_case(torch, name, p, seed=96, state="perturbed")
+        mesh = shard_mesh(torch, N_SHARDS)
+        mask_np = mask.cpu().numpy()
+        calls, copies, sets = {}, {}, {}
+        for plan_name, axis in (("x-plan", 1), ("row plan", 0)):
+            ss = sets[plan_name] = halo.ShardSet(p, cells, mask_np, mesh, 100,
+                                                 axis)
+            depths = sorted({1, 4, wide_auto_depth(name, N_SHARDS)})
+            with env():
+                impls = {**{f"seam D={d}": halo.SeamShardImpl(ss, d)
+                            for d in depths},
+                         "ring G=100": resident_ring.RingShardImpl(ss, 100)}
+            for label, impl in impls.items():
+                calls[f"{plan_name} {label}"] = (
+                    lambda impl=impl: impl.run(0), impl.steps_per_call, ss)
+            for label in ("seam D=1", "seam D=4"):
+                impl = impls[label]
+                copies[f"{plan_name} {label}"] = _median_ms_shards(
+                    torch, ss, lambda impl=impl, ss=ss: ss.exchange(
+                        impl.halos, impl.k), 1, True)[0]
+        loop, dev = time_turns(torch, calls, steps=100)
+        out = {"phase": "wide_shard_timing", "grid": name,
+               "shards": N_SHARDS, "devices": halo.describe_mesh(mesh),
+               "local_shape": {k: [ss.h, ss.nx] for k, ss in sets.items()},
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "halo_copy_device_ms_per_call": copies,
+               "method": "CUDA events on the current stream, every shard "
+                         "stream joined; median over 10 batches of 100 "
+                         "steps after one warm-up batch, both plans' "
+                         "configurations in turns (forward, then reverse); "
+                         "device: queue pre-filled behind a device sleep"}
+        if name == WIDE:
+            ref = halo.ReferenceShardImpl(sets["x-plan"])
+            out["plain_x_plan_device_ms_per_step"] = _median_ms(
+                torch, lambda: ref.run(0), 1, True, steps=3, batches=3)[0]
+            del ref
+        emit(out)
+        results[name] = out
+        del sets, calls, cells
         torch.cuda.empty_cache()
     return results
 
@@ -883,12 +1291,17 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     worst = phase_kernel(torch)
+    wide_worst = phase_wide_kernel(torch)
     launches = phase_scene(torch, np)
+    wide_runs = phase_wide_gate(torch, np)
     phase_stress(torch)
     timing = phase_timing(torch)
+    wide_timing = phase_wide_timing(torch)
     shard_worst = phase_shard_kernel(torch)
     shard_launches = phase_shard_scene(torch, np)
+    wide_shard_launches = phase_wide_shard(torch, np)
     shard_timing = phase_shard_timing(torch, timing)
+    wide_shard_timing = phase_wide_shard_timing(torch)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "lbm_tpu" or m.startswith("lbm_tpu.")
                   for m in sys.modules), "the port imported lbm_tpu")
@@ -900,7 +1313,14 @@ def main() -> int:
             "resident": launches["resident"]["resident"],
             "fused_step_seam": shard_launches["step"]["step_seam"],
             "fused_depth_seam": shard_launches["auto"]["depth_seam"],
-            "ring": shard_launches["ring"]["ring"]}
+            "ring": shard_launches["ring"]["ring"],
+            "fused_step_cols": wide_runs[(WIDE, "step")]["step_cols"],
+            "fused_depth_cols": wide_runs[(WIDE, "auto")]["depth_cols"],
+            "resident_cols": wide_runs[(WIDE, "resident")]["resident_cols"],
+            "fused_step_seam_cols": wide_shard_launches["step"]["step_seam_cols"],
+            "fused_depth_seam_cols":
+                wide_shard_launches["auto"]["depth_seam_cols"],
+            "ring_cols": wide_shard_launches["ring"]["ring_cols"]}
     for kname, n in runs.items():
         check(n > 0, f"{kname} was not launched on its path")
     t = timing[SCENE]
@@ -916,6 +1336,22 @@ def main() -> int:
     halo_bytes = lambda k: N_SHARDS * 2 * k * nx * 37
     on_scene = f"{SCENE} scene"
     sharded = f"{SCENE} scene over {N_SHARDS} shards on one card"
+    # The column modes: times on the transposed lattice of 131072x128,
+    # bounds on the same cells.
+    wnx, wny = grid(WIDE)
+    wcells = wnx * wny
+    wt = wide_timing[WIDE]
+    wdev = {k: statistics.median(v) for k, v in wt["device_ms_per_step"].items()}
+    wst = wide_shard_timing[WIDE]
+    wsdev = {k: statistics.median(v)
+             for k, v in wst["device_ms_per_step"].items()}
+    wsplain = wst["plain_x_plan_device_ms_per_step"]
+    wd = wide_auto_depth(WIDE)
+    wsd = wide_auto_depth(WIDE, N_SHARDS)
+    # x-plan halo rows: k rows each side of every shard, wny cells each.
+    whalo_bytes = lambda k: N_SHARDS * 2 * k * wny * 37
+    on_wide = f"{WIDE} (transposed)"
+    wide_sharded = f"{WIDE} over {N_SHARDS} shards on one card (x-plan)"
     emit({"kernels": [
         kernel_entry("fused_step", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step"],
@@ -953,6 +1389,44 @@ def main() -> int:
                      f"{sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
                      shard_worst["ring"], sdev["ring G=100"], splain,
                      bound(cells, 100)),
+        kernel_entry("fused_step_cols", "lbm_tpu_torch/csrc/fused_step.cu",
+                     "lbm_tpu/ops/pallas_fused.py:358", runs["fused_step_cols"],
+                     f"{on_wide}, one-step plan", wide_worst["fused_step"],
+                     wdev["transposed step"],
+                     wt["plain_transposed_device_ms_per_step"],
+                     bound(wcells, 1)),
+        kernel_entry("fused_depth_cols", "lbm_tpu_torch/csrc/fused_depth.cu",
+                     "lbm_tpu/ops/pallas_fused.py:804",
+                     runs["fused_depth_cols"], f"{on_wide}, auto (D={wd})",
+                     wide_worst["depth"], wdev[f"transposed depth D={wd}"],
+                     wt["plain_transposed_device_ms_per_step"],
+                     bound(wcells, wd)),
+        kernel_entry("resident_cols", "lbm_tpu_torch/csrc/resident.cu",
+                     "lbm_tpu/ops/pallas_resident.py:123",
+                     runs["resident_cols"],
+                     f"{on_wide}, LBM_RESIDENT=1 (G=100)",
+                     wide_worst["resident"], wdev["transposed resident G=100"],
+                     wt["plain_transposed_device_ms_per_step"],
+                     bound(wcells, 100)),
+        kernel_entry("fused_step_seam_cols", "lbm_tpu_torch/csrc/fused_step.cu",
+                     "lbm_tpu/ops/pallas_fused.py:358",
+                     runs["fused_step_seam_cols"], f"{wide_sharded}, one-step "
+                     "plan", shard_worst["step_seam_cols"],
+                     wsdev["x-plan seam D=1"], wsplain,
+                     bound(wcells, 1, whalo_bytes(1))),
+        kernel_entry("fused_depth_seam_cols",
+                     "lbm_tpu_torch/csrc/fused_depth.cu",
+                     "lbm_tpu/ops/pallas_fused.py:804",
+                     runs["fused_depth_seam_cols"],
+                     f"{wide_sharded}, auto (D={wsd})",
+                     shard_worst["depth_seam_cols"],
+                     wsdev[f"x-plan seam D={wsd}"], wsplain,
+                     bound(wcells, wsd, whalo_bytes(wsd))),
+        kernel_entry("ring_cols", "lbm_tpu_torch/csrc/ring.cu",
+                     "lbm_tpu/parallel/resident_ring.py:280", runs["ring_cols"],
+                     f"{wide_sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
+                     shard_worst["ring_cols"], wsdev["x-plan ring G=100"],
+                     wsplain, bound(wcells, 100)),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,11 @@ The stdout contract of ``python -m lbm_tpu``: ``==done==``, the Reynolds
 number and the four elapsed-time lines, then ``final_state.dat`` and
 ``av_vels.dat`` in the same byte formats. The resolved kernel and device
 go to stderr on one line, with the planned segments of a ``cuda`` run
-(for example ``resident G=100 x200``). ``--devices N`` shards the rows
-over N CUDA devices, clamped to the visible ones as the JAX package's
-``--devices`` is (the notes go to stderr).
+(for example ``resident G=100 x200``), and ``transposed`` where a wide
+grid runs on the transposed lattice (``kernel: cuda on cuda (float32),
+transposed: depth D=4 x5000``). ``--devices N`` shards the rows (a wide
+grid: the columns) over N CUDA devices, clamped to the visible ones as
+the JAX package's ``--devices`` is (the notes go to stderr).
 """
 
 from __future__ import annotations
@@ -47,8 +49,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--devices",
         type=int,
         default=1,
-        help="shard the lattice rows over this many devices of --device's "
-             "type (1 = unsharded; clamped to the visible devices)",
+        help="shard the lattice rows (a wide grid's columns) over this many "
+             "devices of --device's type (1 = unsharded; clamped to the "
+             "visible devices)",
     )
     p.add_argument(
         "--final-state-file", default=lio.FINAL_STATE_FILE, help="output path"
@@ -95,12 +98,15 @@ def _main(argv: list[str] | None = None) -> int:
     if mesh is not None:
         sp = halo.plan_run(params, obstacles, mesh, args.kernel, iters)
         kernel = args.kernel
+        layout = ", transposed" if sp.transposed else ""
         line = (f"kernel: {sp.kernel} on {mesh.device_type} "
-                f"({args.precision}): {halo.describe(sp, mesh)}")
+                f"({args.precision}){layout}: {halo.describe(sp, mesh)}")
     else:
         kernel = runner._resolve_kernel(args.kernel, params, device)
         line = f"kernel: {kernel} on {device} ({args.precision})"
         if kernel == "cuda":
+            if runner.plan_layout(params, kernel):
+                line += ", transposed"
             line += ": " + plan.describe(runner.plan_run(params, kernel, iters))
     print(line, file=sys.stderr)
 

@@ -35,6 +35,12 @@
 //   window rows outside them load from D-row halo buffers that the caller
 //   filled from the neighbouring shards. Forcing is by global row index at
 //   every stage. Tiles in the shard's interior are unchanged.
+// - Column mode (kCols, the transposed lattice of a wide grid: the lane
+//   forcing of _kernel_fused, lbm_tpu/ops/pallas_fused.py:804-813,
+//   829-833), in periodic and in seam mode: a flag per window column
+//   (fcol, in place of frow: the flags take W bytes instead of H) marks
+//   the forced column, and every stage forces the copies pulled from it,
+//   in the window's x-halo columns too.
 // - Tile shapes keep both shared buffers near 92-110 KB, so two blocks fit
 //   an SM (227 KB), each of 512 threads (40 registers): 9-13 % faster per
 //   step than 256 threads on the H100 (PERF.md).
@@ -62,14 +68,15 @@ template <> struct Tile<2> { static constexpr int X = 32, Y = 32; };
 template <> struct Tile<4> { static constexpr int X = 32, Y = 24; };
 template <> struct Tile<8> { static constexpr int X = 32, Y = 16; };
 
-template <int D>
+template <int D, bool kCols>
 struct Window {
     static constexpr int W = Tile<D>::X + 2 * D;
     static constexpr int H = Tile<D>::Y + 2 * D;
     static constexpr int C = W * H;
-    // Two 9-speed float buffers, the mask, and a forced-row flag per row.
-    static constexpr size_t kBytes =
-        2 * 9 * (size_t)C * sizeof(float) + (size_t)C + (size_t)H;
+    // Two 9-speed float buffers, the mask, and a forced-line flag per row
+    // (or, in column mode, per column).
+    static constexpr size_t kBytes = 2 * 9 * (size_t)C * sizeof(float) +
+                                     (size_t)C + (size_t)(kCols ? W : H);
 };
 
 // Halo inputs of the seam mode: k >= D rows on each side of a shard
@@ -83,20 +90,22 @@ struct Halo {
     int k, row0, ny_global;
 };
 
-template <int D, bool kSeam>
+template <int D, bool kSeam, bool kCols>
 __global__ void __launch_bounds__(kThreads)
 fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
                    const uint8_t* __restrict__ mask,
-                   float* __restrict__ partials, int ny, int nx,
-                   int accel_row, float w1, float w2, float omega,
-                   int mode, Halo halo) {
+                   float* __restrict__ partials, int ny, int nx, int accel,
+                   float w1, float w2, float omega, int mode, Halo halo) {
     constexpr int TX = Tile<D>::X, TY = Tile<D>::Y;
-    constexpr int WW = Window<D>::W, WH = Window<D>::H, WC = Window<D>::C;
+    constexpr int WW = Window<D, kCols>::W, WH = Window<D, kCols>::H;
+    constexpr int WC = Window<D, kCols>::C;
     extern __shared__ float smem[];
     float* buf_a = smem;
     float* buf_b = smem + 9 * WC;
     uint8_t* wmask = reinterpret_cast<uint8_t*>(smem + 18 * WC);
-    uint8_t* frow = wmask + WC;
+    // frow[r]: window row r is the forced row; fcol[c], in column mode:
+    // window column c is the forced column.
+    uint8_t* flags = wmask + WC;
     __shared__ float red[kThreads];
 
     const int tid = threadIdx.x;
@@ -128,10 +137,16 @@ fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
             wmask[idx] = (south ? halo.mask_s : halo.mask_n)[o];
         }
     }
-    // Forced rows by global index: row0 = 0 and ny_global = ny when
-    // periodic.
-    for (int r = tid; r < WH; r += kThreads) {
-        frow[r] = wrap(halo.row0 + y0 + r, halo.ny_global) == accel_row;
+    if constexpr (kCols) {
+        for (int c = tid; c < WW; c += kThreads) {
+            flags[c] = wrap(x0 + c, nx) == accel;
+        }
+    } else {
+        // Forced rows by global index: row0 = 0 and ny_global = ny when
+        // periodic.
+        for (int r = tid; r < WH; r += kThreads) {
+            flags[r] = wrap(halo.row0 + y0 + r, halo.ny_global) == accel;
+        }
     }
     __syncthreads();
 
@@ -153,10 +168,11 @@ fused_depth_kernel(const float* __restrict__ src, float* __restrict__ dst,
                 if (++r >= s + rh) break;
             }
             float out[9];
-            const float um = lbm_cell_update<int>(
+            const int l = kCols ? c : r;  // the cell's line in flags
+            const float um = lbm_cell_update<kCols, int>(
                 ld, solid, r * WW, (r - 1) * WW, (r + 1) * WW, c, c - 1,
-                c + 1, frow[r] != 0, frow[r - 1] != 0, frow[r + 1] != 0, w1,
-                w2, omega, mode, out);
+                c + 1, flags[l] != 0, flags[l - 1] != 0, flags[l + 1] != 0,
+                w1, w2, omega, mode, out);
             // Owned: inside the tile (rows/cols D..D+T-1 of the window)
             // and inside the grid (a ragged last tile overhangs it).
             const int gy = y0 + r, gx = x0 + c;
@@ -192,50 +208,64 @@ dim3 depth_grid(int depth, int ny, int nx) {
     return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty);
 }
 
-template <int D, bool kSeam>
+template <int D, bool kSeam, bool kCols>
 cudaError_t launch(const float* src, float* dst, const uint8_t* mask,
-                   float* partials, int ny, int nx, int accel_row, float w1,
+                   float* partials, int ny, int nx, int accel, float w1,
                    float w2, float omega, int mode, const Halo& halo,
                    int device, cudaStream_t stream) {
     // Above 48 KB, dynamic shared memory needs an opt-in, once per device.
     static bool opted_in[kMaxDevices] = {};
-    const size_t bytes = Window<D>::kBytes;
+    const size_t bytes = Window<D, kCols>::kBytes;
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
     if (!opted_in[device]) {
         cudaError_t err = cudaFuncSetAttribute(
-            fused_depth_kernel<D, kSeam>,
+            fused_depth_kernel<D, kSeam, kCols>,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
         if (err != cudaSuccess) return err;
         opted_in[device] = true;
     }
-    fused_depth_kernel<D, kSeam>
+    fused_depth_kernel<D, kSeam, kCols>
         <<<depth_grid(D, ny, nx), kThreads, bytes, stream>>>(
-            src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode,
+            src, dst, mask, partials, ny, nx, accel, w1, w2, omega, mode,
             halo);
     return cudaGetLastError();
 }
 
+template <int D, bool kSeam>
+cudaError_t launch_axis(const float* src, float* dst, const uint8_t* mask,
+                        float* partials, int ny, int nx, int accel, float w1,
+                        float w2, float omega, int mode, int axis,
+                        const Halo& halo, int device, cudaStream_t stream) {
+    if (axis) {
+        return launch<D, kSeam, true>(src, dst, mask, partials, ny, nx, accel,
+                                      w1, w2, omega, mode, halo, device,
+                                      stream);
+    }
+    return launch<D, kSeam, false>(src, dst, mask, partials, ny, nx, accel,
+                                   w1, w2, omega, mode, halo, device, stream);
+}
+
 template <bool kSeam>
 int launch_depth(const float* src, float* dst, const uint8_t* mask,
-                 float* partials, int ny, int nx, int accel_row, float w1,
-                 float w2, float omega, int mode, int depth, const Halo& halo,
-                 int device, void* stream) {
+                 float* partials, int ny, int nx, int accel, float w1,
+                 float w2, float omega, int mode, int depth, int axis,
+                 const Halo& halo, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = (cudaStream_t)stream;
     switch (depth) {
         case 2:
-            return (int)launch<2, kSeam>(src, dst, mask, partials, ny, nx,
-                                         accel_row, w1, w2, omega, mode, halo,
-                                         device, s);
+            return (int)launch_axis<2, kSeam>(src, dst, mask, partials, ny,
+                                              nx, accel, w1, w2, omega, mode,
+                                              axis, halo, device, s);
         case 4:
-            return (int)launch<4, kSeam>(src, dst, mask, partials, ny, nx,
-                                         accel_row, w1, w2, omega, mode, halo,
-                                         device, s);
+            return (int)launch_axis<4, kSeam>(src, dst, mask, partials, ny,
+                                              nx, accel, w1, w2, omega, mode,
+                                              axis, halo, device, s);
         case 8:
-            return (int)launch<8, kSeam>(src, dst, mask, partials, ny, nx,
-                                         accel_row, w1, w2, omega, mode, halo,
-                                         device, s);
+            return (int)launch_axis<8, kSeam>(src, dst, mask, partials, ny,
+                                              nx, accel, w1, w2, omega, mode,
+                                              axis, halo, device, s);
         default:
             return (int)cudaErrorInvalidValue;
     }
@@ -261,14 +291,15 @@ int lbm_depth_max_rows(int depth) {
 }
 
 // dst = depth steps of src; partials[s * n + b] = block b's sum of owned
-// fluid |u| in stage s, n = lbm_depth_num_partials(depth, ny, nx).
+// fluid |u| in stage s, n = lbm_depth_num_partials(depth, ny, nx). axis 0
+// forces row accel, axis 1 (a transposed lattice) column accel.
 int lbm_fused_depth(const float* src, float* dst, const uint8_t* mask,
-                    float* partials, int ny, int nx, int accel_row,
-                    float w1, float w2, float omega, int mode, int depth,
+                    float* partials, int ny, int nx, int accel, float w1,
+                    float w2, float omega, int mode, int depth, int axis,
                     int device, void* stream) {
     const Halo periodic{nullptr, nullptr, nullptr, nullptr, 0, 0, ny};
-    return launch_depth<false>(src, dst, mask, partials, ny, nx, accel_row,
-                               w1, w2, omega, mode, depth, periodic, device,
+    return launch_depth<false>(src, dst, mask, partials, ny, nx, accel, w1,
+                               w2, omega, mode, depth, axis, periodic, device,
                                stream);
 }
 
@@ -276,17 +307,20 @@ int lbm_fused_depth(const float* src, float* dst, const uint8_t* mask,
 // from the k-row halos (k >= depth) halo_s / halo_n and their mask rows;
 // row0 is the global index of the shard's first row and ny_global the
 // global (padded) row count. partials as lbm_fused_depth with ny = h.
+// axis 1: a shard of the transposed lattice; column nx-2 of every row is
+// forced, halo rows included.
 int lbm_fused_depth_seam(const float* src, float* dst, const uint8_t* mask,
                          const float* halo_s, const float* halo_n,
                          const uint8_t* hmask_s, const uint8_t* hmask_n,
                          int k, float* partials, int h, int nx, int row0,
                          int ny_global, float w1, float w2, float omega,
-                         int mode, int depth, int device, void* stream) {
+                         int mode, int depth, int axis, int device,
+                         void* stream) {
     if (k < depth || h < 1 || ny_global < h) return (int)cudaErrorInvalidValue;
     const Halo halo{halo_s, halo_n, hmask_s, hmask_n, k, row0, ny_global};
-    return launch_depth<true>(src, dst, mask, partials, h, nx,
-                              (ny_global - 2) % ny_global, w1, w2, omega,
-                              mode, depth, halo, device, stream);
+    const int accel = axis ? (nx - 2) % nx : (ny_global - 2) % ny_global;
+    return launch_depth<true>(src, dst, mask, partials, h, nx, accel, w1, w2,
+                              omega, mode, depth, axis, halo, device, stream);
 }
 
 }  // extern "C"

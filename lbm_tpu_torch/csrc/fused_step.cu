@@ -32,6 +32,11 @@
 //   the first row and j+1 of the last come from halo buffers the caller
 //   filled from the neighbouring shards (lbm_seam.cuh), and the forced row
 //   is found by global row index.
+// - Column mode (kCols, the transposed lattice of a wide grid: _kernel with
+//   AccelSpec.lanes, lbm_tpu/ops/pallas_fused.py:358-374): the forced line
+//   is the column accel of every row (lbm_cell.cuh), in the periodic and
+//   in the seam kernel, where no row is forced by its index. Only the
+//   warps holding columns accel-1..accel+1 take the forcing branch.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/fused.py. Every
 // entry point launches on the caller's stream, allocates nothing and
@@ -50,11 +55,12 @@ constexpr int kBY = 8;
 constexpr int kThreads = kBX * kBY;
 constexpr int kReduceThreads = 1024;
 
+template <bool kCols>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
                   const uint8_t* __restrict__ mask,
-                  float* __restrict__ partials, int ny, int nx,
-                  int accel_row, float w1, float w2, float omega, int mode) {
+                  float* __restrict__ partials, int ny, int nx, int accel,
+                  float w1, float w2, float omega, int mode) {
     __shared__ float red[kThreads];
     const int i = blockIdx.x * kBX + threadIdx.x;
     const int j = blockIdx.y * kBY + threadIdx.y;
@@ -74,10 +80,13 @@ fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
         auto ld = [&](int k, size_t o) { return src[k * plane + o]; };
         auto solid = [&](size_t o) { return mask[o] != 0; };
         float out[9];
-        umag = lbm_cell_update<size_t>(
-            ld, solid, rj, rm, rp, (size_t)i, (size_t)iw, (size_t)ie,
-            j == accel_row, jm == accel_row, jp == accel_row, w1, w2, omega,
-            mode, out);
+        // The forced line: row accel, or in column mode column accel.
+        const bool f0 = kCols ? i == accel : j == accel;
+        const bool f1 = kCols ? iw == accel : jm == accel;
+        const bool f2 = kCols ? ie == accel : jp == accel;
+        umag = lbm_cell_update<kCols, size_t>(
+            ld, solid, rj, rm, rp, (size_t)i, (size_t)iw, (size_t)ie, f0, f1,
+            f2, w1, w2, omega, mode, out);
 #pragma unroll
         for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = out[k];
     }
@@ -92,11 +101,11 @@ fused_step_kernel(const float* __restrict__ src, float* __restrict__ dst,
 // rule. The same grid, cell code and partials as the periodic kernel. The
 // twin of _kernel(seam=True, dynamic_accel=True): JAX's i8 accel mask and
 // ACC_CH channel are replaced by the global-row rule.
+template <bool kCols>
 __global__ void __launch_bounds__(kThreads)
 fused_step_seam_kernel(SeamView v, float* __restrict__ dst,
                        float* __restrict__ partials, int row0, int ny_global,
-                       int accel_row, float w1, float w2, float omega,
-                       int mode) {
+                       int accel, float w1, float w2, float omega, int mode) {
     __shared__ float red[kThreads];
     const int i = blockIdx.x * kBX + threadIdx.x;
     const int j = blockIdx.y * kBY + threadIdx.y;
@@ -104,8 +113,8 @@ fused_step_seam_kernel(SeamView v, float* __restrict__ dst,
     float umag = 0.0f;
     if (i < v.nx && j < v.h) {
         float out[9];
-        umag = lbm_seam_cell(v, j, i, row0, ny_global, accel_row, w1, w2,
-                             omega, mode, out);
+        umag = lbm_seam_cell<kCols>(v, j, i, row0, ny_global, accel, w1,
+                                    w2, omega, mode, out);
         const size_t plane = (size_t)v.h * v.nx, o = (size_t)j * v.nx + i;
 #pragma unroll
         for (int k = 0; k < 9; ++k) dst[k * plane + o] = out[k];
@@ -151,16 +160,23 @@ const char* lbm_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// dst = one step of src; partials[b] = block b's sum of fluid |u|.
+// dst = one step of src; partials[b] = block b's sum of fluid |u|. axis 0
+// forces row accel, axis 1 (a transposed lattice) column accel.
 int lbm_fused_step(const float* src, float* dst, const uint8_t* mask,
-                   float* partials, int ny, int nx, int accel_row, float w1,
-                   float w2, float omega, int mode, int device,
+                   float* partials, int ny, int nx, int accel, float w1,
+                   float w2, float omega, int mode, int axis, int device,
                    void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    fused_step_kernel<<<step_grid(ny, nx), dim3(kBX, kBY), 0,
-                        (cudaStream_t)stream>>>(
-        src, dst, mask, partials, ny, nx, accel_row, w1, w2, omega, mode);
+    const dim3 grid = step_grid(ny, nx), block(kBX, kBY);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (axis) {
+        fused_step_kernel<true><<<grid, block, 0, s>>>(
+            src, dst, mask, partials, ny, nx, accel, w1, w2, omega, mode);
+    } else {
+        fused_step_kernel<false><<<grid, block, 0, s>>>(
+            src, dst, mask, partials, ny, nx, accel, w1, w2, omega, mode);
+    }
     return (int)cudaGetLastError();
 }
 
@@ -168,20 +184,29 @@ int lbm_fused_step(const float* src, float* dst, const uint8_t* mask,
 // halo_s / halo_n ((9, k, nx)) and their mask rows; row0 is the global
 // index of the shard's first row and ny_global the global (padded) row
 // count. partials as lbm_fused_step (lbm_num_partials(h, nx) of them).
+// axis 1: a shard of the transposed lattice; column nx-2 of every row is
+// forced, and row0 / ny_global only bound the shard.
 int lbm_fused_step_seam(const float* src, float* dst, const uint8_t* mask,
                         const float* halo_s, const float* halo_n,
                         const uint8_t* hmask_s, const uint8_t* hmask_n, int k,
                         float* partials, int h, int nx, int row0,
                         int ny_global, float w1, float w2, float omega,
-                        int mode, int device, void* stream) {
+                        int mode, int axis, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (k < 1 || h < 1 || ny_global < h) return (int)cudaErrorInvalidValue;
     const SeamView v{src, mask, halo_s, halo_n, hmask_s, hmask_n, h, nx, k};
-    fused_step_seam_kernel<<<step_grid(h, nx), dim3(kBX, kBY), 0,
-                             (cudaStream_t)stream>>>(
-        v, dst, partials, row0, ny_global, (ny_global - 2) % ny_global, w1,
-        w2, omega, mode);
+    const dim3 grid = step_grid(h, nx), block(kBX, kBY);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (axis) {
+        fused_step_seam_kernel<true><<<grid, block, 0, s>>>(
+            v, dst, partials, row0, ny_global, (nx - 2) % nx, w1, w2, omega,
+            mode);
+    } else {
+        fused_step_seam_kernel<false><<<grid, block, 0, s>>>(
+            v, dst, partials, row0, ny_global, (ny_global - 2) % ny_global, w1,
+            w2, omega, mode);
+    }
     return (int)cudaGetLastError();
 }
 

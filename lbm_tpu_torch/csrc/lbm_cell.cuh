@@ -5,8 +5,8 @@
 // every kernel.
 //
 // One call pulls the cell's nine incoming speeds, forces the pulled copy
-// of any speed whose source row is the forced row (the source cell must
-// pass the guard: fluid, and its pre-forcing speeds 3, 6, 7 each strictly
+// of any speed whose source lies on the forced line (the source cell must
+// pass the guard: fluid, and its pre-forcing guarded speeds each strictly
 // above their weight), then applies bounce-back or BGK relaxation in one
 // of three associations, written term by term as
 // lbm_tpu/ops/reference.py::_bgk_update_planes:
@@ -20,44 +20,86 @@
 // cell's own row, the row below (j-1, source of cy=+1) and the row above
 // (j+1, source of cy=-1); ic/iw/ie are its own column, the column to the
 // west (i-1, source of cx=+1) and to the east (i+1, source of cx=-1).
-// fc/fm/fp say whether rows rc/rm/rp are the forced row. The new speeds
-// go to out[9]; the return value is |u|, 0 for an obstacle.
+// The new speeds go to out[9]; the return value is |u|, 0 for an obstacle.
+//
+// Two forcing modes, a template parameter, so the row mode compiles to the
+// code it always was:
+// - row mode (kCols false, the physical lattice): f0/f1/f2 say whether
+//   rows rc/rm/rp are the forced row;
+// - column mode (kCols true, the transposed lattice of a wide grid, the
+//   twin of AccelSpec.lanes): f0/f1/f2 say whether columns ic/iw/ie are
+//   the forced column. Transposed speed k stores physical speed SIGMA[k]
+//   (lbm_tpu_torch/state.py), so the copies pulled from the forced column
+//   take +w1 on 2, -w1 on 4, +w2 on 5 and 6, -w2 on 7 and 8, and the
+//   guard reads speeds 4, 8 and 7. Streaming and BGK are unchanged:
+//   transposed speed k moves in transposed coordinates as physical speed k
+//   moves in physical ones.
 
 #pragma once
 
-template <class I, class Load, class Solid>
+template <bool kCols, class I, class Load, class Solid>
 __device__ __forceinline__ float lbm_cell_update(
     const Load& ld, const Solid& solid, I rc, I rm, I rp, I ic, I iw, I ie,
-    bool fc, bool fm, bool fp, float w1, float w2, float omega, int mode,
+    bool f0, bool f1, bool f2, float w1, float w2, float omega, int mode,
     float out[9]) {
-    // The forcing guard of a source site on the forced row.
-    auto forced = [&](I o) -> bool {
-        return !solid(o) && (ld(3, o) - w1 > 0.0f) &&
-               (ld(6, o) - w2 > 0.0f) && (ld(7, o) - w2 > 0.0f);
-    };
-
     const float s0 = ld(0, rc + ic);
     float s1 = ld(1, rc + iw);
-    const float s2 = ld(2, rm + ic);
+    float s2 = ld(2, rm + ic);
     float s3 = ld(3, rc + ie);
-    const float s4 = ld(4, rp + ic);
+    float s4 = ld(4, rp + ic);
     float s5 = ld(5, rm + iw);
     float s6 = ld(6, rm + ie);
     float s7 = ld(7, rp + ie);
     float s8 = ld(8, rp + iw);
-    // Deltas: +w1 on 1, -w1 on 3, +w2 on 5 and 8, -w2 on 6 and 7
-    // (x + (-w) is exactly x - w in IEEE arithmetic).
-    if (fc) {
-        if (forced(rc + iw)) s1 = s1 + w1;
-        if (forced(rc + ie)) s3 = s3 - w1;
-    }
-    if (fm) {
-        if (forced(rm + iw)) s5 = s5 + w2;
-        if (forced(rm + ie)) s6 = s6 - w2;
-    }
-    if (fp) {
-        if (forced(rp + ie)) s7 = s7 - w2;
-        if (forced(rp + iw)) s8 = s8 + w2;
+    // x + (-w) is exactly x - w in IEEE arithmetic.
+    if constexpr (!kCols) {
+        // The forcing guard of a source site on the forced row.
+        auto forced = [&](I o) -> bool {
+            return !solid(o) && (ld(3, o) - w1 > 0.0f) &&
+                   (ld(6, o) - w2 > 0.0f) && (ld(7, o) - w2 > 0.0f);
+        };
+        // Deltas: +w1 on 1, -w1 on 3, +w2 on 5 and 8, -w2 on 6 and 7.
+        if (f0) {
+            if (forced(rc + iw)) s1 = s1 + w1;
+            if (forced(rc + ie)) s3 = s3 - w1;
+        }
+        if (f1) {
+            if (forced(rm + iw)) s5 = s5 + w2;
+            if (forced(rm + ie)) s6 = s6 - w2;
+        }
+        if (f2) {
+            if (forced(rp + ie)) s7 = s7 - w2;
+            if (forced(rp + iw)) s8 = s8 + w2;
+        }
+    } else {
+        // The forcing guard of a source site on the forced column.
+        auto forced = [&](I o) -> bool {
+            return !solid(o) && (ld(4, o) - w1 > 0.0f) &&
+                   (ld(8, o) - w2 > 0.0f) && (ld(7, o) - w2 > 0.0f);
+        };
+        // Deltas: +w1 on 2, -w1 on 4, +w2 on 5 and 6, -w2 on 7 and 8.
+        // The three lanes next to the forced column each pull from it
+        // (flags f0, f1, f2 in turn), so one warp holds all three cases.
+        // The guards of the two source cells, rm and rp of the forced
+        // column, are evaluated once on one path for all three; a flag
+        // only picks the speeds. (Two flags hold only where two of
+        // ic/iw/ie are the same column, so one pair of guards serves.)
+        if (f0 || f1 || f2) {
+            const I col = f0 ? ic : (f1 ? iw : ie);
+            const bool gm = forced(rm + col), gp = forced(rp + col);
+            if (f0) {
+                if (gm) s2 = s2 + w1;
+                if (gp) s4 = s4 - w1;
+            }
+            if (f1) {
+                if (gm) s5 = s5 + w2;
+                if (gp) s8 = s8 - w2;
+            }
+            if (f2) {
+                if (gm) s6 = s6 + w2;
+                if (gp) s7 = s7 - w2;
+            }
+        }
     }
 
     const float rho = s0 + s1 + s2 + s3 + s4 + s5 + s6 + s7 + s8;

@@ -11,7 +11,8 @@
 //
 // Halo rows are raw (pre-step, not forced): the kernel forces every row,
 // halo rows included, by the global rule, a row whose global index
-// (row0 + r) mod ny_global is the forced row. Halo loads go through L2
+// (row0 + r) mod ny_global is the forced row (or, in column mode, the
+// forced column of every row). Halo loads go through L2
 // only (__ldcg): another block, kernel or card writes them.
 
 #pragma once
@@ -49,10 +50,15 @@ struct SeamView {
 };
 
 // The update of local cell (j, i), j in [0, h), into out[9]; returns |u|
-// (0 for an obstacle). Rows j-1 = -1 and j+1 = h read the halos.
+// (0 for an obstacle). Rows j-1 = -1 and j+1 = h read the halos. Row mode
+// (kCols false): a row whose global index is accel is forced. Column mode
+// (kCols true, a shard of the transposed lattice of a wide grid, sharded
+// over its rows): the column accel of every row is forced, halo rows
+// included, and row0 / ny_global are not read.
+template <bool kCols>
 __device__ __forceinline__ float lbm_seam_cell(const SeamView& v, int j, int i,
                                                int row0, int ny_global,
-                                               int accel_row, float w1,
+                                               int accel, float w1,
                                                float w2, float omega,
                                                int mode, float out[9]) {
     const int nx = v.nx;
@@ -60,11 +66,18 @@ __device__ __forceinline__ float lbm_seam_cell(const SeamView& v, int j, int i,
     const int ie = (i == nx - 1) ? 0 : i + 1;
     auto ld = [&](int q, long long o) { return v.ld(q, o); };
     auto solid = [&](long long o) { return v.solid(o); };
-    return lbm_cell_update<long long>(
+    bool f0, f1, f2;
+    if constexpr (kCols) {
+        f0 = i == accel;
+        f1 = iw == accel;
+        f2 = ie == accel;
+    } else {
+        f0 = lbm_wrap(row0 + j, ny_global) == accel;
+        f1 = lbm_wrap(row0 + j - 1, ny_global) == accel;
+        f2 = lbm_wrap(row0 + j + 1, ny_global) == accel;
+    }
+    return lbm_cell_update<kCols, long long>(
         ld, solid, (long long)j * nx, (long long)(j - 1) * nx,
         (long long)(j + 1) * nx, (long long)i, (long long)iw, (long long)ie,
-        lbm_wrap(row0 + j, ny_global) == accel_row,
-        lbm_wrap(row0 + j - 1, ny_global) == accel_row,
-        lbm_wrap(row0 + j + 1, ny_global) == accel_row, w1, w2, omega, mode,
-        out);
+        f0, f1, f2, w1, w2, omega, mode, out);
 }

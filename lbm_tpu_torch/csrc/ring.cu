@@ -41,6 +41,14 @@
 //   tree into partials[step][block]; after the last barrier block b of the
 //   shard sums steps b, b + bps, ... in a fixed order into tots[t_out + s].
 //   The caller sums the shards in a fixed order. No float atomics.
+// - Column mode (kCols, the shards of a wide grid's transposed lattice,
+//   sharded over its rows: the lane mode of _kernel_ring,
+//   lbm_tpu/parallel/resident_ring.py:280-311): the column accel of every
+//   row is forced, interior, boundary and staged halo rows alike, so no
+//   shard needs a forced row by global index. The blocks a shard
+//   (bps) are coprime with its tile columns, so the forced column's tiles
+//   spread over all of them (resident.cu says why; resident_ring.py picks
+//   bps).
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/parallel/
 // resident_ring.py.
@@ -105,9 +113,10 @@ __device__ void shard_barrier(unsigned* sync, unsigned bps) {
 // Four blocks an SM (64 registers, no spills): 15 % faster per step than
 // the unbounded 126-register build at 1024x1024 and 16384x1024 over 4
 // shards on an H100 (PERF.md).
+template <bool kCols>
 __global__ void __launch_bounds__(kThreads, 4)
 ring_kernel(const RingShard* __restrict__ shards, int bps, int h, int nx,
-            int ny_global, int accel_row, float w1, float w2, float omega,
+            int ny_global, int accel, float w1, float w2, float omega,
             int mode, int gsteps, unsigned step_base, int t_out) {
     __shared__ float red[kThreads];
     // The shard's pointers live in shared memory, not in registers.
@@ -171,12 +180,19 @@ ring_kernel(const RingShard* __restrict__ shards, int bps, int h, int nx,
             const int iw = (i == 0) ? nx - 1 : i - 1;
             const int ie = (i == nx - 1) ? 0 : i + 1;
             const size_t rj = (size_t)j * nx;
-            acc += lbm_cell_update<size_t>(
+            bool f0, f1, f2;
+            if constexpr (kCols) {
+                f0 = i == accel;
+                f1 = iw == accel;
+                f2 = ie == accel;
+            } else {
+                f0 = lbm_wrap(row0 + j, ny_global) == accel;
+                f1 = lbm_wrap(row0 + j - 1, ny_global) == accel;
+                f2 = lbm_wrap(row0 + j + 1, ny_global) == accel;
+            }
+            acc += lbm_cell_update<kCols, size_t>(
                 ld, solid, rj, rj - nx, rj + nx, (size_t)i, (size_t)iw,
-                (size_t)ie, lbm_wrap(row0 + j, ny_global) == accel_row,
-                lbm_wrap(row0 + j - 1, ny_global) == accel_row,
-                lbm_wrap(row0 + j + 1, ny_global) == accel_row, w1, w2, omega,
-                mode, out);
+                (size_t)ie, f0, f1, f2, w1, w2, omega, mode, out);
 #pragma unroll
             for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = out[k];
         }
@@ -195,8 +211,8 @@ ring_kernel(const RingShard* __restrict__ shards, int bps, int h, int nx,
             const int j = tile < edge_x ? 0 : h - 1;
             const int i = (tile % edge_x) * kThreads + tid;
             if (i >= nx) continue;
-            acc += lbm_seam_cell(v, j, i, row0, ny_global, accel_row, w1, w2,
-                                 omega, mode, out);
+            acc += lbm_seam_cell<kCols>(v, j, i, row0, ny_global, accel, w1,
+                                        w2, omega, mode, out);
 #pragma unroll
             for (int k = 0; k < 9; ++k) dst[k * plane + (size_t)j * nx + i] = out[k];
         }
@@ -219,14 +235,20 @@ ring_kernel(const RingShard* __restrict__ shards, int bps, int h, int nx,
     }
 }
 
+const void* ring_fn(int axis) {
+    return axis ? (const void*)ring_kernel<true>
+                : (const void*)ring_kernel<false>;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Co-resident blocks of the ring kernel on this device (occupancy x SMs).
-// Negative: a CUDA error code, negated (cudaErrorNotSupported when the
-// device takes no cooperative launch).
-int lbm_ring_blocks(int device) {
+// Co-resident blocks of the ring kernel in forcing mode axis (0 rows, 1
+// columns) on this device (occupancy x SMs). Negative: a CUDA error code,
+// negated (cudaErrorNotSupported when the device takes no cooperative
+// launch).
+int lbm_ring_blocks(int axis, int device) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return -(int)err;
     int coop = 0, sms = 0, per_sm = 0;
@@ -235,7 +257,7 @@ int lbm_ring_blocks(int device) {
     if (!coop) return -(int)cudaErrorNotSupported;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_kernel,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_fn(axis),
                                                         kThreads, 0);
     if (err != cudaSuccess) return -(int)err;
     return per_sm * sms;
@@ -258,24 +280,26 @@ int lbm_enable_peer_access(int device, int peer) {
 // RingShard, all on this device), bps blocks each, as one cooperative
 // launch; the result is in each shard's a. step_base: steps this ring has
 // run before (the flags' tags go on from there); t_out: where in each
-// shard's tots this call's gsteps values go.
+// shard's tots this call's gsteps values go. axis 1: shards of a
+// transposed lattice, column nx-2 of every row forced; bps from
+// lbm_ring_blocks for the same axis.
 int lbm_ring(const void* shards, int n_shards, int bps, int h, int nx,
              int ny_global, float w1, float w2, float omega, int mode,
-             int gsteps, unsigned step_base, int t_out, int device,
+             int axis, int gsteps, unsigned step_base, int t_out, int device,
              void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (n_shards < 1 || bps < 1 || h < 2 || gsteps < 2 || gsteps % 2) {
         return (int)cudaErrorInvalidValue;
     }
-    int accel_row = (ny_global - 2) % ny_global;
+    int accel = axis ? (nx - 2) % nx : (ny_global - 2) % ny_global;
     const RingShard* ptr = (const RingShard*)shards;
     void* args[] = {&ptr,  &bps,  &h,         &nx,   &ny_global,
-                    &accel_row,   &w1, &w2,   &omega, &mode,
+                    &accel,       &w1, &w2,   &omega, &mode,
                     &gsteps,      &step_base, &t_out};
-    err = cudaLaunchCooperativeKernel((const void*)ring_kernel,
-                                      dim3(n_shards * bps), dim3(kBX, kBY),
-                                      args, 0, (cudaStream_t)stream);
+    err = cudaLaunchCooperativeKernel(ring_fn(axis), dim3(n_shards * bps),
+                                      dim3(kBX, kBY), args, 0,
+                                      (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -43,7 +43,7 @@ _c_int, _c_float, _c_void_p = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 _SIGNATURES = {
     "lbm_fused_step": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_void_p],
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_reduce_tot": (
@@ -54,7 +54,8 @@ _SIGNATURES = {
     "lbm_max_rows": ([], _c_int),
     "lbm_fused_depth": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_int,
+         _c_void_p],
         _c_int,
     ),
     "lbm_depth_num_partials": ([_c_int, _c_int, _c_int], _c_int),
@@ -62,28 +63,29 @@ _SIGNATURES = {
     "lbm_resident": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
          _c_int, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int,
-         _c_float, _c_int, _c_int, _c_void_p],
+         _c_float, _c_int, _c_int, _c_int, _c_void_p],
         _c_int,
     ),
-    "lbm_resident_blocks": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),
     "lbm_fused_step_seam": (
-        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-         _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_void_p],
-        _c_int,
-    ),
-    "lbm_fused_depth_seam": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,
          _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
         _c_int,
     ),
-    "lbm_ring_blocks": ([_c_int], _c_int),
+    "lbm_fused_depth_seam": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+         _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_int,
+         _c_void_p],
+        _c_int,
+    ),
+    "lbm_ring_blocks": ([_c_int, _c_int], _c_int),
     "lbm_enable_peer_access": ([_c_int, _c_int], _c_int),
     "lbm_ring": (
         [_c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
-         _c_float, _c_float, _c_int, _c_int, ctypes.c_uint, _c_int, _c_int,
-         _c_void_p],
+         _c_float, _c_float, _c_int, _c_int, _c_int, ctypes.c_uint, _c_int,
+         _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_error_string": ([_c_int], ctypes.c_char_p),

@@ -1,8 +1,9 @@
 """The fused-step kernel's wrapper: one timestep of the lattice in one
 CUDA launch (``csrc/fused_step.cu``, the port of
-``lbm_tpu/ops/pallas_fused.py::_kernel``), plus a launch that sums the
-per-block tot_u partials on the device. Also what every kernel wrapper
-shares (:class:`LatticeKernel`) and the launch counts of all of them.
+``lbm_tpu/ops/pallas_fused.py::_kernel``, in row and in column mode),
+plus a launch that sums the per-block tot_u partials on the device. Also
+what every kernel wrapper shares (:class:`LatticeKernel`) and the launch
+counts of all of them.
 
 A tensor on the CPU runs the plain version, :mod:`.reference`; that is
 the only case the plain version stands in for the kernel. A CUDA tensor
@@ -20,12 +21,13 @@ from lbm_tpu_torch.state import D2Q9
 
 # Launch counts of every kernel of the package, one per kernel: the
 # one-step kernel, the tot_u reduce (launched by the one-step and depth
-# wrappers in both modes), the depth kernel, the resident kernel, the
+# wrappers in every mode), the depth kernel, the resident kernel, the
 # seam modes of the one-step and depth kernels (one launch per shard) and
-# the ring kernel (one launch per card). Each wrapper increments its
-# kernel's count where it launches it, nowhere else.
-LAUNCHES = {"step": 0, "reduce": 0, "depth": 0, "resident": 0,
-            "step_seam": 0, "depth_seam": 0, "ring": 0}
+# the ring kernel (one launch per card), each also in column mode (the
+# "_cols" counts: the transposed lattice of a wide grid). Each wrapper
+# increments its kernel's count where it launches it, nowhere else.
+_KERNELS = ("step", "depth", "resident", "step_seam", "depth_seam", "ring")
+LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")}}
 
 
 def reset_launches() -> None:
@@ -37,8 +39,13 @@ class LatticeKernel:
     """What the kernel wrappers share: one obstacle mask, the scene
     constants, the association mode (``LBM_PAIRED_EQ`` / ``LBM_OMEGA_EQ``,
     read at construction, as the JAX package reads it when it traces a
-    run), the device, the checks on what a kernel takes, and on a CUDA
-    mask the built kernel library.
+    run), the forcing axis, the device, the checks on what a kernel
+    takes, and on a CUDA mask the built kernel library.
+
+    ``axis`` 0 forces the row H-2 of an (H, W) lattice; ``axis`` 1 is the
+    column mode, for the transposed lattice of a wide grid: the column W-2
+    is forced (:func:`.reference.forcing`). The mask is in the same
+    layout as the lattice.
 
     ``run(a, b, out, t, scale)`` advances the lattice in ``a`` by
     ``steps_per_call`` steps, using ``b`` as the other buffer, writes
@@ -49,13 +56,18 @@ class LatticeKernel:
 
     steps_per_call = 1
 
-    def __init__(self, mask: torch.Tensor, w1, w2, omega):
+    def __init__(self, mask: torch.Tensor, w1, w2, omega, axis: int = 0):
         if mask.dtype != torch.bool or mask.dim() != 2:
             raise ValueError(
                 f"mask must be a 2-D bool tensor, got {mask.dtype} "
                 f"{tuple(mask.shape)}"
             )
-        self.mask = mask
+        if axis not in (0, 1):
+            raise ValueError(f"axis must be 0 or 1, got {axis}")
+        self.mask, self.axis = mask, axis
+        # The forced row (axis 0) or column (axis 1) of a periodic lattice.
+        n = mask.shape[axis]
+        self.accel = (n - 2) % n
         self.shape = (D2Q9.Q, *mask.shape)
         self.w1, self.w2, self.omega = (
             np.float32(w1), np.float32(w2), np.float32(omega)
@@ -102,6 +114,9 @@ class LatticeKernel:
     def _stream(self):
         return torch.cuda.current_stream(self.device).cuda_stream
 
+    def _launched(self, kernel: str) -> None:
+        LAUNCHES[kernel + ("_cols" if self.axis else "")] += 1
+
     def _scale(self, scale) -> float:
         return float(np.float32(scale))
 
@@ -124,8 +139,8 @@ class FusedStep(LatticeKernel):
     use and allocates the tot_u partials once; the kernel itself
     allocates nothing."""
 
-    def __init__(self, mask: torch.Tensor, w1, w2, omega):
-        super().__init__(mask, w1, w2, omega)
+    def __init__(self, mask: torch.Tensor, w1, w2, omega, axis: int = 0):
+        super().__init__(mask, w1, w2, omega, axis)
         if self.on_cpu:
             return
         ny, nx = mask.shape
@@ -143,7 +158,7 @@ class FusedStep(LatticeKernel):
         self._check_call(src, dst, out, t)
         if self.on_cpu:
             new, tot = ref_ops.fused_step(
-                src, self.mask, self.w1, self.w2, self.omega
+                src, self.mask, self.w1, self.w2, self.omega, axis=self.axis
             )
             dst.copy_(new)
             out[t] = tot * self._scale(scale)
@@ -152,10 +167,10 @@ class FusedStep(LatticeKernel):
         stream = self._stream()
         _build.check(lib, lib.lbm_fused_step(
             src.data_ptr(), dst.data_ptr(), self._mask_u8.data_ptr(),
-            self._partials.data_ptr(), ny, nx, (ny - 2) % ny,
-            self.w1, self.w2, self.omega, self.mode, self._index, stream,
+            self._partials.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
+            self.omega, self.mode, self.axis, self._index, stream,
         ), "fused step launch")
-        LAUNCHES["step"] += 1
+        self._launched("step")
         self._reduce(self._partials, 1, out, t, scale)
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
@@ -166,11 +181,13 @@ class FusedStep(LatticeKernel):
 class SeamKernel(LatticeKernel):
     """What the seam-mode wrappers share: a shard's mask rows, the static
     obstacle rows of its k-row halos, the global index ``row0`` of its
-    first row and the global (padded) row count ``ny``."""
+    first row and the global (padded) row count ``ny``. ``axis`` 1: a
+    shard of the transposed lattice, sharded over its rows (physical x);
+    the column W-2 of every row is forced, halo rows included."""
 
     def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
-                 ny: int):
-        super().__init__(mask, w1, w2, omega)
+                 ny: int, axis: int = 0):
+        super().__init__(mask, w1, w2, omega, axis)
         k = hmask_s.shape[0]
         for name, m in (("hmask_s", hmask_s), ("hmask_n", hmask_n)):
             if m.dtype != torch.bool or tuple(m.shape) != (k, mask.shape[1]) \
@@ -194,7 +211,7 @@ class SeamKernel(LatticeKernel):
     def _plain(self, a, halo_s, halo_n, n: int):
         return ref_ops.halo_multi_step(
             a, halo_s, halo_n, self.mask, self.hmask_s, self.hmask_n,
-            self.row0, self.ny, self.w1, self.w2, self.omega, n)
+            self.row0, self.ny, self.w1, self.w2, self.omega, n, self.axis)
 
 
 class SeamStep(SeamKernel):
@@ -206,8 +223,9 @@ class SeamStep(SeamKernel):
     :func:`.reference.halo_multi_step`."""
 
     def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
-                 ny: int):
-        super().__init__(mask, hmask_s, hmask_n, w1, w2, omega, row0, ny)
+                 ny: int, axis: int = 0):
+        super().__init__(mask, hmask_s, hmask_n, w1, w2, omega, row0, ny,
+                         axis)
         if self.on_cpu:
             return
         h, nx = mask.shape
@@ -231,26 +249,27 @@ class SeamStep(SeamKernel):
             halo_s.data_ptr(), halo_n.data_ptr(),
             self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
             self.k, self._partials.data_ptr(), h, nx, self.row0, self.ny,
-            self.w1, self.w2, self.omega, self.mode, self._index,
+            self.w1, self.w2, self.omega, self.mode, self.axis, self._index,
             self._stream(),
         ), "seam step launch")
-        LAUNCHES["step_seam"] += 1
+        self._launched("step_seam")
         self._reduce(self._partials, 1, out, t, scale)
         return b, a
 
 
-def fused_step(cells, obstacles, w1, w2, omega):
+def fused_step(cells, obstacles, w1, w2, omega, axis: int = 0):
     """One timestep: ``(new_cells, tot_u)`` for a float32 (9, ny, nx)
-    lattice and its (ny, nx) bool mask. Launches the kernel on a CUDA
-    tensor; runs :func:`fused_step_plain` on a CPU tensor."""
-    stepper = FusedStep(obstacles, w1, w2, omega)
+    lattice and its (ny, nx) bool mask (``axis`` 1: a transposed lattice,
+    column mode). Launches the kernel on a CUDA tensor; runs
+    :func:`fused_step_plain` on a CPU tensor."""
+    stepper = FusedStep(obstacles, w1, w2, omega, axis)
     new = torch.empty_like(cells)
     tot = torch.empty(1, dtype=torch.float32, device=cells.device)
     stepper.step(cells, new, tot)
     return new, tot[0]
 
 
-def fused_step_plain(cells, obstacles, w1, w2, omega):
+def fused_step_plain(cells, obstacles, w1, w2, omega, axis: int = 0):
     """The kernel's plain version: :func:`.reference.fused_step` with
     the wrapper's signature."""
-    return ref_ops.fused_step(cells, obstacles, w1, w2, omega)
+    return ref_ops.fused_step(cells, obstacles, w1, w2, omega, axis=axis)

@@ -40,9 +40,42 @@ G_PREF = (100, 64, 50, 32, 20, 16)
 # the per-step launches; it is the fastest kernel up to 512x512, where
 # both buffers sit in the 50 MB L2, and loses to the depth kernel from
 # 1024x1024 (two 37.7 MB buffers) up. D=4 is the depth kernel's best at
-# 1024x1024 and 16384x1024, D=2 its next.
+# 1024x1024 and 16384x1024, D=2 its next, and so on the transposed
+# 131072x128 too (D=8 about 1.37x D=4): the JAX package's D=8 preference
+# at 128 lanes, a TPU measurement, is not carried over.
 RESIDENT_AUTO_MAX_CELLS = 512 * 512
 AUTO_DEPTHS = (4, 2)
+
+
+def transposed_layout(ny: int, nx: int) -> bool:
+    """The one home of the wide-grid policy: the transposed lattice,
+    (9, nx, ny) with its speeds permuted by
+    :data:`lbm_tpu_torch.state.SIGMA`, the forced row ny-2 becoming the
+    column ny-2. The single-device planner (:func:`layout`) and the
+    sharded one (``parallel.halo.plan_sharding``) both ask here, so a
+    sharded run and the unsharded run share a layout.
+
+    ``lbm_tpu.ops.pallas_fused._transposed_layout``'s rule (at least
+    twice as wide as tall, nx a multiple of 8), narrowed by the H100's
+    timings (PERF.md, "Where the time goes"): above the resident kernel's
+    size the column modes run no slower than the row modes (131072x128
+    and 16384x1024: depth D=4 and the one-step kernel faster), and the
+    x-plan's halo is a small fraction of the row plan's; up to it, where
+    ``auto`` takes the resident kernel, they ran slower (1024x256), so
+    those grids keep the physical layout."""
+    return nx >= 2 * ny and nx % 8 == 0 and nx * ny > RESIDENT_AUTO_MAX_CELLS
+
+
+def layout(params) -> tuple[bool, int, int]:
+    """``(transposed, rows, lanes)`` of the execution layout of a
+    ``cuda`` run, the twin of ``lbm_tpu.ops.pallas_fused._layout``: the
+    transposed lattice's ``(nx, ny)`` where :func:`transposed_layout`
+    says so, else ``(ny, nx)``.
+    The segment planners take these rows and lanes."""
+    ny, nx = params.ny, params.nx
+    if transposed_layout(ny, nx):
+        return True, nx, ny
+    return False, ny, nx
 
 
 @dataclasses.dataclass(frozen=True)

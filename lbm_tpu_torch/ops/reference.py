@@ -1,6 +1,7 @@
 """Plain PyTorch twin of :mod:`lbm_tpu.ops.reference`.
 
-The semantic reference of the port: guarded forcing of row ny-2, pull
+The semantic reference of the port: guarded forcing of row ny-2 (or, on
+the transposed lattice of a wide grid, of column ny-2), pull
 streaming (``torch.roll``), bounce-back, BGK collision and the per-step
 |u| reduction, term for term in the same floating-point association as
 the JAX functions of the same names. It runs on any device; it is the
@@ -19,7 +20,7 @@ import os
 import numpy as np
 import torch
 
-from lbm_tpu_torch.state import D2Q9
+from lbm_tpu_torch.state import D2Q9, SIGMA
 
 # BGK association modes, shared with the CUDA kernel's ``mode`` argument.
 MODE_PAIRED, MODE_REFERENCE, MODE_OMEGA = 0, 1, 2
@@ -52,37 +53,53 @@ def _np_type(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
 
-def _accel_delta(w1, w2, like: torch.Tensor) -> torch.Tensor:
-    """Per-speed forcing deltas (+w1/-w1 on speeds 1/3, +w2 on 5 and 8,
-    -w2 on 6 and 7) as a (9,) tensor like ``like``."""
-    d = _np_type(like.dtype)
-    w1, w2 = d(w1), d(w2)
-    return torch.from_numpy(
-        np.array([0, w1, 0, -w1, 0, w2, -w2, -w2, w2], dtype=d)
-    ).to(like.device)
+def forcing(w1, w2, axis: int = 0):
+    """``(deltas, guards)`` of the forced line: the per-speed additive
+    deltas and the ``(speed, threshold)`` guards, the twin of
+    ``AccelSpec.rows`` / ``AccelSpec.lanes``. ``axis`` 0: the row ny-2 of
+    the physical lattice (+w1/-w1 on speeds 1/3, +w2 on 5 and 8, -w2 on 6
+    and 7; guards on 3, 6, 7). ``axis`` 1: the column ny-2 of the
+    transposed lattice, speeds permuted by SIGMA (+w1/-w1 on 2/4, +w2 on
+    5 and 6, -w2 on 7 and 8; guards on 4, 8, 7)."""
+    deltas = (0.0, w1, 0.0, -w1, 0.0, w2, -w2, -w2, w2)
+    guards = ((3, w1), (6, w2), (7, w2))
+    if axis == 1:
+        deltas = tuple(deltas[SIGMA[k]] for k in range(D2Q9.Q))
+        guards = tuple((SIGMA[g], t) for g, t in guards)
+    elif axis != 0:
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    return deltas, guards
 
 
-def _accelerated_row(row: torch.Tensor, obs_row: torch.Tensor, w1, w2):
-    """Guarded forcing of one (9, nx) row: fluid cells whose speeds 3, 6
-    and 7 each stay strictly positive after the subtraction."""
-    d = _np_type(row.dtype)
-    w1, w2 = float(d(w1)), float(d(w2))
-    ok = (
-        ~obs_row
-        & (row[3] - w1 > 0)
-        & (row[6] - w2 > 0)
-        & (row[7] - w2 > 0)
-    )
-    return torch.where(ok[None, :], row + _accel_delta(w1, w2, row)[:, None], row)
+def _accelerated_line(line: torch.Tensor, obs_line: torch.Tensor, w1, w2,
+                      axis: int = 0):
+    """Guarded forcing of one (9, m) line of the forced row (axis 0) or
+    column (axis 1): fluid cells whose guarded speeds each stay strictly
+    positive after the subtraction."""
+    d = _np_type(line.dtype)
+    deltas, guards = forcing(d(w1), d(w2), axis)
+    ok = ~obs_line
+    for g, t in guards:
+        ok = ok & (line[g] - float(t) > 0)
+    delta = torch.from_numpy(np.array(deltas, dtype=d)).to(line.device)
+    return torch.where(ok[None, :], line + delta[:, None], line)
 
 
-def accelerate_flow(cells, obstacles, w1, w2, row: int | None = None):
-    """Forcing on one lattice row (default ny-2); returns a new tensor.
-    ``cells``: (9, ny, nx); ``obstacles``: (ny, nx) bool."""
+def accelerate_flow(cells, obstacles, w1, w2, row: int | None = None,
+                    axis: int = 0):
+    """Forcing on one lattice line; returns a new tensor. ``cells``: (9,
+    H, W); ``obstacles``: (H, W) bool. ``axis`` 0 forces row ``row``
+    (default H-2), axis 1 the column ``row`` (default W-2) of a
+    transposed lattice (:func:`forcing`)."""
     if row is None:
-        row = cells.shape[1] - 2
+        row = cells.shape[1 + axis] - 2
     out = cells.clone()
-    out[:, row, :] = _accelerated_row(cells[:, row, :], obstacles[row, :], w1, w2)
+    if axis == 0:
+        out[:, row, :] = _accelerated_line(cells[:, row, :], obstacles[row, :],
+                                           w1, w2)
+    else:
+        out[:, :, row] = _accelerated_line(cells[:, :, row], obstacles[:, row],
+                                           w1, w2, 1)
     return out
 
 
@@ -214,7 +231,7 @@ def collide_stream_halo(interior, south, north, obstacles, omega):
 
 
 def halo_multi_step(cells, halo_s, halo_n, mask, hmask_s, hmask_n,
-                    row0: int, ny: int, w1, w2, omega, n: int):
+                    row0: int, ny: int, w1, w2, omega, n: int, axis: int = 0):
     """``n`` steps of a shard's (9, h, nx) rows from k-row halos: the
     plain version of the seam modes of the one-step (k = n = 1) and depth
     (k = n = D) kernels, on the inputs those kernels take.
@@ -222,11 +239,13 @@ def halo_multi_step(cells, halo_s, halo_n, mask, hmask_s, hmask_n,
     ``halo_s`` holds the k rows below row 0 (global rows row0-k ..
     row0-1), ``halo_n`` the k rows above row h-1, both raw (pre-step, not
     forced); ``hmask_s``/``hmask_n`` are their (k, nx) obstacle rows.
-    Rows are forced by the global rule: a row whose global index is
-    ``(ny - 2) mod ny`` (``ny`` the global, padded row count) is forced
-    before each step, in the halos too. Each step consumes one halo row
-    per side. Returns ``(new_cells, tots)``, tots the (n,) per-step sums
-    of fluid |u| over the shard's own rows."""
+    ``axis`` 0: rows are forced by the global rule, a row whose global
+    index is ``(ny - 2) mod ny`` (``ny`` the global, padded row count) is
+    forced before each step, in the halos too. ``axis`` 1 (a shard of the
+    transposed lattice, sharded over its rows): the column nx-2 of every
+    row, halo rows included, is forced before each step. Each step
+    consumes one halo row per side. Returns ``(new_cells, tots)``, tots
+    the (n,) per-step sums of fluid |u| over the shard's own rows."""
     k, h = halo_s.shape[1], cells.shape[1]
     if not 1 <= n <= k or halo_n.shape[1] != k:
         raise ValueError(f"{n} steps need halos of at least {n} rows, got "
@@ -237,12 +256,15 @@ def halo_multi_step(cells, halo_s, halo_n, mask, hmask_s, hmask_n,
     forced = [i for i in range(h + 2 * k) if (row0 - k + i) % ny == accel]
     tots = []
     for s in range(n):
-        # The window is rows [s, h + 2k - s) of the first one.
-        rows = [i - s for i in forced if s <= i < h + 2 * k - s]
-        if rows:
-            win = win.clone()
-            for r in rows:
-                win[:, r] = _accelerated_row(win[:, r], wmask[r], w1, w2)
+        if axis == 1:
+            win = accelerate_flow(win, wmask, w1, w2, axis=1)
+        else:
+            # The window is rows [s, h + 2k - s) of the first one.
+            rows = [i - s for i in forced if s <= i < h + 2 * k - s]
+            if rows:
+                win = win.clone()
+                for r in rows:
+                    win[:, r] = _accelerated_line(win[:, r], wmask[r], w1, w2)
         inner = wmask[1:-1]
         planes, umag = _bgk_update_planes(_pull_halo(win, win.shape[1] - 2),
                                           inner, omega)
@@ -253,14 +275,16 @@ def halo_multi_step(cells, halo_s, halo_n, mask, hmask_s, hmask_n,
     return win[:, k - n:k - n + h].contiguous(), torch.stack(tots)
 
 
-def fused_step(cells, obstacles, w1, w2, omega, accel_row: int | None = None):
-    """One timestep: forcing on the pre-step state, then the fused
+def fused_step(cells, obstacles, w1, w2, omega, accel_row: int | None = None,
+               axis: int = 0):
+    """One timestep: forcing on the pre-step state (the row ny-2, or with
+    ``axis`` 1 the column ny-2 of a transposed lattice), then the fused
     collide-stream pass. Returns ``(new_cells, tot_u)``."""
-    cells = accelerate_flow(cells, obstacles, w1, w2, accel_row)
+    cells = accelerate_flow(cells, obstacles, w1, w2, accel_row, axis)
     return collide_stream(cells, obstacles, omega)
 
 
-def multi_step(cells, obstacles, w1, w2, omega, n: int):
+def multi_step(cells, obstacles, w1, w2, omega, n: int, axis: int = 0):
     """``n`` timesteps: ``n`` calls of :func:`fused_step`. Returns
     ``(cells, tots)`` with ``tots`` the (n,) per-step tot_u, not yet
     scaled by 1/fluid. The plain version of the many-step kernels."""
@@ -268,6 +292,6 @@ def multi_step(cells, obstacles, w1, w2, omega, n: int):
         raise ValueError(f"step count must be positive, got {n}")
     tots = []
     for _ in range(n):
-        cells, tot = fused_step(cells, obstacles, w1, w2, omega)
+        cells, tot = fused_step(cells, obstacles, w1, w2, omega, axis=axis)
         tots.append(tot)
     return cells, torch.stack(tots)

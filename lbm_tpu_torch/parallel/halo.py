@@ -1,6 +1,15 @@
-"""The row-sharded path, the twin of :mod:`lbm_tpu.parallel.halo`: the
+"""The sharded path, the twin of :mod:`lbm_tpu.parallel.halo`: the
 padding and mesh planners, the halo exchange, the per-shard step
 implementations and the sharded simulation.
+
+Two plans, as in the JAX package (:func:`plan_sharding`): the row plan
+shards the physical lattice's rows (y); the x-plan, for a wide grid on the
+``cuda`` kernel (:func:`.ops.plan.transposed_layout`, nx dividing the
+mesh), shards the rows of the transposed lattice, which are physical x:
+each shard holds a block of physical columns, transposed, and its kernels
+run in column mode (the twin of ``_TransposedPallasShardImpl`` and
+``TransposedRingShardImpl``). Everything below the plan (the exchange,
+the seam kernels, the ring) works on the rows of the lattice it is given.
 
 One controller drives every shard, as ``jax.shard_map`` does (not MPI).
 Each shard owns its rows on its device: two lattice buffers, its mask
@@ -43,7 +52,7 @@ from lbm_tpu_torch.parallel import resident_ring
 from lbm_tpu_torch.parallel.decomp import (
     Mesh, RowDecomposition, largest_divisor_leq, make_mesh, visible_devices,
 )
-from lbm_tpu_torch.state import D2Q9
+from lbm_tpu_torch.state import D2Q9, transpose_state
 
 
 # --------------------------------------------------------------------------
@@ -75,6 +84,18 @@ def resolve_shard_kernel(params: Params, mesh: Mesh, kernel: str) -> str:
     return kernel
 
 
+def _x_plan(params: Params, n: int, kernel: str) -> bool:
+    """The wide-grid x-sharding gate, shared by :func:`plan_sharding` and
+    :func:`plan_row_padding` (the twin of ``_wide_transposed_plan``): the
+    resolved ``cuda`` kernel, the single-device layout rule
+    (:func:`.ops.plan.transposed_layout`, so a sharded run and the
+    unsharded ``auto`` run use the same layout) and nx dividing the mesh.
+    JAX's per-shard 8-row alignment is a Mosaic rule and has no
+    counterpart."""
+    return (kernel == "cuda" and plan.transposed_layout(params.ny, params.nx)
+            and params.nx % n == 0)
+
+
 def plan_row_padding(params: Params, obstacles, mesh: Mesh,
                      kernel: str) -> int:
     """Rows of all-obstacle padding that make ny divide the mesh: the
@@ -82,9 +103,12 @@ def plan_row_padding(params: Params, obstacles, mesh: Mesh,
     (d2q9-bgk.c:483-492). Exact behind full bounce-back wall rows at both
     y boundaries: rows behind a wall never feed the interior. The pad
     goes below row 0, so the forced row stays ny-2. Raises when padding
-    is needed but a boundary row has fluid cells; 0 when ny divides."""
+    is needed but a boundary row has fluid cells; 0 when ny divides or
+    the wide-grid x-plan shards the columns."""
     n = mesh.size
     ny = params.ny
+    if _x_plan(params, n, _resolve_kernel(kernel, params, mesh)):
+        return 0
     ny_pad = -(-ny // n) * n
     if ny_pad == ny:
         return 0
@@ -109,7 +133,8 @@ def _wrap_fits(ny: int, n: int, unit: int):
 
 def plan_padding_mode(params: Params, obstacles, mesh: Mesh, kernel: str):
     """``('none'|'wall'|'wrap'|'wrap_ref', pad)``, as the JAX package
-    plans it off the TPU: 'none' when ny divides the mesh; 'wall' behind
+    plans it off the TPU: 'none' when ny divides the mesh or the x-plan
+    shards a wide grid's columns; 'wall' behind
     full wall rows (:func:`plan_row_padding`); for a wall-less mask the
     wrap discipline on the seam kernel ('wrap', kernel ``cuda``) or on
     the plain shard step ('wrap_ref'). Raises when even the wrap pad does
@@ -167,37 +192,59 @@ def pad_scene(params: Params, obstacles, pad: int):
     return dataclasses.replace(params, ny=params.ny + pad), obs
 
 
-def plan_sharding(params: Params, mesh: Mesh) -> RowDecomposition:
-    """The row plan (physical y over the mesh). Wide grids shard rows
-    too: the JAX package's transposed x-sharding waits for the port's
-    wide-grid layout."""
-    return RowDecomposition(ny=params.ny, n_shards=mesh.size)
+def plan_sharding(params: Params, mesh: Mesh, kernel: str):
+    """``(transposed, decomp)``, the twin of the JAX function: the row
+    plan (physical y over the mesh), or for a wide grid on the ``cuda``
+    kernel the x-plan (:func:`_x_plan`): the transposed lattice's rows,
+    physical x, over the mesh."""
+    n = mesh.size
+    if _x_plan(params, n, _resolve_kernel(kernel, params, mesh)):
+        return True, RowDecomposition(ny=params.nx, n_shards=n)
+    return False, RowDecomposition(ny=params.ny, n_shards=n)
 
 
 def shard_segments(params: Params, decomp: RowDecomposition, kernel: str,
-                   iters: int, wrap_pad: int = 0) -> list[plan.Segment]:
+                   iters: int, wrap_pad: int = 0,
+                   transposed: bool = False) -> list[plan.Segment]:
     """The run as segments, the twin of ``_shard_segments``: the ring at
     the first preferred G (``LBM_SHARD_RESIDENT=1``), else the depth
     kernel at a preferred D that every shard can hold (D <= local rows),
     else the one-step kernel, all in seam mode, planned as the
-    single-device planner plans (:func:`.ops.plan.plan_segments`). The
-    wrap discipline runs the one-step kernel only (its pad-row refresh
-    lands between steps); ``reference`` runs the plain shard step. The
-    single-device resident kernel never runs under a mesh."""
+    single-device planner plans (:func:`.ops.plan.plan_segments`) on the
+    shard's rows and lanes (``transposed``: the x-plan's, lanes = ny).
+    The wrap discipline runs the one-step kernel only (its pad-row
+    refresh lands between steps); ``reference`` runs the plain shard
+    step. The single-device resident kernel never runs under a mesh."""
     if kernel == "reference":
         return [plan.Segment("reference", 1, iters)]
     if wrap_pad:
         return [plan.Segment("step", 1, iters)]
-    h, nx = decomp.local_ny, params.nx
-    depths = [d for d in plan.depth_preference(h, nx) if d <= h]
-    return plan.plan_segments(iters, resident_ring.ring_prefs(h, nx),
+    h, lanes = decomp.local_ny, params.ny if transposed else params.nx
+    depths = [d for d in plan.depth_preference(h, lanes) if d <= h]
+    return plan.plan_segments(iters, resident_ring.ring_prefs(h, lanes),
                               depths, many="ring")
+
+
+def _check_wrap_kernel(wrap_pad: int, kernel: str,
+                       transposed: bool = False) -> None:
+    """Wrap padding's contract, the twin of the JAX function: the wrap
+    discipline lives in the row plan's impls (the plain shard step and
+    the one-step seam kernel); the x-plan shards columns and cannot carry
+    row padding (:func:`plan_padding_mode` never plans the two
+    together)."""
+    if wrap_pad and kernel not in ("reference", "cuda"):
+        raise ValueError("wrap_pad (wall-less non-divisor padding) requires "
+                         f"the 'reference' or 'cuda' kernel, got {kernel!r}")
+    if wrap_pad and transposed:
+        raise ValueError("wrap_pad requires the row plan; the transposed "
+                         "x-sharded plan cannot carry row padding")
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
     """What a sharded run will do: the padded scene, the resolved kernel,
-    the pad and its mode, and the per-shard segments."""
+    the pad and its mode, the plan (``transposed``: the x-plan) and its
+    decomposition, and the per-shard segments."""
 
     params: Params
     obstacles: np.ndarray
@@ -205,6 +252,7 @@ class ShardPlan:
     mode: str
     pad: int
     wrap_pad: int
+    transposed: bool
     decomp: RowDecomposition
     segments: list
 
@@ -222,10 +270,11 @@ def plan_run(params: Params, obstacles, mesh: Mesh, kernel: str,
     wrap_pad = pad if mode in ("wrap", "wrap_ref") else 0
     if mode == "wrap_ref":
         kernel = "reference"
-    decomp = plan_sharding(params, mesh)
-    segs = shard_segments(params, decomp, kernel, iters, wrap_pad)
-    return ShardPlan(params, obstacles, kernel, mode, pad, wrap_pad, decomp,
-                     segs)
+    transposed, decomp = plan_sharding(params, mesh, kernel)
+    _check_wrap_kernel(wrap_pad, kernel, transposed)
+    segs = shard_segments(params, decomp, kernel, iters, wrap_pad, transposed)
+    return ShardPlan(params, obstacles, kernel, mode, pad, wrap_pad,
+                     transposed, decomp, segs)
 
 
 def describe_mesh(mesh: Mesh) -> str:
@@ -241,9 +290,11 @@ def describe_mesh(mesh: Mesh) -> str:
 
 
 def describe(sp: ShardPlan, mesh: Mesh) -> str:
-    """The plan line's tail: shards, pad and per-shard segments."""
+    """The plan line's tail: shards (of physical columns under the
+    x-plan), pad and per-shard segments."""
     pad = f", {sp.mode} pad {sp.pad}" if sp.pad else ""
-    return (f"{mesh.size} shards of {sp.decomp.local_ny} rows "
+    lines = "columns" if sp.transposed else "rows"
+    return (f"{mesh.size} shards of {sp.decomp.local_ny} {lines} "
             f"({describe_mesh(mesh)}){pad}: "
             f"{plan.describe(sp.segments)} per shard")
 
@@ -271,23 +322,34 @@ class Shard:
 
 
 class ShardSet:
-    """The shards of one run: ``cells`` (9, ny, nx) and ``mask`` (ny, nx)
-    split into ``mesh.size`` row blocks, each copied to its device."""
+    """The shards of one run: the physical ``cells`` (9, ny, nx) and
+    ``mask`` (ny, nx) split into ``mesh.size`` row blocks, each copied to
+    its device. ``axis`` 1 (the x-plan): split into blocks of physical
+    columns instead, each transposed (the lattice's rows are then
+    physical x), for the kernels' column mode. ``ny``, ``nx``, ``h`` and
+    ``mask_np`` describe the lattice the shards step: the transposed one
+    under ``axis`` 1."""
 
     def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
-                 iters: int):
-        decomp = RowDecomposition(ny=params.ny, n_shards=mesh.size)
+                 iters: int, axis: int = 0):
+        rows, lanes = (params.nx, params.ny) if axis else (params.ny, params.nx)
+        decomp = RowDecomposition(ny=rows, n_shards=mesh.size)
         self.params, self.mesh, self.decomp = params, mesh, decomp
-        self.h, self.nx, self.ny = decomp.local_ny, params.nx, params.ny
+        self.axis = axis
+        self.h, self.nx, self.ny = decomp.local_ny, lanes, rows
         self.device_type = mesh.device_type
-        self.mask_np = np.asarray(mask, dtype=bool)
+        mask = np.asarray(mask, dtype=bool)
+        self.mask_np = mask.T.copy() if axis else mask
         if tuple(cells.shape) != (D2Q9.Q, params.ny, params.nx):
             raise ValueError(f"cells have shape {tuple(cells.shape)}, "
                              f"expected {(D2Q9.Q, params.ny, params.nx)}")
         self.shards = []
         for r, dev in enumerate(mesh.devices):
             r0 = decomp.row0(r)
-            c = cells[:, r0:r0 + self.h].to(dev, copy=True).contiguous()
+            if axis:
+                c = transpose_state(cells[:, :, r0:r0 + self.h]).to(dev)
+            else:
+                c = cells[:, r0:r0 + self.h].to(dev, copy=True).contiguous()
             cuda = dev.type == "cuda"
             self.shards.append(Shard(
                 index=r, device=dev, row0=r0,
@@ -360,8 +422,12 @@ class ShardSet:
             dst.copy_(src, non_blocking=True)
 
     def gather(self) -> torch.Tensor:
-        """The (9, ny, nx) lattice on the first shard's device."""
+        """The physical (9, ny, nx) lattice on the first shard's device
+        (the x-plan's column blocks transposed back)."""
         dev0 = self.shards[0].device
+        if self.axis:
+            return torch.cat([transpose_state(sh.cells).to(dev0)
+                              for sh in self.shards], dim=2)
         return torch.cat([sh.cells.to(dev0) for sh in self.shards], dim=1)
 
     def av_vels(self, inv_fluid) -> torch.Tensor:
@@ -382,16 +448,19 @@ class ShardSet:
 
 class ReferenceShardImpl:
     """The plain shard step, the twin of ``_ReferenceShardImpl``: the
-    owner of row ny-2 forces it, the forced boundary rows are exchanged,
-    shard 0 refreshes its pad row under the wrap discipline, and
+    owner of row ny-2 forces it (under the x-plan every shard forces its
+    column ny-2), the forced boundary rows are exchanged, shard 0
+    refreshes its pad row under the wrap discipline, and
     :func:`.ops.reference.collide_stream_halo` steps each shard. Runs in
     float32 and float64, on any device; it is also the plain version of
-    every seam kernel (D of its steps for depth D, G for the ring)."""
+    every seam kernel (D of its steps for depth D, G for the ring), in
+    both of their forcing modes."""
 
     kernel = "reference"
     steps_per_call = 1
 
     def __init__(self, ss: ShardSet, wrap_pad: int = 0):
+        _check_wrap_kernel(wrap_pad, self.kernel, bool(ss.axis))
         if wrap_pad and not (len(ss.shards) > 1 and 1 <= wrap_pad <= ss.h - 1):
             raise ValueError(
                 f"wrap_pad={wrap_pad} must fit inside shard 0 "
@@ -403,6 +472,10 @@ class ReferenceShardImpl:
         p, n, h = ss.params, len(ss.shards), ss.h
         forced = []
         for sh in ss.shards:
+            if ss.axis:
+                forced.append(ref_ops.accelerate_flow(
+                    sh.cells, sh.mask, p.accel_w1, p.accel_w2, axis=1))
+                continue
             lr = ss.decomp.local_accel_row(sh.index)
             forced.append(ref_ops.accelerate_flow_dynamic(
                 sh.cells, sh.mask, p.accel_w1, p.accel_w2, lr, 0 <= lr < h))
@@ -429,11 +502,14 @@ class ReferenceShardImpl:
 class SeamShardImpl:
     """A seam kernel on every shard, the twin of ``_PallasShardImpl``
     (``depth`` 1: the one-step kernel, else the depth kernel with
-    ``depth``-row halos) and, with ``wrap_pad``, of
-    ``_WrapPallasShardImpl`` (one-step only). Each call exchanges the
-    halos, then launches one kernel per shard on its stream."""
+    ``depth``-row halos), under the x-plan of
+    ``_TransposedPallasShardImpl`` (the kernels in column mode) and, with
+    ``wrap_pad``, of ``_WrapPallasShardImpl`` (one-step only). Each call
+    exchanges the halos, then launches one kernel per shard on its
+    stream."""
 
     def __init__(self, ss: ShardSet, depth: int = 1, wrap_pad: int = 0):
+        _check_wrap_kernel(wrap_pad, "cuda", bool(ss.axis))
         if wrap_pad and (depth != 1 or not (
                 len(ss.shards) > 1 and 1 <= wrap_pad <= ss.h - 1)):
             raise ValueError(
@@ -450,8 +526,9 @@ class SeamShardImpl:
             ms, mn = ss.halo_masks(sh.index, depth, wrap_pad)
             args = (sh.mask, ms, mn, p.accel_w1, p.accel_w2, p.omega,
                     sh.row0, ss.ny)
-            self.kernels.append(fused.SeamStep(*args) if depth == 1
-                                else fused_depth.FusedDepthSeam(*args, depth))
+            self.kernels.append(
+                fused.SeamStep(*args, axis=ss.axis) if depth == 1
+                else fused_depth.FusedDepthSeam(*args, depth, axis=ss.axis))
             shape = (D2Q9.Q, depth, nx)
             self.halos.append((
                 torch.empty(shape, dtype=sh.cells.dtype, device=sh.device),
@@ -481,14 +558,18 @@ class ShardedSimulation:
     ``run()`` walking the segments over every shard. ``kernel`` is the
     resolved ``reference`` or ``cuda``; ``cuda`` on CPU tensors runs each
     wrapper's plain version (the tests' way to drive the planned path
-    without a card)."""
+    without a card). ``transposed``: the plan (None: :func:`plan_sharding`'s;
+    False builds the row plan of a wide grid)."""
 
     def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
-                 kernel: str, iters: int, wrap_pad: int = 0):
-        self.ss = ShardSet(params, cells, mask, mesh, iters)
+                 kernel: str, iters: int, wrap_pad: int = 0, transposed=None):
+        if transposed is None:
+            transposed = plan_sharding(params, mesh, kernel)[0]
+        _check_wrap_kernel(wrap_pad, kernel, transposed)
+        self.ss = ShardSet(params, cells, mask, mesh, iters, int(transposed))
         self.iters = iters
         self.segments = shard_segments(params, self.ss.decomp, kernel, iters,
-                                       wrap_pad)
+                                       wrap_pad, transposed)
         self.inv_fluid = num_non_obstacles_r(self.ss.mask_np,
                                              dtype=params.dtype)
         self._impls = [(make_impl(seg, self.ss, wrap_pad), seg.steps)

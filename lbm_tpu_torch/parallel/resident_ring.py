@@ -1,7 +1,9 @@
 """The ring kernel's planner and wrapper: G steps per launch on every
 shard, the seam rows exchanged every step inside the kernel
 (``csrc/ring.cu``, the port of
-``lbm_tpu/parallel/resident_ring.py::_kernel_ring``).
+``lbm_tpu/parallel/resident_ring.py::_kernel_ring``, in row mode and in
+the column mode of ``TransposedRingShardImpl``: the shards of a wide
+grid's transposed lattice, the column ny-2 forced in every shard).
 
 One cooperative launch per card hosts every shard on that card. The
 shards' halo slots and flags are plain device memory, peer pointers for a
@@ -19,6 +21,7 @@ device refuses the cooperative launch.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 
 import numpy as np
@@ -64,7 +67,8 @@ class RingShardImpl:
     """The ring over every shard of a :class:`.halo.ShardSet`:
     ``run(t)`` advances each shard ``gsteps`` steps and writes each
     step's tot_u into ``shard.tots[t:t + gsteps]``. ``gsteps`` is even,
-    so each shard's result is back in its ``cells`` buffer."""
+    so each shard's result is back in its ``cells`` buffer. The forcing
+    axis is the shard set's (1: column mode)."""
 
     kernel = "ring"
 
@@ -80,6 +84,7 @@ class RingShardImpl:
                                         np.float32(p.accel_w2),
                                         np.float32(p.omega))
         self.mode = ref_ops.association_mode(torch.float32)
+        self.axis = ss.axis
         self.hmasks = [ss.halo_masks(r, 1) for r in range(len(ss.shards))]
         self._step = 0  # steps run so far: the flags' tags go on from it
         nx = ss.nx
@@ -104,13 +109,19 @@ class RingShardImpl:
                     2 * ((nx + _THREADS - 1) // _THREADS))
         self._bps = {}
         for d, idxs in self._groups.items():
-            blocks = lib.lbm_ring_blocks(index[d])
+            blocks = lib.lbm_ring_blocks(self.axis, index[d])
             if blocks < 0:
                 _build.check(lib, -blocks, "ring launch geometry")
             if blocks < len(idxs):
                 raise ValueError(f"{len(idxs)} shards on {d} exceed the "
                                  f"{blocks} co-resident blocks of the ring")
-            self._bps[d] = max(1, min(blocks // len(idxs), tiles))
+            bps = max(1, min(blocks // len(idxs), tiles))
+            if self.axis:
+                # Coprime with the tile columns, so the forced column's
+                # tiles spread over every block (csrc/resident.cu).
+                while bps > 1 and math.gcd(bps, (nx + _BX - 1) // _BX) != 1:
+                    bps -= 1
+            self._bps[d] = bps
         self._bufs = []
         for sh in ss.shards:
             dev = sh.device
@@ -164,10 +175,10 @@ class RingShardImpl:
                 _build.check(lib, lib.lbm_ring(
                     struct.data_ptr(), len(idxs), self._bps[dev], ss.h,
                     ss.nx, ss.ny, self.w1, self.w2, self.omega, self.mode,
-                    g, self._step, t, self._index[dev],
+                    self.axis, g, self._step, t, self._index[dev],
                     lead.stream.cuda_stream,
                 ), f"ring G={g} cooperative launch")
-                LAUNCHES["ring"] += 1
+                LAUNCHES["ring_cols" if self.axis else "ring"] += 1
                 done = ss.record(lead)
             for i in idxs[1:]:
                 ss.shards[i].stream.wait_event(done)
@@ -181,7 +192,7 @@ class RingShardImpl:
                                               self.hmasks):
                 new, tots = ref_ops.halo_multi_step(
                     sh.cells, hs, hn, sh.mask, ms, mn, sh.row0, ss.ny,
-                    self.w1, self.w2, self.omega, 1)
+                    self.w1, self.w2, self.omega, 1, self.axis)
                 sh.spare.copy_(new)
                 sh.cells, sh.spare = sh.spare, sh.cells
                 sh.tots[t + s] = tots[0]

@@ -4,11 +4,15 @@ One device: the run planned into segments (:mod:`.ops.plan`, the twin of
 ``lbm_tpu.runner._segments``), each stepped by one of three CUDA kernels
 (one step, D steps or G steps per launch), with av_vels kept on the
 device, scaled by 1/fluid cells each step, and copied to the host once at
-the end. The plain path (``reference``, and float64) steps one timestep
-at a time.
+the end. A wide grid (:func:`.ops.plan.transposed_layout`) runs on the
+transposed lattice, the kernels in column mode, transposed in once and
+out once (the twin of ``TransposedCarryStep`` and
+``TransposedResidentStep``). The plain path (``reference``, and float64)
+steps one timestep at a time, never transposed.
 
 A mesh (``run_simulation(..., mesh=)``): the lattice's rows sharded over
-the mesh's devices, padded where ny does not divide, and stepped by
+the mesh's devices, padded where ny does not divide, or for a wide grid
+the transposed lattice's rows (physical x), and stepped by
 :mod:`.parallel.halo` (the seam modes of the one-step and depth kernels,
 or the ring kernel under ``LBM_SHARD_RESIDENT=1``).
 
@@ -29,7 +33,7 @@ from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.params import Params
 from lbm_tpu_torch.profiling import PhaseTimers
-from lbm_tpu_torch.state import initial_state
+from lbm_tpu_torch.state import initial_state, transpose_state
 
 KERNELS = ("auto", "reference", "cuda")
 
@@ -80,43 +84,70 @@ def _resolve_kernel(kernel: str, params: Params, device: torch.device) -> str:
     return kernel
 
 
-def plan_run(params: Params, kernel: str, iters: int):
+def plan_layout(params: Params, kernel: str, transposed=None) -> bool:
+    """Whether a run under ``kernel`` (as resolved) steps the transposed
+    lattice: for ``cuda``, :func:`.ops.plan.layout`'s rule unless
+    ``transposed`` says otherwise (the physical layout of a wide grid is
+    built with ``transposed=False``, as JAX code can build ``CarryStep``
+    for one); ``reference`` never transposes."""
+    if kernel != "cuda":
+        if transposed:
+            raise ValueError("only the cuda kernel runs the transposed layout")
+        return False
+    return plan.layout(params)[0] if transposed is None else bool(transposed)
+
+
+def plan_run(params: Params, kernel: str, iters: int, transposed=None):
     """The segments a run of ``iters`` steps takes under ``kernel`` (as
-    resolved): :func:`.ops.plan.segments` for ``cuda``, one plain
-    segment for ``reference``."""
+    resolved): :func:`.ops.plan.segments` on the execution layout's rows
+    and lanes for ``cuda`` (:func:`plan_layout`), one plain segment for
+    ``reference``."""
     if kernel == "cuda":
-        return plan.segments(params.ny, params.nx, iters)
+        t = plan_layout(params, kernel, transposed)
+        rows, lanes = (params.nx, params.ny) if t else (params.ny, params.nx)
+        return plan.segments(rows, lanes, iters)
     return [plan.Segment("reference", 1, iters)]
 
 
-def _make_impl(seg: plan.Segment, mask, w1, w2, omega):
+def _make_impl(seg: plan.Segment, mask, w1, w2, omega, axis: int):
     if seg.kernel == "resident":
-        return resident.Resident(mask, w1, w2, omega, seg.steps_per_call)
+        return resident.Resident(mask, w1, w2, omega, seg.steps_per_call, axis)
     if seg.kernel == "depth":
-        return fused_depth.FusedDepth(mask, w1, w2, omega, seg.steps_per_call)
-    return fused.FusedStep(mask, w1, w2, omega)
+        return fused_depth.FusedDepth(mask, w1, w2, omega, seg.steps_per_call,
+                                      axis)
+    return fused.FusedStep(mask, w1, w2, omega, axis)
 
 
 class _Simulation:
     """One run's device state: the ping-pong lattice buffers, the mask,
     av_vels and the planned segments' kernels, all allocated once. The
     ``cuda`` path also runs on CPU tensors, where every kernel wrapper
-    takes its plain version."""
+    takes its plain version. ``transposed``: the layout
+    (:func:`plan_layout`; None, the planner's rule). A transposed run
+    holds the lattice and the mask transposed from construction to the
+    end of :meth:`run`, its kernels in column mode; ``cells`` is
+    physical before and after."""
 
-    def __init__(self, params: Params, cells, mask, kernel: str, iters: int):
+    def __init__(self, params: Params, cells, mask, kernel: str, iters: int,
+                 transposed=None):
         self.params, self.kernel = params, kernel
         self.mask = mask
-        self.cells = cells.contiguous()
+        self.transposed = plan_layout(params, kernel, transposed)
+        self.cells = (transpose_state(cells) if self.transposed
+                      else cells.contiguous())
         self.inv_fluid = num_non_obstacles_r(
             mask.cpu().numpy(), dtype=params.dtype
         )
         self.av_vels = torch.empty(iters, dtype=cells.dtype, device=cells.device)
         self.iters = iters
-        self.segments = plan_run(params, kernel, iters)
+        self.segments = plan_run(params, kernel, iters, self.transposed)
         w1, w2, omega = params.accel_w1, params.accel_w2, params.omega
         if kernel == "cuda":
-            self._impls = [(_make_impl(seg, mask, w1, w2, omega), seg.steps)
-                           for seg in self.segments]
+            exec_mask = mask.T.contiguous() if self.transposed else mask
+            axis = int(self.transposed)
+            self._impls = [
+                (_make_impl(seg, exec_mask, w1, w2, omega, axis), seg.steps)
+                for seg in self.segments]
             self._spare = torch.empty_like(self.cells)
         else:
             self._ref = (w1, w2, omega)
@@ -136,20 +167,21 @@ class _Simulation:
             for t in range(self.iters):
                 cells, tot = ref_ops.fused_step(cells, self.mask, w1, w2, omega)
                 av[t] = tot * scale
-        self.cells = cells
+        self.cells = transpose_state(cells) if self.transposed else cells
         if cells.device.type == "cuda":
             torch.cuda.synchronize(cells.device)
 
 
 def simulate(params: Params, cells, mask, kernel: str = "auto",
-             n_iters: int | None = None):
+             n_iters: int | None = None, transposed=None):
     """Advance the device state ``cells`` (9, ny, nx) with bool ``mask``
     by ``n_iters`` steps (default ``params.max_iters``). Returns the
     final cells and the av_vels trajectory as device tensors; ``cells``
-    is not modified."""
+    is not modified. ``transposed``: the layout of a ``cuda`` run
+    (:func:`plan_layout`; None, the planner's rule)."""
     iters = params.max_iters if n_iters is None else n_iters
     kernel = _resolve_kernel(kernel, params, cells.device)
-    sim = _Simulation(params, cells.clone(), mask, kernel, iters)
+    sim = _Simulation(params, cells.clone(), mask, kernel, iters, transposed)
     sim.run()
     return sim.cells, sim.av_vels
 
@@ -228,7 +260,7 @@ def _run_sharded(params: Params, obstacles, kernel: str, iters: int, mesh,
     dev0 = mesh.devices[0]
     sim = halo.ShardedSimulation(sp.params, initial_state(sp.params, dev0),
                                  sp.obstacles, mesh, sp.kernel, iters,
-                                 sp.wrap_pad)
+                                 sp.wrap_pad, sp.transposed)
     timers.stop("init")
 
     with timers.phase("compute"):

@@ -37,6 +37,23 @@ class D2Q9:
     OPP = np.array([0, 3, 4, 1, 2, 7, 8, 5, 6], dtype=np.int32)
 
 
+# Speed permutation under the lattice transpose (the x and y velocity
+# components swap): speed k of the transposed lattice stores physical
+# speed SIGMA[k] (lbm_tpu/ops/pallas_fused.py:78). A transposed speed
+# moves in transposed coordinates as the physical speed of the same
+# number moves in physical ones, so streaming and collision keep their
+# form; only the forced line turns from a row into a column.
+SIGMA = (0, 2, 1, 4, 3, 5, 8, 7, 6)
+
+
+def transpose_state(cells: torch.Tensor) -> torch.Tensor:
+    """Physical (9, ny, nx) <-> transposed (9, nx, ny): swap the spatial
+    axes and permute the speeds by :data:`SIGMA`, contiguous. An
+    involution; the twin of ``lbm_tpu.ops.pallas_fused.transpose_state``
+    (plain data movement there too, outside any kernel)."""
+    return torch.stack([cells[SIGMA[k]].T for k in range(D2Q9.Q)]).contiguous()
+
+
 def initial_state(params: Params, device="cpu", dtype=None) -> torch.Tensor:
     """Uniform equilibrium-at-rest distributions, the same weight
     arithmetic as ``lbm_tpu.state.initial_state_np`` (density*4/9,

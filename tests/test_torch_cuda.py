@@ -239,3 +239,122 @@ def test_sharded_runs_equal_the_unsharded_kernel_run(cuda, env, monkeypatch):
     np.testing.assert_array_equal(a.cells, b.cells)
     np.testing.assert_array_equal(a.av_vels, b.av_vels)
     np.testing.assert_allclose(a.av_vels, base.av_vels, rtol=TRAJ_RTOL)
+
+
+# The column modes (a wide grid's transposed lattice, physical row ny-2
+# forced as the lattice's column ny-2): every kernel against its plain
+# version in column mode, bit for bit.
+
+
+def _wide_case(cuda, nx, ny, walls, seed=0, perturbed=False):
+    """:func:`_case` of the physical NXxNY grid, transposed onto the card:
+    the (9, nx, ny) lattice and its (nx, ny) mask."""
+    from lbm_tpu_torch.state import transpose_state
+
+    p, cells, mask = _case(nx, ny, walls, seed=seed, perturbed=perturbed)
+    c = transpose_state(torch.from_numpy(cells)).to(cuda)
+    m = torch.from_numpy(mask.T.copy()).to(cuda)
+    return p, c, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
+                                  "resident-16"])
+@pytest.mark.parametrize("shape", [(512, 128, True), (264, 100, False)],
+                         ids=["512x128", "264x100-wall-less"])
+def test_column_kernels_match_plain(cuda, shape, kind, mode, monkeypatch):
+    _set_mode(monkeypatch, mode)
+    name, _, size = kind.partition("-")
+    steps = int(size or 1)
+    p, c, m = _wide_case(cuda, *shape, perturbed=name != "step")
+    args = (m, p.accel_w1, p.accel_w2, p.omega)
+    before = dict(fused.LAUNCHES)
+    if name == "step":
+        got, got_tots = fused.fused_step(c, *args, axis=1)
+        got_tots = got_tots[None]
+    elif name == "depth":
+        got, got_tots = fused_depth.fused_depth(c, *args, steps, axis=1)
+    else:
+        got, got_tots = resident.resident(c, *args, steps, axis=1)
+    want, want_tots = fused_depth.fused_depth_plain(c, *args, steps, axis=1)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[name + "_cols"] == before[name + "_cols"] + 1
+    assert fused.LAUNCHES[name] == before[name]
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got_tots.cpu().numpy(),
+                               want_tots.cpu().numpy(), rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
+                                  "ring-16"])
+@pytest.mark.parametrize("case", [(512, 128, 4, True), (64, 16, 8, True),
+                                  (264, 100, 4, False)],
+                         ids=["512x128/4", "64x16/8", "264x100/4-wall-less"])
+def test_column_shard_kernels_match_the_plain_shard_step(cuda, kind, case,
+                                                         monkeypatch):
+    """The x-plan on a one-card mesh (built on request: the planner
+    takes it above the resident kernel's size): each shard holds a block
+    of physical columns, transposed; one call of each seam kernel and of
+    the ring in column mode equals as many plain shard steps, bit for
+    bit."""
+    from lbm_tpu_torch.parallel import decomp, halo, resident_ring
+
+    _set_mode(monkeypatch, "paired")
+    nx, ny, n, walls = case
+    p, cells, mask = _case(nx, ny, walls, perturbed=True)
+    mesh = decomp.make_mesh(n, devices=[cuda] * n)
+    c = torch.from_numpy(cells).to(cuda)
+    ss, plain = (halo.ShardSet(p, c, mask, mesh, 16, axis=1) for _ in range(2))
+    name, _, size = kind.partition("-")
+    steps = int(size or 1)
+    if name == "ring":
+        impl, key = resident_ring.RingShardImpl(ss, steps), "ring_cols"
+    else:
+        impl = halo.SeamShardImpl(ss, steps)
+        key = "step_seam_cols" if name == "step" else "depth_seam_cols"
+    before = dict(fused.LAUNCHES)
+    impl.run(0)
+    ss.synchronize()
+    _plain_steps(plain, steps)
+    assert fused.LAUNCHES[key] - before[key] == (1 if name == "ring" else n)
+    assert torch.equal(ss.gather(), plain.gather())
+    np.testing.assert_allclose(ss.av_vels(1.0)[:steps].cpu().numpy(),
+                               plain.av_vels(1.0)[:steps].cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [{}, {"LBM_SHARD_RESIDENT": "1"},
+                                 {"LBM_PALLAS_DEPTH": "1"}],
+                         ids=["auto", "ring", "step"])
+def test_x_sharded_runs_equal_the_unsharded_transposed_run(cuda, env,
+                                                           monkeypatch):
+    """2048x256 (a wide grid above the resident kernel's size) over 4
+    shards on one card takes the x-plan; its cells equal the unsharded
+    run's (transposed, column mode), which stays within the trajectory
+    bound of the physical layout's run."""
+    from lbm_tpu_torch.parallel import decomp
+    from lbm_tpu_torch.runner import run_simulation, simulate
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_SHARD_RESIDENT"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(2048, 256, True)
+    base = run_simulation(p, mask, n_iters=203)
+    m = torch.from_numpy(mask).to(cuda)
+    c0 = initial_state(p, cuda)
+    cp, ap = simulate(p, c0, m, kernel="cuda", n_iters=203, transposed=False)
+    np.testing.assert_allclose(base.av_vels, ap.cpu().numpy(), rtol=TRAJ_RTOL)
+    np.testing.assert_allclose(base.cells, cp.cpu().numpy(), rtol=RTOL,
+                               atol=ATOL)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    mesh = decomp.make_mesh(4, devices=[cuda] * 4)
+    before = dict(fused.LAUNCHES)
+    a = run_simulation(p, mask, n_iters=203, mesh=mesh)
+    assert any(fused.LAUNCHES[k] > before[k] for k in
+               ("step_seam_cols", "depth_seam_cols", "ring_cols"))
+    np.testing.assert_array_equal(a.cells, base.cells)
+    np.testing.assert_allclose(a.av_vels, base.av_vels, rtol=TRAJ_RTOL)

@@ -4,8 +4,8 @@ per-shard segments. JAX meshes are the 8 virtual CPU devices that
 tests/conftest.py provisions; the port's are ``[cpu] * n``. Every JAX
 planner gets ``backend="cpu"`` (or runs on the CPU backend), so no other
 backend is probed. The port's ``cuda`` kernel is the JAX package's
-``pallas``. Grids keep nx < 2 ny: the JAX package shards wide grids over
-x, the port (until its wide-grid layout) over rows."""
+``pallas``. Grids keep nx < 2 ny, the row plan; the x-plan of wide grids
+is held to the JAX package's in tests/test_torch_wide_sharded.py."""
 
 import numpy as np
 import pytest
