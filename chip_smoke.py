@@ -90,19 +90,66 @@ printing JSON lines (any failure raises and exits non-zero):
              ring G=100), halo copies per call; the plain shard step of
              the x-plan at 131072x128.
 
-Then the kernels line (every kernel, row and column modes, with its
-launches on its path, error against its plain version, time, plain time
-and bound), the nvidia-smi line, and a last line ``{"ok": true,
-"device": {...}}``. Without a CUDA device it exits 2 before printing
-anything. About 8 minutes on an H100, the build included.
+15. probe_kernel - the stream-cost probe (csrc/probe.cu) in its three
+             modes for one call at G = 16 against its plain version
+             (ops.reference.probe_multi_step) at 1024x1024, 128x128, a
+             ragged wall-less 100x130 and 16384x1024: cells max abs error
+             0; full mode's cells also equal the resident kernel's with
+             the forcing set to 0;
+16. probe_path - the probe's own path, scripts/stream_cost_probe_torch.py
+             at 1024x1024 (its launches are the probe kernels' counts in
+             the kernels line);
+17. probe_timing - device ms per step of the three modes and of the
+             resident kernel (what forcing costs) at G = 100, in turns, at
+             1024x1024 (two 37.7 MB buffers, above the 50 MB L2), 512x512
+             (in L2) and 16384x1024; the two streaming shares,
+             (full - collide) / full and stream / full; the plain version;
+18. resume   - the 1024x1024 scene, 20000 steps, through the CLI in
+             subprocesses: --chunk-iters 3000 (a 2000-step tail);
+             --iters 10000 --checkpoint-every 5000, then --resume;
+             --checkpoint-every 2000 with a SIGTERM once the first
+             checkpoint exists (exit code 75, the stderr line, no output
+             files), then --resume: the output files byte-identical to
+             the single-shot auto run's. Through run_simulation: the same
+             over 4 shards on one card, resumed over 4 shards and
+             unsharded; 131072x128 (transposed), 500 steps, checkpointed
+             at 248 and at 250 and resumed, and in chunks of 100 and of
+             150, unsharded and over 4 shards (the x-plan). Cells always
+             equal the single-shot run's bit for bit; av_vels equal those
+             of the single-shot run under the same mesh (the sharded sum
+             has its own order) bit for bit where every launch stays at
+             its place (248, 100: multiples of D), and within the totals'
+             tolerance where the launches shift (250, 150). Seconds per
+             save, checkpoint size;
+19. debug    - --debug --iters 20 at 128x128 through the CLI and over 4
+             shards: 60 lines in the reference's format, the av values
+             equal to the av_vels of the non-debug one-step plan;
+20. trace    - --trace DIR --iters 2000 on the 1024x1024 scene under auto
+             through the CLI, and run_simulation(mesh=, trace_dir=) over 4
+             shards under the seam plan and under the ring: the trace
+             summary (profiling.summarise) finds each path's kernels by
+             name with exactly the plan's launches, and gives the card's
+             busy share and the longest idle gaps; traced against untraced
+             compute seconds.
+
+Then the kernels line (every kernel, row and column modes and the probe's
+three, with its launches on its path, error against its plain version,
+time, plain time and bound), the nvidia-smi line, and a last line
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 before
+printing anything. ``--phases a,b`` (for development) runs only the named
+phases after device and build, and then prints no kernels line and no ok
+line.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import io
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -306,18 +353,41 @@ def phase_device(torch):
     return smi
 
 
+def ptxas_table(log_text):
+    """``{kernel<template arguments>: "N registers[, S B spilled]"}`` from
+    the build log's ``-Xptxas -v`` lines."""
+    import re
+
+    table, name = {}, None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
+                          m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
+                if k.group(2) else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            table[name] = m.groups()
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            st, lo = table.get(name, ("0", "0"))
+            table[name] = f"{m.group(1)} registers" + (
+                f", {st} / {lo} B spilled" if (st, lo) != ("0", "0") else "")
+    return table
+
+
 def phase_build():
     from lbm_tpu_torch.ops import _build
 
     path, seconds = _build.build()
     _build.load()
     log = path.with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln
-             ] if log.exists() else []
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
           "sources": [s.name for s in _build.sources()],
-          "nvcc_flags": " ".join(_build.NVCC_FLAGS), "ptxas": ptxas})
+          "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+          "ptxas": ptxas_table(log.read_text()) if log.exists() else {}})
 
 
 def phase_kernel(torch):
@@ -433,10 +503,24 @@ def expected_launches(parts, cols=False):
     return n
 
 
+def scene_files():
+    """The scene's params and obstacle files under SCENE_DIR, written on
+    first use: ``(params, obstacles)`` paths."""
+    from lbm_tpu_torch.obstacles import write_obstacles
+
+    nx, ny = grid(SCENE)
+    params = SCENE_DIR / "input_1024x1024.params"
+    obs = SCENE_DIR / "obstacles.dat"
+    if not (params.exists() and obs.exists()):
+        SCENE_DIR.mkdir(parents=True, exist_ok=True)
+        params.write_text(f"{nx}\n{ny}\n{ITERS}\n10\n0.1\n0.01\n1.85\n")
+        write_obstacles(obs, scene_mask())
+    return params, obs
+
+
 def phase_scene(torch, np):
     from lbm_tpu_torch import cli
     from lbm_tpu_torch import io as lio
-    from lbm_tpu_torch.obstacles import write_obstacles
     from lbm_tpu_torch.ops import fused, plan
 
     golden = np.load(GOLDEN)
@@ -444,11 +528,8 @@ def phase_scene(torch, np):
     mask = scene_mask()
     check(np.array_equal(mask, golden["u"].reshape(ny, nx) == 0),
           "scene mask differs from the golden's zero-velocity cells")
-    SCENE_DIR.mkdir(parents=True, exist_ok=True)
-    params, obs = SCENE_DIR / "input_1024x1024.params", SCENE_DIR / "obstacles.dat"
+    params, obs = scene_files()
     av_file, fs_file = SCENE_DIR / "av_vels.dat", SCENE_DIR / "final_state.dat"
-    params.write_text(f"{nx}\n{ny}\n{ITERS}\n10\n0.1\n0.01\n1.85\n")
-    write_obstacles(obs, mask)
 
     per_plan = {}
     for label, plan_env in SCENE_PLANS.items():
@@ -472,6 +553,10 @@ def phase_scene(torch, np):
             check(launches[seg.kernel] > 0, f"{label}: {seg.kernel} idle")
         per_plan[label] = launches
         check(lines[0] == "==done==", "stdout contract")
+        if label == "auto":
+            # The single-shot run the resume phase holds its runs to.
+            shutil.copy(av_file, SCENE_DIR / "auto_av_vels.dat")
+            shutil.copy(fs_file, SCENE_DIR / "auto_final_state.dat")
         reynolds = float(lines[1].split()[-1])
         compute = float(lines[3].split()[-2])
 
@@ -1023,7 +1108,7 @@ def phase_shard_scene(torch, np):
         out, per_plan[label] = drive(label, plan_env, shard_mesh(torch, N_SHARDS))
         emit({"phase": "shard_scene", "grid": SCENE, **out})
 
-    params, obs = SCENE_DIR / "input_1024x1024.params", SCENE_DIR / "obstacles.dat"
+    params, obs = scene_files()
     cmd = [sys.executable, "-m", "lbm_tpu_torch", str(params), str(obs),
            "--devices", str(N_SHARDS), "--iters", "200",
            "--av-vels-file", str(SCENE_DIR / "av_devices.dat"),
@@ -1241,27 +1326,509 @@ def phase_wide_shard_timing(torch):
     return results
 
 
-# Bounds: the least time the card could take for a kernel's work, the
-# larger of its bytes over the HBM rate and its operations over the
-# float32 rate (NVIDIA's data sheet, H100 SXM at 700 W). A step of one
-# cell moves its 9 f32 speeds in and out and its mask byte, 73 B, each
-# input read once and each output written once; a kernel that runs n
-# steps per launch moves them once per n steps. Operations per cell-step:
-# 90, counted from lbm_cell.cuh's paired association (density 8, velocity
-# 12 with two divisions, u^2 3, equilibrium 36, relaxation 27, |u| and its
-# sum 4), the forcing branch aside.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-OPS_PER_CELL_STEP = 90
-BYTES_PER_CELL_PASS = 73
+# The stream-cost probe: its kernel-phase grids, the G of one checked call
+# and of the timed launches, and the timing grids (1024x1024: two 37.7 MB
+# buffers, above the 50 MB L2; 512x512: both in L2).
+PROBE_CASES = [("1024x1024", "scene"), ("128x128", "walls"),
+               ("100x130", "random"), ("16384x1024", "walls")]
+PROBE_G, PROBE_TIMING_G = 16, 100
+PROBE_TIMING_GRIDS = ("1024x1024", "512x512", "16384x1024")
 
 
-def bound(cells, steps_per_launch, extra_bytes=0):
-    """``(ms per step, "bytes" or "operations")`` for ``cells`` cells
-    stepped ``steps_per_launch`` steps per launch."""
-    t_bytes = (BYTES_PER_CELL_PASS * cells + extra_bytes) / HBM_BYTES_PER_S \
-        / steps_per_launch
-    t_ops = OPS_PER_CELL_STEP * cells / F32_OPS_PER_S
+def phase_probe_kernel(torch):
+    """The probe's three modes for one call against the plain version:
+    cells max abs error 0, totals within the tot bound; full mode against
+    the resident kernel with the forcing set to 0."""
+    from lbm_tpu_torch.ops import probe, resident
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    worst = {}
+    for i, (name, kind) in enumerate(PROBE_CASES):
+        p = scene_params(name, iters=200)
+        cells, mask = random_case(torch, name, p, 60 + i, kind, "perturbed")
+        res = {}
+        with env():
+            for mode in probe.MODES:
+                got, tots = probe.probe(cells, mask, p.omega, PROBE_G, mode)
+                want, want_tots = ref_ops.probe_multi_step(
+                    cells, mask, p.omega, PROBE_G, mode)
+                r = res[mode] = compare(torch, got, tots, want, want_tots)
+                worst[mode] = max(worst.get(mode, 0.0), r["max_abs_err"])
+                check(r["max_abs_err"] == 0.0 and r["tot_ok"],
+                      f"probe {mode} != plain at {name}")
+                if mode == "full":
+                    same, _ = resident.resident(cells, mask, 0.0, 0.0,
+                                                p.omega, PROBE_G)
+                    res["full_equals_resident_without_forcing"] = bool(
+                        torch.equal(got, same))
+                    check(res["full_equals_resident_without_forcing"],
+                          f"probe full != resident with accel 0 at {name}")
+                del got, want
+        emit({"phase": "probe_kernel", "grid": name, "mask": kind,
+              "gsteps": PROBE_G, **res})
+        del cells, mask
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_probe_path(torch):
+    """The probe's path as a user drives it: the script's ``main`` at its
+    default grid. Returns the launch counts of that run."""
+    from lbm_tpu_torch.ops import fused
+
+    spec = importlib.util.spec_from_file_location(
+        "stream_cost_probe_torch",
+        REPO / "scripts" / "stream_cost_probe_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    out = io.StringIO()
+    with env():
+        fused.reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc = script.main(["--grid", SCENE, "--gsteps", "200",
+                              "--repeats", "3"])
+        launches = dict(fused.LAUNCHES)
+    check(rc == 0, f"stream_cost_probe_torch.py exit {rc}")
+    summary = json.loads(out.getvalue().splitlines()[-1])
+    check(0.0 < summary["stream_share_direct"] < 1.5
+          and -0.5 < summary["stream_share_subtractive"] < 1.0,
+          f"probe shares out of range: {summary}")
+    emit({"phase": "probe_path", "script": "scripts/stream_cost_probe_torch.py",
+          "launches": {k: v for k, v in launches.items() if v}, **summary})
+    return launches
+
+
+def phase_probe_timing(torch):
+    """Device ms per step of the probe's modes and of the resident kernel
+    (the full mode plus forcing) at G = PROBE_TIMING_G, in turns; the two
+    streaming shares; the plain version at 1024x1024."""
+    from lbm_tpu_torch.ops import probe, resident
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    g = PROBE_TIMING_G
+    results = {}
+    for name in PROBE_TIMING_GRIDS:
+        p = scene_params(name)
+        cells, mask = random_case(
+            torch, name, p, seed=95, state="perturbed",
+            mask_kind="scene" if name == SCENE else "walls")
+        bufs = [cells, torch.empty_like(cells)]
+        av = torch.zeros(g, device="cuda")
+        with env():
+            kernels = {m: probe.Probe(mask, p.omega, g, m) for m in probe.MODES}
+            res = resident.Resident(mask, p.accel_w1, p.accel_w2, p.omega, g)
+        calls = {f"probe {m}": (lambda k=k: k.run(bufs[0], bufs[1], av), g, None)
+                 for m, k in kernels.items()}
+        calls[f"resident G={g}"] = (runner_call(res, bufs, av), g, None)
+        loop, dev = time_turns(torch, calls)
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        full = med["probe full"]
+        out = {"phase": "probe_timing", "grid": name, "gsteps": g,
+               "buffer_mb": cells.numel() * 4 / 1e6,
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "stream_share_subtractive": (full - med["probe collide"]) / full,
+               "stream_share_direct": med["probe stream"] / full,
+               "resident_over_full": med[f"resident G={g}"] / full,
+               "method": "CUDA events; median over 10 batches of 200 steps "
+                         "after one warm-up batch, configurations in turns "
+                         "(forward, then reverse); device: queue pre-filled "
+                         "behind a device sleep"}
+        out["state_finite_after_timing"] = bool(torch.isfinite(bufs[0]).all())
+        if name == SCENE:
+            plain = {}
+            for m in probe.MODES:
+                def plain_steps(m=m):
+                    ref_ops.probe_multi_step(bufs[0], mask, p.omega, 2, m)
+                plain[m] = _median_ms(torch, plain_steps, 2, True, steps=8,
+                                      batches=3)[0]
+            out["plain_device_ms_per_step"] = plain
+        emit(out)
+        results[name] = out
+        del cells, bufs, kernels, res, calls
+        torch.cuda.empty_cache()
+    return results
+
+
+def _cli(args, timeout=600, background=False):
+    """``python -m lbm_tpu_torch`` in a subprocess of its own, the plan
+    pins cleared: the finished run, or with ``background`` the running
+    process."""
+    clean = {k: v for k, v in os.environ.items()
+             if k not in PLAN_ENV and k not in ("LBM_PAIRED_EQ", "LBM_OMEGA_EQ")}
+    cmd = [sys.executable, "-m", "lbm_tpu_torch", *map(str, args)]
+    if background:
+        return subprocess.Popen(cmd, cwd=REPO, env=clean, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    return subprocess.run(cmd, cwd=REPO, env=clean, text=True,
+                          capture_output=True, timeout=timeout)
+
+
+def _compute_s(stdout):
+    return float(stdout.splitlines()[3].split()[-2])
+
+
+def phase_resume(torch, np):
+    """Chunked, checkpointed-and-resumed and preempted runs against the
+    single-shot run of the same scene: byte-identical output files through
+    the CLI, bit-identical arrays through run_simulation."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.obstacles import generate_obstacles
+
+    d = SCENE_DIR.parent / "resume"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    params, obs = scene_files()
+    base_av = (SCENE_DIR / "auto_av_vels.dat").read_bytes()
+    base_fs = (SCENE_DIR / "auto_final_state.dat").read_bytes()
+
+    def outputs(tag):
+        return d / f"av_{tag}.dat", d / f"fs_{tag}.dat"
+
+    def run_cli(tag, *flags):
+        av, fs = outputs(tag)
+        t0 = time.perf_counter()
+        res = _cli([params, obs, "--av-vels-file", av, "--final-state-file",
+                    fs, *flags])
+        check(res.returncode == 0, f"resume {tag}: CLI exit {res.returncode}: "
+              f"{res.stderr[-400:]}")
+        return res, time.perf_counter() - t0
+
+    def same_files(tag):
+        av, fs = outputs(tag)
+        ok = av.read_bytes() == base_av and fs.read_bytes() == base_fs
+        check(ok, f"resume {tag}: output files differ from the single-shot "
+              "auto run's")
+        return ok
+
+    # (a) chunks of 3000 steps and a 2000-step tail.
+    res, wall = run_cli("chunk", "--chunk-iters", "3000")
+    emit({"phase": "resume", "case": "--chunk-iters 3000", "grid": SCENE,
+          "steps": ITERS, "plan_line": res.stderr.strip().splitlines()[-1],
+          "compute_s": _compute_s(res.stdout), "wall_s": wall,
+          "files_byte_identical_to_single_shot": same_files("chunk")})
+
+    # (b) half the run with two checkpoints, then the rest from the file.
+    ck = d / "ck_b.npz"
+    first, wall1 = run_cli("half", "--iters", "10000", "--checkpoint-every",
+                           "5000", "--checkpoint-file", ck)
+    second, wall2 = run_cli("resumed", "--resume", ck)
+    step, ck_cells, _ = runner.load_checkpoint(ck)
+    check(step == 10000 and ck_cells.shape == (9, *reversed(grid(SCENE))),
+          f"checkpoint holds step {step}, cells {ck_cells.shape}")
+    emit({"phase": "resume", "case": "--checkpoint-every 5000 to 10000, "
+          "then --resume", "grid": SCENE, "steps": ITERS,
+          "plan_lines": [first.stderr.strip().splitlines()[-1],
+                         second.stderr.strip().splitlines()[-1]],
+          "compute_s": [_compute_s(first.stdout), _compute_s(second.stdout)],
+          "wall_s": [wall1, wall2], "checkpoint_bytes": ck.stat().st_size,
+          "files_byte_identical_to_single_shot": same_files("resumed")})
+
+    # (c) SIGTERM once the first checkpoint file exists.
+    ck = d / "ck_c.npz"
+    av, fs = outputs("preempted")
+    proc = _cli([params, obs, "--av-vels-file", av, "--final-state-file", fs,
+                 "--checkpoint-every", "2000", "--checkpoint-file", ck],
+                background=True)
+    t0 = time.perf_counter()
+    while not ck.exists() and proc.poll() is None \
+            and time.perf_counter() - t0 < 300:
+        time.sleep(0.02)
+    proc.send_signal(signal.SIGTERM)
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError("the preempted CLI run did not stop")
+    line = [ln for ln in stderr.splitlines() if ln.startswith("preempted")]
+    check(proc.returncode == 75, f"preempted CLI exit {proc.returncode}: "
+          f"{stderr[-400:]}")
+    check(len(line) == 1 and f"resume with --resume {ck}" in line[0],
+          f"preempted CLI stderr: {stderr[-400:]}")
+    check("==done==" not in stdout and not av.exists() and not fs.exists(),
+          "the preempted CLI run wrote final outputs")
+    at = runner.load_checkpoint(ck)[0]
+    check(f"preempted at step {at}/{ITERS}" in line[0] and 0 < at < ITERS,
+          f"checkpoint at step {at}, stderr {line[0]}")
+    _, wall = run_cli("after_sigterm", "--resume", ck)
+    emit({"phase": "resume", "case": "--checkpoint-every 2000, SIGTERM, "
+          "then --resume", "grid": SCENE, "steps": ITERS, "rc": 75,
+          "stderr": line[0], "preempted_at": at, "resume_wall_s": wall,
+          "files_byte_identical_to_single_shot": same_files("after_sigterm")})
+
+    # Through run_simulation: the unsharded and the 4-shard single-shot
+    # runs, then (d) the checkpointed half over 4 shards resumed both ways.
+    p, mask = scene_params(), scene_mask()
+    mesh = shard_mesh(torch, N_SHARDS)
+    with env():
+        base = runner.run_simulation(p, mask)
+        av, fs = outputs("inproc")
+        lio.write_av_vels(av, base.av_vels)
+        lio.write_final_state(fs, p, base.cells, mask)
+        same_files("inproc")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.save_checkpoint(d / "ck_time.npz", ITERS, base.cells,
+                               base.av_vels)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        runner.load_checkpoint(d / "ck_time.npz")
+        load_s = time.perf_counter() - t0
+        base_x = runner.run_simulation(p, mask, mesh=mesh)
+        ck = d / "ck_d.npz"
+        half = runner.run_simulation(p, mask, mesh=mesh, n_iters=10000,
+                                     checkpoint_every=5000, checkpoint_file=ck)
+        again_x = runner.run_simulation(p, mask, mesh=mesh, resume_from=ck)
+        again_1 = runner.run_simulation(p, mask, resume_from=ck)
+    out = {
+        "half_completed_steps": half.completed_steps,
+        "sharded_resume_cells_equal_unsharded_single_shot":
+            bool(np.array_equal(again_x.cells, base.cells)),
+        "sharded_resume_av_vels_equal_sharded_single_shot":
+            bool(np.array_equal(again_x.av_vels, base_x.av_vels)),
+        "unsharded_resume_cells_equal_unsharded_single_shot":
+            bool(np.array_equal(again_1.cells, base.cells)),
+        "unsharded_resume_av_vels_equal_sharded_then_unsharded":
+            bool(np.array_equal(again_1.av_vels[:10000], base_x.av_vels[:10000])
+                 and np.array_equal(again_1.av_vels[10000:],
+                                    base.av_vels[10000:])),
+        "sharded_av_vels_bit_identical_to_unsharded":
+            bool(np.array_equal(base_x.av_vels, base.av_vels)),
+    }
+    emit({"phase": "resume", "case": "4 shards on one card, checkpoint at "
+          "10000, resumed over 4 shards and unsharded", "grid": SCENE,
+          "steps": ITERS, **out, "save_s": save_s, "load_s": load_s,
+          "checkpoint_bytes": (d / "ck_time.npz").stat().st_size,
+          "half_compute_s_with_2_saves": half.timings["compute"]})
+    check(half.completed_steps == 10000 and not half.preempted
+          and all(v for k, v in out.items() if k.endswith("single_shot")
+                  or k.endswith("then_unsharded")),
+          f"sharded resume: {out}")
+    del base, base_x, half, again_x, again_1
+
+    # (e) the wide grid (transposed), unsharded and over 4 shards (x-plan).
+    # A checkpoint and chunks at multiples of the plan's D (248, 100) keep
+    # every step at the same stage of the same launch as in the single-shot
+    # run, and give its bits throughout. A checkpoint at 250 and chunks of
+    # 150 shift the launches by two steps and end chunks in a tail under
+    # another kernel; a step's total is then summed in another order (the
+    # depth kernel sums each stage of a launch over its own window), so
+    # the cells keep their bits and av_vels agrees within TOT_RTOL.
+    from lbm_tpu_torch.parallel import halo
+
+    nx, ny = grid(WIDE)
+    iters = WIDE_GATE_ITERS
+    p, mask = scene_params(WIDE, iters), generate_obstacles(nx, ny)
+    out, av_diff = {}, {}
+    with env():
+        for tag, m in (("unsharded", None), ("x-plan", mesh)):
+            segs = (runner.plan_run(p, "cuda", iters) if m is None
+                    else halo.plan_run(p, mask, m, "auto", iters).segments)
+            depth = segs[0].steps_per_call
+            check(len(segs) == 1 and depth > 1, f"wide plan {segs}")
+            base = runner.run_simulation(p, mask, mesh=m)
+            if m is None:
+                base_cells = base.cells
+            runs = {}
+            for at, stride in ((248, 100), (250, 150)):
+                ck = d / f"ck_wide_{tag}_{at}.npz"
+                runner.run_simulation(p, mask, mesh=m, n_iters=at,
+                                      checkpoint_every=at, checkpoint_file=ck)
+                check(runner.load_checkpoint(ck)[1].shape == (9, ny, nx),
+                      "a transposed run's checkpoint is not physical")
+                runs[f"resumed from {at}"] = (at % depth == 0,
+                    runner.run_simulation(p, mask, mesh=m, resume_from=ck))
+                runs[f"chunks of {stride}"] = (stride % depth == 0,
+                    runner.run_simulation(p, mask, mesh=m, chunk_iters=stride))
+                if m is not None and at == 248:
+                    # The x-plan's checkpoint resumed unsharded.
+                    crossed = runner.run_simulation(p, mask, resume_from=ck)
+                    out["x-plan crossed: cells"] = bool(
+                        np.array_equal(crossed.cells, base_cells))
+            for kind, (aligned, r) in runs.items():
+                out[f"{tag} {kind}: cells"] = bool(
+                    np.array_equal(r.cells, base_cells))
+                rel = (np.abs(r.av_vels - base.av_vels)
+                       / np.maximum(np.abs(base.av_vels), 1e-30))
+                av_diff[f"{tag} {kind}"] = {
+                    "launches_aligned": aligned,
+                    "steps_that_differ": int(np.count_nonzero(rel)),
+                    "max_rel_diff": float(rel.max())}
+                out[f"{tag} {kind}: av_vels"] = bool(
+                    rel.max() == 0.0 if aligned else rel.max() <= TOT_RTOL)
+    emit({"phase": "resume", "case": "checkpoint at 248 and at 250 of 500 and "
+          "resume, chunks of 100 and of 150; unsharded (transposed) and over "
+          "4 shards (x-plan)", "grid": WIDE, "steps": iters,
+          "equal_to_single_shot": out, "av_vels": av_diff,
+          "av_vels_rtol_where_launches_shift": TOT_RTOL})
+    check(all(out.values()), f"wide resume: {out} {av_diff}")
+    del base, runs, base_cells
+    torch.cuda.empty_cache()
+
+
+DEBUG_GRID, DEBUG_ITERS = "128x128", 20
+
+
+def _debug_block(np, text, iters):
+    """The av values of a debug run's stdout, after checking that it is
+    ``iters`` blocks of three lines in the reference's format."""
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith(("==timestep", "av velocity", "tot density"))]
+    check(len(lines) == 3 * iters, f"{len(lines)} debug lines, not {3 * iters}")
+    av = []
+    for t in range(iters):
+        a, b, c = lines[3 * t:3 * t + 3]
+        check(a == "==timestep: %d==" % t, f"debug line {a!r}")
+        check(b.startswith("av velocity: ") and c.startswith("tot density: "),
+              f"debug lines {b!r}, {c!r}")
+        for ln in (b, c):
+            value = ln.split(": ")[1]
+            check("%.12E" % float(value) == value, f"debug format {ln!r}")
+        av.append(np.float32(float(b.split(": ")[1])))
+        check(abs(float(c.split(": ")[1]) / (0.1 * 128 * 128) - 1) < 1e-3,
+              f"debug density {c!r}")
+    return np.array(av, np.float32)
+
+
+def phase_debug(torch, np):
+    """--debug through the CLI on the card and run_simulation(debug=True)
+    over 4 shards: the reference's three lines per step, the av values
+    those of the non-debug one-step plan (the kernel the debug loop
+    steps)."""
+    from lbm_tpu_torch import cli, runner
+    from lbm_tpu_torch.obstacles import generate_obstacles, write_obstacles
+
+    nx, ny = grid(DEBUG_GRID)
+    iters = DEBUG_ITERS
+    p, mask = scene_params(DEBUG_GRID, iters), generate_obstacles(nx, ny)
+    d = SCENE_DIR.parent / "debug"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "s.params").write_text(f"{nx}\n{ny}\n{iters}\n10\n0.1\n0.01\n1.85\n")
+    write_obstacles(d / "o.dat", mask)
+    mesh = shard_mesh(torch, N_SHARDS)
+    with env(LBM_PALLAS_DEPTH="1", LBM_RESIDENT="0"):
+        plain = runner.run_simulation(p, mask)
+        plain_x = runner.run_simulation(p, mask, mesh=mesh)
+    for label, want, run in (
+            ("CLI --debug", plain, lambda: cli.main(
+                [str(d / "s.params"), str(d / "o.dat"), "--debug",
+                 "--av-vels-file", str(d / "av.dat"),
+                 "--final-state-file", str(d / "fs.dat")])),
+            (f"run_simulation(debug=True) over {N_SHARDS} shards", plain_x,
+             lambda: runner.run_simulation(p, mask, mesh=mesh, debug=True))):
+        out, err = io.StringIO(), io.StringIO()
+        with env(), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            got = run()
+        av = _debug_block(np, out.getvalue(), iters)
+        same = bool(np.array_equal(av, want.av_vels))
+        cells = True
+        if not isinstance(got, int):
+            cells = bool(np.array_equal(got.cells, plain.cells))
+            same = same and bool(np.array_equal(got.av_vels, want.av_vels))
+        emit({"phase": "debug", "run": label, "grid": DEBUG_GRID,
+              "steps": iters, "lines": 3 * iters,
+              "plan_line": err.getvalue().strip(),
+              "av_equal_to_the_one_step_plan": same,
+              "cells_equal_to_the_unsharded_run": cells,
+              "last_block": out.getvalue().splitlines()[3 * iters - 3:3 * iters]})
+        check(got == 0 or not isinstance(got, int), f"{label}: exit {got}")
+        check(same and cells, f"{label}: differs from the non-debug run")
+
+
+TRACE_ITERS = 2000
+# fused.LAUNCHES' names to the kernels' names in a trace.
+TRACE_NAMES = {"step": "fused_step_kernel", "depth": "fused_depth_kernel",
+               "resident": "resident_kernel", "reduce": "reduce_tot_kernel",
+               "step_seam": "fused_step_seam_kernel",
+               "depth_seam": "fused_depth_kernel", "ring": "ring_kernel"}
+
+
+def phase_trace(torch, np):
+    """Traces of the 1024x1024 scene, TRACE_ITERS steps: under auto
+    through the CLI's --trace, and over 4 shards under the seam plan and
+    the ring through run_simulation(trace_dir=). Each summary holds the
+    path's kernels by name with the plan's launches; the busy share and
+    the idle gaps are printed."""
+    from lbm_tpu_torch import cli, profiling, runner
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.parallel import halo
+
+    nx, ny = grid(SCENE)
+    iters = TRACE_ITERS
+    p, mask = scene_params(iters=iters), scene_mask()
+    params, obs = scene_files()
+    root = SCENE_DIR.parent / "trace"
+    shutil.rmtree(root, ignore_errors=True)
+    mesh = shard_mesh(torch, N_SHARDS)
+    results = {}
+    for label, plan_env, m in (("auto", {}, None),
+                               ("4 shards, seam", {}, mesh),
+                               ("4 shards, ring", {"LBM_SHARD_RESIDENT": "1"},
+                                mesh)):
+        tdir = root / label.replace(" ", "_").replace(",", "")
+        with env(**plan_env):
+            if m is None:
+                want = expected_launches(plan.segments(ny, nx, iters))
+                untraced = runner.run_simulation(p, mask)
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main([str(params), str(obs), "--iters", str(iters),
+                                   "--trace", str(tdir), "--av-vels-file",
+                                   str(root / "av.dat"), "--final-state-file",
+                                   str(root / "fs.dat")])
+                check(rc == 0, f"CLI --trace exit {rc}")
+                traced_s = _compute_s(out.getvalue())
+            else:
+                sp = halo.plan_run(p, mask, m, "auto", iters)
+                want = expected_shard_launches(sp.segments, m.size)
+                untraced = runner.run_simulation(p, mask, mesh=m)
+                traced = runner.run_simulation(p, mask, mesh=m, trace_dir=tdir)
+                traced_s = traced.timings["compute"]
+                check(np.array_equal(traced.cells, untraced.cells),
+                      f"trace {label}: the traced run's cells differ")
+        summary = profiling.summarise(str(tdir))
+        got = profiling.launches(summary)
+        expect = {}
+        for key, n in want.items():
+            if n:
+                name = TRACE_NAMES[key]
+                expect[name] = expect.get(name, 0) + n
+        print(profiling.format_summary(summary), flush=True)
+        emit({"phase": "trace", "path": label, "grid": SCENE, "steps": iters,
+              "env": plan_env, "expected_launches": expect,
+              "traced_launches": {k: got.get(k, 0) for k in expect},
+              "kernels": [{k: r[k] for k in ("name", "launches", "total_us",
+                                             "mean_us", "pct_busy")}
+                          for r in summary["kernels"][:8]],
+              "device_events": summary["device_events"],
+              "window_us": summary["window_us"], "busy_us": summary["busy_us"],
+              "busy_share": summary["busy_share"],
+              "idle_gaps": summary["idle_gaps"],
+              "n_idle_gaps": summary["n_idle_gaps"],
+              "compute_s_untraced": untraced.timings["compute"],
+              "compute_s_traced": traced_s,
+              "trace_bytes": Path(summary["trace_file"]).stat().st_size})
+        for name, n in expect.items():
+            check(got.get(name, 0) == n, f"trace {label}: {name} launched "
+                  f"{got.get(name, 0)} times in the trace, the plan says {n}")
+        check(summary["busy_share"] is not None
+              and 0.0 < summary["busy_share"] <= 1.0,
+              f"trace {label}: busy share {summary['busy_share']}")
+        results[label] = summary["busy_share"]
+    shutil.rmtree(root, ignore_errors=True)
+    return results
+
+
+def reduce_bound(partials):
+    """The reduce launch's bound: ``partials`` floats in, one out, one
+    addition each (lbm_tpu_torch.profiling's data-sheet peaks)."""
+    from lbm_tpu_torch.profiling import CHIP_PEAKS
+
+    peaks = CHIP_PEAKS["h100"]
+    t_bytes = 4 * (partials + 1) / peaks["hbm_bytes_per_s"]
+    t_ops = partials / peaks["f32_ops_per_s"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1283,31 +1850,65 @@ def main() -> int:
         return 2
     import numpy as np
 
-    import lbm_tpu_torch  # noqa: F401  (fails here, before any output,
-    # when the package is not beside this script)
+    # Fails here, before any output, when the package is not beside this
+    # script.
+    from lbm_tpu_torch.profiling import bound
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    only = None
+    if len(sys.argv) > 1:
+        check(len(sys.argv) == 3 and sys.argv[1] == "--phases",
+              "usage: chip_smoke.py [--phases name,name,...]")
+        only = sys.argv[2].split(",")
     smi = phase_device(torch)
     phase_build()
-    worst = phase_kernel(torch)
-    wide_worst = phase_wide_kernel(torch)
-    launches = phase_scene(torch, np)
-    wide_runs = phase_wide_gate(torch, np)
-    phase_stress(torch)
-    timing = phase_timing(torch)
-    wide_timing = phase_wide_timing(torch)
-    shard_worst = phase_shard_kernel(torch)
-    shard_launches = phase_shard_scene(torch, np)
-    wide_shard_launches = phase_wide_shard(torch, np)
-    shard_timing = phase_shard_timing(torch, timing)
-    wide_shard_timing = phase_wide_shard_timing(torch)
+    done = {}
+
+    def run(name, fn, *args):
+        """Phase ``name``, unless --phases leaves it out; its seconds."""
+        if only is not None and name not in only:
+            return None
+        t0 = time.perf_counter()
+        done[name] = fn(*args)
+        torch.cuda.synchronize()
+        emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
+        return done[name]
+
+    worst = run("kernel", phase_kernel, torch)
+    wide_worst = run("wide_kernel", phase_wide_kernel, torch)
+    launches = run("scene", phase_scene, torch, np)
+    wide_runs = run("wide_gate", phase_wide_gate, torch, np)
+    run("stress", phase_stress, torch)
+    timing = run("timing", phase_timing, torch)
+    wide_timing = run("wide_timing", phase_wide_timing, torch)
+    shard_worst = run("shard_kernel", phase_shard_kernel, torch)
+    shard_launches = run("shard_scene", phase_shard_scene, torch, np)
+    wide_shard_launches = run("wide_shard", phase_wide_shard, torch, np)
+    shard_timing = timing and run("shard_timing", phase_shard_timing, torch,
+                                  timing)
+    wide_shard_timing = run("wide_shard_timing", phase_wide_shard_timing, torch)
+    probe_worst = run("probe_kernel", phase_probe_kernel, torch)
+    probe_launches = run("probe_path", phase_probe_path, torch)
+    probe_timing = run("probe_timing", phase_probe_timing, torch)
+    if launches is not None:
+        run("resume", phase_resume, torch, np)
+    run("debug", phase_debug, torch, np)
+    run("trace", phase_trace, torch, np)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "lbm_tpu" or m.startswith("lbm_tpu.")
                   for m in sys.modules), "the port imported lbm_tpu")
 
+    if only is not None:
+        print(smi, flush=True)
+        emit({"partial": True, "phases": sorted(done)})
+        return 0
+
     # Every kernel of the card's paths launched in the run of its path.
-    runs = {"fused_step": launches["step"]["step"],
+    runs = {"probe_full": probe_launches["probe_full"],
+            "probe_collide": probe_launches["probe_collide"],
+            "probe_stream": probe_launches["probe_stream"],
+            "fused_step": launches["step"]["step"],
             "reduce_tot": launches["auto"]["reduce"],
             "fused_depth": launches["auto"]["depth"],
             "resident": launches["resident"]["resident"],
@@ -1352,6 +1953,8 @@ def main() -> int:
     whalo_bytes = lambda k: N_SHARDS * 2 * k * wny * 37
     on_wide = f"{WIDE} (transposed)"
     wide_sharded = f"{WIDE} over {N_SHARDS} shards on one card (x-plan)"
+    pt = probe_timing[SCENE]
+    pdev = {k: statistics.median(v) for k, v in pt["device_ms_per_step"].items()}
     emit({"kernels": [
         kernel_entry("fused_step", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step"],
@@ -1361,10 +1964,7 @@ def main() -> int:
                      "lbm_tpu/ops/pallas_fused.py:396", runs["reduce_tot"],
                      f"{on_scene}, auto", t["reduce_abs_err"],
                      t["reduce_device_ms"], t["reduce_plain_device_ms"],
-                     (max(4 * (partials + 1) / HBM_BYTES_PER_S,
-                          partials / F32_OPS_PER_S) * 1e3,
-                      "bytes" if 4 * (partials + 1) / HBM_BYTES_PER_S
-                      >= partials / F32_OPS_PER_S else "operations"),
+                     reduce_bound(partials),
                      library_ms=t["reduce_plain_device_ms"]),
         kernel_entry("fused_depth", "lbm_tpu_torch/csrc/fused_depth.cu",
                      "lbm_tpu/ops/pallas_fused.py:653", runs["fused_depth"],
@@ -1427,6 +2027,18 @@ def main() -> int:
                      f"{wide_sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
                      shard_worst["ring_cols"], wsdev["x-plan ring G=100"],
                      wsplain, bound(wcells, 100)),
+        # The probe: its launches are the probe script's run; a launch
+        # moves the lattice once for its G steps. The stream mode reads no
+        # mask (72 B a cell) and adds once a cell (its total).
+        *(kernel_entry(f"probe_{m}", "lbm_tpu_torch/csrc/probe.cu",
+                       "scripts/stream_cost_probe.py:53", runs[f"probe_{m}"],
+                       f"scripts/stream_cost_probe_torch.py at {SCENE} "
+                       f"(times: G={PROBE_TIMING_G})", probe_worst[m],
+                       pdev[f"probe {m}"], pt["plain_device_ms_per_step"][m],
+                       bound(cells, PROBE_TIMING_G, bytes_per_cell=72,
+                             ops_per_cell=1) if m == "stream"
+                       else bound(cells, PROBE_TIMING_G))
+          for m in ("full", "collide", "stream")),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

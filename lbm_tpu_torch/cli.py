@@ -9,6 +9,16 @@ grid runs on the transposed lattice (``kernel: cuda on cuda (float32),
 transposed: depth D=4 x5000``). ``--devices N`` shards the rows (a wide
 grid: the columns) over N CUDA devices, clamped to the visible ones as
 the JAX package's ``--devices`` is (the notes go to stderr).
+
+``--chunk-iters`` and ``--checkpoint-every`` run the scene in chunks, each
+planned on its own (the plan line then names each chunk length's
+segments); ``--checkpoint-every`` saves an ``.npz`` after each chunk,
+``--resume`` continues one (written by this package or by ``lbm_tpu``).
+With periodic checkpointing on, SIGTERM or SIGINT stops the run at the
+next chunk boundary with its state saved: exit code 75, one line on stderr
+naming the ``--resume`` command, and no output files. ``--debug`` prints
+the reference's per-step block; ``--trace DIR`` writes a
+``torch.profiler`` trace of the compute phase.
 """
 
 from __future__ import annotations
@@ -61,13 +71,49 @@ def build_parser() -> argparse.ArgumentParser:
         "--iters", type=int, default=None, help="override maxIters (debugging)"
     )
     p.add_argument(
+        "--debug", action="store_true",
+        help="print per-step av velocity and total density "
+             "(the reference's -DDEBUG block)",
+    )
+    p.add_argument(
+        "--checkpoint-every", type=int, default=None, metavar="N",
+        help="save a checkpoint every N steps",
+    )
+    p.add_argument(
+        "--checkpoint-file", default=None, metavar="PATH",
+        help="checkpoint path (with --checkpoint-every; default "
+             "lbm_checkpoint.npz)",
+    )
+    p.add_argument(
+        "--resume", default=None, metavar="CKPT",
+        help="resume from a checkpoint file (this package's or lbm_tpu's)",
+    )
+    p.add_argument(
+        "--chunk-iters", type=int, default=None, metavar="N",
+        help="bound any single planned set of kernel launches to N "
+             "timesteps, without checkpoint I/O (identical trajectory)",
+    )
+    p.add_argument(
         "--precision",
         choices=["float32", "float64"],
         default="float32",
         help="working precision: float32 matches the reference artifact; "
              "float64 reproduces the golden data's original code",
     )
+    p.add_argument(
+        "--trace", default=None, metavar="DIR",
+        help="capture a torch.profiler trace of the compute phase into DIR "
+             "(summarise with scripts/trace_report_torch.py)",
+    )
     return p
+
+
+def _describe_chunks(sizes, chunked: bool, describe) -> str:
+    """The plan line's tail: ``describe(n)`` for a run in one go, or for
+    each chunk length of a chunked one."""
+    if not chunked:
+        return describe(sizes[0])
+    return "; ".join(f"{describe(n)} per {n}-step chunk" for n in sizes)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -95,25 +141,75 @@ def _main(argv: list[str] | None = None) -> int:
             devices=visible_devices(device.type))
         for note in notes:
             print(note, file=sys.stderr)
+
+    ckpt_file = args.checkpoint_file
+    if args.checkpoint_every is None:
+        if ckpt_file is not None:
+            # The runner errors on the reverse misconfiguration
+            # (every-without-file); this direction silently saves
+            # nothing, which deserves at least a note.
+            print(
+                "note: --checkpoint-file without --checkpoint-every "
+                "saves nothing; pass --checkpoint-every N",
+                file=sys.stderr,
+            )
+    elif ckpt_file is None:
+        ckpt_file = "lbm_checkpoint.npz"
+
+    # The chunk lengths the run takes, each planned on its own (the
+    # debug loop steps one at a time).
+    stride = args.checkpoint_every or args.chunk_iters
+    start = runner.checkpoint_step(args.resume) if args.resume else 0
+    chunked = bool(stride) or args.debug
+    sizes = [1] if args.debug else runner.chunk_sizes(
+        start, iters, stride if stride and stride > 0 else None)
     if mesh is not None:
         sp = halo.plan_run(params, obstacles, mesh, args.kernel, iters)
         kernel = args.kernel
         layout = ", transposed" if sp.transposed else ""
         line = (f"kernel: {sp.kernel} on {mesh.device_type} "
-                f"({args.precision}){layout}: {halo.describe(sp, mesh)}")
+                f"({args.precision}){layout}")
+
+        def describe(n):
+            return halo.describe(
+                halo.plan_run(params, obstacles, mesh, args.kernel, n), mesh)
     else:
         kernel = runner._resolve_kernel(args.kernel, params, device)
         line = f"kernel: {kernel} on {device} ({args.precision})"
         if kernel == "cuda":
             if runner.plan_layout(params, kernel):
                 line += ", transposed"
-            line += ": " + plan.describe(runner.plan_run(params, kernel, iters))
+
+        def describe(n):
+            return plan.describe(runner.plan_run(params, kernel, n))
+    if sizes and (mesh is not None or kernel == "cuda"):
+        line += ": " + _describe_chunks(sizes, chunked, describe)
     print(line, file=sys.stderr)
 
     result = runner.run_simulation(
         params, obstacles, kernel=kernel, n_iters=args.iters, device=device,
         mesh=mesh,
+        debug=args.debug,
+        checkpoint_every=args.checkpoint_every,
+        checkpoint_file=ckpt_file,
+        resume_from=args.resume,
+        trace_dir=args.trace,
+        chunk_iters=args.chunk_iters,
     )
+
+    if result.preempted:
+        # Graceful preemption (SIGTERM/SIGINT with periodic checkpointing
+        # on): state through completed_steps is flushed to the checkpoint.
+        # Write no final outputs (a partial final_state.dat would
+        # masquerade as a finished run) and exit with EX_TEMPFAIL so an
+        # orchestrator knows to launch again with --resume.
+        print(
+            f"preempted at step {result.completed_steps}/"
+            f"{args.iters or params.max_iters}: checkpoint saved to "
+            f"{ckpt_file}; resume with --resume {ckpt_file}",
+            file=sys.stderr,
+        )
+        return 75  # EX_TEMPFAIL
 
     t = result.timings
     print("==done==")

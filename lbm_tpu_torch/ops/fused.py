@@ -24,10 +24,12 @@ from lbm_tpu_torch.state import D2Q9
 # wrappers in every mode), the depth kernel, the resident kernel, the
 # seam modes of the one-step and depth kernels (one launch per shard) and
 # the ring kernel (one launch per card), each also in column mode (the
-# "_cols" counts: the transposed lattice of a wide grid). Each wrapper
-# increments its kernel's count where it launches it, nowhere else.
+# "_cols" counts: the transposed lattice of a wide grid), and the three
+# modes of the stream-cost probe. Each wrapper increments its kernel's
+# count where it launches it, nowhere else.
 _KERNELS = ("step", "depth", "resident", "step_seam", "depth_seam", "ring")
-LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")}}
+LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
+            **{f"probe_{m}": 0 for m in ref_ops.PROBE_MODES}}
 
 
 def reset_launches() -> None:

@@ -295,3 +295,41 @@ def multi_step(cells, obstacles, w1, w2, omega, n: int, axis: int = 0):
         cells, tot = fused_step(cells, obstacles, w1, w2, omega, axis=axis)
         tots.append(tot)
     return cells, torch.stack(tots)
+
+
+# The stream-cost probe's three variants of a step (the twin of
+# scripts/stream_cost_probe.py::_probe_call's modes).
+PROBE_MODES = ("full", "collide", "stream")
+
+
+def probe_multi_step(cells, obstacles, omega, gsteps: int, mode: str):
+    """``gsteps`` (even) variant-steps of the stream-cost probe on a
+    periodic lattice with no forcing: ``(cells, tots)``, ``tots`` the
+    (gsteps,) per-step totals. The plain version of ``csrc/probe.cu``.
+
+    ``full``: pull streaming, then bounce-back and BGK collision
+    (:func:`collide_stream`); total, the sum of |u| over fluid cells.
+    ``collide``: the same update of each cell from its own nine speeds,
+    no streaming (an obstacle bounces its own speeds); the same total.
+    ``stream``: the pulled speeds copied through, no collision, the mask
+    unread; total, the sum of speed 0 over all cells. ``collide`` and
+    ``stream`` are wrong physics on purpose: they split a step's time
+    between its two halves."""
+    if mode not in PROBE_MODES:
+        raise ValueError(f"unknown probe mode {mode!r}; known: {PROBE_MODES}")
+    if gsteps < 2 or gsteps % 2:
+        raise ValueError(f"the probe takes an even step count >= 2, "
+                         f"got {gsteps}")
+    tots = []
+    for _ in range(gsteps):
+        if mode == "full":
+            cells, tot = collide_stream(cells, obstacles, omega)
+        elif mode == "collide":
+            cells, tot = _bgk_update(list(cells.unbind(0)), obstacles, omega)
+        else:
+            cells = torch.stack([
+                torch.roll(cells[k], (int(D2Q9.CY[k]), int(D2Q9.CX[k])),
+                           (0, 1)) for k in range(D2Q9.Q)])
+            tot = torch.sum(cells[0])
+        tots.append(tot)
+    return cells, torch.stack(tots)

@@ -430,13 +430,14 @@ class ShardSet:
                               for sh in self.shards], dim=2)
         return torch.cat([sh.cells.to(dev0) for sh in self.shards], dim=1)
 
-    def av_vels(self, inv_fluid) -> torch.Tensor:
-        """Per-step tot_u summed over the shards in shard order, then
-        scaled by ``inv_fluid``."""
+    def av_vels(self, inv_fluid, t0: int = 0, t1=None) -> torch.Tensor:
+        """Per-step tot_u of steps ``t0`` to ``t1`` (default: all) summed
+        over the shards in shard order, then scaled by ``inv_fluid``: the
+        same bits for a step whatever slice asks for it."""
         dev0 = self.shards[0].device
-        acc = self.shards[0].tots
+        acc = self.shards[0].tots[t0:t1]
         for sh in self.shards[1:]:
-            acc = acc + sh.tots.to(dev0)
+            acc = acc + sh.tots[t0:t1].to(dev0)
         return acc * float(inv_fluid)
 
 
@@ -553,37 +554,105 @@ def make_impl(seg: plan.Segment, ss: ShardSet, wrap_pad: int = 0):
 
 
 class ShardedSimulation:
-    """One sharded run, the twin of ``make_sharded_simulate``: the
-    shards, the planned segments' implementations (all built once), and
-    ``run()`` walking the segments over every shard. ``kernel`` is the
-    resolved ``reference`` or ``cuda``; ``cuda`` on CPU tensors runs each
-    wrapper's plain version (the tests' way to drive the planned path
-    without a card). ``transposed``: the plan (None: :func:`plan_sharding`'s;
-    False builds the row plan of a wide grid)."""
+    """One sharded run, the twin of ``make_sharded_simulate`` and, in its
+    chunk form, of ``make_sharded_chunk``: the shards, the planned
+    segments' implementations (all built once), and ``run()`` walking the
+    segments over every shard. ``kernel`` is the resolved ``reference``
+    or ``cuda``; ``cuda`` on CPU tensors runs each wrapper's plain version
+    (the tests' way to drive the planned path without a card).
+    ``transposed``: the plan (None: :func:`plan_sharding`'s; False builds
+    the row plan of a wide grid).
+
+    The chunk form, as the single-device runner's: ``cells`` is the
+    gathered physical lattice (padded as this run pads it) scattered into
+    the shards, fresh or from a checkpoint; ``sizes`` are the chunk
+    lengths the run will take (default: ``iters`` in one go), each
+    planned on its own (:func:`shard_segments`) with implementations of
+    the same granularity shared; :meth:`run_chunk` runs ``n`` steps from
+    step ``t0``, every shard writing its tot_u at the step's own index,
+    so the fixed-order sum of :meth:`result` gives the same bits chunked
+    or not. A resumed run's trajectory before ``start_step`` is ``av0``'s
+    (the per-shard sums of those steps are not in a checkpoint)."""
 
     def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
-                 kernel: str, iters: int, wrap_pad: int = 0, transposed=None):
+                 kernel: str, iters: int, wrap_pad: int = 0, transposed=None,
+                 sizes=None, av0=None, start_step: int = 0):
         if transposed is None:
             transposed = plan_sharding(params, mesh, kernel)[0]
         _check_wrap_kernel(wrap_pad, kernel, transposed)
         self.ss = ShardSet(params, cells, mask, mesh, iters, int(transposed))
-        self.iters = iters
-        self.segments = shard_segments(params, self.ss.decomp, kernel, iters,
-                                       wrap_pad, transposed)
+        self.params, self.kernel, self.iters = params, kernel, iters
+        self.wrap_pad, self.transposed = wrap_pad, transposed
         self.inv_fluid = num_non_obstacles_r(self.ss.mask_np,
                                              dtype=params.dtype)
-        self._impls = [(make_impl(seg, self.ss, wrap_pad), seg.steps)
-                       for seg in self.segments]
+        self._av0, self._start = av0, start_step
+        self._made, self._plans = {}, {}
+        if sizes is None:
+            self.segments = self._segments(iters)
+            self._impls = self._plan(iters)
+        else:
+            for n in sizes:
+                self._plan(n)
 
-    def run(self) -> None:
-        t = 0
-        for impl, n in self._impls:
-            for _ in range(n // impl.steps_per_call):
+    def _segments(self, n: int):
+        return shard_segments(self.params, self.ss.decomp, self.kernel, n,
+                              self.wrap_pad, self.transposed)
+
+    def _plan(self, n: int):
+        """The implementations of an ``n``-step chunk, ``[(impl, steps),
+        ...]``."""
+        if n not in self._plans:
+            parts = []
+            for seg in self._segments(n):
+                key = (seg.kernel, seg.steps_per_call)
+                if key not in self._made:
+                    self._made[key] = make_impl(seg, self.ss, self.wrap_pad)
+                parts.append((self._made[key], seg.steps))
+            self._plans[n] = parts
+        return self._plans[n]
+
+    def run_chunk(self, t0: int, n: int) -> None:
+        """``n`` steps from step ``t0`` on every shard; returns without
+        waiting for the devices."""
+        t = t0
+        for impl, steps in self._plan(n):
+            for _ in range(steps // impl.steps_per_call):
                 impl.run(t)
                 t += impl.steps_per_call
+
+    def synchronize(self) -> None:
         self.ss.synchronize()
+
+    def run(self) -> None:
+        self.run_chunk(0, self.iters)
+        self.ss.synchronize()
+
+    def _with_prefix(self, av: torch.Tensor, t0: int) -> torch.Tensor:
+        """``av`` (steps from ``t0`` on) with a resumed run's steps
+        before its start taken from the checkpoint's trajectory."""
+        if self._av0 is not None and t0 < self._start:
+            prefix = torch.from_numpy(np.asarray(self._av0)[t0:self._start])
+            av[:self._start - t0] = prefix[:av.shape[0]].to(av)
+        return av
 
     def result(self):
         """``(cells, av_vels)`` on the first shard's device: the gathered
-        (9, ny, nx) lattice (padded, as stepped) and the trajectory."""
-        return self.ss.gather(), self.ss.av_vels(self.inv_fluid)
+        (9, ny, nx) lattice (padded, as stepped) and the trajectory.
+        Waits for every shard."""
+        self.ss.synchronize()
+        return (self.ss.gather(),
+                self._with_prefix(self.ss.av_vels(self.inv_fluid), 0))
+
+    def av_value(self, t: int) -> float:
+        """``av_vels[t]`` on the host (waits for every shard)."""
+        self.ss.synchronize()
+        return float(self._with_prefix(
+            self.ss.av_vels(self.inv_fluid, t, t + 1), t)[0])
+
+    def total_density(self, pad_rows: int = 0) -> float:
+        """The summed distributions of the gathered lattice without its
+        first ``pad_rows`` rows (waits for every shard)."""
+        from lbm_tpu_torch.observables import total_density
+
+        self.ss.synchronize()
+        return float(total_density(self.ss.gather()[:, pad_rows:]))

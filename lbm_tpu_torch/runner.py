@@ -16,24 +16,36 @@ the transposed lattice's rows (physical x), and stepped by
 :mod:`.parallel.halo` (the seam modes of the one-step and depth kernels,
 or the ring kernel under ``LBM_SHARD_RESIDENT=1``).
 
-Not ported yet (ROADMAP 1.9, 1.10): checkpoint/resume, chunking, the
-debug loop and tracing.
+Beyond the whole run in one go, as in the JAX package: chunked execution
+(``chunk_iters``), periodic checkpoints and resume (an ``.npz`` of the
+step index, the physical lattice as the writing run padded it and the
+trajectory prefix, the JAX package's format, so a file written by either
+package resumes in the other), graceful preemption on SIGTERM/SIGINT, a
+debug mode printing the reference's per-step block, and a profiler trace
+of the compute phase. Every kernel is bit-identical to the plain version,
+so a chunked, a resumed and a single-shot run of a scene under the same
+kernel and mesh give the same bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from lbm_tpu_torch.obstacles import num_non_obstacles_r
-from lbm_tpu_torch.observables import calc_reynolds
+from lbm_tpu_torch.observables import calc_reynolds, total_density
 from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.params import Params
 from lbm_tpu_torch.profiling import PhaseTimers
-from lbm_tpu_torch.state import initial_state, transpose_state
+from lbm_tpu_torch.profiling import trace as _trace
+from lbm_tpu_torch.state import (
+    D2Q9, initial_state, initial_state_np, transpose_state,
+)
 
 KERNELS = ("auto", "reference", "cuda")
 
@@ -44,8 +56,61 @@ class SimulationResult:
     av_vels: np.ndarray  # (maxIters,) params.dtype
     reynolds: float
     timings: dict  # init / compute / collate / total seconds
+    # Graceful preemption (the checkpointing paths only): the number of
+    # steps actually completed, and whether the run stopped early on
+    # SIGTERM/SIGINT with its state flushed to the checkpoint file.
+    # av_vels entries past completed_steps are zeros, not trajectory.
     completed_steps: int = -1  # -1 = the full iteration count
     preempted: bool = False
+
+
+class _PreemptionGuard:
+    """Graceful-preemption watch for the chunked loops: while active,
+    SIGTERM/SIGINT set a flag instead of killing the process, so the
+    loop can flush a checkpoint at the next chunk boundary and stop
+    early with a resumable state (accelerator jobs are routinely
+    preempted, and the reference simply lost the whole run). A SECOND
+    signal restores default handling (the escalation path if the current
+    chunk hangs). Armed only when periodic checkpointing gives the loop
+    a boundary to stop at; inert outside the main thread, where
+    ``signal.signal`` raises."""
+
+    _SIGNALS = ("SIGTERM", "SIGINT")
+
+    def __init__(self, enabled: bool):
+        self.enabled = enabled
+        self.requested = False
+        self._saved = {}
+
+    def _handle(self, signum, frame):
+        self.requested = True
+        self._restore()  # second signal: default (deadly) behaviour
+
+    def _restore(self):
+        import signal as _signal
+
+        for num, prev in self._saved.items():
+            _signal.signal(num, prev)
+        self._saved = {}
+
+    def __enter__(self):
+        if not self.enabled:
+            return self
+        import signal as _signal
+        import threading
+
+        if threading.current_thread() is not threading.main_thread():
+            return self
+        for name in self._SIGNALS:
+            num = getattr(_signal, name, None)
+            if num is None:
+                continue
+            self._saved[num] = _signal.signal(num, self._handle)
+        return self
+
+    def __exit__(self, *exc):
+        self._restore()
+        return False
 
 
 def _resolve_device(device) -> torch.device:
@@ -84,6 +149,18 @@ def _resolve_kernel(kernel: str, params: Params, device: torch.device) -> str:
     return kernel
 
 
+def _check_mesh(mesh, kernel: str) -> None:
+    """A CUDA mesh without a card, or ``cuda`` on a CPU mesh, raises:
+    nothing moves to the CPU or to the plain version."""
+    for dev in dict.fromkeys(mesh.devices):
+        _resolve_device(dev)
+    if kernel == "cuda" and mesh.device_type != "cuda":
+        raise ValueError(
+            f"the cuda kernel needs CUDA devices, got a mesh on "
+            f"{mesh.device_type}; use --kernel reference on the CPU"
+        )
+
+
 def plan_layout(params: Params, kernel: str, transposed=None) -> bool:
     """Whether a run under ``kernel`` (as resolved) steps the transposed
     lattice: for ``cuda``, :func:`.ops.plan.layout`'s rule unless
@@ -98,15 +175,31 @@ def plan_layout(params: Params, kernel: str, transposed=None) -> bool:
 
 
 def plan_run(params: Params, kernel: str, iters: int, transposed=None):
-    """The segments a run of ``iters`` steps takes under ``kernel`` (as
-    resolved): :func:`.ops.plan.segments` on the execution layout's rows
-    and lanes for ``cuda`` (:func:`plan_layout`), one plain segment for
-    ``reference``."""
+    """The segments a run (or one chunk) of ``iters`` steps takes under
+    ``kernel`` (as resolved): :func:`.ops.plan.segments` on the execution
+    layout's rows and lanes for ``cuda`` (:func:`plan_layout`), one plain
+    segment for ``reference``."""
     if kernel == "cuda":
         t = plan_layout(params, kernel, transposed)
         rows, lanes = (params.nx, params.ny) if t else (params.ny, params.nx)
         return plan.segments(rows, lanes, iters)
     return [plan.Segment("reference", 1, iters)]
+
+
+def chunk_sizes(start_step: int, iters: int, stride: int | None) -> list[int]:
+    """The distinct chunk lengths of a run from ``start_step`` to
+    ``iters`` in chunks of ``stride`` steps (None: the rest in one go):
+    the full stride and, where it does not divide the rest, the shorter
+    tail, in the order they first run. Each gets its own planned set of
+    kernels, as the JAX package compiles one runner per size."""
+    stride = stride or (iters - start_step)
+    sizes, tt = [], start_step
+    while tt < iters:
+        n = min(stride, iters - tt)
+        if n not in sizes:
+            sizes.append(n)
+        tt += n
+    return sizes
 
 
 def _make_impl(seg: plan.Segment, mask, w1, w2, omega, axis: int):
@@ -124,52 +217,100 @@ class _Simulation:
     ``cuda`` path also runs on CPU tensors, where every kernel wrapper
     takes its plain version. ``transposed``: the layout
     (:func:`plan_layout`; None, the planner's rule). A transposed run
-    holds the lattice and the mask transposed from construction to the
-    end of :meth:`run`, its kernels in column mode; ``cells`` is
-    physical before and after."""
+    holds the lattice and the mask transposed from construction on, its
+    kernels in column mode, and transposes back only in :meth:`result`.
+
+    The chunk form: ``sizes`` are the chunk lengths the run will take
+    (default: ``iters`` in one go), each planned on its own
+    (:func:`plan_run`, so a 7-step chunk plans a main segment and a tail)
+    with every kernel built here, kernels of the same granularity shared.
+    :meth:`run_chunk` runs ``n`` steps from step ``t0`` and writes
+    ``av_vels[t0:t0 + n]``; ``av0`` fills the trajectory before the first
+    chunk of a resumed run."""
 
     def __init__(self, params: Params, cells, mask, kernel: str, iters: int,
-                 transposed=None):
+                 transposed=None, sizes=None, av0=None):
         self.params, self.kernel = params, kernel
         self.mask = mask
         self.transposed = plan_layout(params, kernel, transposed)
-        self.cells = (transpose_state(cells) if self.transposed
+        self._exec = (transpose_state(cells) if self.transposed
                       else cells.contiguous())
         self.inv_fluid = num_non_obstacles_r(
             mask.cpu().numpy(), dtype=params.dtype
         )
-        self.av_vels = torch.empty(iters, dtype=cells.dtype, device=cells.device)
+        # Zeros: a preempted run returns zeros past its completed steps.
+        self.av_vels = torch.zeros(iters, dtype=cells.dtype, device=cells.device)
+        if av0 is not None:
+            self.av_vels.copy_(torch.from_numpy(np.asarray(av0)))
         self.iters = iters
         self.segments = plan_run(params, kernel, iters, self.transposed)
-        w1, w2, omega = params.accel_w1, params.accel_w2, params.omega
+        self._ref = (params.accel_w1, params.accel_w2, params.omega)
+        self._kernels, self._plans = {}, {}
         if kernel == "cuda":
-            exec_mask = mask.T.contiguous() if self.transposed else mask
-            axis = int(self.transposed)
-            self._impls = [
-                (_make_impl(seg, exec_mask, w1, w2, omega, axis), seg.steps)
-                for seg in self.segments]
-            self._spare = torch.empty_like(self.cells)
-        else:
-            self._ref = (w1, w2, omega)
+            self._exec_mask = mask.T.contiguous() if self.transposed else mask
+            self._spare = torch.empty_like(self._exec)
+            for n in (iters,) if sizes is None else sizes:
+                self._plan(n)
 
-    def run(self) -> None:
-        cells, av, inv = self.cells, self.av_vels, self.inv_fluid
+    def _plan(self, n: int):
+        """The kernels of an ``n``-step chunk, ``[(impl, steps), ...]``."""
+        if n not in self._plans:
+            axis = int(self.transposed)
+            parts = []
+            for seg in plan_run(self.params, self.kernel, n, self.transposed):
+                key = (seg.kernel, seg.steps_per_call)
+                if key not in self._kernels:
+                    self._kernels[key] = _make_impl(seg, self._exec_mask,
+                                                    *self._ref, axis)
+                parts.append((self._kernels[key], seg.steps))
+            self._plans[n] = parts
+        return self._plans[n]
+
+    def run_chunk(self, t0: int, n: int) -> None:
+        """``n`` steps from step ``t0``; returns without waiting for the
+        device."""
+        cells, av, inv = self._exec, self.av_vels, self.inv_fluid
         if self.kernel == "cuda":
-            spare, t = self._spare, 0
-            for impl, n in self._impls:
+            spare, t = self._spare, t0
+            for impl, steps in self._plan(n):
                 spc = impl.steps_per_call
-                for _ in range(n // spc):
+                for _ in range(steps // spc):
+                    # The result may be in either buffer (an odd number
+                    # of one-step launches): keep both as they come back.
                     cells, spare = impl.run(cells, spare, av, t, inv)
                     t += spc
+            self._spare = spare
         else:
             w1, w2, omega = self._ref
             scale = float(inv)
-            for t in range(self.iters):
+            for t in range(t0, t0 + n):
                 cells, tot = ref_ops.fused_step(cells, self.mask, w1, w2, omega)
                 av[t] = tot * scale
-        self.cells = transpose_state(cells) if self.transposed else cells
-        if cells.device.type == "cuda":
-            torch.cuda.synchronize(cells.device)
+        self._exec = cells
+
+    def synchronize(self) -> None:
+        if self._exec.device.type == "cuda":
+            torch.cuda.synchronize(self._exec.device)
+
+    def run(self) -> None:
+        """The whole run in one chunk; ``cells`` is then the physical
+        final lattice."""
+        self.run_chunk(0, self.iters)
+        self.cells = self.result()[0]
+        self.synchronize()
+
+    def result(self):
+        """``(cells, av_vels)``: the physical (9, ny, nx) lattice as it
+        stands and the trajectory, on the device."""
+        cells = transpose_state(self._exec) if self.transposed else self._exec
+        return cells, self.av_vels
+
+    def av_value(self, t: int) -> float:
+        """``av_vels[t]`` on the host (waits for step ``t``)."""
+        return float(self.av_vels[t])
+
+    def total_density(self, pad_rows: int = 0) -> float:
+        return float(total_density(self._exec))
 
 
 def simulate(params: Params, cells, mask, kernel: str = "auto",
@@ -186,6 +327,93 @@ def simulate(params: Params, cells, mask, kernel: str = "auto",
     return sim.cells, sim.av_vels
 
 
+def save_checkpoint(path: str | Path, step: int, cells, av_vels) -> None:
+    """Persist (step, lattice, trajectory prefix) as .npz, the JAX
+    package's format: ``cells`` is the physical (9, ny + pad, nx) lattice
+    as the writing run padded it, never the transposed one."""
+    np.savez_compressed(
+        path,
+        step=np.int64(step),
+        cells=np.asarray(cells),
+        av_vels=np.asarray(av_vels),
+    )
+
+
+def _read_checkpoint(path: str | Path, read):
+    try:
+        with np.load(path) as z:
+            return read(z)
+    except OSError:
+        raise  # missing/unreadable file: already on the CLI die() path
+    except Exception as exc:
+        # zipfile.BadZipFile (truncated/corrupt), KeyError (missing
+        # arrays), EOFError, numpy's misleading pickled-data ValueError:
+        # translate to the CLI's one-line die() contract instead of an
+        # unhandled traceback or a cryptic message.
+        raise ValueError(f"invalid checkpoint file {path!r}: {exc!r}") \
+            from exc
+
+
+def load_checkpoint(path: str | Path):
+    """Returns (step, cells, av_vels) from a checkpoint file."""
+    return _read_checkpoint(
+        path, lambda z: (int(z["step"]), z["cells"], z["av_vels"]))
+
+
+def checkpoint_step(path: str | Path) -> int:
+    """The step a checkpoint file was written at (reads only that)."""
+    return _read_checkpoint(path, lambda z: int(z["step"]))
+
+
+def _resume_state(path, iters: int, orig_ny: int, params: Params,
+                  pad_rows: int):
+    """``(start_step, cells, av0)`` of a run of ``iters`` steps resumed
+    from the checkpoint at ``path``: the lattice as THIS run pads it
+    (``params`` is the padded scene, ``pad_rows`` its pad) and the
+    (iters,) trajectory with the checkpoint's prefix."""
+    start_step, cells_np, av_prefix = load_checkpoint(path)
+    if not 0 <= start_step <= iters:
+        # A clamp here would return the checkpoint's too-advanced
+        # lattice as the "result" of a shorter run.
+        raise ValueError(
+            f"checkpoint at step {start_step} cannot resume a "
+            f"{iters}-iteration run"
+        )
+    # Reconcile row padding: checkpoints store the PADDED lattice of the
+    # run that wrote them, and this run's device count may pad
+    # differently. Pad rows never feed the interior: wall-shielded pads
+    # are causally disconnected behind the walls, and wrap-mode pads are
+    # rewritten from the wrap halo before any real row reads them
+    # (plan_padding_mode), so stripping the writer's pad and substituting
+    # fresh equilibrium pad rows is exact either way.
+    old_pad = (cells_np.shape[1] - orig_ny) if cells_np.ndim == 3 else -1
+    if (old_pad < 0 or cells_np.shape[0] != D2Q9.Q
+            or cells_np.shape[2] != params.nx):
+        raise ValueError(
+            f"checkpoint lattice shape {cells_np.shape} does not "
+            f"match the {orig_ny}x{params.nx} scene"
+        )
+    if old_pad != pad_rows:
+        interior = cells_np[:, old_pad:, :]
+        if pad_rows:
+            fresh = initial_state_np(params, dtype=params.dtype)
+            fresh[:, pad_rows:, :] = interior
+            cells_np = fresh
+        else:
+            cells_np = interior
+    if len(av_prefix) < start_step:
+        # A truncated write (or a hand-edited step field) would
+        # otherwise surface as a raw numpy broadcast error.
+        raise ValueError(
+            f"checkpoint av_vels prefix has {len(av_prefix)} "
+            f"entries but claims step {start_step}"
+        )
+    av0 = np.zeros((iters,), dtype=params.dtype)
+    av0[:start_step] = av_prefix[:start_step]
+    cells = np.ascontiguousarray(cells_np, dtype=params.dtype)
+    return start_step, cells, av0
+
+
 def run_simulation(
     params: Params,
     obstacles: np.ndarray,
@@ -193,85 +421,144 @@ def run_simulation(
     n_iters: int | None = None,
     device="cuda",
     mesh=None,
+    debug: bool = False,
+    checkpoint_every: int | None = None,
+    checkpoint_file: str | Path | None = None,
+    resume_from: str | Path | None = None,
+    trace_dir: str | Path | None = None,
+    chunk_iters: int | None = None,
 ) -> SimulationResult:
-    """Run the scene from the equilibrium state and return the final
-    state, the trajectory, the Reynolds number and the phase times.
+    """Run the scene from the equilibrium state (or a checkpoint) and
+    return the final state, the trajectory, the Reynolds number and the
+    phase times.
 
     ``kernel``: ``auto``, ``reference`` (plain PyTorch ops) or ``cuda``
     (the hand-written kernels, as :func:`plan_run` plans them).
     ``device``: where the state lives; a CUDA device must exist.
     ``mesh``: a :class:`.parallel.decomp.Mesh`; when given, the rows are
     sharded over its devices (``device`` is then unused).
+    ``checkpoint_every``/``checkpoint_file``: periodically persist state;
+    ``resume_from``: continue a previous run's checkpoint (written by
+    this package or by ``lbm_tpu``, under any row padding).
+    ``chunk_iters``: bound any single planned set of launches to this
+    many timesteps WITHOUT checkpoint I/O (the trajectory is identical:
+    the same chunks the checkpoint path runs, minus the saves).
+    ``debug``: print the reference's -DDEBUG per-step block (slow path).
+    ``trace_dir``: capture a ``torch.profiler`` trace of the compute
+    phase (:func:`.profiling.trace`; summarise with
+    ``scripts/trace_report_torch.py``).
     """
     timers = PhaseTimers()
     timers.start("total")
     timers.start("init")
+    if checkpoint_every is not None and checkpoint_every <= 0:
+        raise ValueError(
+            f"checkpoint_every must be a positive step count, "
+            f"got {checkpoint_every}"
+        )
+    if checkpoint_every is not None and checkpoint_file is None:
+        # Without a file the chunked path would run and save nothing: a
+        # misconfiguration, not a request. Execution-length bounding
+        # without I/O is chunk_iters' job.
+        raise ValueError(
+            "checkpoint_every requires checkpoint_file (periodic "
+            "checkpointing needs somewhere to write); to bound "
+            "execution length without saving, use chunk_iters"
+        )
+    if chunk_iters is not None and chunk_iters <= 0:
+        raise ValueError(
+            f"chunk_iters must be a positive step count, got {chunk_iters}"
+        )
+    if chunk_iters is not None and checkpoint_every is not None:
+        # Two competing strides would silently pick one; refuse.
+        raise ValueError(
+            "chunk_iters and checkpoint_every are mutually exclusive "
+            "(checkpointing already chunks at its own stride)"
+        )
     iters = params.max_iters if n_iters is None else n_iters
     if iters <= 0:
         raise ValueError(f"iteration count must be positive, got {iters}")
+    obstacles = np.asarray(obstacles, dtype=bool)
+    # The scene as it is stepped: padded under a non-divisor mesh.
+    run_params, run_obstacles, pad_rows, sp = params, obstacles, 0, None
     if mesh is not None:
-        return _run_sharded(params, obstacles, kernel, iters, mesh, timers)
-    dev = _resolve_device(device)
-    kernel = _resolve_kernel(kernel, params, dev)
-    obstacles = np.asarray(obstacles, dtype=bool)
-    mask = torch.from_numpy(obstacles.copy()).to(dev)
-    # Init covers allocation, upload and (first use) the kernel build,
-    # as lbm_tpu's init covers compilation.
-    sim = _Simulation(params, initial_state(params, dev), mask, kernel, iters)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        from lbm_tpu_torch.parallel import halo
+
+        _check_mesh(mesh, kernel)
+        sp = halo.plan_run(params, obstacles, mesh, kernel, iters)
+        run_params, run_obstacles, pad_rows = sp.params, sp.obstacles, sp.pad
+        dev = mesh.devices[0]
+    else:
+        dev = _resolve_device(device)
+        kernel = _resolve_kernel(kernel, params, dev)
+
+    start_step, av0 = 0, None
+    if resume_from is not None:
+        start_step, cells_np, av0 = _resume_state(
+            resume_from, iters, params.ny, run_params, pad_rows)
+        cells0 = torch.from_numpy(cells_np).to(dev)
+    else:
+        cells0 = initial_state(run_params, dev)
+
+    checkpointing = bool(checkpoint_every and checkpoint_file is not None)
+    stride = checkpoint_every or chunk_iters
+    sizes = [1] if debug else chunk_sizes(start_step, iters, stride)
+    # Init covers allocation, upload and (first use) the kernel build of
+    # every chunk length, as lbm_tpu's init covers compilation.
+    if mesh is not None:
+        sim = halo.ShardedSimulation(
+            run_params, cells0, run_obstacles, mesh, sp.kernel, iters,
+            sp.wrap_pad, sp.transposed, sizes=sizes, av0=av0,
+            start_step=start_step)
+    else:
+        sim = _Simulation(run_params, cells0,
+                          torch.from_numpy(obstacles.copy()).to(dev), kernel,
+                          iters, sizes=sizes, av0=av0)
+    sim.synchronize()
     timers.stop("init")
 
-    with timers.phase("compute"):
-        sim.run()  # ends in a device synchronize
+    def save(step: int) -> None:
+        # The copies to the host are the fence.
+        cells, av = sim.result()
+        save_checkpoint(checkpoint_file, step, cells.cpu().numpy(),
+                        av.cpu().numpy())
 
-    with timers.phase("collate"):
-        cells_np = sim.cells.cpu().numpy()
-        av_np = sim.av_vels.cpu().numpy()
-        reynolds = float(calc_reynolds(params, sim.cells, mask))
-    timers.stop("total")
-    return SimulationResult(
-        cells=cells_np,
-        av_vels=av_np,
-        reynolds=reynolds,
-        timings=dict(timers.elapsed),
-        completed_steps=iters,
-    )
+    # The profiler trace covers the compute phase only, entered after
+    # every kernel is built.
+    trace_ctx = (_trace(str(trace_dir), cuda=dev.type == "cuda")
+                 if trace_dir is not None else contextlib.nullcontext())
+    guard = _PreemptionGuard(enabled=checkpointing)
+    tt = start_step
+    with trace_ctx:
+        timers.start("compute")
+        with guard:
+            if debug:
+                tt = _debug_loop(sim, start_step, iters, pad_rows, guard,
+                                 checkpoint_every if checkpointing else None,
+                                 save)
+            while not debug and tt < iters:
+                n = min(stride or iters - tt, iters - tt)
+                sim.run_chunk(tt, n)
+                tt += n
+                if checkpointing:
+                    save(tt)
+                if guard.requested:
+                    # Preempted: the chunk just completed and its state
+                    # is flushed; stop here, the caller resumes from the
+                    # checkpoint (latency bound: one chunk).
+                    break
+            sim.synchronize()
+        timers.stop("compute")
 
-
-def _run_sharded(params: Params, obstacles, kernel: str, iters: int, mesh,
-                 timers: PhaseTimers) -> SimulationResult:
-    """The mesh branch of :func:`run_simulation`, the twin of
-    ``lbm_tpu.runner.run_simulation``'s: plan the padding, step the
-    shards, gather, slice the pad rows off, and take the Reynolds number
-    on the unpadded lattice. A CUDA mesh without a card, or ``cuda`` on
-    a CPU mesh, raises; nothing moves to the CPU or to fewer shards."""
-    from lbm_tpu_torch.parallel import halo
-
-    for dev in dict.fromkeys(mesh.devices):
-        _resolve_device(dev)
-    if kernel == "cuda" and mesh.device_type != "cuda":
-        raise ValueError(
-            f"the cuda kernel needs CUDA devices, got a mesh on "
-            f"{mesh.device_type}; use --kernel reference on the CPU"
-        )
-    obstacles = np.asarray(obstacles, dtype=bool)
-    sp = halo.plan_run(params, obstacles, mesh, kernel, iters)
-    dev0 = mesh.devices[0]
-    sim = halo.ShardedSimulation(sp.params, initial_state(sp.params, dev0),
-                                 sp.obstacles, mesh, sp.kernel, iters,
-                                 sp.wrap_pad, sp.transposed)
-    timers.stop("init")
-
-    with timers.phase("compute"):
-        sim.run()  # ends in a synchronize of every device of the mesh
-
+    # Collate: device -> host copy of the final lattice and trajectory;
+    # the Reynolds number is taken on the device-resident state, on the
+    # unpadded lattice.
     with timers.phase("collate"):
         cells, av = sim.result()
-        cells = cells[:, sp.pad:]
+        cells = cells[:, pad_rows:]
         cells_np = cells.cpu().numpy()
         av_np = av.cpu().numpy()
-        mask = torch.from_numpy(obstacles.copy()).to(dev0)
+        mask = torch.from_numpy(obstacles.copy()).to(cells.device)
         reynolds = float(calc_reynolds(params, cells, mask))
     timers.stop("total")
     return SimulationResult(
@@ -279,5 +566,32 @@ def _run_sharded(params: Params, obstacles, kernel: str, iters: int, mesh,
         av_vels=av_np,
         reynolds=reynolds,
         timings=dict(timers.elapsed),
-        completed_steps=iters,
+        completed_steps=tt,
+        preempted=guard.requested and tt < iters,
     )
+
+
+def _debug_loop(sim, start_step: int, iters: int, pad_rows: int, guard,
+                checkpoint_every, save) -> int:
+    """The per-step loop printing the reference's -DDEBUG block
+    (d2q9-bgk.c:198-202), on one device and under a mesh (one-step
+    chunks; the per-step reduce and host fetch are the debug path's
+    explicit cost). It resumes mid-trajectory, honours periodic
+    checkpointing, and on a signal flushes a checkpoint at once: there is
+    no chunk boundary to wait for. Returns the steps completed."""
+    done = start_step
+    for tt in range(start_step, iters):
+        sim.run_chunk(tt, 1)
+        print("==timestep: %d==" % tt)
+        print("av velocity: %.12E" % sim.av_value(tt))
+        # Without the wall-shielded pad rows of a non-divisor mesh: their
+        # mass is not part of the scene, and the pad row next to the wall
+        # is not exactly at rest.
+        print("tot density: %.12E" % sim.total_density(pad_rows))
+        done = tt + 1
+        if checkpoint_every and (done % checkpoint_every == 0
+                                 or done == iters or guard.requested):
+            save(done)
+        if guard.requested:
+            break
+    return done

@@ -54,24 +54,39 @@ def transpose_state(cells: torch.Tensor) -> torch.Tensor:
     return torch.stack([cells[SIGMA[k]].T for k in range(D2Q9.Q)]).contiguous()
 
 
-def initial_state(params: Params, device="cpu", dtype=None) -> torch.Tensor:
-    """Uniform equilibrium-at-rest distributions, the same weight
-    arithmetic as ``lbm_tpu.state.initial_state_np`` (density*4/9,
-    density/9, density/36 per speed, obstacle cells included).
-    ``dtype`` (numpy float type) defaults to ``params.dtype``."""
-    dtype = params.dtype if dtype is None else dtype
+def _per_speed(params: Params, dtype) -> np.ndarray:
+    """The nine equilibrium-at-rest weights times the density, in
+    ``dtype``: the weight arithmetic of ``lbm_tpu.state.initial_state_np``
+    (density*4/9, density/9, density/36 per speed)."""
     d = np.dtype(dtype).type
     w0 = d(params.density) * d(4.0) / d(9.0)
     w1 = d(params.density) / d(9.0)
     w2 = d(params.density) / d(36.0)
-    per_speed = torch.from_numpy(
-        np.array([w0, w1, w1, w1, w1, w2, w2, w2, w2], dtype=dtype)
-    )
+    return np.array([w0, w1, w1, w1, w1, w2, w2, w2, w2], dtype=dtype)
+
+
+def initial_state(params: Params, device="cpu", dtype=None) -> torch.Tensor:
+    """Uniform equilibrium-at-rest distributions (obstacle cells
+    included), built on ``device``. ``dtype`` (numpy float type) defaults
+    to ``params.dtype``."""
+    dtype = params.dtype if dtype is None else dtype
+    per_speed = torch.from_numpy(_per_speed(params, dtype))
     return (
         per_speed.to(device)[:, None, None]
         .expand(D2Q9.Q, params.ny, params.nx)
         .contiguous()
     )
+
+
+def initial_state_np(params: Params, dtype=None) -> np.ndarray:
+    """Host-side twin of :func:`initial_state`, the same values as a numpy
+    array (resuming a checkpoint under another row padding builds its
+    fresh pad rows on the host)."""
+    dtype = params.dtype if dtype is None else dtype
+    return np.broadcast_to(
+        _per_speed(params, dtype)[:, None, None],
+        (D2Q9.Q, params.ny, params.nx),
+    ).copy()
 
 
 def from_numpy(cells: np.ndarray, mask: np.ndarray, device="cpu", dtype=None):

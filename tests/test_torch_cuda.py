@@ -358,3 +358,73 @@ def test_x_sharded_runs_equal_the_unsharded_transposed_run(cuda, env,
                ("step_seam_cols", "depth_seam_cols", "ring_cols"))
     np.testing.assert_array_equal(a.cells, base.cells)
     np.testing.assert_allclose(a.av_vels, base.av_vels, rtol=TRAJ_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "collide", "stream"])
+@pytest.mark.parametrize("shape", [(128, 128, True), (130, 100, False)],
+                         ids=["128x128", "130x100-wall-less"])
+def test_probe_kernel_matches_plain(cuda, shape, mode, monkeypatch):
+    """The stream-cost probe's three modes, 16 variant-steps in one
+    launch: the plain version's bits in the cells, totals within the
+    bound, one launch counted; full mode is the resident kernel without
+    forcing."""
+    from lbm_tpu_torch.ops import probe
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    _set_mode(monkeypatch, "paired")
+    p, cells, mask = _case(*shape, seed=7, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    name = f"probe_{mode}"
+    before = fused.LAUNCHES[name]
+    got, tots = probe.probe(c, m, p.omega, 16, mode)
+    want, want_tots = ref_ops.probe_multi_step(c, m, p.omega, 16, mode)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[name] == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(tots.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+    if mode == "full":
+        same, _ = resident.resident(c, m, 0.0, 0.0, p.omega, 16)
+        assert torch.equal(got, same)
+    with pytest.raises(ValueError, match="even step count"):
+        probe.probe(c, m, p.omega, 5, mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env", [
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "1"}, {"LBM_RESIDENT": "1"},
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "4"},
+    {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
+], ids=["step", "resident", "depth-4", "depth-8"])
+def test_chunked_and_resumed_runs_equal_single_shot(cuda, env, monkeypatch,
+                                                    tmp_path):
+    """240 steps under each kernel: chunks of 80 (whole launches of every
+    kernel) and a run checkpointed at 80 and resumed give the single-shot
+    run's bits in the cells and the trajectory; chunks of 70 (each with a
+    tail under another kernel) give its cells."""
+    from lbm_tpu_torch.runner import run_simulation
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    if env.get("LBM_RESIDENT") == "1":
+        monkeypatch.setenv("LBM_RESIDENT_STEPS", "40")
+    p, _, mask = _case(128, 128, True)
+    base = run_simulation(p, mask, kernel="cuda", n_iters=240)
+    chunked = run_simulation(p, mask, kernel="cuda", n_iters=240,
+                             chunk_iters=80)
+    ck = tmp_path / "ck.npz"
+    half = run_simulation(p, mask, kernel="cuda", n_iters=80,
+                          checkpoint_every=80, checkpoint_file=ck)
+    assert half.completed_steps == 80 and not half.preempted
+    resumed = run_simulation(p, mask, kernel="cuda", n_iters=240,
+                             resume_from=ck)
+    for run in (chunked, resumed):
+        np.testing.assert_array_equal(run.cells, base.cells)
+        np.testing.assert_array_equal(run.av_vels, base.av_vels)
+    odd = run_simulation(p, mask, kernel="cuda", n_iters=240, chunk_iters=70)
+    np.testing.assert_array_equal(odd.cells, base.cells)
+    np.testing.assert_allclose(odd.av_vels, base.av_vels, rtol=TRAJ_RTOL)

@@ -21,7 +21,11 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _port_sources():
-    return sorted((REPO / "lbm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    """Every module of the port, its on-card check and its scripts (the
+    port's scripts are named ``*_torch.py``)."""
+    return (sorted((REPO / "lbm_tpu_torch").rglob("*.py"))
+            + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "scripts").glob("*_torch.py")))
 
 
 def _foreign_imports(path: Path, root: Path = REPO) -> list[str]:
@@ -45,6 +49,9 @@ def _foreign_imports(path: Path, root: Path = REPO) -> list[str]:
 def test_port_imports_neither_jax_nor_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 20
+    names = {p.name for p in sources}
+    assert {"probe.py", "profiling.py", "stream_cost_probe_torch.py",
+            "trace_report_torch.py", "chip_smoke.py"} <= names
     bad = [b for path in sources for b in _foreign_imports(path)]
     assert not bad, "\n".join(bad)
 
