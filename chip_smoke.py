@@ -17,7 +17,9 @@ printing JSON lines (any failure raises and exits non-zero):
              in parallel) into build/lbm_tpu_torch/;
 3. kernel  - every kernel in row mode against its plain PyTorch version
              on the card, one line per grid: the one-step kernel for one
-             step, the depth kernel for one call at D = 2, 4, 8 and the
+             step, the depth kernel for one call at D = 2, 4, 8 (cells max
+             abs error 0; a step's tot_u the same bits at the first and at
+             the last stage of a launch, and under D = 2 and D = 4) and the
              resident kernel for one call at G = 16, against n steps of
              the plain version, at 1024x1024 (scene mask), 128x128 (and an
              odd G = 5 there), a ragged 100x130 wall-less mask,
@@ -52,7 +54,10 @@ printing JSON lines (any failure raises and exits non-zero):
 8. timing  - per-step time of every kernel configuration at 128x128,
              256x256, 512x512, 1024x1024 and 16384x1024 (physical layout)
              with CUDA events, as the runner drives them and as device time
-             alone; the plain version at 1024x1024;
+             alone; the plain version at 1024x1024; there also the tot_u
+             sum as the one-step kernel launches it and as the depth
+             kernel's epilogue runs it, each against torch.sum of the same
+             partials (relative error at most 1e-6);
 9. wide_timing - the same, in both layouts (row mode on the physical
              lattice, column mode on the transposed one): one-step,
              D = 2, 4, 8 and resident G=100 at 131072x128 and 16384x1024,
@@ -105,7 +110,8 @@ printing JSON lines (any failure raises and exits non-zero):
              (in L2) and 16384x1024; the two streaming shares,
              (full - collide) / full and stream / full; the plain version;
 18. resume   - the 1024x1024 scene, 20000 steps, through the CLI in
-             subprocesses: --chunk-iters 3000 (a 2000-step tail);
+             subprocesses: --chunk-iters 3002 (even, no multiple of D = 4;
+             a 1988-step tail);
              --iters 10000 --checkpoint-every 5000, then --resume;
              --checkpoint-every 2000 with a SIGTERM once the first
              checkpoint exists (exit code 75, the stderr line, no output
@@ -115,12 +121,13 @@ printing JSON lines (any failure raises and exits non-zero):
              unsharded; 131072x128 (transposed), 500 steps, checkpointed
              at 248 and at 250 and resumed, and in chunks of 100 and of
              150, unsharded and over 4 shards (the x-plan). Cells always
-             equal the single-shot run's bit for bit; av_vels equal those
-             of the single-shot run under the same mesh (the sharded sum
-             has its own order) bit for bit where every launch stays at
-             its place (248, 100: multiples of D), and within the totals'
-             tolerance where the launches shift (250, 150). Seconds per
-             save, checkpoint size;
+             equal the single-shot run's bit for bit, and so do av_vels
+             (those of the single-shot run under the same mesh: the
+             sharded sum has its own order), where every launch stays at
+             its place (248, 100: multiples of D) and where the launches
+             shift by two steps (250, 150): the depth kernel sums a step
+             the same way at every stage. Seconds per save, checkpoint
+             size;
 19. debug    - --debug --iters 20 at 128x128 through the CLI and over 4
              shards: 60 lines in the reference's format, the av values
              equal to the av_vels of the non-debug one-step plan;
@@ -128,7 +135,8 @@ printing JSON lines (any failure raises and exits non-zero):
              through the CLI, and run_simulation(mesh=, trace_dir=) over 4
              shards under the seam plan and under the ring: the trace
              summary (profiling.summarise) finds each path's kernels by
-             name with exactly the plan's launches, and gives the card's
+             name with exactly the plan's launches and, on these depth
+             plans, no launch of the tot_u sum, and gives the card's
              busy share and the longest idle gaps; traced against untraced
              compute seconds.
 
@@ -293,6 +301,19 @@ def compare(torch, got, got_tots, want, want_tots):
             "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
 
 
+def check_depth(r, name, where):
+    """What only the depth kernel's results hold: cells equal to the plain
+    version's bit for bit, and a step's total independent of its stage
+    and of which of D = 2 and D = 4 ran it."""
+    if not name.startswith("depth"):
+        return
+    check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
+    check(r["stage_bits_equal"], f"{name}: a step's tot_u depends on its "
+          f"stage at {where}")
+    check(r.get("equals_first_stages_of_D4", True),
+          f"D=2 and D=4 sum a step differently at {where}")
+
+
 def transposed(cells, mask):
     """The transposed lattice and mask of a physical state: the execution
     layout of a wide grid, for the kernels' column mode."""
@@ -322,7 +343,10 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     cells, pmask = random_case(torch, name, p, seed, kind, "perturbed")
     if axis:
         cells = transposed(cells, pmask)[0]
-    keep = {*DEPTHS, KERNEL_G} | ({5} if odd_g else set())
+    # Plain states to keep: after each kernel's steps, and a step before
+    # each depth's last (where a second depth launch starts).
+    before = {d - 1 for d in DEPTHS}
+    keep = {*DEPTHS, KERNEL_G} | ({5} if odd_g else set()) | before
     plain, tots, c = {}, [], cells
     for n in range(1, max(keep) + 1):
         c, tot = ref_ops.fused_step(c, *args, axis=axis)
@@ -330,10 +354,19 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
         if n in keep:
             plain[n] = c
     tots = torch.stack(tots)
+    depth_tots = {}
     for d in DEPTHS:
         got, t = fused_depth.fused_depth(cells, *args, d, axis=axis)
-        res[f"depth D={d}"] = compare(torch, got, t, plain[d], tots[:d])
-    for g in sorted(keep - set(DEPTHS)):
+        r = res[f"depth D={d}"] = compare(torch, got, t, plain[d], tots[:d])
+        # Step d is the last stage of that launch and the first of one
+        # that starts a step before it: the same bits.
+        _, later = fused_depth.fused_depth(plain[d - 1], *args, d, axis=axis)
+        r["stage_bits_equal"] = bool(t[d - 1] == later[0])
+        depth_tots[d] = t
+    # The two depths auto plans share tile and map: D = 2 sums as D = 4.
+    res["depth D=2"]["equals_first_stages_of_D4"] = bool(
+        torch.equal(depth_tots[2], depth_tots[4][:2]))
+    for g in sorted(keep - set(DEPTHS) - before):
         got, t = resident.resident(cells, *args, g, axis=axis)
         res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
     return res
@@ -401,6 +434,7 @@ def phase_kernel(torch):
             kernel = name.split()[0]
             worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs_err"])
             check(r["cells_ok"] and r["tot_ok"], f"{name} != plain at {where}")
+            check_depth(r, name, where)
 
     for i, (name, kind) in enumerate(KERNEL_CASES):
         p = scene_params(name, iters=200)
@@ -468,6 +502,7 @@ def phase_wide_kernel(torch):
             worst[kernel] = max(worst.get(kernel, 0.0), r["max_abs_err"])
             check(r["max_abs_err"] == 0.0 and r["tot_ok"],
                   f"column mode {name} != plain at {where}")
+            check_depth(r, name, where)
 
     for i, (name, kind) in enumerate(WIDE_KERNEL_CASES):
         p = scene_params(name, iters=200)
@@ -491,14 +526,16 @@ def phase_wide_kernel(torch):
 
 def expected_launches(parts, cols=False):
     """Launch counts a planned run must show, per kernel (``cols``: in
-    column mode, the transposed lattice of a wide grid)."""
+    column mode, the transposed lattice of a wide grid). The one-step
+    kernel's tot_u is summed by a launch of its own; the depth kernel sums
+    in its epilogue, so a depth segment adds nothing to ``reduce``."""
     from lbm_tpu_torch.ops import fused
 
     n = dict.fromkeys(fused.LAUNCHES, 0)
     suffix = "_cols" if cols else ""
     for seg in parts:
         n[seg.kernel + suffix] += seg.launches
-        if seg.kernel in ("step", "depth"):
+        if seg.kernel == "step":
             n["reduce"] += seg.launches
     return n
 
@@ -837,8 +874,10 @@ def phase_timing(torch):
                 new, tot = ref_ops.fused_step(bufs[0], *w)
                 av[0] = tot
 
+            # The fixed-order sum as the one-step kernel launches it,
+            # against torch.sum of the same partials.
             def reduce_only():
-                st._reduce(st._partials, 1, av, 0, 1.0)
+                st._reduce(st._partials, av, 0, 1.0)
 
             def reduce_plain():
                 av[0] = st._partials.sum()
@@ -851,8 +890,20 @@ def phase_timing(torch):
             out["reduce_plain_device_ms"] = _median_ms(
                 torch, reduce_plain, 1, True)[0]
             torch.cuda.synchronize()
-            st._reduce(st._partials, 1, av, 0, 1.0)
+            st._reduce(st._partials, av, 0, 1.0)
             out["reduce_abs_err"] = abs(float(av[0]) - float(st._partials.sum()))
+            # The same sum as the depth kernel's epilogue, in place: what
+            # a D=4 launch leaves in av against torch.sum of its partials.
+            d4 = impls["depth D=4"]
+            d4.run(bufs[0], bufs[1], av, 0, 1.0)
+            torch.cuda.synchronize()
+            want = d4._partials.sum(1)
+            out["epilogue_abs_err"] = float((av[:4] - want).abs().max())
+            out["epilogue_rel_err"] = float(
+                ((av[:4] - want).abs() / want.abs()).max())
+            check(out["reduce_abs_err"] <= 1e-6 * float(av[0])
+                  and out["epilogue_rel_err"] <= 1e-6,
+                  f"a tot_u sum is off: {out}")
         emit(out)
         results.append(out)
         del cells, bufs, impls
@@ -1025,6 +1076,19 @@ def phase_shard_kernel(torch):
                      "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
                 label = {"step_seam": "step", "depth_seam": f"depth D={size}",
                          "ring": f"ring G={size}"}[key]
+                if key == "depth_seam":
+                    # Step `size` at the last stage of the launch above and
+                    # at the first of one that starts a step before it.
+                    prev = halo.ShardSet(sp.params, cells, sp.obstacles, mesh,
+                                         SHARD_G, axis)
+                    plain_shard_steps(prev, size - 1, sp.wrap_pad)
+                    halo.SeamShardImpl(prev, size, sp.wrap_pad).run(size - 1)
+                    prev.synchronize()
+                    r["stage_bits_equal"] = bool(
+                        prev.av_vels(1.0)[size - 1] == gt[size - 1])
+                    check(r["max_abs_err"] == 0.0 and r["stage_bits_equal"],
+                          f"{label}: seam mode at {name} over {n}: {r}")
+                    del prev
                 res[label] = r
                 worst[key + suffix] = max(worst.get(key + suffix, 0.0),
                                           r["max_abs_err"])
@@ -1051,7 +1115,8 @@ def expected_shard_launches(parts, shards, cards=1, cols=False):
             n["ring" + suffix] += seg.launches * cards
         else:
             n[f"{seg.kernel}_seam{suffix}"] += seg.launches * shards
-            n["reduce"] += seg.launches * shards
+            if seg.kernel == "step":
+                n["reduce"] += seg.launches * shards
     return n
 
 
@@ -1181,7 +1246,7 @@ def phase_wide_shard(torch, np):
     return per_plan
 
 
-def _median_ms_shards(torch, ss, fn, spc, device_only, steps=200, batches=10):
+def _median_ms_shards(torch, ss, fn, spc, device_only, steps=200, batches=6):
     """:func:`_median_ms` for work on the shards' streams: the events sit
     on the current stream, every shard stream starts after the first and
     the second waits for every shard stream."""
@@ -1246,7 +1311,7 @@ def phase_shard_timing(torch, timing):
                "halo_copy_device_ms_per_call": copies,
                "unsharded_best": {best: statistics.median(unsharded[best])},
                "method": "CUDA events on the current stream, every shard "
-                         "stream joined; median over 10 batches of ~200 "
+                         "stream joined; median over 6 batches of ~200 "
                          "steps after one warm-up batch, configurations in "
                          "turns (forward, then reverse); device: queue "
                          "pre-filled behind a device sleep"}
@@ -1310,7 +1375,7 @@ def phase_wide_shard_timing(torch):
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "halo_copy_device_ms_per_call": copies,
                "method": "CUDA events on the current stream, every shard "
-                         "stream joined; median over 10 batches of 100 "
+                         "stream joined; median over 6 batches of 100 "
                          "steps after one warm-up batch, both plans' "
                          "configurations in turns (forward, then reverse); "
                          "device: queue pre-filled behind a device sleep"}
@@ -1501,9 +1566,11 @@ def phase_resume(torch, np):
               "auto run's")
         return ok
 
-    # (a) chunks of 3000 steps and a 2000-step tail.
-    res, wall = run_cli("chunk", "--chunk-iters", "3000")
-    emit({"phase": "resume", "case": "--chunk-iters 3000", "grid": SCENE,
+    # (a) chunks of 3002 steps (even, no multiple of the plan's D = 4: each
+    # chunk ends in a D = 2 launch, and every later launch sits two steps
+    # off the single-shot run's) and a 1988-step tail.
+    res, wall = run_cli("chunk", "--chunk-iters", "3002")
+    emit({"phase": "resume", "case": "--chunk-iters 3002", "grid": SCENE,
           "steps": ITERS, "plan_line": res.stderr.strip().splitlines()[-1],
           "compute_s": _compute_s(res.stdout), "wall_s": wall,
           "files_byte_identical_to_single_shot": same_files("chunk")})
@@ -1608,13 +1675,13 @@ def phase_resume(torch, np):
     del base, base_x, half, again_x, again_1
 
     # (e) the wide grid (transposed), unsharded and over 4 shards (x-plan).
-    # A checkpoint and chunks at multiples of the plan's D (248, 100) keep
-    # every step at the same stage of the same launch as in the single-shot
-    # run, and give its bits throughout. A checkpoint at 250 and chunks of
-    # 150 shift the launches by two steps and end chunks in a tail under
-    # another kernel; a step's total is then summed in another order (the
-    # depth kernel sums each stage of a launch over its own window), so
-    # the cells keep their bits and av_vels agrees within TOT_RTOL.
+    # A checkpoint at 248 and chunks of 100 keep every step at the same
+    # stage of the same launch as in the single-shot run. A checkpoint at
+    # 250 and chunks of 150 shift the launches by two steps and end chunks
+    # in a D = 2 tail. Either way every bit of cells and av_vels is the
+    # single-shot run's: the depth kernel sums a step's total over the
+    # owned cells at a fixed place of the tile, the same at every stage
+    # and under D = 2 and D = 4.
     from lbm_tpu_torch.parallel import halo
 
     nx, ny = grid(WIDE)
@@ -1656,12 +1723,11 @@ def phase_resume(torch, np):
                     "steps_that_differ": int(np.count_nonzero(rel)),
                     "max_rel_diff": float(rel.max())}
                 out[f"{tag} {kind}: av_vels"] = bool(
-                    rel.max() == 0.0 if aligned else rel.max() <= TOT_RTOL)
+                    np.array_equal(r.av_vels, base.av_vels))
     emit({"phase": "resume", "case": "checkpoint at 248 and at 250 of 500 and "
           "resume, chunks of 100 and of 150; unsharded (transposed) and over "
           "4 shards (x-plan)", "grid": WIDE, "steps": iters,
-          "equal_to_single_shot": out, "av_vels": av_diff,
-          "av_vels_rtol_where_launches_shift": TOT_RTOL})
+          "equal_to_single_shot": out, "av_vels": av_diff})
     check(all(out.values()), f"wide resume: {out} {av_diff}")
     del base, runs, base_cells
     torch.cuda.empty_cache()
@@ -1813,6 +1879,8 @@ def phase_trace(torch, np):
         for name, n in expect.items():
             check(got.get(name, 0) == n, f"trace {label}: {name} launched "
                   f"{got.get(name, 0)} times in the trace, the plan says {n}")
+        check("reduce_tot_kernel" not in got or want["reduce"],
+              f"trace {label}: a launch of the tot_u sum on a depth plan")
         check(summary["busy_share"] is not None
               and 0.0 < summary["busy_share"] <= 1.0,
               f"trace {label}: busy share {summary['busy_share']}")
@@ -1834,11 +1902,20 @@ def reduce_bound(partials):
 
 
 def kernel_entry(name, source, replaces, launches, path, err, ms, plain_ms,
-                 bnd, library_ms=None):
-    return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches, "path": path,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+                 bnd, library_ms=None, ceiling=None, **more):
+    """One kernel of the ``kernels`` line. ``bnd``: the function's bound
+    (profiling.bound: the launch's bytes once, or its operations).
+    ``ceiling``: for a kernel that keeps the lattice in device memory
+    between its steps, what that design can reach
+    (profiling.design_ceiling); ``bound_ms`` does not use it."""
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches, "path": path,
+             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": library_ms}
+    if ceiling is not None:
+        entry["design_ceiling_ms"] = ceiling[0]
+    entry.update(more)
+    return entry
 
 
 def main() -> int:
@@ -1852,7 +1929,7 @@ def main() -> int:
 
     # Fails here, before any output, when the package is not beside this
     # script.
-    from lbm_tpu_torch.profiling import bound
+    from lbm_tpu_torch.profiling import bound, design_ceiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1909,7 +1986,9 @@ def main() -> int:
             "probe_collide": probe_launches["probe_collide"],
             "probe_stream": probe_launches["probe_stream"],
             "fused_step": launches["step"]["step"],
-            "reduce_tot": launches["auto"]["reduce"],
+            # The tot_u sum: a launch of its own behind every one-step
+            # launch (and the epilogue of every depth launch).
+            "reduce_tot": launches["step"]["reduce"],
             "fused_depth": launches["auto"]["depth"],
             "resident": launches["resident"]["resident"],
             "fused_step_seam": shard_launches["step"]["step_seam"],
@@ -1955,25 +2034,35 @@ def main() -> int:
     wide_sharded = f"{WIDE} over {N_SHARDS} shards on one card (x-plan)"
     pt = probe_timing[SCENE]
     pdev = {k: statistics.median(v) for k, v in pt["device_ms_per_step"].items()}
+    # The stream mode reads no mask (72 B a cell) and adds once a cell (its
+    # total).
+    probe_cost = {"full": {}, "collide": {},
+                  "stream": {"bytes_per_cell": 72, "ops_per_cell": 1}}
     emit({"kernels": [
         kernel_entry("fused_step", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step"],
                      f"{on_scene}, one-step plan", worst["fused_step"],
                      dev["step"], plain, bound(cells, 1)),
-        kernel_entry("reduce_tot", "lbm_tpu_torch/csrc/fused_step.cu",
+        kernel_entry("reduce_tot", "lbm_tpu_torch/csrc/lbm_reduce.cuh",
                      "lbm_tpu/ops/pallas_fused.py:396", runs["reduce_tot"],
-                     f"{on_scene}, auto", t["reduce_abs_err"],
+                     f"{on_scene}, one-step plan (a launch of its own)",
+                     t["reduce_abs_err"],
                      t["reduce_device_ms"], t["reduce_plain_device_ms"],
                      reduce_bound(partials),
                      library_ms=t["reduce_plain_device_ms"]),
+        # Its tot_u sum is its own epilogue, held against torch.sum of the
+        # launch's partials.
         kernel_entry("fused_depth", "lbm_tpu_torch/csrc/fused_depth.cu",
                      "lbm_tpu/ops/pallas_fused.py:653", runs["fused_depth"],
                      f"{on_scene}, auto (D=4)", worst["depth"],
-                     dev["depth D=4"], plain, bound(cells, 4)),
+                     dev["depth D=4"], plain, bound(cells, 4),
+                     epilogue_sum_abs_err=t["epilogue_abs_err"]),
         kernel_entry("resident", "lbm_tpu_torch/csrc/resident.cu",
                      "lbm_tpu/ops/pallas_resident.py:74", runs["resident"],
                      f"{on_scene}, resident plan (G=100)", worst["resident"],
-                     dev["resident G=100"], plain, bound(cells, 100)),
+                     dev["resident G=100"], plain,
+                     bound(cells, 100),
+                     ceiling=design_ceiling(cells, 100)),
         kernel_entry("fused_step_seam", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
                      f"{sharded}, one-step plan", shard_worst["step_seam"],
@@ -1988,7 +2077,8 @@ def main() -> int:
                      "lbm_tpu/parallel/resident_ring.py:241", runs["ring"],
                      f"{sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
                      shard_worst["ring"], sdev["ring G=100"], splain,
-                     bound(cells, 100)),
+                     bound(cells, 100),
+                     ceiling=design_ceiling(cells, 100)),
         kernel_entry("fused_step_cols", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:358", runs["fused_step_cols"],
                      f"{on_wide}, one-step plan", wide_worst["fused_step"],
@@ -2007,7 +2097,8 @@ def main() -> int:
                      f"{on_wide}, LBM_RESIDENT=1 (G=100)",
                      wide_worst["resident"], wdev["transposed resident G=100"],
                      wt["plain_transposed_device_ms_per_step"],
-                     bound(wcells, 100)),
+                     bound(wcells, 100),
+                     ceiling=design_ceiling(wcells, 100)),
         kernel_entry("fused_step_seam_cols", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:358",
                      runs["fused_step_seam_cols"], f"{wide_sharded}, one-step "
@@ -2026,18 +2117,20 @@ def main() -> int:
                      "lbm_tpu/parallel/resident_ring.py:280", runs["ring_cols"],
                      f"{wide_sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
                      shard_worst["ring_cols"], wsdev["x-plan ring G=100"],
-                     wsplain, bound(wcells, 100)),
+                     wsplain, bound(wcells, 100),
+                     ceiling=design_ceiling(wcells, 100)),
         # The probe: its launches are the probe script's run; a launch
-        # moves the lattice once for its G steps. The stream mode reads no
-        # mask (72 B a cell) and adds once a cell (its total).
+        # moves the lattice once for its G steps. Like the resident kernel
+        # and the ring it keeps the lattice in device memory between its
+        # steps, which is what its design ceiling counts.
         *(kernel_entry(f"probe_{m}", "lbm_tpu_torch/csrc/probe.cu",
                        "scripts/stream_cost_probe.py:53", runs[f"probe_{m}"],
                        f"scripts/stream_cost_probe_torch.py at {SCENE} "
                        f"(times: G={PROBE_TIMING_G})", probe_worst[m],
                        pdev[f"probe {m}"], pt["plain_device_ms_per_step"][m],
-                       bound(cells, PROBE_TIMING_G, bytes_per_cell=72,
-                             ops_per_cell=1) if m == "stream"
-                       else bound(cells, PROBE_TIMING_G))
+                       bound(cells, PROBE_TIMING_G, **probe_cost[m]),
+                       ceiling=design_ceiling(cells, PROBE_TIMING_G,
+                                              **probe_cost[m]))
           for m in ("full", "collide", "stream")),
     ]})
     print(smi, flush=True)

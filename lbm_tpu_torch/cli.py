@@ -77,7 +77,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--checkpoint-every", type=int, default=None, metavar="N",
-        help="save a checkpoint every N steps",
+        help="save a checkpoint every N steps. Cells are bit-identical "
+             "to the uninterrupted run's for any N; av_vels too when N is "
+             "even under a depth plan (a multiple of G under a resident "
+             "or ring plan): an odd N leaves one step of each chunk to "
+             "the one-step kernel, which sums in its own order (av_vels "
+             "then agree to ~1e-6 relative)",
     )
     p.add_argument(
         "--checkpoint-file", default=None, metavar="PATH",
@@ -91,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--chunk-iters", type=int, default=None, metavar="N",
         help="bound any single planned set of kernel launches to N "
-             "timesteps, without checkpoint I/O (identical trajectory)",
+             "timesteps, without checkpoint I/O (identical trajectory: "
+             "the cells' bits for any N, av_vels' bits for the strides "
+             "--checkpoint-every names)",
     )
     p.add_argument(
         "--precision",

@@ -23,10 +23,12 @@
 //   (no multiply-add contraction), so every kernel rounds each cell as
 //   the plain PyTorch version does.
 // - tot_u is deterministic: each block reduces its fluid |u| in a fixed
-//   shared-memory tree into one partial; lbm_reduce_tot sums the partials
-//   in a fixed order, one block per row of partials (one row here, one per
-//   stage for fused_depth.cu), and writes scale * sum to the device.
-//   No float atomics, so repeated runs are bit-identical.
+//   shared-memory tree into one partial; lbm_reduce_tot, a launch of its
+//   own, sums the partials in a fixed order (lbm_reduce.cuh) and writes
+//   scale * sum to the device. No float atomics, so repeated runs are
+//   bit-identical. (Summing in the kernel's epilogue, as the depth kernel
+//   does, was measured slower here in the form that was tried, a
+//   ticket behind a fence at the end of each of these short blocks.)
 // - Seam mode (fused_step_seam_kernel, the twin of _kernel(seam=True,
 //   dynamic_accel=True) on a shard of a row-sharded lattice): rows j-1 of
 //   the first row and j+1 of the last come from halo buffers the caller
@@ -46,6 +48,7 @@
 #include <stdint.h>
 
 #include "lbm_cell.cuh"
+#include "lbm_reduce.cuh"
 #include "lbm_seam.cuh"
 
 namespace {
@@ -53,7 +56,9 @@ namespace {
 constexpr int kBX = 32;
 constexpr int kBY = 8;
 constexpr int kThreads = kBX * kBY;
-constexpr int kReduceThreads = 1024;
+// Width of the tot_u sum behind a one-step launch: its partials are many
+// (one per 32 x 8 block), so the sum takes a whole block of lanes.
+constexpr int kStepReduceWidth = 1024;
 
 template <bool kCols>
 __global__ void __launch_bounds__(kThreads)
@@ -124,19 +129,13 @@ fused_step_seam_kernel(SeamView v, float* __restrict__ dst,
     if (tid == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = red[0];
 }
 
-// out[b] = scale * sum(partials[b*n : (b+1)*n]) for each block b, summed
-// in a fixed order: one block per row of partials.
-__global__ void __launch_bounds__(kReduceThreads)
+// out[0] = scale * sum(partials[0:n]), in lbm_reduce.cuh's fixed order at
+// width kStepReduceWidth, by one block.
+__global__ void __launch_bounds__(kStepReduceWidth)
 reduce_tot_kernel(const float* __restrict__ partials, int n, float scale,
                   float* __restrict__ out) {
-    __shared__ float red[kReduceThreads];
-    const int tid = threadIdx.x;
-    const float* row = partials + (size_t)blockIdx.x * n;
-    float acc = 0.0f;
-    for (int p = tid; p < n; p += kReduceThreads) acc += row[p];
-    red[tid] = acc;
-    lbm_tree_sum<kReduceThreads>(red, tid);
-    if (tid == 0) out[blockIdx.x] = red[0] * scale;
+    lbm_sum_rows<1, kStepReduceWidth>(const_cast<float*>(partials), nullptr,
+                                      n, scale, out, threadIdx.x);
 }
 
 dim3 step_grid(int ny, int nx) {
@@ -210,14 +209,14 @@ int lbm_fused_step_seam(const float* src, float* dst, const uint8_t* mask,
     return (int)cudaGetLastError();
 }
 
-// out[r] = scale * sum(partials[r*n : (r+1)*n]) for r < rows, each
-// summed in a fixed order.
-int lbm_reduce_tot(const float* partials, int n, int rows, float scale,
-                   float* out, int device, void* stream) {
+// out[0] = scale * sum(partials[0:n]), summed in a fixed order: the
+// one-step kernel's second launch.
+int lbm_reduce_tot(const float* partials, int n, float scale, float* out,
+                   int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (rows < 1 || n < 1) return (int)cudaErrorInvalidValue;
-    reduce_tot_kernel<<<rows, kReduceThreads, 0, (cudaStream_t)stream>>>(
+    if (n < 1) return (int)cudaErrorInvalidValue;
+    reduce_tot_kernel<<<1, kStepReduceWidth, 0, (cudaStream_t)stream>>>(
         partials, n, scale, out);
     return (int)cudaGetLastError();
 }

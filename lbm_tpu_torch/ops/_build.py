@@ -47,15 +47,15 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_reduce_tot": (
-        [_c_void_p, _c_int, _c_int, _c_float, _c_void_p, _c_int, _c_void_p],
+        [_c_void_p, _c_int, _c_float, _c_void_p, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_num_partials": ([_c_int, _c_int], _c_int),
     "lbm_max_rows": ([], _c_int),
     "lbm_fused_depth": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_int,
-         _c_void_p],
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_float,
+         _c_void_p, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_depth_num_partials": ([_c_int, _c_int, _c_int], _c_int),
@@ -76,8 +76,8 @@ _SIGNATURES = {
     "lbm_fused_depth_seam": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_int,
-         _c_void_p],
+         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_float,
+         _c_void_p, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_ring_blocks": ([_c_int, _c_int], _c_int),

@@ -1,7 +1,8 @@
 """The fused-step kernel's wrapper: one timestep of the lattice in one
 CUDA launch (``csrc/fused_step.cu``, the port of
 ``lbm_tpu/ops/pallas_fused.py::_kernel``, in row and in column mode),
-plus a launch that sums the per-block tot_u partials on the device. Also
+plus a launch that sums the per-block tot_u partials on the device
+(``csrc/lbm_reduce.cuh``). Also
 what every kernel wrapper shares (:class:`LatticeKernel`) and the launch
 counts of all of them.
 
@@ -20,8 +21,9 @@ from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.state import D2Q9
 
 # Launch counts of every kernel of the package, one per kernel: the
-# one-step kernel, the tot_u reduce (launched by the one-step and depth
-# wrappers in every mode), the depth kernel, the resident kernel, the
+# one-step kernel, the tot_u sum as a launch of its own (after every
+# launch of the one-step kernel, in both of its modes; the depth kernel
+# sums in its epilogue), the depth kernel, the resident kernel, the
 # seam modes of the one-step and depth kernels (one launch per shard) and
 # the ring kernel (one launch per card), each also in column mode (the
 # "_cols" counts: the transposed lattice of a wide grid), and the three
@@ -122,14 +124,14 @@ class LatticeKernel:
     def _scale(self, scale) -> float:
         return float(np.float32(scale))
 
-    def _reduce(self, partials, rows: int, out, t: int, scale) -> None:
-        """``out[t + r] = scale * sum(row r of partials)`` for
-        ``r < rows``: one launch of the fixed-order reduce kernel."""
+    def _reduce(self, partials, out, t: int, scale) -> None:
+        """``out[t] = scale * sum(partials)``: one launch of the
+        fixed-order sum, behind every launch of the one-step kernel (the
+        depth kernel runs that sum in its epilogue)."""
         lib = self._lib
         _build.check(lib, lib.lbm_reduce_tot(
-            partials.data_ptr(), partials.numel() // rows, rows,
-            np.float32(scale), out.data_ptr() + 4 * t, self._index,
-            self._stream(),
+            partials.data_ptr(), partials.numel(), np.float32(scale),
+            out.data_ptr() + 4 * t, self._index, self._stream(),
         ), "tot_u reduce launch")
         LAUNCHES["reduce"] += 1
 
@@ -173,7 +175,7 @@ class FusedStep(LatticeKernel):
             self.omega, self.mode, self.axis, self._index, stream,
         ), "fused step launch")
         self._launched("step")
-        self._reduce(self._partials, 1, out, t, scale)
+        self._reduce(self._partials, out, t, scale)
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
         self.step(a, b, out, t, scale)
@@ -255,7 +257,7 @@ class SeamStep(SeamKernel):
             self._stream(),
         ), "seam step launch")
         self._launched("step_seam")
-        self._reduce(self._partials, 1, out, t, scale)
+        self._reduce(self._partials, out, t, scale)
         return b, a
 
 

@@ -1,21 +1,23 @@
 """The depth kernel's wrapper: ``depth`` timesteps of the lattice in one
 CUDA launch (``csrc/fused_depth.cu``, the port of
 ``lbm_tpu/ops/pallas_fused.py::_kernel_fused``, in row and in column
-mode), plus one launch of the fixed-order reduce that writes the
-``depth`` tot_u values on the device.
+mode), which also writes the ``depth`` tot_u values on the device (the
+block that started last sums the per-tile partials in a fixed order,
+``csrc/lbm_reduce.cuh``).
 
 A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`; a CUDA tensor launches the kernel or
 raises. :func:`fused_depth_emulated` is the kernel's tiling in plain
-PyTorch (window, periodic gather, shrinking stage regions, owned-cell
-tot_u per stage), so the tile and halo logic is tested where no card
-exists.
+PyTorch (window, periodic gather, every stage on the whole window with
+garbage outside its valid region, owned-cell tot_u per stage at a fixed
+place), so the tile and halo logic is tested where no card exists.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from lbm_tpu_torch.ops import _build
@@ -23,10 +25,29 @@ from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel, SeamKernel
 from lbm_tpu_torch.state import D2Q9
 
-# Depths the kernel is built for, and each depth's (TY, TX) output tile
-# (csrc/fused_depth.cu, Tile<D>).
+# Depths the kernel is built for, each depth's (TY, TX) output tile and
+# the x-halo of its window (csrc/fused_depth.cu, Geo<D, V>). The window is
+# (TY + 2 D) x (TX + 2 HALO_X): HALO_X is D rounded up to whole quads of
+# four cells, so the tile starts on a 16-byte boundary of a window row.
+# D = 2 and D = 4 share tile and halo, and so the thread, warp and tile of
+# every owned cell: a step's tot_u has the same bits under either.
 DEPTHS = (8, 4, 2)
-TILES = {2: (32, 32), 4: (24, 32), 8: (16, 32)}
+TILES = {2: (24, 32), 4: (24, 32), 8: (16, 32)}
+HALO_X = {2: 4, 4: 4, 8: 8}
+
+
+def _new_scratch(depth: int, n: int, device):
+    """The kernel's scratch and the ``(depth, n)`` view of the last
+    launch's per-tile tot_u partials. The scratch is ``depth * n`` slots
+    that are empty between launches (the bits of -1, a NaN no sum
+    produces), the epilogue's block counter (one 32-bit word, zero between
+    launches) and the ``depth * n`` partials as the epilogue read them
+    (``csrc/lbm_reduce.cuh``)."""
+    scratch = torch.full((2 * depth * n + 1,), -1, dtype=torch.int32,
+                         device=device)
+    scratch[depth * n] = 0
+    scratch = scratch.view(torch.float32)
+    return scratch, scratch[depth * n + 1:].view(depth, n)
 
 
 class FusedDepth(LatticeKernel):
@@ -47,10 +68,9 @@ class FusedDepth(LatticeKernel):
             raise ValueError(
                 f"{ny} rows exceed the depth-{depth} kernel's limit of {limit}"
             )
-        n = self._lib.lbm_depth_num_partials(depth, ny, nx)
-        self._partials = torch.empty(
-            depth * n, dtype=torch.float32, device=self.device
-        )
+        self._scratch, self._partials = _new_scratch(
+            depth, self._lib.lbm_depth_num_partials(depth, ny, nx),
+            self.device)
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
         self._check_call(a, b, out, t)
@@ -65,11 +85,11 @@ class FusedDepth(LatticeKernel):
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
         _build.check(lib, lib.lbm_fused_depth(
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
-            self._partials.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
-            self.omega, self.mode, d, self.axis, self._index, self._stream(),
+            self._scratch.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
+            self.omega, self.mode, d, self.axis, np.float32(scale),
+            out.data_ptr() + 4 * t, self._index, self._stream(),
         ), f"depth-{d} launch")
         self._launched("depth")
-        self._reduce(self._partials, d, out, t, scale)
         return b, a
 
 
@@ -98,10 +118,9 @@ class FusedDepthSeam(SeamKernel):
             raise ValueError(
                 f"{h} rows exceed the depth-{depth} kernel's limit of {limit}"
             )
-        n = self._lib.lbm_depth_num_partials(depth, h, nx)
-        self._partials = torch.empty(
-            depth * n, dtype=torch.float32, device=self.device
-        )
+        self._scratch, self._partials = _new_scratch(
+            depth, self._lib.lbm_depth_num_partials(depth, h, nx),
+            self.device)
 
     def run(self, a, b, halo_s, halo_n, out, t: int = 0, scale=1.0):
         self._check_call(a, b, out, t)
@@ -117,12 +136,12 @@ class FusedDepthSeam(SeamKernel):
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             halo_s.data_ptr(), halo_n.data_ptr(),
             self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
-            self.k, self._partials.data_ptr(), h, nx, self.row0, self.ny,
+            self.k, self._scratch.data_ptr(), h, nx, self.row0, self.ny,
             self.w1, self.w2, self.omega, self.mode, d, self.axis,
-            self._index, self._stream(),
+            np.float32(scale), out.data_ptr() + 4 * t, self._index,
+            self._stream(),
         ), f"seam depth-{d} launch")
         self._launched("depth_seam")
-        self._reduce(self._partials, d, out, t, scale)
         return b, a
 
 
@@ -145,45 +164,62 @@ def fused_depth_plain(cells, obstacles, w1, w2, omega, depth: int,
 
 
 def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
-                         tile: tuple[int, int] | None = None, axis: int = 0):
+                         tile: tuple[int, int] | None = None, axis: int = 0,
+                         halo_x: int | None = None):
     """The depth kernel's tiling in plain PyTorch: for each ``(TY, TX)``
     tile (default :data:`TILES`), gather the periodic window of
-    ``depth`` cells more on each side, run ``depth`` stages on it, each
-    over the window shrunk by one more cell per side, forcing the pulled
-    copy from the forced row (``axis`` 1: the forced column, from the
-    kernel's per-column flags), and keep the tile. tot_u of each stage
-    counts the tile's in-grid fluid cells only. Returns ``(new_cells,
-    tots)``; cells are bit-identical to :func:`.reference.multi_step`,
-    tots differ by summation order."""
+    ``depth`` rows and ``halo_x`` columns (default :data:`HALO_X`) more on
+    each side and run ``depth`` stages on it, forcing the pulled copy
+    from the forced row (``axis`` 1: the forced column, from the kernel's
+    per-column flags). As in the kernel every stage works on the same
+    fixed cells, the whole window: stage ``s`` is only valid on the
+    window shrunk by ``s`` cells a side, and what lies outside is garbage
+    (here NaN, so a stage that read it into an owned cell would show).
+    The owned tile sits at the same place of the window at every stage;
+    tot_u of a stage sums the tile's in-grid fluid cells as one
+    fixed-shape ``(TY, TX)`` sum, then the tiles in tile order, so a
+    step's total does not depend on its stage, nor on which of two
+    depths that share a tile ran it. Returns ``(new_cells, tots)``; cells
+    are bit-identical to :func:`.reference.multi_step`, tots differ from
+    its by summation order."""
     ty, tx = TILES[depth] if tile is None else tile
+    hx = HALO_X[depth] if halo_x is None else halo_x
+    if hx < depth:
+        raise ValueError(f"x-halo {hx} is narrower than depth {depth}")
     _, ny, nx = cells.shape
     np_type = ref_ops._np_type(cells.dtype)
     deltas, guards = ref_ops.forcing(np_type(w1), np_type(w2), axis)
     accel = (cells.shape[1 + axis] - 2) % cells.shape[1 + axis]
     new = torch.empty_like(cells)
     tots = torch.zeros(depth, dtype=cells.dtype)
+    own = (slice(depth, depth + ty), slice(hx, hx + tx))
     for by in range(math.ceil(ny / ty)):
         for bx in range(math.ceil(nx / tx)):
             # The tile's in-grid height and width (the last tile of a
             # ragged grid overhangs it).
-            hy, hx = min(ty, ny - by * ty), min(tx, nx - bx * tx)
+            hy, wx = min(ty, ny - by * ty), min(tx, nx - bx * tx)
             rows = torch.arange(by * ty - depth, (by + 1) * ty + depth) % ny
-            cols = torch.arange(bx * tx - depth, (bx + 1) * tx + depth) % nx
+            cols = torch.arange(bx * tx - hx, (bx + 1) * tx + hx) % nx
             win = cells[:, rows][:, :, cols]
             wmask = obstacles[rows][:, cols]
             # The window's cells on the forced line (row or column flags).
             forced = ((rows == accel)[:, None] if axis == 0
                       else (cols == accel)[None, :]).expand(wmask.shape)
-            for s in range(1, depth + 1):
-                win, umag, wmask, forced = _stage(
-                    win, wmask, forced, deltas, guards, omega
-                )
-                # Owned cells sit depth - s cells in from this region.
-                own = (slice(depth - s, depth - s + hy),
-                       slice(depth - s, depth - s + hx))
-                tots[s - 1] += umag[own][~wmask[own]].sum()
-            new[:, by * ty:by * ty + hy, bx * tx:bx * tx + hx] = \
-                win[:, :hy, :hx]
+            # Owned fluid cells: in the tile, in the grid, not an obstacle.
+            counted = torch.zeros((ty, tx), dtype=torch.bool)
+            counted[:hy, :wx] = ~wmask[own][:hy, :wx]
+            for s in range(depth):
+                inner, umag, _, _ = _stage(win, wmask, forced, deltas,
+                                           guards, omega)
+                # The stage's results inside a ring of garbage.
+                win = torch.full_like(win, float("nan"))
+                win[:, 1:-1, 1:-1] = inner
+                u = torch.zeros(wmask.shape, dtype=cells.dtype)
+                u[1:-1, 1:-1] = umag
+                tots[s] += torch.where(counted, u[own],
+                                       torch.zeros((), dtype=cells.dtype)).sum()
+            new[:, by * ty:by * ty + hy, bx * tx:bx * tx + wx] = \
+                win[:, own[0], own[1]][:, :hy, :wx]
     return new, tots
 
 

@@ -9,8 +9,10 @@
   ``scripts/trace_report_torch.py``).
 - the port's cost model (:data:`BYTES_PER_CELL_PASS`,
   :data:`OPS_PER_CELL_STEP`), :func:`bound` (the least time a card could
-  take for a kernel's work) and :func:`roofline_report` (a measured run
-  against the card's data-sheet peaks).
+  take for a kernel's work), :func:`design_ceiling` (the least a kernel
+  that streams the lattice every step could take) and
+  :func:`roofline_report` (a measured run against the card's data-sheet
+  peaks).
 - :func:`summarise`: per kernel name the launches and device time of a
   trace, the card's busy share and its longest idle gaps.
 """
@@ -39,11 +41,15 @@ BYTES_PER_CELL_PASS = (9 + 9) * 4 + 1
 OPS_PER_CELL_STEP = 90
 
 # Peaks per card, from the vendor's data sheet (not measured here): HBM
-# bytes per second and float32 operations per second outside the tensor
-# cores. H100 SXM at its full 700 W power limit; a card set below that
-# limit runs slower under load.
+# bytes per second, float32 operations per second outside the tensor
+# cores, and the L2 cache's size. H100 SXM at its full 700 W power limit;
+# a card set below that limit runs slower under load. The float32 peak
+# counts a fused multiply-add as two operations; the port builds with
+# -fmad=false (no fusion, so every kernel rounds as the plain version
+# does), which leaves half of that peak reachable.
 CHIP_PEAKS = {
     "h100": {"hbm_bytes_per_s": 3.35e12, "f32_ops_per_s": 67e12,
+             "l2_bytes": 50e6,
              "source": "NVIDIA H100 SXM data sheet, 700 W"},
 }
 
@@ -106,14 +112,36 @@ def bound(cells: int, steps_per_launch: int = 1, extra_bytes: int = 0,
     """``(ms per step, "bytes" or "operations")``: the least time ``chip``
     could take per step for ``cells`` cells stepped ``steps_per_launch``
     steps per launch, the larger of the launch's bytes (``bytes_per_cell``
-    a cell plus ``extra_bytes``, moved once per launch) over the memory
-    rate and a step's operations over the float32 rate."""
+    a cell plus ``extra_bytes``, each input read once and each output
+    written once per launch) over the memory rate and a step's operations
+    over the float32 rate. It bounds the function, n steps of the lattice,
+    whatever the kernel's design: :func:`design_ceiling` has what a design
+    that streams the lattice every step can reach."""
     peaks = _peaks(chip)
     t_bytes = (bytes_per_cell * cells + extra_bytes) \
         / peaks["hbm_bytes_per_s"] / steps_per_launch
     t_ops = ops_per_cell * cells / peaks["f32_ops_per_s"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def design_ceiling(cells: int, steps_per_launch: int = 1, chip: str = "h100",
+                   bytes_per_cell: int = BYTES_PER_CELL_PASS,
+                   ops_per_cell: int = OPS_PER_CELL_STEP):
+    """``(ms per step, "bytes" or "operations")``: the least time per step
+    of a kernel that keeps the lattice in device memory between the steps
+    of a launch (the resident kernel, the ring, the probe). Such a kernel
+    passes over device memory once per *step* whenever its working set,
+    ``bytes_per_cell * cells`` (both buffers and the mask), exceeds the
+    card's L2 cache; while it fits, the launch's bytes move once and this
+    is :func:`bound`. Not a bound of the function: the depth kernel, which
+    holds its steps in shared memory, runs below it. It says how much of a
+    kernel's distance from :func:`bound` its design accounts for."""
+    peaks = _peaks(chip)
+    if bytes_per_cell * cells > peaks["l2_bytes"]:
+        steps_per_launch = 1
+    return bound(cells, steps_per_launch, chip=chip,
+                 bytes_per_cell=bytes_per_cell, ops_per_cell=ops_per_cell)
 
 
 def roofline_report(nx: int, ny: int, iters: int, seconds: float,

@@ -428,3 +428,96 @@ def test_chunked_and_resumed_runs_equal_single_shot(cuda, env, monkeypatch,
     odd = run_simulation(p, mask, kernel="cuda", n_iters=240, chunk_iters=70)
     np.testing.assert_array_equal(odd.cells, base.cells)
     np.testing.assert_allclose(odd.av_vels, base.av_vels, rtol=TRAJ_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+@pytest.mark.parametrize("depth", [2, 4, 8])
+def test_tot_u_is_summed_in_the_kernel(cuda, depth, axis):
+    """A depth launch leaves scale * tot_u of each of its steps in
+    ``out``: the block that started last sums the per-tile partials. Held
+    against ``torch.sum`` of the same partials (another order: rtol 1e-6);
+    no launch of the sum on the kernel's path."""
+    from lbm_tpu_torch.state import transpose_state
+
+    p, cells, mask = _case(264, 100, False, seed=5, perturbed=True)
+    c, m = torch.from_numpy(cells).to(cuda), torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c), m.T.contiguous()
+    w = (m, p.accel_w1, p.accel_w2, p.omega)
+    rows = depth
+    kernel = fused_depth.FusedDepth(*w, depth, axis)
+    out = torch.full((rows + 2,), -1.0, device=cuda)
+    before = fused.LAUNCHES["reduce"]
+    for _ in range(3):  # every launch leaves the scratch ready for the next
+        kernel.run(c, torch.empty_like(c), out, 1, 0.5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["reduce"] == before
+    assert out[0] == -1 and out[-1] == -1
+    partials = kernel._partials
+    # Empty slots (all bits set), then the block counter at zero.
+    words = kernel._scratch.view(torch.int32)[:partials.numel() + 1]
+    assert (words[:-1] == -1).all() and words[-1] == 0
+    np.testing.assert_allclose(out[1:-1].cpu().numpy(),
+                               (partials.sum(1) * 0.5).cpu().numpy(),
+                               rtol=1e-6)
+    # The sum's order is fixed: a second launch gives the same bits.
+    again = torch.empty_like(out)
+    kernel.run(c, torch.empty_like(c), again, 1, 0.5)
+    assert torch.equal(again[1:-1], out[1:-1])
+
+
+@pytest.mark.cuda
+def test_no_reduce_launch_on_a_depth_plan(cuda, monkeypatch):
+    """202 steps under a depth plan (D = 4 and a D = 2 tail): depth
+    launches as planned and none of the tot_u sum, which the depth kernel
+    runs in its epilogue. A 203rd step goes to the one-step kernel, whose
+    sum is a launch of its own."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import simulate
+
+    monkeypatch.delenv("LBM_RESIDENT_STEPS", raising=False)
+    monkeypatch.setenv("LBM_RESIDENT", "0")
+    monkeypatch.setenv("LBM_PALLAS_DEPTH", "4")
+    p, _, mask = _case(128, 128, True)
+    c0, m = initial_state(p, cuda), torch.from_numpy(mask).to(cuda)
+    assert plan.describe(plan.segments(128, 128, 202)) == \
+        "depth D=4 x50, depth D=2 x1"
+    fused.reset_launches()
+    simulate(p, c0, m, kernel="cuda", n_iters=202)
+    assert fused.LAUNCHES["depth"] == 51
+    assert fused.LAUNCHES["step"] == 0 and fused.LAUNCHES["reduce"] == 0
+    assert plan.describe(plan.segments(128, 128, 203)) == \
+        "depth D=4 x50, depth D=2 x1, step x1"
+    fused.reset_launches()
+    simulate(p, c0, m, kernel="cuda", n_iters=203)
+    assert fused.LAUNCHES["depth"] == 51
+    assert fused.LAUNCHES["step"] == 1 and fused.LAUNCHES["reduce"] == 1
+
+
+@pytest.mark.cuda
+def test_even_chunks_keep_every_bit_under_the_auto_depths(cuda, monkeypatch,
+                                                          tmp_path):
+    """Under the depths ``auto`` plans (D = 4 with a D = 2 tail) any even
+    chunk length and checkpoint step gives the single-shot run's bits in
+    cells and in av_vels: a step's total is summed at a fixed place of the
+    tile, the same at every stage and under both depths."""
+    from lbm_tpu_torch.runner import run_simulation
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("LBM_RESIDENT", "0")
+    p, _, mask = _case(128, 128, True)
+    base = run_simulation(p, mask, kernel="cuda", n_iters=240)
+    for stride in (70, 42, 6):
+        run = run_simulation(p, mask, kernel="cuda", n_iters=240,
+                             chunk_iters=stride)
+        np.testing.assert_array_equal(run.cells, base.cells)
+        np.testing.assert_array_equal(run.av_vels, base.av_vels)
+    ck = tmp_path / "ck.npz"
+    run_simulation(p, mask, kernel="cuda", n_iters=42, checkpoint_every=42,
+                   checkpoint_file=ck)
+    resumed = run_simulation(p, mask, kernel="cuda", n_iters=240,
+                             resume_from=ck)
+    np.testing.assert_array_equal(resumed.cells, base.cells)
+    np.testing.assert_array_equal(resumed.av_vels, base.av_vels)

@@ -50,6 +50,62 @@ def test_cost_model_constants_are_the_documented_ones():
     assert by == "bytes" and np.isclose(ms, 72 * cells / 3.35e12 / 100 * 1e3)
 
 
+@pytest.mark.parametrize("kind,kwargs", [
+    ("resident", {}),
+    ("probe stream", {"bytes_per_cell": 72, "ops_per_cell": 1}),
+])
+def test_design_ceiling_of_a_kernel_resident_in_device_memory(kind, kwargs):
+    """A kernel that keeps the lattice in device memory between the steps
+    of a launch (resident, ring, probe) moves it once per step once both
+    buffers and the mask outgrow the 50 MB L2, and once per launch while
+    they fit. That is its design's ceiling; the function's bound stays
+    once per launch."""
+    l2 = profiling.CHIP_PEAKS["h100"]["l2_bytes"]
+    assert l2 == 50e6
+    b = kwargs.get("bytes_per_cell", 73)
+    big, small = 1024 * 1024, 512 * 512
+    assert b * big > l2 > b * small
+    ms, by = profiling.design_ceiling(big, 100, **kwargs)
+    assert by == "bytes" and np.isclose(ms, b * big / 3.35e12 * 1e3)
+    if kind == "resident":
+        assert round(ms, 5) == 0.02285  # one pass a step, as PERF.md
+        assert round(profiling.bound(big, 100)[0], 5) == 0.00141
+    assert profiling.bound(big, 100, **kwargs)[0] < ms
+    # In L2: the bound, the launch's bytes over its steps or the operations.
+    assert profiling.design_ceiling(small, 100, **kwargs) == \
+        profiling.bound(small, 100, **kwargs)
+    # Just either side of the L2 size.
+    under, over = int(l2 // b), int(l2 // b) + 1
+    assert profiling.design_ceiling(under, 100, **kwargs) == \
+        profiling.bound(under, 100, **kwargs)
+    ms, by = profiling.design_ceiling(over, 100, **kwargs)
+    assert by == "bytes" and np.isclose(ms, b * over / 3.35e12 * 1e3)
+
+
+def test_bound_of_the_depth_kernel_is_once_per_launch():
+    """The depth kernel holds its D steps in shared memory: its lattice
+    moves once per launch whatever the size, below the ceiling of the
+    kernels that stream it every step."""
+    for cells in (512 * 512, 1024 * 1024, 131072 * 128):
+        for d in (2, 4, 8):
+            ms, by = profiling.bound(cells, d)
+            assert by == "bytes" and np.isclose(ms, 73 * cells / 3.35e12 / d * 1e3)
+    assert round(profiling.bound(1024 * 1024, 4)[0], 5) == 0.00571
+    assert profiling.bound(1024 * 1024, 4)[0] < \
+        profiling.design_ceiling(1024 * 1024, 100)[0]
+
+
+def test_roofline_report_of_a_resident_run():
+    """The report holds a run against the function's bound whichever
+    kernel ran it."""
+    r = profiling.roofline_report(1024, 1024, 20000, 0.62, steps_per_pass=100)
+    assert r["bound_by"] == "operations" and r["bound"] == "compute"
+    assert np.isclose(r["ceiling_glups"], 1024 * 1024 / 0.00141e-3 / 1e9,
+                      rtol=2e-3)
+    assert np.isclose(r["effective_gbps"],
+                      1024 * 1024 * 20000 * 73 / 100 / 0.62 / 1e9)
+
+
 def test_roofline_report():
     r = profiling.roofline_report(1024, 1024, 20000, 0.45, chip="h100",
                                   steps_per_pass=4)
