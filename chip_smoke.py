@@ -20,17 +20,26 @@ printing JSON lines (any failure raises and exits non-zero):
              step, the depth kernel for one call at D = 2, 4, 8 (cells max
              abs error 0; a step's tot_u the same bits at the first and at
              the last stage of a launch, and under D = 2 and D = 4) and the
-             resident kernel for one call at G = 16, against n steps of
-             the plain version, at 1024x1024 (scene mask), 128x128 (and an
-             odd G = 5 there), a ragged 100x130 wall-less mask,
-             16384x1024, 131072x128 and 128x131072, physical layout; all
-             three BGK associations at 256x256; then 200 steps at
+             resident kernel for one call at G = 16 in both forms (the
+             on-chip form wherever a strip fits: cells max abs error 0),
+             against n steps of the plain version, at 1024x1024 (scene
+             mask), 128x128 (and an odd G = 5 there), a ragged 100x130
+             wall-less mask, 16384x1024, 131072x128, 128x131072, 512x512
+             and 1024x256, physical layout; all three BGK associations at
+             256x256; then 200 steps at
              1024x1024 of every kernel through the runner against the
              one-step kernel, with bit-identical repeats;
 4. wide_kernel - the same calls in column mode on the transposed lattice
              at 131072x128, 16384x1024, 1024x256 and a ragged wall-less
              264x100, and all three associations at 512x128: max abs
-             error 0 against the plain version;
+             error 0 against the plain version (the on-chip form at
+             1024x256, 264x100 and 512x128);
+4b. onchip_scene - the reference coursework's 256x256 scene, 80000
+             steps, through the CLI under auto (the plan line says
+             "resident G=100 on-chip x800") and with LBM_RESIDENT_FORM=
+             device, in turns: launch counts equal the plan's, drift
+             within 0.3 % of goldens/256x256.final_state.f64.npz, the two
+             forms' final states the same bytes, Compute seconds;
 5. scene   - the reference's 1024x1024 scene (20000 steps) through the
              port's CLI, once per plan: --kernel auto, the one-step
              kernel pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=1), the
@@ -52,18 +61,26 @@ printing JSON lines (any failure raises and exits non-zero):
              every depth and the resident kernel against the one-step
              kernel;
 8. timing  - per-step time of every kernel configuration at 128x128,
-             256x256, 512x512, 1024x1024 and 16384x1024 (physical layout)
-             with CUDA events, as the runner drives them and as device time
-             alone; the plain version at 1024x1024; there also the tot_u
+             256x256, 512x512, 1024x1024 and 16384x1024 (physical layout;
+             the resident kernel in both forms where a strip fits) with
+             CUDA events, as the runner drives them and as device time
+             alone; the plain version at 256x256 and 1024x1024; there also
+             the tot_u
              sum as the one-step kernel launches it and as the depth
              kernel's epilogue runs it, each against torch.sum of the same
              partials (relative error at most 1e-6);
 9. wide_timing - the same, in both layouts (row mode on the physical
              lattice, column mode on the transposed one): one-step,
              D = 2, 4, 8 and resident G=100 at 131072x128 and 16384x1024,
-             D=4 and resident G=100 at 1024x256; the plain version on the
-             transposed lattice (the numbers the layout rule and the wide
-             depth rule are set from);
+             D=4 and resident G=100 in both forms at 1024x256 and 1024x384;
+             the plain version on the transposed lattice (the numbers the
+             layout rule and the wide depth rule are set from);
+9b. onchip_timing - the on-chip resident form at 32, 64, 128 blocks and
+             one an SM at 128x128, 256x256, 512x512 and 1024x256 (the
+             small-grid floor), and both forms beside D=4 at 640x512,
+             768x512, 1024x384, 600x600, 792x528 (the largest lattice whose
+             strips fit), 1024x512, 768x768 and 1024x768 (the numbers
+             RESIDENT_AUTO_MAX_CELLS is set from);
 10. shard_kernel - the sharded path's kernels, one call on every shard
              against the plain shard step (halo.ReferenceShardImpl) on
              the same inputs: the one-step kernel's seam mode, the depth
@@ -140,9 +157,10 @@ printing JSON lines (any failure raises and exits non-zero):
              busy share and the longest idle gaps; traced against untraced
              compute seconds.
 
-Then the kernels line (every kernel, row and column modes and the probe's
-three, with its launches on its path, error against its plain version,
-time, plain time and bound), the nvidia-smi line, and a last line
+Then the kernels line (every kernel, row and column modes, the on-chip
+resident form and the probe's three, with its launches on its path,
+error against its plain version, time, plain time and bound), the
+nvidia-smi line, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 before
 printing anything. ``--phases a,b`` (for development) runs only the named
 phases after device and build, and then prints no kernels line and no ok
@@ -179,14 +197,15 @@ MODES = {
     "omega_absorbed": {"LBM_OMEGA_EQ": "1"},
 }
 PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-            "LBM_SHARD_RESIDENT")
+            "LBM_SHARD_RESIDENT", "LBM_RESIDENT_FORM")
 DEPTHS = (2, 4, 8)
 KERNEL_G = 16
 # Kernel-phase grids (NXxNY) and their masks: the scene's, the
 # generator's walls, or random and wall-less (periodic in both axes).
 KERNEL_CASES = [("1024x1024", "scene"), ("128x128", "walls"),
                 ("100x130", "random"), ("16384x1024", "walls"),
-                ("131072x128", "walls"), ("128x131072", "walls")]
+                ("131072x128", "walls"), ("128x131072", "walls"),
+                ("512x512", "walls"), ("1024x256", "walls")]
 STRESS, STRESS_ITERS = "16384x1024", 1000
 TRAJ_STEPS = 200
 TIMING_GRIDS = ("128x128", "256x256", "512x512", "1024x1024", "16384x1024")
@@ -207,7 +226,24 @@ WIDE_KERNEL_CASES = [(WIDE, "walls"), ("16384x1024", "walls"),
                      (WIDE_RESIDENT, "walls"), ("264x100", "random")]
 WIDE_MODES_GRID = "512x128"
 WIDE_GATE_ITERS = 500
-WIDE_TIMING_GRIDS = (WIDE, "16384x1024", WIDE_RESIDENT)
+# 1024x384: a wide grid above the layout rule's 512x512 cells and under
+# the resident kernel's limit (its transposed lattice fits on chip).
+WIDE_LIMIT = "1024x384"
+WIDE_TIMING_GRIDS = (WIDE, "16384x1024", WIDE_RESIDENT, WIDE_LIMIT)
+# The on-chip resident form's path: the reference coursework's 256x256
+# scene (the generator's walls, no column; accel 0.005), all 80000 steps,
+# against its float64 golden.
+ONCHIP_SCENE, ONCHIP_ITERS = "256x256", 80000
+ONCHIP_GOLDEN = REPO / "goldens" / "256x256.final_state.f64.npz"
+ONCHIP_SCENE_PLANS = {"auto": {}, "device": {"LBM_RESIDENT_FORM": "device"}}
+# The small-grid floor: the on-chip form at these block counts (and the
+# SM count) beside the device-memory form and D=4; the crossover grids:
+# both forms and D=4 from 512x512 to the largest lattice whose strips fit
+# (792x528) and above it.
+ONCHIP_BLOCK_GRIDS = ("128x128", "256x256", "512x512", "1024x256")
+ONCHIP_BLOCKS = (32, 64, 128)
+CROSSOVER_GRIDS = ("640x512", "768x512", "1024x384", "600x600", "792x528",
+                   "1024x512", "768x768", "1024x768")
 
 
 def grid(name: str) -> tuple[int, int]:
@@ -304,7 +340,10 @@ def compare(torch, got, got_tots, want, want_tots):
 def check_depth(r, name, where):
     """What only the depth kernel's results hold: cells equal to the plain
     version's bit for bit, and a step's total independent of its stage
-    and of which of D = 2 and D = 4 ran it."""
+    and of which of D = 2 and D = 4 ran it. The on-chip resident form's
+    cells too are the plain version's bit for bit."""
+    if name.startswith("resident_onchip"):
+        check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
     if not name.startswith("depth"):
         return
     check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
@@ -366,10 +405,25 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     # The two depths auto plans share tile and map: D = 2 sums as D = 4.
     res["depth D=2"]["equals_first_stages_of_D4"] = bool(
         torch.equal(depth_tots[2], depth_tots[4][:2]))
+    onchip = onchip_fits(cells.shape[1], cells.shape[2])
     for g in sorted(keep - set(DEPTHS) - before):
-        got, t = resident.resident(cells, *args, g, axis=axis)
+        got, t = resident.resident(cells, *args, g, axis=axis, form="device")
         res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
+        if onchip:
+            got, t = resident.resident(cells, *args, g, axis=axis,
+                                       form="onchip")
+            res[f"resident_onchip G={g}"] = compare(torch, got, t, plain[g],
+                                                    tots[:g])
     return res
+
+
+def onchip_fits(rows, lanes):
+    """Whether the on-chip resident form takes a rows x lanes lattice on
+    this card."""
+    from lbm_tpu_torch.ops import plan, resident
+
+    return plan.resident_form(rows, lanes,
+                              *resident.device_limits("cuda")) == "onchip"
 
 
 def phase_device(torch):
@@ -534,7 +588,7 @@ def expected_launches(parts, cols=False):
     n = dict.fromkeys(fused.LAUNCHES, 0)
     suffix = "_cols" if cols else ""
     for seg in parts:
-        n[seg.kernel + suffix] += seg.launches
+        n[seg.launch_key + suffix] += seg.launches
         if seg.kernel == "step":
             n["reduce"] += seg.launches
     return n
@@ -558,7 +612,7 @@ def scene_files():
 def phase_scene(torch, np):
     from lbm_tpu_torch import cli
     from lbm_tpu_torch import io as lio
-    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.ops import fused, plan, resident
 
     golden = np.load(GOLDEN)
     nx, ny = grid(SCENE)
@@ -571,7 +625,8 @@ def phase_scene(torch, np):
     per_plan = {}
     for label, plan_env in SCENE_PLANS.items():
         with env(**plan_env):
-            parts = plan.segments(ny, nx, ITERS)
+            parts = plan.segments(ny, nx, ITERS,
+                                  resident.planned_form(ny, nx, "cuda"))
             want = expected_launches(parts)
             fused.reset_launches()
             out = io.StringIO()
@@ -587,7 +642,8 @@ def phase_scene(torch, np):
         check(launches == want,
               f"{label}: launches {launches} differ from the plan's {want}")
         for seg in parts:
-            check(launches[seg.kernel] > 0, f"{label}: {seg.kernel} idle")
+            check(launches[seg.launch_key] > 0,
+                  f"{label}: {seg.launch_key} idle")
         per_plan[label] = launches
         check(lines[0] == "==done==", "stdout contract")
         if label == "auto":
@@ -668,7 +724,7 @@ def phase_wide_gate(torch, np):
         write_obstacles(obs_f, mask)
         with env():
             cols = runner.plan_layout(p, "cuda")
-            parts = runner.plan_run(p, "cuda", iters)
+            parts = runner.plan_run(p, "cuda", iters, device="cuda")
             want = expected_launches(parts, cols=cols)
             fused.reset_launches()
             out, err = io.StringIO(), io.StringIO()
@@ -705,7 +761,7 @@ def phase_wide_gate(torch, np):
                 ("resident", {"LBM_RESIDENT": "1"}, None),
                 ("physical", {}, False)):
             with env(**plan_env):
-                parts = runner.plan_run(p, "cuda", iters, layout)
+                parts = runner.plan_run(p, "cuda", iters, layout, "cuda")
                 want = expected_launches(parts, cols=layout is None)
                 fused.reset_launches()
                 torch.cuda.synchronize()
@@ -749,7 +805,7 @@ def phase_stress(torch):
     base = None
     for label, plan_env in plans.items():
         with env(**plan_env):
-            parts = plan_run(p, "cuda", STRESS_ITERS)
+            parts = plan_run(p, "cuda", STRESS_ITERS, device="cuda")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             cells, av = simulate(p, c0, mask, kernel="cuda")
@@ -850,8 +906,11 @@ def phase_timing(torch):
             impls = {"step": fused.FusedStep(*w),
                      **{f"depth D={d}": fused_depth.FusedDepth(*w, d)
                         for d in DEPTHS},
-                     **{f"resident G={g}": resident.Resident(*w, g)
-                        for g in (16, 100)}}
+                     **{f"resident G={g}": resident.Resident(
+                         *w, g, form="device") for g in (16, 100)}}
+            if onchip_fits(*mask.shape):
+                impls["resident G=100 on-chip"] = resident.Resident(
+                    *w, 100, form="onchip")
 
         loop, dev = time_turns(torch, {
             label: (runner_call(impl, bufs, av), impl.steps_per_call, None)
@@ -862,6 +921,15 @@ def phase_timing(torch):
                          "after one warm-up batch, configurations in turns "
                          "(forward, then reverse); device: queue pre-filled "
                          "behind a device sleep"}
+        if name in (SCENE, ONCHIP_SCENE):
+            def plain_step():
+                new, tot = ref_ops.fused_step(bufs[0], *w)
+                av[0] = tot
+
+            out["plain_loop_ms_per_step"] = [
+                _median_ms(torch, plain_step, 1, False, steps=20)[0]]
+            out["plain_device_ms_per_step"] = [
+                _median_ms(torch, plain_step, 1, True, steps=20)[0]]
         if name == SCENE:
             st = impls["step"]
             torch.cuda.synchronize()
@@ -869,10 +937,6 @@ def phase_timing(torch):
             for _ in range(200):
                 st.run(bufs[0], bufs[1], av, 0, 1.0)
             out["host_enqueue_us_per_step"] = (time.perf_counter() - t0) / 200 * 1e6
-
-            def plain_step():
-                new, tot = ref_ops.fused_step(bufs[0], *w)
-                av[0] = tot
 
             # The fixed-order sum as the one-step kernel launches it,
             # against torch.sum of the same partials.
@@ -882,10 +946,6 @@ def phase_timing(torch):
             def reduce_plain():
                 av[0] = st._partials.sum()
 
-            out["plain_loop_ms_per_step"] = [
-                _median_ms(torch, plain_step, 1, False, steps=20)[0]]
-            out["plain_device_ms_per_step"] = [
-                _median_ms(torch, plain_step, 1, True, steps=20)[0]]
             out["reduce_device_ms"] = _median_ms(torch, reduce_only, 1, True)[0]
             out["reduce_plain_device_ms"] = _median_ms(
                 torch, reduce_plain, 1, True)[0]
@@ -930,19 +990,23 @@ def phase_wide_timing(torch):
             w = (m, p.accel_w1, p.accel_w2, p.omega)
             bufs = [c.clone(), torch.empty_like(c)]
             with env():
-                if name == WIDE_RESIDENT:
-                    impls = {"depth D=4": fused_depth.FusedDepth(*w, 4, axis),
-                             "resident G=100": resident.Resident(*w, 100, axis)}
+                if name in (WIDE_RESIDENT, WIDE_LIMIT):
+                    impls = {"depth D=4": fused_depth.FusedDepth(*w, 4, axis)}
                 else:
                     impls = {"step": fused.FusedStep(*w, axis),
                              **{f"depth D={d}": fused_depth.FusedDepth(
-                                 *w, d, axis) for d in DEPTHS},
-                             "resident G=100": resident.Resident(*w, 100, axis)}
+                                 *w, d, axis) for d in DEPTHS}}
+                impls["resident G=100"] = resident.Resident(
+                    *w, 100, axis, form="device")
+                if onchip_fits(*m.shape):
+                    impls["resident G=100 on-chip"] = resident.Resident(
+                        *w, 100, axis, form="onchip")
             for label, impl in impls.items():
                 calls[f"{layout} {label}"] = (runner_call(impl, bufs, av),
                                               impl.steps_per_call, None)
-        loop, dev = time_turns(torch, calls,
-                               steps=200 if name == WIDE_RESIDENT else 100)
+        loop, dev = time_turns(
+            torch, calls,
+            steps=200 if name in (WIDE_RESIDENT, WIDE_LIMIT) else 100)
         ct, mt = transposed(cells, mask)
 
         def plain_step():
@@ -955,7 +1019,8 @@ def phase_wide_timing(torch):
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "transposed_over_physical_device": {
                    k.split(" ", 1)[1]: med[k] / med["physical " + k.split(" ", 1)[1]]
-                   for k in med if k.startswith("transposed ")},
+                   for k in med if k.startswith("transposed ")
+                   and "physical " + k.split(" ", 1)[1] in med},
                "plain_transposed_device_ms_per_step": _median_ms(
                    torch, plain_step, 1, True, steps=4, batches=3)[0],
                "method": "CUDA events; median over 10 batches of 100-200 "
@@ -965,6 +1030,148 @@ def phase_wide_timing(torch):
         emit(out)
         results[name] = out
         del cells, mask, calls, ct, mt
+        torch.cuda.empty_cache()
+    return results
+
+
+def onchip_scene_files():
+    """The 256x256 reference scene's params and obstacle files, written
+    on first use: ``(params, obstacles)`` paths."""
+    from lbm_tpu_torch.obstacles import generate_obstacles, write_obstacles
+
+    nx, ny = grid(ONCHIP_SCENE)
+    d = SCENE_DIR.parent / f"scene_{ONCHIP_SCENE}"
+    params, obs = d / f"input_{ONCHIP_SCENE}.params", d / "obstacles.dat"
+    if not (params.exists() and obs.exists()):
+        d.mkdir(parents=True, exist_ok=True)
+        params.write_text(f"{nx}\n{ny}\n{ONCHIP_ITERS}\n10\n0.1\n0.005\n1.85\n")
+        write_obstacles(obs, generate_obstacles(nx, ny))
+    return params, obs
+
+
+def phase_onchip_scene(torch, np):
+    """The reference coursework's 256x256 scene, all 80000 steps, through
+    the port's CLI under auto (the on-chip resident form) and with the
+    device-memory form pinned, in turns (auto, device, device, auto):
+    plan line, launch counts, drift against its float64 golden within
+    the 0.3 % budget, Compute seconds and GLUPS. The two forms' final
+    states are the same bytes (both give the plain version's cells).
+    Returns each run's launch counts."""
+    from lbm_tpu_torch import cli
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.ops import fused, plan, resident
+
+    golden = np.load(ONCHIP_GOLDEN)
+    nx, ny = grid(ONCHIP_SCENE)
+    check(np.array_equal(generate_obstacles(nx, ny),
+                         golden["u"].reshape(ny, nx) == 0),
+          "256x256 mask differs from the golden's zero-velocity cells")
+    params, obs = onchip_scene_files()
+    out_dir = params.parent
+    runs, finals = {}, {}
+    for i, label in enumerate(("auto", "device", "device", "auto")):
+        plan_env = ONCHIP_SCENE_PLANS[label]
+        av_f, fs_f = out_dir / f"av_{label}.dat", out_dir / f"fs_{label}.dat"
+        with env(**plan_env):
+            form = resident.planned_form(ny, nx, "cuda")
+            parts = plan.segments(ny, nx, ONCHIP_ITERS, form)
+            want = expected_launches(parts)
+            fused.reset_launches()
+            out, err = io.StringIO(), io.StringIO()
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main([str(params), str(obs), "--av-vels-file",
+                               str(av_f), "--final-state-file", str(fs_f)])
+            launches = dict(fused.LAUNCHES)
+        lines, plan_line = out.getvalue().splitlines(), err.getvalue().strip()
+        check(rc == 0, f"256x256 CLI exit {rc} ({label}): {plan_line}")
+        check(form == ("onchip" if label == "auto" else "device"),
+              f"256x256 {label}: form {form}")
+        check(plan_line == "kernel: cuda on cuda (float32): "
+              + plan.describe(parts), f"256x256 plan line: {plan_line}")
+        check(launches == want, f"256x256 {label}: launches {launches} "
+              f"differ from the plan's {want}")
+        check(lines[0] == "==done==", "stdout contract")
+        reynolds = float(lines[1].split()[-1])
+        compute = float(lines[3].split()[-2])
+        fs = lio.load_final_state(fs_f)
+        d, ok = drift(np, golden["av_vels"], golden["pressure"],
+                      lio.load_av_vels(av_f), fs[:, 2])
+        re_rel = abs(reynolds - float(golden["reynolds"])) \
+            / float(golden["reynolds"])
+        emit({"phase": "onchip_scene", "grid": ONCHIP_SCENE, "turn": i,
+              "plan": label, "env": plan_env, "plan_line": plan_line,
+              "steps": ONCHIP_ITERS, "launches": {
+                  k: v for k, v in launches.items() if v},
+              **d, "reynolds": reynolds, "reynolds_rel_err": re_rel,
+              "compute_s": compute,
+              "glups": nx * ny * ONCHIP_ITERS / compute / 1e9,
+              "reference": str(ONCHIP_GOLDEN.relative_to(REPO))})
+        check(ok, f"256x256 {label}: outside the drift budget")
+        # The Reynolds number is the last av_vels times a constant: held
+        # to the same budget.
+        check(re_rel <= DRIFT_BUDGET_PCT / 100,
+              f"256x256 {label}: Reynolds number off")
+        finals.setdefault(label, fs_f.read_bytes())
+        runs.setdefault(label, launches)
+    check(finals["auto"] == finals["device"],
+          "the two resident forms' final states differ")
+    return runs
+
+
+def phase_onchip_timing(torch):
+    """Device ms per step of the on-chip resident form at several block
+    counts (the small-grid floor) and of both forms beside D=4 at the
+    crossover grids, in turns, at G = 100."""
+    from lbm_tpu_torch.ops import fused_depth, plan, resident
+
+    sms = resident.device_limits("cuda")[0]
+    results = {}
+    for name in ONCHIP_BLOCK_GRIDS + CROSSOVER_GRIDS:
+        nx, ny = grid(name)
+        p = scene_params(name)
+        cells, mask = random_case(torch, name, p, seed=93, state="perturbed")
+        w = (mask, p.accel_w1, p.accel_w2, p.omega)
+        bufs = [cells, torch.empty_like(cells)]
+        av = torch.zeros(100, device="cuda")
+        with env():
+            impls = {}
+            if onchip_fits(ny, nx):
+                counts = ONCHIP_BLOCKS + (sms,) \
+                    if name in ONCHIP_BLOCK_GRIDS else (sms,)
+                for b in sorted({min(c, ny) for c in counts}):
+                    if plan.onchip_smem_bytes(ny, nx, b) <= \
+                            resident.device_limits("cuda")[1]:
+                        impls[f"on-chip B={b}"] = resident.Resident(
+                            *w, 100, form="onchip", blocks=b)
+            impls["device"] = resident.Resident(*w, 100, form="device")
+            impls["depth D=4"] = fused_depth.FusedDepth(*w, 4)
+        calls = {label: (runner_call(impl, bufs, av), impl.steps_per_call,
+                         None) for label, impl in impls.items()}
+        loop, dev = time_turns(torch, calls)
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        onchip = {k: v for k, v in med.items() if k.startswith("on-chip")}
+        best = min(onchip, key=onchip.get) if onchip else None
+        out = {"phase": "onchip_timing", "grid": name, "cells": nx * ny,
+               "form": plan.resident_form(ny, nx, *resident.device_limits(
+                   "cuda")),
+               "planned_blocks": plan.onchip_blocks(ny, nx, sms),
+               "fastest_blocks": best,
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "resident_over_depth4": {
+                   k: v / med["depth D=4"] for k, v in med.items()
+                   if k != "depth D=4"},
+               "state_finite_after_timing": bool(
+                   torch.isfinite(bufs[0]).all()),
+               "method": "CUDA events; median over 10 batches of 200 steps "
+                         "after one warm-up batch, configurations in turns "
+                         "(forward, then reverse); device: queue pre-filled "
+                         "behind a device sleep"}
+        check(out["state_finite_after_timing"], f"{name}: state not finite")
+        emit(out)
+        results[name] = out
+        del cells, bufs, impls, calls
         torch.cuda.empty_cache()
     return results
 
@@ -1422,6 +1629,9 @@ def phase_probe_kernel(torch):
                 check(r["max_abs_err"] == 0.0 and r["tot_ok"],
                       f"probe {mode} != plain at {name}")
                 if mode == "full":
+                    # Against whichever form the plan picks here.
+                    res["resident_form"] = resident.planned_form(
+                        *mask.shape, "cuda")
                     same, _ = resident.resident(cells, mask, 0.0, 0.0,
                                                 p.omega, PROBE_G)
                     res["full_equals_resident_without_forcing"] = bool(
@@ -1481,7 +1691,8 @@ def phase_probe_timing(torch):
         av = torch.zeros(g, device="cuda")
         with env():
             kernels = {m: probe.Probe(mask, p.omega, g, m) for m in probe.MODES}
-            res = resident.Resident(mask, p.accel_w1, p.accel_w2, p.omega, g)
+            res = resident.Resident(mask, p.accel_w1, p.accel_w2, p.omega, g,
+                                    form="device")
         calls = {f"probe {m}": (lambda k=k: k.run(bufs[0], bufs[1], av), g, None)
                  for m, k in kernels.items()}
         calls[f"resident G={g}"] = (runner_call(res, bufs, av), g, None)
@@ -1690,7 +1901,8 @@ def phase_resume(torch, np):
     out, av_diff = {}, {}
     with env():
         for tag, m in (("unsharded", None), ("x-plan", mesh)):
-            segs = (runner.plan_run(p, "cuda", iters) if m is None
+            segs = (runner.plan_run(p, "cuda", iters, device="cuda")
+                    if m is None
                     else halo.plan_run(p, mask, m, "auto", iters).segments)
             depth = segs[0].steps_per_call
             check(len(segs) == 1 and depth > 1, f"wide plan {segs}")
@@ -1806,7 +2018,9 @@ def phase_debug(torch, np):
 TRACE_ITERS = 2000
 # fused.LAUNCHES' names to the kernels' names in a trace.
 TRACE_NAMES = {"step": "fused_step_kernel", "depth": "fused_depth_kernel",
-               "resident": "resident_kernel", "reduce": "reduce_tot_kernel",
+               "resident": "resident_kernel",
+               "resident_onchip": "resident_onchip_kernel",
+               "reduce": "reduce_tot_kernel",
                "step_seam": "fused_step_seam_kernel",
                "depth_seam": "fused_depth_kernel", "ring": "ring_kernel"}
 
@@ -1955,10 +2169,12 @@ def main() -> int:
     worst = run("kernel", phase_kernel, torch)
     wide_worst = run("wide_kernel", phase_wide_kernel, torch)
     launches = run("scene", phase_scene, torch, np)
+    onchip_runs = run("onchip_scene", phase_onchip_scene, torch, np)
     wide_runs = run("wide_gate", phase_wide_gate, torch, np)
     run("stress", phase_stress, torch)
     timing = run("timing", phase_timing, torch)
     wide_timing = run("wide_timing", phase_wide_timing, torch)
+    run("onchip_timing", phase_onchip_timing, torch)
     shard_worst = run("shard_kernel", phase_shard_kernel, torch)
     shard_launches = run("shard_scene", phase_shard_scene, torch, np)
     wide_shard_launches = run("wide_shard", phase_wide_shard, torch, np)
@@ -1991,6 +2207,7 @@ def main() -> int:
             "reduce_tot": launches["step"]["reduce"],
             "fused_depth": launches["auto"]["depth"],
             "resident": launches["resident"]["resident"],
+            "resident_onchip": onchip_runs["auto"]["resident_onchip"],
             "fused_step_seam": shard_launches["step"]["step_seam"],
             "fused_depth_seam": shard_launches["auto"]["depth_seam"],
             "ring": shard_launches["ring"]["ring"],
@@ -2006,6 +2223,11 @@ def main() -> int:
     t = timing[SCENE]
     dev = {k: statistics.median(v) for k, v in t["device_ms_per_step"].items()}
     plain = statistics.median(t["plain_device_ms_per_step"])
+    # The on-chip resident form: its scene and its timing grid.
+    ot = timing[ONCHIP_SCENE]
+    onx, ony = grid(ONCHIP_SCENE)
+    ocells = onx * ony
+    oworst = max(worst["resident_onchip"], wide_worst["resident_onchip"])
     st = shard_timing[SCENE]
     sdev = {k: statistics.median(v) for k, v in st["device_ms_per_step"].items()}
     splain = st["plain_device_ms_per_step"]
@@ -2063,6 +2285,16 @@ def main() -> int:
                      dev["resident G=100"], plain,
                      bound(cells, 100),
                      ceiling=design_ceiling(cells, 100)),
+        kernel_entry("resident_onchip", "lbm_tpu_torch/csrc/resident_onchip.cu",
+                     "lbm_tpu/ops/pallas_resident.py:74",
+                     runs["resident_onchip"],
+                     f"{ONCHIP_SCENE} reference scene, auto (G=100 on-chip)",
+                     oworst,
+                     statistics.median(
+                         ot["device_ms_per_step"]["resident G=100 on-chip"]),
+                     statistics.median(ot["plain_device_ms_per_step"]),
+                     bound(ocells, 100),
+                     ceiling=design_ceiling(ocells, 100)),
         kernel_entry("fused_step_seam", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
                      f"{sharded}, one-step plan", shard_worst["step_seam"],

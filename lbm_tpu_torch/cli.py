@@ -188,7 +188,8 @@ def _main(argv: list[str] | None = None) -> int:
                 line += ", transposed"
 
         def describe(n):
-            return plan.describe(runner.plan_run(params, kernel, n))
+            return plan.describe(runner.plan_run(params, kernel, n,
+                                                 device=device))
     if sizes and (mesh is not None or kernel == "cuda"):
         line += ": " + _describe_chunks(sizes, chunked, describe)
     print(line, file=sys.stderr)

@@ -23,13 +23,15 @@ from lbm_tpu_torch.state import D2Q9
 # Launch counts of every kernel of the package, one per kernel: the
 # one-step kernel, the tot_u sum as a launch of its own (after every
 # launch of the one-step kernel, in both of its modes; the depth kernel
-# sums in its epilogue), the depth kernel, the resident kernel, the
-# seam modes of the one-step and depth kernels (one launch per shard) and
-# the ring kernel (one launch per card), each also in column mode (the
+# sums in its epilogue), the depth kernel, the resident kernel in its
+# device-memory and its on-chip form, the seam modes of the one-step and
+# depth kernels (one launch per shard) and the ring kernel (one launch
+# per card), each also in column mode (the
 # "_cols" counts: the transposed lattice of a wide grid), and the three
 # modes of the stream-cost probe. Each wrapper increments its kernel's
 # count where it launches it, nowhere else.
-_KERNELS = ("step", "depth", "resident", "step_seam", "depth_seam", "ring")
+_KERNELS = ("step", "depth", "resident", "resident_onchip", "step_seam",
+            "depth_seam", "ring")
 LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
             **{f"probe_{m}": 0 for m in ref_ops.PROBE_MODES}}
 

@@ -12,7 +12,10 @@ and meanings:
 Pins: ``LBM_RESIDENT`` ("0" disables the resident kernel, "1" forces
 it), ``LBM_RESIDENT_STEPS`` (pins G; must be a positive even integer, as
 for the JAX package's two-buffer kernel) and ``LBM_PALLAS_DEPTH`` (caps
-the depth kernel's D and prefers the cap; 1 leaves the one-step kernel).
+the depth kernel's D and prefers the cap; 1 leaves the one-step kernel);
+the port's own ``LBM_RESIDENT_FORM`` ("onchip" or "device") pins the
+resident kernel's form, which is otherwise :func:`resident_form`'s size
+rule.
 
 What the automatic choice prefers is measured on the H100, not carried
 over from the TPU's VMEM gates (PERF.md, "Where the time goes"). The
@@ -34,17 +37,33 @@ from lbm_tpu_torch.ops.fused_depth import DEPTHS
 # main + tail split at G=100.
 G_PREF = (100, 64, 50, 32, 20, 16)
 
-# Automatic choice, set from chip_smoke.py's timing phase on an NVIDIA
+# Automatic choice, set from chip_smoke.py's timing phases on an NVIDIA
 # H100 80GB HBM3 at 700 W (PERF.md, "Where the time goes"). The resident
-# kernel makes one full pass over its two buffers per step and removes
-# the per-step launches; it is the fastest kernel up to 512x512, where
-# both buffers sit in the 50 MB L2, and loses to the depth kernel from
+# kernel removes the per-step launches. Its on-chip form (where a strip
+# fits, up to about 418K cells) beat the depth kernel at D=4 at every
+# lattice measured, and its device-memory form, one pass over both
+# buffers a step, beat D=4 up to RESIDENT_AUTO_MAX_CELLS and lost from
 # 1024x1024 (two 37.7 MB buffers) up. D=4 is the depth kernel's best at
 # 1024x1024 and 16384x1024, D=2 its next, and so on the transposed
 # 131072x128 too (D=8 about 1.37x D=4): the JAX package's D=8 preference
 # at 128 lanes, a TPU measurement, is not carried over.
-RESIDENT_AUTO_MAX_CELLS = 512 * 512
+RESIDENT_AUTO_MAX_CELLS = 792 * 528
 AUTO_DEPTHS = (4, 2)
+# The wide-grid layout's size rule (transposed_layout), measured on the
+# H100 when the resident kernel's limit was 512x512 cells and left there
+# when that limit moved (PERF.md).
+TRANSPOSED_MIN_CELLS = 512 * 512
+
+# The resident kernel's two forms (ops/resident.py). The on-chip form
+# (csrc/resident_onchip.cu) gives each of up to one block an SM a strip of
+# whole rows in shared memory for all G steps: two float32 buffers of nine
+# speeds and the mask bytes, 73 B a cell, beside a fixed scratch. Its halo
+# rows (three pre-forced speeds a cell) stay in L2 and take no shared
+# memory. The device-memory form (csrc/resident.cu) keeps the lattice in
+# device memory and takes any size.
+RESIDENT_FORMS = ("onchip", "device")
+ONCHIP_BYTES_PER_CELL = 73
+ONCHIP_SCRATCH_BYTES = (2 * 32 + 4) * 4
 
 
 def transposed_layout(ny: int, nx: int) -> bool:
@@ -57,13 +76,49 @@ def transposed_layout(ny: int, nx: int) -> bool:
 
     ``lbm_tpu.ops.pallas_fused._transposed_layout``'s rule (at least
     twice as wide as tall, nx a multiple of 8), narrowed by the H100's
-    timings (PERF.md, "Where the time goes"): above the resident kernel's
-    size the column modes run no slower than the row modes (131072x128
-    and 16384x1024: depth D=4 and the one-step kernel faster), and the
-    x-plan's halo is a small fraction of the row plan's; up to it, where
-    ``auto`` takes the resident kernel, they ran slower (1024x256), so
-    those grids keep the physical layout."""
-    return nx >= 2 * ny and nx % 8 == 0 and nx * ny > RESIDENT_AUTO_MAX_CELLS
+    timings (PERF.md, "Where the time goes"): above
+    :data:`TRANSPOSED_MIN_CELLS` the column modes run no slower than the
+    row modes (131072x128 and 16384x1024: depth D=4 and the one-step
+    kernel faster), and the x-plan's halo is a small fraction of the row
+    plan's; up to it they ran slower (1024x256), so those grids keep the
+    physical layout."""
+    return nx >= 2 * ny and nx % 8 == 0 and nx * ny > TRANSPOSED_MIN_CELLS
+
+
+def onchip_blocks(ny: int, nx: int, sms: int) -> int:
+    """Blocks of the on-chip form for an ny x nx lattice on a card of
+    ``sms`` SMs: one an SM, at most one a row."""
+    return max(1, min(ny, sms))
+
+
+def onchip_smem_bytes(ny: int, nx: int, blocks: int) -> int:
+    """Dynamic shared memory of one block of the on-chip form over
+    ``blocks`` strips: the tallest strip's cells at 73 B, plus the
+    scratch (``csrc/resident_onchip.cu``'s ``smem_bytes``)."""
+    h = -(-ny // blocks)
+    return ONCHIP_BYTES_PER_CELL * h * nx + ONCHIP_SCRATCH_BYTES
+
+
+def resident_form(ny: int, nx: int, sms: int, smem_per_block: int) -> str:
+    """``"onchip"`` when a strip of the ny x nx lattice, over
+    :func:`onchip_blocks` blocks, fits ``smem_per_block`` bytes of shared
+    memory (the card's opt-in limit), else ``"device"``. A pure size rule:
+    the wrapper of a form that the card then refuses raises; it never
+    takes the other form."""
+    blocks = onchip_blocks(ny, nx, sms)
+    fits = onchip_smem_bytes(ny, nx, blocks) <= smem_per_block
+    return "onchip" if fits else "device"
+
+
+def pinned_form() -> str | None:
+    """The ``LBM_RESIDENT_FORM`` pin ("onchip" or "device"), or None."""
+    pin = os.environ.get("LBM_RESIDENT_FORM")
+    if not pin:
+        return None
+    if pin not in RESIDENT_FORMS:
+        raise ValueError(f"LBM_RESIDENT_FORM={pin!r}: expected one of "
+                         f"{RESIDENT_FORMS}")
+    return pin
 
 
 def layout(params) -> tuple[bool, int, int]:
@@ -83,21 +138,32 @@ class Segment:
     """``steps`` steps of one kernel, ``steps_per_call`` per launch:
     ``kernel`` is "step" (one step per launch), "depth" (D per launch),
     "resident" (G per launch), "ring" (G per launch on every shard) or
-    "reference" (the plain path)."""
+    "reference" (the plain path). ``form``: the resident kernel's form on
+    the card ("onchip" or "device", :func:`resident_form`), None where no
+    card was asked."""
 
     kernel: str
     steps_per_call: int
     steps: int
+    form: str | None = None
 
     @property
     def launches(self) -> int:
         return self.steps // self.steps_per_call
 
+    @property
+    def launch_key(self) -> str:
+        """The kernel's name in ``ops.fused.LAUNCHES`` (without the
+        column mode's "_cols")."""
+        return "resident_onchip" if self.form == "onchip" else self.kernel
+
     def describe(self) -> str:
         size = {"depth": f" D={self.steps_per_call}",
                 "resident": f" G={self.steps_per_call}",
                 "ring": f" G={self.steps_per_call}"}.get(self.kernel, "")
-        return f"{self.kernel}{size} x{self.launches}"
+        form = {"onchip": " on-chip", "device": " device-memory"}.get(
+            self.form, "")
+        return f"{self.kernel}{size}{form} x{self.launches}"
 
 
 def _pinned_steps() -> int | None:
@@ -206,20 +272,27 @@ def choose(n_iters: int, gprefs, depths, many: str = "resident"):
     return "step", 1
 
 
-def segments(ny: int, nx: int, iters: int) -> list[Segment]:
+def segments(ny: int, nx: int, iters: int,
+             form: str | None = None) -> list[Segment]:
     """Plan a run of ``iters`` steps as segments that sum to ``iters``.
     One segment when a preferred granularity divides ``iters``;
     otherwise a main segment and the tail re-planned, so any count runs
     at full speed with at most one step on the one-step kernel (for
     example 1099 steps with the resident kernel: 1000 at G=100, 96 at
-    G=32, then 2 at D=2 and 1 single step)."""
+    G=32, then 2 at D=2 and 1 single step). ``form``: the resident
+    kernel's form, given to its segments."""
     return plan_segments(iters, resident_prefs(ny, nx),
-                         depth_preference(ny, nx))
+                         depth_preference(ny, nx), form=form)
 
 
-def plan_segments(iters: int, gprefs, depths,
-                  many: str = "resident") -> list[Segment]:
+def plan_segments(iters: int, gprefs, depths, many: str = "resident",
+                  form: str | None = None) -> list[Segment]:
     """:func:`segments` for given G preferences and depths."""
+
+    def seg(n):
+        kernel, spc = choose(n, gprefs, depths, many)
+        return Segment(kernel, spc, n, form if kernel == "resident" else None)
+
     if iters < 1:
         raise ValueError(f"iteration count must be positive, got {iters}")
     parts = []
@@ -228,11 +301,10 @@ def plan_segments(iters: int, gprefs, depths,
         main, tail = split(remaining, gprefs, depths)
         if not tail:
             break
-        parts.append(Segment(*choose(main, gprefs, depths, many), main))
+        parts.append(seg(main))
         remaining = tail
     if remaining > 0:
-        parts.append(Segment(*choose(remaining, gprefs, depths, many),
-                             remaining))
+        parts.append(seg(remaining))
     return parts
 
 

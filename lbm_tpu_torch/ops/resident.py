@@ -1,50 +1,133 @@
 """The resident kernel's wrapper: ``gsteps`` timesteps of the lattice in
-one persistent, cooperative CUDA launch (``csrc/resident.cu``, the port
-of ``lbm_tpu/ops/pallas_resident.py::_kernel_resident``, in row mode and
-in the column mode of its ``lane_accel``), which also writes the
-``gsteps`` tot_u values on the device.
+one persistent, cooperative CUDA launch, the port of
+``lbm_tpu/ops/pallas_resident.py::_kernel_resident`` (in row mode and in
+the column mode of its ``lane_accel``), which also writes the ``gsteps``
+tot_u values on the device. Two forms of the one TPU kernel, chosen by
+size (:func:`.plan.resident_form`):
+
+- ``"onchip"`` (``csrc/resident_onchip.cu``): each block holds its strip
+  of rows in shared memory for all G steps and trades its edge rows with
+  its two neighbours through L2, under a flag per (direction, slot);
+- ``"device"`` (``csrc/resident.cu``): the lattice stays in device
+  memory, a grid-stride pass per step behind a grid barrier.
 
 A tensor on the CPU runs the plain version,
-:func:`.reference.multi_step`; a CUDA tensor launches the kernel or
-raises, also when the device refuses the cooperative launch. The kernel
-ping-pongs between the two buffers it is given, so the result is in the
-first after an even ``gsteps`` and in the second after an odd one; the
-CPU path keeps the same contract.
+:func:`.reference.multi_step`, whatever the form; a CUDA tensor launches
+the kernel of its form or raises, also when the device refuses the
+cooperative launch or the strip's shared memory: a refused form never
+falls back to the other. Both ping-pong between the two buffers they are
+given, so the result is in the first after an even ``gsteps`` and in the
+second after an odd one; the CPU path keeps the same contract.
+:func:`resident_onchip_emulated` is the on-chip form's strips, halo slots
+and sums in plain PyTorch, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build
+from lbm_tpu_torch.ops import _build, plan
 from lbm_tpu_torch.ops import reference as ref_ops
-from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel
+from lbm_tpu_torch.ops.fused import LatticeKernel
+from lbm_tpu_torch.state import D2Q9
+
+# Speeds a halo row carries: to the block above (pulled by its row 0 from
+# the row below it) and to the block below.
+NORTH_SPEEDS = (2, 5, 6)
+SOUTH_SPEEDS = (4, 7, 8)
+# Tags restart from zero (flags zeroed) before they would pass 2**31.
+_TAG_LIMIT = 1 << 31
+
+
+def device_limits(device) -> tuple[int, int]:
+    """``(SMs, shared memory a block may opt in to)`` of a CUDA device,
+    from the kernel library."""
+    lib = _build.load()
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    sms, smem = lib.lbm_sm_count(index), lib.lbm_smem_optin(index)
+    for v, what in ((sms, "SM count"), (smem, "shared memory limit")):
+        if v < 0:
+            _build.check(lib, -v, what)
+    return sms, smem
+
+
+def planned_form(ny: int, nx: int, device) -> str | None:
+    """The resident kernel's form for an ny x nx lattice on ``device``:
+    the ``LBM_RESIDENT_FORM`` pin, else :func:`.plan.resident_form` with
+    the card's limits; None off the card."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    return plan.pinned_form() or plan.resident_form(ny, nx,
+                                                    *device_limits(device))
 
 
 class Resident(LatticeKernel):
     """The resident kernel bound to one mask: ``run(a, b, out, t,
     scale)`` runs ``gsteps`` steps from ``a`` and returns ``(cells,
     spare)``: ``(a, b)`` for an even ``gsteps``, ``(b, a)`` for an odd
-    one. On a CUDA mask the block count of the cooperative launch is
-    fixed at construction (co-resident blocks, at most one per 32x8
-    tile) and the (gsteps, blocks) partials are allocated once."""
+    one. ``form``: "onchip" or "device"; None takes
+    :func:`planned_form`. ``blocks``: the on-chip form's block count
+    (default :func:`.plan.onchip_blocks`). On a CUDA mask the launch
+    geometry is fixed at construction and the scratch (partials; on chip
+    also halo slots, flags and the ticket) allocated once."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, gsteps: int,
-                 axis: int = 0):
+                 axis: int = 0, form: str | None = None,
+                 blocks: int | None = None):
         if gsteps < 1:
             raise ValueError(f"gsteps must be positive, got {gsteps}")
+        if form is not None and form not in plan.RESIDENT_FORMS:
+            raise ValueError(f"unknown resident form {form!r}; known: "
+                             f"{plan.RESIDENT_FORMS}")
         super().__init__(mask, w1, w2, omega, axis)
         self.gsteps = self.steps_per_call = int(gsteps)
+        self.form = form
         if self.on_cpu:
             return
         ny, nx = mask.shape
-        blocks = self._lib.lbm_resident_blocks(ny, nx, axis, self._index)
-        if blocks < 0:
-            _build.check(self._lib, -blocks, "resident launch geometry")
-        self.blocks = blocks
+        if self.form is None:
+            self.form = planned_form(ny, nx, self.device)
+        if self.form == "onchip":
+            self._init_onchip(ny, nx, blocks)
+            return
+        n = self._lib.lbm_resident_blocks(ny, nx, axis, self._index)
+        if n < 0:
+            _build.check(self._lib, -n, "resident launch geometry")
+        self.blocks = n
         self._partials = torch.empty(
-            self.gsteps * blocks, dtype=torch.float32, device=self.device
+            self.gsteps * n, dtype=torch.float32, device=self.device
         )
+
+    def _init_onchip(self, ny: int, nx: int, blocks: int | None) -> None:
+        lib = self._lib
+        sms, smem = device_limits(self.device)
+        self.blocks = plan.onchip_blocks(ny, nx, sms) if blocks is None \
+            else int(blocks)
+        if not 1 <= self.blocks <= ny:
+            raise ValueError(f"{self.blocks} strips of {ny} rows")
+        self.smem_bytes = plan.onchip_smem_bytes(ny, nx, self.blocks)
+        if lib.lbm_onchip_smem_bytes(ny, nx, self.blocks) != self.smem_bytes:
+            raise RuntimeError("ops/plan.py and csrc/resident_onchip.cu "
+                               "size a strip differently")
+        if self.smem_bytes > smem:
+            raise ValueError(
+                f"the on-chip resident form needs {self.smem_bytes} B of "
+                f"shared memory a block for {ny}x{nx} over {self.blocks} "
+                f"strips; the card gives {smem}")
+        _build.check(lib, lib.lbm_onchip_prepare(
+            self.axis, self.mode, self.smem_bytes, self.blocks, self._index,
+        ), f"on-chip resident form over {self.blocks} blocks")
+        dev = self.device
+        self._halo = torch.zeros(self.blocks * 2 * 2 * 3 * nx,
+                                 dtype=torch.float32, device=dev)
+        # Flags and ticket as int32 words the kernel reads as unsigned.
+        self._flags = torch.zeros(self.blocks * 4, dtype=torch.int32,
+                                  device=dev)
+        self._ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        self._partials = torch.empty(self.gsteps * self.blocks,
+                                     dtype=torch.float32, device=dev)
+        self._step_base = 0
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
         self._check_call(a, b, out, t)
@@ -58,6 +141,22 @@ class Resident(LatticeKernel):
             out[t:t + g] = tots * self._scale(scale)
             return result
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
+        if self.form == "onchip":
+            if self._step_base + g >= _TAG_LIMIT:
+                self._flags.zero_()
+                self._step_base = 0
+            _build.check(lib, lib.lbm_resident_onchip(
+                a.data_ptr(), result[0].data_ptr(), self._mask_u8.data_ptr(),
+                self._halo.data_ptr(), self._flags.data_ptr(),
+                self._partials.data_ptr(), self._ticket.data_ptr(),
+                out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1,
+                self.w2, self.omega, self.mode, g, self._scale(scale),
+                self._step_base, self.blocks, self.axis, self._index,
+                self._stream(),
+            ), f"on-chip resident G={g} cooperative launch")
+            self._step_base += g
+            self._launched("resident_onchip")
+            return result
         _build.check(lib, lib.lbm_resident(
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), out.data_ptr() + 4 * t, ny, nx,
@@ -69,13 +168,14 @@ class Resident(LatticeKernel):
         return result
 
 
-def resident(cells, obstacles, w1, w2, omega, gsteps: int, axis: int = 0):
+def resident(cells, obstacles, w1, w2, omega, gsteps: int, axis: int = 0,
+             form: str | None = None, blocks: int | None = None):
     """``gsteps`` timesteps: ``(new_cells, tots)`` with ``tots`` the
     (gsteps,) per-step tot_u (``axis`` 1: a transposed lattice, column
-    mode). Launches the kernel on a CUDA tensor (on copies: the kernel
-    overwrites both of its buffers); runs :func:`.reference.multi_step`
-    on a CPU tensor."""
-    kernel = Resident(obstacles, w1, w2, omega, gsteps, axis)
+    mode; ``form`` and ``blocks`` as :class:`Resident`). Launches the
+    kernel on a CUDA tensor (on copies: the kernel overwrites both of its
+    buffers); runs :func:`.reference.multi_step` on a CPU tensor."""
+    kernel = Resident(obstacles, w1, w2, omega, gsteps, axis, form, blocks)
     a, b = cells.clone(), torch.empty_like(cells)
     tots = torch.empty(gsteps, dtype=torch.float32, device=cells.device)
     new, _ = kernel.run(a, b, tots)
@@ -86,3 +186,84 @@ def resident_plain(cells, obstacles, w1, w2, omega, gsteps: int,
                    axis: int = 0):
     """The kernel's plain version: :func:`.reference.multi_step`."""
     return ref_ops.multi_step(cells, obstacles, w1, w2, omega, gsteps, axis)
+
+
+def strips(ny: int, blocks: int) -> list[tuple[int, int]]:
+    """``(r0, h)`` of each block's strip, as the on-chip kernel splits ny
+    rows: the first ``ny % blocks`` strips one row taller."""
+    base, rem = divmod(ny, blocks)
+    return [(b * base + min(b, rem), base + (b < rem)) for b in range(blocks)]
+
+
+def _sent_row(row, mrow, on: bool, w1, w2, axis: int, speeds):
+    """The halo copies a block sends from one of its rows (9, nx): the
+    given three speeds of the row forced as the kernel's sender forces
+    them, on the whole row (row mode, ``on``: it is the forced row) or at
+    the forced column (column mode)."""
+    if axis == 0:
+        forced = ref_ops._accelerated_line(row, mrow, w1, w2) if on else row
+    else:
+        forced = ref_ops.accelerate_flow(row[:, None], mrow[None], w1, w2,
+                                         axis=1)[:, 0]
+    return forced[list(speeds)]
+
+
+def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
+                             blocks: int, axis: int = 0):
+    """The on-chip form's schedule in plain PyTorch: ``blocks`` strips of
+    whole rows (:func:`strips`), each stepped from its own rows and two
+    halo slots by step parity. Every step each strip first sends: its top
+    row's speeds 2, 5, 6 into the north neighbour's south slot, its bottom
+    row's 4, 7, 8 into the south neighbour's north slot, forced by the
+    sender where the row (column mode: the column) is forced and the
+    guard passes. Then each strip steps from ``[south slot, rows, north
+    slot]``, the six speeds no halo carries left NaN (a pull that read one
+    would show), with its own rows forced by the rule and the halo rows
+    not again. tot_u: per strip the sum over its fluid cells, then the
+    strips' partials in block order. Returns ``(new_cells, tots)``; cells
+    are bit-identical to :func:`.reference.multi_step`, tots differ from
+    its by summation order."""
+    _, ny, nx = cells.shape
+    d = ref_ops._np_type(cells.dtype)
+    accel = (cells.shape[1 + axis] - 2) % cells.shape[1 + axis]
+    parts = strips(ny, blocks)
+    state = [cells[:, r0:r0 + h].clone() for r0, h in parts]
+    masks = [obstacles[r0:r0 + h] for r0, h in parts]
+    # slots[b][0 south / 1 north][slot]: (3, nx) rows.
+    slots = [[[None, None], [None, None]] for _ in parts]
+    tots = torch.zeros(gsteps, dtype=cells.dtype)
+    nan = torch.full((nx,), float("nan"), dtype=cells.dtype)
+    for s in range(gsteps):
+        slot = s % 2
+        for b, (r0, h) in enumerate(parts):
+            north, south = (b + 1) % blocks, (b - 1) % blocks
+            top, bot = r0 + h - 1, r0
+            slots[north][0][slot] = _sent_row(
+                state[b][:, h - 1], masks[b][h - 1], top == accel, d(w1),
+                d(w2), axis, NORTH_SPEEDS)
+            slots[south][1][slot] = _sent_row(
+                state[b][:, 0], masks[b][0], bot == accel, d(w1), d(w2),
+                axis, SOUTH_SPEEDS)
+        partials, new_state = [], []
+        for b, (r0, h) in enumerate(parts):
+            south_row = torch.stack([nan] * D2Q9.Q)
+            north_row = torch.stack([nan] * D2Q9.Q)
+            south_row[list(NORTH_SPEEDS)] = slots[b][0][slot]
+            north_row[list(SOUTH_SPEEDS)] = slots[b][1][slot]
+            own = state[b]
+            if axis == 1:
+                own = ref_ops.accelerate_flow(own, masks[b], w1, w2, axis=1)
+            elif r0 <= accel < r0 + h:
+                own = ref_ops.accelerate_flow(own, masks[b], w1, w2,
+                                              row=accel - r0)
+            ext = torch.cat([south_row[:, None], own, north_row[:, None]], 1)
+            planes, umag = ref_ops._bgk_update_planes(
+                ref_ops._pull_halo(ext, h), masks[b], omega)
+            new_state.append(torch.stack(planes))
+            partials.append(torch.sum(umag.masked_fill(masks[b], 0.0)))
+        state = new_state
+        tot = torch.zeros((), dtype=cells.dtype)
+        for p in partials:
+            tot = tot + p
+        tots[s] = tot
+    return torch.cat(state, dim=1), tots

@@ -174,15 +174,19 @@ def plan_layout(params: Params, kernel: str, transposed=None) -> bool:
     return plan.layout(params)[0] if transposed is None else bool(transposed)
 
 
-def plan_run(params: Params, kernel: str, iters: int, transposed=None):
+def plan_run(params: Params, kernel: str, iters: int, transposed=None,
+             device=None):
     """The segments a run (or one chunk) of ``iters`` steps takes under
     ``kernel`` (as resolved): :func:`.ops.plan.segments` on the execution
     layout's rows and lanes for ``cuda`` (:func:`plan_layout`), one plain
-    segment for ``reference``."""
+    segment for ``reference``. On a CUDA ``device`` the resident
+    segments carry the kernel's form there (:func:`.ops.resident.
+    planned_form`)."""
     if kernel == "cuda":
         t = plan_layout(params, kernel, transposed)
         rows, lanes = (params.nx, params.ny) if t else (params.ny, params.nx)
-        return plan.segments(rows, lanes, iters)
+        return plan.segments(rows, lanes, iters,
+                             resident.planned_form(rows, lanes, device))
     return [plan.Segment("reference", 1, iters)]
 
 
@@ -204,7 +208,8 @@ def chunk_sizes(start_step: int, iters: int, stride: int | None) -> list[int]:
 
 def _make_impl(seg: plan.Segment, mask, w1, w2, omega, axis: int):
     if seg.kernel == "resident":
-        return resident.Resident(mask, w1, w2, omega, seg.steps_per_call, axis)
+        return resident.Resident(mask, w1, w2, omega, seg.steps_per_call, axis,
+                                 seg.form)
     if seg.kernel == "depth":
         return fused_depth.FusedDepth(mask, w1, w2, omega, seg.steps_per_call,
                                       axis)
@@ -243,7 +248,8 @@ class _Simulation:
         if av0 is not None:
             self.av_vels.copy_(torch.from_numpy(np.asarray(av0)))
         self.iters = iters
-        self.segments = plan_run(params, kernel, iters, self.transposed)
+        self.segments = plan_run(params, kernel, iters, self.transposed,
+                                 cells.device)
         self._ref = (params.accel_w1, params.accel_w2, params.omega)
         self._kernels, self._plans = {}, {}
         if kernel == "cuda":
@@ -257,8 +263,9 @@ class _Simulation:
         if n not in self._plans:
             axis = int(self.transposed)
             parts = []
-            for seg in plan_run(self.params, self.kernel, n, self.transposed):
-                key = (seg.kernel, seg.steps_per_call)
+            for seg in plan_run(self.params, self.kernel, n, self.transposed,
+                                self._exec.device):
+                key = (seg.kernel, seg.steps_per_call, seg.form)
                 if key not in self._kernels:
                     self._kernels[key] = _make_impl(seg, self._exec_mask,
                                                     *self._ref, axis)

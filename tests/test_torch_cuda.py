@@ -99,23 +99,32 @@ def _set_mode(monkeypatch, mode):
 @pytest.mark.parametrize("grid", [128, 256], ids=["128x128", "256x256"])
 @pytest.mark.parametrize("kernel,steps", [
     ("depth", 2), ("depth", 4), ("depth", 8), ("resident", 16),
-    ("resident", 5),
-], ids=["depth-2", "depth-4", "depth-8", "resident-16", "resident-5"])
+    ("resident", 5), ("resident_onchip", 16), ("resident_onchip", 5),
+], ids=["depth-2", "depth-4", "depth-8", "resident-16", "resident-5",
+        "resident-onchip-16", "resident-onchip-5"])
 def test_many_step_kernel_matches_multi_step(cuda, grid, mode, kernel, steps,
                                               monkeypatch):
+    """Each many-step kernel, the resident kernel in both forms
+    ("resident": the device-memory form; the on-chip form gives the
+    plain version's cells bit for bit)."""
     _set_mode(monkeypatch, mode)
     p, cells, mask = _case(grid, grid, True, seed=grid + steps, perturbed=True)
     c = torch.from_numpy(cells).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     args = (m, p.accel_w1, p.accel_w2, p.omega, steps)
-    run = fused_depth.fused_depth if kernel == "depth" else resident.resident
     before = dict(fused.LAUNCHES)
-    got, got_tots = run(c, *args)
+    if kernel == "depth":
+        got, got_tots = fused_depth.fused_depth(c, *args)
+    else:
+        form = "onchip" if kernel == "resident_onchip" else "device"
+        got, got_tots = resident.resident(c, *args, form=form)
     want, want_tots = fused_depth.fused_depth_plain(c, *args)
     torch.cuda.synchronize()
     assert fused.LAUNCHES[kernel] == before[kernel] + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
+    if kernel == "resident_onchip":
+        assert torch.equal(got, want)
     np.testing.assert_allclose(got_tots.cpu().numpy(),
                                want_tots.cpu().numpy(), rtol=TOT_RTOL)
 
@@ -260,7 +269,7 @@ def _wide_case(cuda, nx, ny, walls, seed=0, perturbed=False):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
-                                  "resident-16"])
+                                  "resident-16", "resident_onchip-16"])
 @pytest.mark.parametrize("shape", [(512, 128, True), (264, 100, False)],
                          ids=["512x128", "264x100-wall-less"])
 def test_column_kernels_match_plain(cuda, shape, kind, mode, monkeypatch):
@@ -276,7 +285,8 @@ def test_column_kernels_match_plain(cuda, shape, kind, mode, monkeypatch):
     elif name == "depth":
         got, got_tots = fused_depth.fused_depth(c, *args, steps, axis=1)
     else:
-        got, got_tots = resident.resident(c, *args, steps, axis=1)
+        form = "onchip" if name == "resident_onchip" else "device"
+        got, got_tots = resident.resident(c, *args, steps, axis=1, form=form)
     want, want_tots = fused_depth.fused_depth_plain(c, *args, steps, axis=1)
     torch.cuda.synchronize()
     assert fused.LAUNCHES[name + "_cols"] == before[name + "_cols"] + 1
@@ -521,3 +531,109 @@ def test_even_chunks_keep_every_bit_under_the_auto_depths(cuda, monkeypatch,
                              resume_from=ck)
     np.testing.assert_array_equal(resumed.cells, base.cells)
     np.testing.assert_array_equal(resumed.av_vels, base.av_vels)
+
+
+# The resident kernel's on-chip form (csrc/resident_onchip.cu).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsteps", [16, 5])
+@pytest.mark.parametrize("grid,axis", [
+    ((128, 128), 0), ((256, 256), 0), ((512, 512), 0), ((1024, 256), 0),
+    ((264, 100), 1), ((512, 128), 1),
+], ids=["128x128", "256x256", "512x512", "1024x256", "264x100-columns",
+        "512x128-columns"])
+def test_onchip_form_matches_plain(cuda, grid, axis, gsteps):
+    """One launch of the on-chip form, one block an SM, against the plain
+    version: every bit of the cells, tots within the bound, one launch
+    counted; a second launch from the result continues bit for bit
+    (the flags' tags go on across launches)."""
+    from lbm_tpu_torch.state import transpose_state
+
+    nx, ny = grid
+    p, cells, mask = _case(nx, ny, axis == 0, seed=nx + ny, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c).contiguous(), m.T.contiguous()
+    w = (m, p.accel_w1, p.accel_w2, p.omega)
+    kernel = resident.Resident(*w, gsteps, axis, form="onchip")
+    assert kernel.form == "onchip"
+    key = "resident_onchip" + ("_cols" if axis else "")
+    bufs, out = [c.clone(), torch.empty_like(c)], torch.zeros(
+        2 * gsteps, device=cuda)
+    before = fused.LAUNCHES[key]
+    want, want_tots = fused_depth.fused_depth_plain(c, *w, 2 * gsteps,
+                                                    axis=axis)
+    for t in (0, gsteps):
+        bufs[:] = kernel.run(bufs[0], bufs[1], out, t, 1.0)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 2
+    assert torch.equal(bufs[0], want)
+    np.testing.assert_allclose(out.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks,ny", [(1, 16), (7, 100), (32, 128),
+                                       (64, 128), (128, 128)],
+                         ids=["1", "7", "32", "64", "128"])
+def test_onchip_form_at_any_block_count(cuda, blocks, ny):
+    """Fewer, taller strips (and one block alone, its own neighbour, on
+    a lattice whose 16 rows fit one block) give the same bits; repeat
+    runs are bit-identical."""
+    p, cells, mask = _case(128, ny, True, seed=blocks, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    args = (m, p.accel_w1, p.accel_w2, p.omega, 16)
+    got, tots = resident.resident(c, *args, form="onchip", blocks=blocks)
+    again, tots2 = resident.resident(c, *args, form="onchip", blocks=blocks)
+    want, _ = fused_depth.fused_depth_plain(c, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(again, got)
+    assert torch.equal(tots, tots2)
+
+
+@pytest.mark.cuda
+def test_onchip_form_raises_where_it_does_not_fit(cuda, monkeypatch):
+    """1024x1024 plans the device-memory form; the on-chip form asked
+    for there raises and never runs the other form."""
+    from lbm_tpu_torch.ops import plan
+
+    monkeypatch.delenv("LBM_RESIDENT_FORM", raising=False)
+    m = torch.from_numpy(generate_obstacles(1024, 1024)).to(cuda)
+    assert resident.planned_form(1024, 1024, cuda) == "device"
+    assert resident.planned_form(256, 256, cuda) == "onchip"
+    with pytest.raises(ValueError, match="shared memory"):
+        resident.Resident(m, 1e-4, 2.5e-5, 1.85, 100, form="onchip")
+    sms, smem = resident.device_limits(cuda)
+    assert plan.resident_form(1024, 1024, sms, smem) == "device"
+    monkeypatch.setenv("LBM_RESIDENT_FORM", "onchip")
+    with pytest.raises(ValueError, match="shared memory"):
+        resident.Resident(m, 1e-4, 2.5e-5, 1.85, 100)
+
+
+@pytest.mark.cuda
+def test_auto_runs_small_lattices_on_chip(cuda, monkeypatch):
+    """Under auto a 256x256 run plans and launches the on-chip form; the
+    device-memory form pinned gives the same cells."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import plan_run, simulate
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_RESIDENT_FORM"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(256, 256, True)
+    m = torch.from_numpy(mask).to(cuda)
+    parts = plan_run(p, "cuda", 200, device=cuda)
+    assert plan.describe(parts) == "resident G=100 on-chip x2"
+    before = dict(fused.LAUNCHES)
+    c_on, av_on = simulate(p, initial_state(p, cuda), m, kernel="cuda")
+    assert fused.LAUNCHES["resident_onchip"] == before["resident_onchip"] + 2
+    monkeypatch.setenv("LBM_RESIDENT_FORM", "device")
+    assert plan.describe(plan_run(p, "cuda", 200, device=cuda)) == \
+        "resident G=100 device-memory x2"
+    c_dev, av_dev = simulate(p, initial_state(p, cuda), m, kernel="cuda")
+    assert torch.equal(c_on, c_dev)
+    np.testing.assert_allclose(av_on.cpu().numpy(), av_dev.cpu().numpy(),
+                               rtol=TRAJ_RTOL)

@@ -17,7 +17,8 @@ from lbm_tpu_torch.state import initial_state
 
 torch.set_num_threads(2)
 
-PINS = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH")
+PINS = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+        "LBM_RESIDENT_FORM")
 
 
 @pytest.fixture
@@ -114,10 +115,14 @@ def test_depth_pins(pins):
 
 
 def test_automatic_choice_is_resident_small_and_depth_large(pins):
-    small = int(plan.RESIDENT_AUTO_MAX_CELLS ** 0.5)
-    assert plan.resident_prefs(small, small) == plan.G_PREF
-    assert plan.resident_prefs(small, small + 1) is None
-    assert plan.segments(small, small, 20000)[0].kernel == "resident"
+    """Resident up to RESIDENT_AUTO_MAX_CELLS (792x528, the largest
+    lattice whose strips fit on chip, where both resident forms beat D=4
+    on the H100), depth above."""
+    assert plan.RESIDENT_AUTO_MAX_CELLS == 792 * 528
+    assert plan.resident_prefs(528, 792) == plan.G_PREF
+    assert plan.resident_prefs(528, 793) is None
+    assert plan.resident_prefs(529, 792) is None
+    assert plan.segments(528, 792, 20000)[0].kernel == "resident"
     assert plan.segments(1024, 16384, 20000)[0].kernel == "depth"
 
 
@@ -173,3 +178,105 @@ def test_plan_run_for_each_kernel(pins):
     assert plan.describe(trunner.plan_run(p, "cuda", 20001)) == \
         "resident G=100 x200, step x1"
     assert np.isclose(sum(s.steps for s in trunner.plan_run(p, "cuda", 7)), 7)
+
+
+# The resident kernel's form (csrc/resident_onchip.cu or csrc/resident.cu):
+# a pure size rule over the card's SM count and per-block shared memory.
+H100 = (132, 232448)
+
+
+def test_onchip_blocks_and_bytes():
+    assert plan.onchip_blocks(128, 128, 132) == 128
+    assert plan.onchip_blocks(512, 512, 132) == 132
+    assert plan.onchip_blocks(1, 4096, 132) == 1
+    # The tallest strip at 73 B a cell, plus the scratch.
+    assert plan.onchip_smem_bytes(512, 512, 132) == 73 * 4 * 512 + 272
+    assert plan.onchip_smem_bytes(256, 1024, 132) == 73 * 2 * 1024 + 272
+    assert plan.onchip_smem_bytes(128, 128, 128) == 73 * 128 + 272
+    assert plan.ONCHIP_SCRATCH_BYTES == 272
+
+
+@pytest.mark.parametrize("ny,nx,form", [
+    (128, 128, "onchip"), (256, 256, "onchip"), (512, 512, "onchip"),
+    (256, 1024, "onchip"), (512, 768, "onchip"), (384, 1024, "onchip"),
+    (600, 600, "onchip"), (512, 640, "onchip"),
+    # The largest: 4 rows a strip at 795 columns; 796 does not fit.
+    (528, 792, "onchip"), (528, 795, "onchip"), (528, 796, "device"),
+    # One more row makes strips of 5.
+    (529, 792, "device"), (512, 1024, "device"), (1024, 1024, "device"),
+    (128, 131072, "device"),
+])
+def test_resident_form_on_the_h100(ny, nx, form):
+    assert plan.resident_form(ny, nx, *H100) == form
+
+
+def test_resident_form_at_the_capacity_boundary():
+    """Across the boundary in each input: the bytes a block is given,
+    the SM count (strips of 4 rows or of 5), and a wide lattice."""
+    need = plan.onchip_smem_bytes(528, 792, 132)
+    assert need == 231536
+    assert plan.resident_form(528, 792, 132, need) == "onchip"
+    assert plan.resident_form(528, 792, 132, need - 1) == "device"
+    assert plan.resident_form(529, 792, 132, H100[1]) == "device"
+    assert plan.resident_form(529, 792, 133, H100[1]) == "onchip"
+    # A wide 2048x128: a strip is one row. Nine-speed halo rows and their
+    # mask rows in shared memory would not fit beside it; the three
+    # pre-forced speeds a halo cell carries stay in L2 and take none.
+    nine_speed_halos = 2 * (9 * 4 + 1) * 2048
+    assert plan.onchip_smem_bytes(128, 2048, 128) + nine_speed_halos > H100[1]
+    assert plan.resident_form(128, 2048, *H100) == "onchip"
+    assert plan.resident_form(128, 4096, *H100) == "device"
+    # Fewer SMs than rows: strips of two.
+    assert plan.onchip_blocks(128, 2048, 64) == 64
+    assert plan.resident_form(128, 2048, 64, H100[1]) == "device"
+
+
+def test_describe_names_the_form(pins):
+    seg = plan.Segment("resident", 100, 80000, "onchip")
+    assert seg.describe() == "resident G=100 on-chip x800"
+    assert seg.launch_key == "resident_onchip"
+    dev = plan.Segment("resident", 100, 20000, "device")
+    assert dev.describe() == "resident G=100 device-memory x200"
+    assert dev.launch_key == "resident"
+    assert plan.Segment("resident", 100, 200).describe() == \
+        "resident G=100 x2"
+    parts = plan.segments(256, 256, 80001, form="onchip")
+    assert plan.describe(parts) == "resident G=100 on-chip x800, step x1"
+    assert [s.form for s in parts] == ["onchip", None]
+    # The 256x256 reference scene: on chip under auto on the H100.
+    assert plan.describe(plan.segments(
+        256, 256, 80000, plan.resident_form(256, 256, *H100))) == \
+        "resident G=100 on-chip x800"
+
+
+def test_form_pin(pins):
+    assert plan.pinned_form() is None
+    pins(LBM_RESIDENT_FORM="device")
+    assert plan.pinned_form() == "device"
+    pins(LBM_RESIDENT_FORM="onchip")
+    assert plan.pinned_form() == "onchip"
+    pins(LBM_RESIDENT_FORM="smem")
+    with pytest.raises(ValueError, match="LBM_RESIDENT_FORM"):
+        plan.pinned_form()
+
+
+def test_no_form_off_the_card(pins):
+    """Planned for the CPU (or with no device), a resident segment names
+    no form, and the CPU run takes the plain version."""
+    p, _ = _scene(200)
+    for device in (None, torch.device("cpu")):
+        parts = trunner.plan_run(p, "cuda", 200, device=device)
+        assert [s.form for s in parts] == [None]
+        assert plan.describe(parts) == "resident G=100 x2"
+
+
+@pytest.mark.parametrize("ny,nx,transposed", [
+    (256, 1024, False), (128, 2048, False), (384, 1024, True),
+    (256, 2048, True), (128, 131072, True), (512, 512, False)])
+def test_layout_rule_keeps_its_own_limit(ny, nx, transposed):
+    """The wide-grid layout keeps the limit it was measured at (512x512
+    cells) when the resident limit moved: 1024x384 is transposed, and
+    its transposed lattice (1024 rows of 384) still takes the resident
+    kernel on chip."""
+    assert plan.TRANSPOSED_MIN_CELLS == 512 * 512
+    assert plan.transposed_layout(ny, nx) == transposed

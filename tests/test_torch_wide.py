@@ -74,9 +74,10 @@ def test_sigma_and_transpose_state_match_jax():
 
 def test_transposed_layout_is_jax_rule_above_the_resident_size():
     """JAX's rule, narrowed by the H100's timings to grids above the
-    resident kernel's size (512x512 cells): smaller wide grids, where
-    the column modes ran slower, keep the physical layout."""
-    big = plan.RESIDENT_AUTO_MAX_CELLS
+    resident kernel's size when it was set (512x512 cells, now
+    ``plan.TRANSPOSED_MIN_CELLS``): smaller wide grids, where the column
+    modes ran slower, keep the physical layout."""
+    big = plan.TRANSPOSED_MIN_CELLS
     for ny in (1, 2, 7, 16, 30, 64, 128, 129, 256, 1024):
         for nx in (8, 60, 64, 128, 1024, 2048, 2056, 4096, 16384, 131072):
             assert plan.transposed_layout(ny, nx) == \
