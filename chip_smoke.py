@@ -85,10 +85,14 @@ printing JSON lines (any failure raises and exits non-zero):
              against the plain shard step (halo.ReferenceShardImpl) on
              the same inputs: the one-step kernel's seam mode, the depth
              kernel's seam mode at each D every shard can hold, and the
-             ring kernel at G = 16. Row plan: 1024x1024 (scene mask),
-             16384x1024 and a walled 1024x1022 (wall pad 2) over 4 shards
-             on one card, a wall-less 100x130 over 4 (wrap pad 2, one-step
-             only) and 16x16 over 8 (the forced row on a shard edge).
+             ring kernel (rounds of D steps) at G = 16 (D = 4 where a
+             shard has 4 rows) and G = 18 (D = 2), its per-step tots also
+             the bits of the seam depth kernel's at the same D; the ring
+             with max abs error 0 in both modes. Row plan: 1024x1024
+             (scene mask), 16384x1024 and a walled 1024x1022 (wall pad 2)
+             over 4 shards on one card, a wall-less 100x130 over 4 (wrap
+             pad 2, one-step only) and 16x16 over 8 (the forced row on a
+             shard edge).
              x-plan (column mode): 131072x128, 16384x1024 and a wall-less
              264x100 over 4, 64x16 over 8; max abs error 0;
 11. shard_scene - the 1024x1024 scene through run_simulation(mesh=) over
@@ -103,10 +107,13 @@ printing JSON lines (any failure raises and exits non-zero):
              steps under the same three plans, each bit-identical to the
              unsharded (transposed) auto run, with the plan's launch
              counts;
-13. shard_timing - per-step time of the seam kernels (D = 1, 2, 4, 8) and
-             the ring (G = 16, 100) over 4 shards on one card at 1024x1024
-             and 16384x1024 (row plan), beside the unsharded best; the halo
-             copies alone; the plain shard step at 1024x1024;
+13. shard_timing - per-step time, loop and device, of the seam kernels
+             (D = 1, 2, 4, 8) and the ring (G = 16, 100; its D in
+             ring_depths) over 4 shards on one card at 1024x1024 and
+             16384x1024 (row plan), beside the unsharded best; the halo
+             copies alone; the plain shard step at 1024x1024 (the ring's
+             step-a-round form it replaced: scripts/ring_ab_torch.py run
+             on the parent commit);
 14. wide_shard_timing - over 4 shards on one card, the x-plan against
              the row plan at 131072x128 and 16384x1024 (seam D=1, D=4,
              ring G=100), halo copies per call; the plain shard step of
@@ -159,8 +166,9 @@ printing JSON lines (any failure raises and exits non-zero):
 
 Then the kernels line (every kernel, row and column modes, the on-chip
 resident form and the probe's three, with its launches on its path,
-error against its plain version, time, plain time and bound), the
-nvidia-smi line, and a last line
+error against its plain version, time, plain time and bound; the
+ring's rows also its D, its loop time and a design ceiling of one pass
+over the lattice per round), the nvidia-smi line, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 before
 printing anything. ``--phases a,b`` (for development) runs only the named
 phases after device and build, and then prints no kernels line and no ok
@@ -441,27 +449,38 @@ def phase_device(torch):
 
 
 def ptxas_table(log_text):
-    """``{kernel<template arguments>: "N registers[, S B spilled]"}`` from
-    the build log's ``-Xptxas -v`` lines."""
+    """``{kernel<template arguments>: "N registers[, S / L B spilled]"}``
+    from the build log's ``-Xptxas -v`` lines; a device function that is
+    a call of its own (not inlined: the ring's ``ring_tile``) has its
+    spills alone."""
     import re
 
-    table, name = {}, None
+    def short(mangled):
+        k = re.search(r"\d+([a-z_]+_(?:kernel|tile))(?:I((?:L[ib]\d+E)+)E)?",
+                      mangled)
+        if k is None:
+            return mangled
+        args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+        return k.group(1) + (f"<{','.join(args)}>" if args else "")
+
+    regs, spills, name = {}, {}, None
     for ln in log_text.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", ln)
         if m:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
-                          m.group(1))
-            name = m.group(1) if k is None else k.group(1) + (
-                "<" + ",".join(re.findall(r"L[ib](\d+)E", k.group(2))) + ">"
-                if k.group(2) else "")
+            name = short(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and name:
-            table[name] = m.groups()
+        if m and name and m.groups() != ("0", "0"):
+            spills[name] = m.groups()
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
-            st, lo = table.get(name, ("0", "0"))
-            table[name] = f"{m.group(1)} registers" + (
-                f", {st} / {lo} B spilled" if (st, lo) != ("0", "0") else "")
+            regs[name] = m.group(1)
+    table = {}
+    for k in dict.fromkeys([*regs, *spills]):
+        parts = [f"{regs[k]} registers"] if k in regs else []
+        if k in spills:
+            parts.append("{} / {} B spilled".format(*spills[k]))
+        table[k] = ", ".join(parts)
     return table
 
 
@@ -1179,6 +1198,8 @@ def phase_onchip_timing(torch):
 # The sharded path: P shards on one card (a mesh that repeats the device),
 # or across cards where the machine has more than one.
 SHARD_G = 16
+# The ring also at a G that forces D = 2 (18 is no multiple of 4).
+SHARD_G_D2 = 18
 # (grid, mask, shards, axis): the row plan (axis 0, the kernels in row
 # mode), then the x-plan of wide grids (axis 1, column mode).
 SHARD_CASES = [("1024x1024", "scene", 4, 0), ("16384x1024", "walls", 4, 0),
@@ -1250,6 +1271,7 @@ def phase_shard_kernel(torch):
     from lbm_tpu_torch.parallel import halo, resident_ring
 
     worst = {}
+    steps = max(SHARD_G, SHARD_G_D2)
     for i, (name, kind, n, axis) in enumerate(SHARD_CASES):
         sp, cells, mesh = shard_case(torch, name, kind, n, seed=20 + i,
                                      axis=axis)
@@ -1258,12 +1280,12 @@ def phase_shard_kernel(torch):
         kinds = [("step_seam", 1)]
         if not sp.wrap_pad:
             kinds += [("depth_seam", d) for d in DEPTHS if d <= h]
-            kinds += [("ring", SHARD_G)]
+            kinds += [("ring", SHARD_G), ("ring", SHARD_G_D2)]
         res = {}
         with env():
             for key, size in kinds:
                 ss, plain = (halo.ShardSet(sp.params, cells, sp.obstacles,
-                                           mesh, SHARD_G, axis)
+                                           mesh, steps, axis)
                              for _ in range(2))
                 if key == "ring":
                     impl = resident_ring.RingShardImpl(ss, size)
@@ -1281,8 +1303,25 @@ def phase_shard_kernel(torch):
                 r = {"max_abs_err": float(err.max()),
                      "cells_ok": bool((err <= ATOL + RTOL * want.abs()).all()),
                      "tot_rel_err": tot_rel, "tot_ok": tot_rel <= TOT_RTOL}
-                label = {"step_seam": "step", "depth_seam": f"depth D={size}",
-                         "ring": f"ring G={size}"}[key]
+                label = {"step_seam": "step",
+                         "depth_seam": f"depth D={size}"}.get(
+                             key) or f"ring G={size} D={impl.depth}"
+                if key == "ring":
+                    # The rounds' per-step tots: the seam depth kernel's
+                    # bits at the same D, shard by shard.
+                    seam = halo.ShardSet(sp.params, cells, sp.obstacles, mesh,
+                                         steps, axis)
+                    depth = halo.SeamShardImpl(seam, impl.depth)
+                    for t in range(0, size, impl.depth):
+                        depth.run(t)
+                    seam.synchronize()
+                    r["tots_equal_seam_depth"] = all(
+                        torch.equal(a.tots[:size], b.tots[:size])
+                        for a, b in zip(ss.shards, seam.shards))
+                    check(r["max_abs_err"] == 0.0
+                          and r["tots_equal_seam_depth"],
+                          f"{label}: the ring at {name} over {n}: {r}")
+                    del seam, depth
                 if key == "depth_seam":
                     # Step `size` at the last stage of the launch above and
                     # at the first of one that starts a step before it.
@@ -1516,6 +1555,8 @@ def phase_shard_timing(torch, timing):
                "devices": halo.describe_mesh(mesh),
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "halo_copy_device_ms_per_call": copies,
+               "ring_depths": {k: v.depth for k, v in impls.items()
+                               if k.startswith("ring")},
                "unsharded_best": {best: statistics.median(unsharded[best])},
                "method": "CUDA events on the current stream, every shard "
                          "stream joined; median over 6 batches of ~200 "
@@ -1558,7 +1599,7 @@ def phase_wide_shard_timing(torch):
         cells, mask = random_case(torch, name, p, seed=96, state="perturbed")
         mesh = shard_mesh(torch, N_SHARDS)
         mask_np = mask.cpu().numpy()
-        calls, copies, sets = {}, {}, {}
+        calls, copies, sets, ring_depths = {}, {}, {}, {}
         for plan_name, axis in (("x-plan", 1), ("row plan", 0)):
             ss = sets[plan_name] = halo.ShardSet(p, cells, mask_np, mesh, 100,
                                                  axis)
@@ -1570,6 +1611,8 @@ def phase_wide_shard_timing(torch):
             for label, impl in impls.items():
                 calls[f"{plan_name} {label}"] = (
                     lambda impl=impl: impl.run(0), impl.steps_per_call, ss)
+                if label.startswith("ring"):
+                    ring_depths[f"{plan_name} {label}"] = impl.depth
             for label in ("seam D=1", "seam D=4"):
                 impl = impls[label]
                 copies[f"{plan_name} {label}"] = _median_ms_shards(
@@ -1581,6 +1624,7 @@ def phase_wide_shard_timing(torch):
                "local_shape": {k: [ss.h, ss.nx] for k, ss in sets.items()},
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "halo_copy_device_ms_per_call": copies,
+               "ring_depths": ring_depths,
                "method": "CUDA events on the current stream, every shard "
                          "stream joined; median over 6 batches of 100 "
                          "steps after one warm-up batch, both plans' "
@@ -2230,6 +2274,8 @@ def main() -> int:
     oworst = max(worst["resident_onchip"], wide_worst["resident_onchip"])
     st = shard_timing[SCENE]
     sdev = {k: statistics.median(v) for k, v in st["device_ms_per_step"].items()}
+    sloop = {k: statistics.median(v) for k, v in st["loop_ms_per_step"].items()}
+    sd = st["ring_depths"]["ring G=100"]
     splain = st["plain_device_ms_per_step"]
     nx, ny = grid(SCENE)
     cells = nx * ny
@@ -2247,6 +2293,9 @@ def main() -> int:
     wst = wide_shard_timing[WIDE]
     wsdev = {k: statistics.median(v)
              for k, v in wst["device_ms_per_step"].items()}
+    wsloop = {k: statistics.median(v)
+              for k, v in wst["loop_ms_per_step"].items()}
+    wsr = wst["ring_depths"]["x-plan ring G=100"]
     wsplain = wst["plain_x_plan_device_ms_per_step"]
     wd = wide_auto_depth(WIDE)
     wsd = wide_auto_depth(WIDE, N_SHARDS)
@@ -2305,12 +2354,15 @@ def main() -> int:
                      runs["fused_depth_seam"], f"{sharded}, auto (D=4)",
                      shard_worst["depth_seam"], sdev["seam D=4"], splain,
                      bound(cells, 4, halo_bytes(4))),
+        # The ring steps D at a time in shared memory: one pass over the
+        # lattice per round is its design's ceiling.
         kernel_entry("ring", "lbm_tpu_torch/csrc/ring.cu",
                      "lbm_tpu/parallel/resident_ring.py:241", runs["ring"],
-                     f"{sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
+                     f"{sharded}, LBM_SHARD_RESIDENT=1 (G=100, D={sd})",
                      shard_worst["ring"], sdev["ring G=100"], splain,
                      bound(cells, 100),
-                     ceiling=design_ceiling(cells, 100)),
+                     ceiling=design_ceiling(cells, 100, steps_per_pass=sd),
+                     depth=sd, loop_ms=sloop["ring G=100"]),
         kernel_entry("fused_step_cols", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:358", runs["fused_step_cols"],
                      f"{on_wide}, one-step plan", wide_worst["fused_step"],
@@ -2347,10 +2399,11 @@ def main() -> int:
                      bound(wcells, wsd, whalo_bytes(wsd))),
         kernel_entry("ring_cols", "lbm_tpu_torch/csrc/ring.cu",
                      "lbm_tpu/parallel/resident_ring.py:280", runs["ring_cols"],
-                     f"{wide_sharded}, LBM_SHARD_RESIDENT=1 (G=100)",
+                     f"{wide_sharded}, LBM_SHARD_RESIDENT=1 (G=100, D={wsr})",
                      shard_worst["ring_cols"], wsdev["x-plan ring G=100"],
                      wsplain, bound(wcells, 100),
-                     ceiling=design_ceiling(wcells, 100)),
+                     ceiling=design_ceiling(wcells, 100, steps_per_pass=wsr),
+                     depth=wsr, loop_ms=wsloop["x-plan ring G=100"]),
         # The probe: its launches are the probe script's run; a launch
         # moves the lattice once for its G steps. Like the resident kernel
         # and the ring it keeps the lattice in device memory between its

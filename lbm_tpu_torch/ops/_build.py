@@ -92,12 +92,12 @@ _SIGNATURES = {
          _c_void_p, _c_int, _c_void_p],
         _c_int,
     ),
-    "lbm_ring_blocks": ([_c_int, _c_int], _c_int),
+    "lbm_ring_blocks": ([_c_int, _c_int, _c_int], _c_int),
     "lbm_enable_peer_access": ([_c_int, _c_int], _c_int),
     "lbm_ring": (
         [_c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
-         _c_float, _c_float, _c_int, _c_int, _c_int, ctypes.c_uint, _c_int,
-         _c_int, _c_void_p],
+         _c_float, _c_float, _c_int, _c_int, _c_int, _c_int, ctypes.c_uint,
+         _c_int, _c_int, _c_int, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_probe": (

@@ -127,19 +127,23 @@ def bound(cells: int, steps_per_launch: int = 1, extra_bytes: int = 0,
 
 def design_ceiling(cells: int, steps_per_launch: int = 1, chip: str = "h100",
                    bytes_per_cell: int = BYTES_PER_CELL_PASS,
-                   ops_per_cell: int = OPS_PER_CELL_STEP):
+                   ops_per_cell: int = OPS_PER_CELL_STEP,
+                   steps_per_pass: int = 1):
     """``(ms per step, "bytes" or "operations")``: the least time per step
-    of a kernel that keeps the lattice in device memory between the steps
-    of a launch (the resident kernel, the ring, the probe). Such a kernel
-    passes over device memory once per *step* whenever its working set,
-    ``bytes_per_cell * cells`` (both buffers and the mask), exceeds the
-    card's L2 cache; while it fits, the launch's bytes move once and this
-    is :func:`bound`. Not a bound of the function: the depth kernel, which
-    holds its steps in shared memory, runs below it. It says how much of a
-    kernel's distance from :func:`bound` its design accounts for."""
+    of a kernel that keeps the lattice in device memory between the passes
+    of a launch, a pass covering ``steps_per_pass`` steps (1: the resident
+    kernel's device-memory form, the probe; D: the ring, which steps D at
+    a time in shared memory, as ``roofline_report``'s ``steps_per_pass``).
+    Such a kernel passes over device memory once per pass whenever its
+    working set, ``bytes_per_cell * cells`` (both buffers and the mask),
+    exceeds the card's L2 cache; while it fits, the launch's bytes move
+    once and this is :func:`bound`. Not a bound of the function: the depth
+    kernel, which holds its steps in shared memory, runs below it. It says
+    how much of a kernel's distance from :func:`bound` its design accounts
+    for."""
     peaks = _peaks(chip)
     if bytes_per_cell * cells > peaks["l2_bytes"]:
-        steps_per_launch = 1
+        steps_per_launch = min(steps_per_launch, steps_per_pass)
     return bound(cells, steps_per_launch, chip=chip,
                  bytes_per_cell=bytes_per_cell, ops_per_cell=ops_per_cell)
 

@@ -173,7 +173,7 @@ def _shard_case(cuda, nx, ny, n, walls=True, seed=0):
         pad_cells[:, sp.pad:] = cells
         cells = pad_cells
     c = torch.from_numpy(cells).to(cuda)
-    sets = [halo.ShardSet(sp.params, c, sp.obstacles, mesh, 16)
+    sets = [halo.ShardSet(sp.params, c, sp.obstacles, mesh, 64)
             for _ in range(2)]
     return sp, sets
 
@@ -188,7 +188,7 @@ def _plain_steps(ss, n, wrap_pad=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
-                                  "ring-16"])
+                                  "ring-16", "ring-18"])
 @pytest.mark.parametrize("case", [(128, 128, 4, True), (64, 16, 8, True),
                                   (100, 130, 4, False), (128, 126, 4, True)],
                          ids=["128x128/4", "64x16/8", "100x130/4-wrap",
@@ -218,12 +218,99 @@ def test_shard_kernels_match_the_plain_shard_step(cuda, kind, case,
     _plain_steps(plain, steps, sp.wrap_pad)
     if cuda.type == "cuda":
         launched = fused.LAUNCHES[key] - before[key]
-        assert launched == (1 if name == "ring" else n)
+        assert launched == (1 if key == "ring" else n)
     got, want = ss.gather()[:, sp.pad:], plain.gather()[:, sp.pad:]
     assert torch.equal(got, want)
     np.testing.assert_allclose(ss.av_vels(1.0)[:steps].cpu().numpy(),
                                plain.av_vels(1.0)[:steps].cpu().numpy(),
                                rtol=TOT_RTOL)
+
+
+def _ring_sets(cuda, nx, ny, n, axis, copies=3):
+    """``copies`` shard sets of one perturbed state over ``n`` shards on
+    the card, for up to 128 steps: the row plan padded as planned, or the
+    x-plan (``axis`` 1). Returns ``(pad, sets)``."""
+    from lbm_tpu_torch.parallel import decomp, halo
+
+    if axis == 0:
+        sp, (ss, _) = _shard_case(cuda, nx, ny, n)
+        return sp.pad, [halo.ShardSet(sp.params, ss.gather(), sp.obstacles,
+                                      ss.mesh, 128) for _ in range(copies)]
+    p, cells, mask = _case(nx, ny, True, perturbed=True)
+    mesh = decomp.make_mesh(n, devices=[cuda] * n)
+    c = torch.from_numpy(cells).to(cuda)
+    return 0, [halo.ShardSet(p, c, mask, mesh, 128, axis=1)
+               for _ in range(copies)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("g", [16, 18], ids=["G16-D4", "G18-D2"])
+@pytest.mark.parametrize("plan", ["row", "x"])
+def test_ring_rounds_equal_the_plain_steps_and_the_seam_depth_tots(
+        cuda, plan, g, mode, monkeypatch):
+    """The ring's D-step rounds in every association, row mode (128x128
+    over 4: the forced row 126 in the top D rows that shard 3 sends) and
+    column mode (the x-plan of 512x128): cells equal to G plain shard
+    steps, and each shard's per-step tots the bits of the seam depth
+    kernel's G / D calls at the same D."""
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    _set_mode(monkeypatch, mode)
+    axis = int(plan == "x")
+    nx, ny = (512, 128) if axis else (128, 128)
+    pad, (ss, plain, seam) = _ring_sets(cuda, nx, ny, 4, axis)
+    ring = resident_ring.RingShardImpl(ss, g)
+    assert ring.depth == (4 if g == 16 else 2)
+    ring.run(0)
+    depth = halo.SeamShardImpl(seam, ring.depth)
+    for t in range(0, g, ring.depth):
+        depth.run(t)
+    ss.synchronize()
+    seam.synchronize()
+    _plain_steps(plain, g)
+    assert torch.equal(ss.gather()[:, pad:], plain.gather()[:, pad:])
+    assert torch.equal(ss.gather(), seam.gather())
+    for a, b in zip(ss.shards, seam.shards):
+        assert torch.equal(a.tots[:g], b.tots[:g])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", ["row", "x"])
+def test_ring_calls_go_on_from_each_other(cuda, plan):
+    """Two calls of G=50 (25 rounds of D=2: an odd count, so the result
+    changes buffer) equal 100 plain steps; one launch a call."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    axis = int(plan == "x")
+    nx, ny = (512, 128) if axis else (128, 128)
+    pad, (ss, plain) = _ring_sets(cuda, nx, ny, 4, axis, copies=2)
+    ring = resident_ring.RingShardImpl(ss, 50)
+    assert ring.depth == 2
+    key = "ring_cols" if axis else "ring"
+    before = fused.LAUNCHES[key]
+    ring.run(0)
+    ring.run(50)
+    ss.synchronize()
+    assert fused.LAUNCHES[key] == before + 2
+    _plain_steps(plain, 100)
+    assert torch.equal(ss.gather()[:, pad:], plain.gather()[:, pad:])
+    np.testing.assert_allclose(ss.av_vels(1.0)[:100].cpu().numpy(),
+                               plain.av_vels(1.0)[:100].cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [16, 18], ids=["G16-D4", "G18-D2"])
+def test_ring_blocks_that_cannot_be_co_resident_raise(cuda, g):
+    """A cooperative launch of more blocks than the card holds at once is
+    refused; the wrapper raises and does not fall back."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    ss = _ring_sets(cuda, 128, 128, 4, 0, copies=1)[1][0]
+    ring = resident_ring.RingShardImpl(ss, g, blocks=4096)
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        ring.run(0)
 
 
 @pytest.mark.cuda
@@ -298,7 +385,7 @@ def test_column_kernels_match_plain(cuda, shape, kind, mode, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["step", "depth-2", "depth-4", "depth-8",
-                                  "ring-16"])
+                                  "ring-16", "ring-18"])
 @pytest.mark.parametrize("case", [(512, 128, 4, True), (64, 16, 8, True),
                                   (264, 100, 4, False)],
                          ids=["512x128/4", "64x16/8", "264x100/4-wall-less"])
@@ -316,7 +403,7 @@ def test_column_shard_kernels_match_the_plain_shard_step(cuda, kind, case,
     p, cells, mask = _case(nx, ny, walls, perturbed=True)
     mesh = decomp.make_mesh(n, devices=[cuda] * n)
     c = torch.from_numpy(cells).to(cuda)
-    ss, plain = (halo.ShardSet(p, c, mask, mesh, 16, axis=1) for _ in range(2))
+    ss, plain = (halo.ShardSet(p, c, mask, mesh, 64, axis=1) for _ in range(2))
     name, _, size = kind.partition("-")
     steps = int(size or 1)
     if name == "ring":
@@ -328,7 +415,8 @@ def test_column_shard_kernels_match_the_plain_shard_step(cuda, kind, case,
     impl.run(0)
     ss.synchronize()
     _plain_steps(plain, steps)
-    assert fused.LAUNCHES[key] - before[key] == (1 if name == "ring" else n)
+    assert fused.LAUNCHES[key] - before[key] == (1 if key == "ring_cols"
+                                                  else n)
     assert torch.equal(ss.gather(), plain.gather())
     np.testing.assert_allclose(ss.av_vels(1.0)[:steps].cpu().numpy(),
                                plain.av_vels(1.0)[:steps].cpu().numpy(),

@@ -156,6 +156,7 @@ def test_nvcc_command_targets_sm90a_and_lists_every_source(tmp_path):
     assert out.name.endswith(".so") and out == _build.library_path()
     # The shared headers are part of the library's hash.
     assert [h.name for h in _build.headers()] == ["lbm_cell.cuh",
+                                                  "lbm_depth.cuh",
                                                   "lbm_reduce.cuh",
                                                   "lbm_seam.cuh"]
 
@@ -166,6 +167,33 @@ def _chip_smoke():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_chip_smoke_ptxas_table_reads_kernels_and_called_functions():
+    """The build line's register table: an entry function with its
+    registers and spills, and a device function that is a call of its
+    own (the ring's tile) with its spills alone."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN39_GLOBAL__N__x_7_"
+        "ring_cu_d511ring_kernelILi4ELb0EEEvNS_4RingE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN39_GLOBAL__N__x_7_ring_cu"
+        "_d511ring_kernelILi4ELb0EEEvNS_4RingE",
+        "    112 bytes stack frame, 140 bytes spill stores, 152 bytes spill "
+        "loads",
+        "ptxas info    : Used 48 registers, used 1 barriers, 1616 bytes smem",
+        "ptxas info    : Function properties for _ZN37_INTERNAL_x_7_ring_cu"
+        "_d539_GLOBAL__N__x9ring_tileILi4ELb0ELi0EEEvRK4ArgsPfiS5_m",
+        "    0 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z16reduce_tot_kernel"
+        "PKfifPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z16reduce_tot_kernelPKfifPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 22 registers, used 1 barriers",
+    ])
+    assert _chip_smoke().ptxas_table(log) == {
+        "ring_kernel<4,0>": "48 registers, 140 / 152 B spilled",
+        "ring_tile<4,0,0>": "12 / 12 B spilled",
+        "reduce_tot_kernel": "22 registers"}
 
 
 def test_chip_smoke_grid_names_are_nx_by_ny():

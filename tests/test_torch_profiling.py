@@ -95,6 +95,22 @@ def test_bound_of_the_depth_kernel_is_once_per_launch():
         profiling.design_ceiling(1024 * 1024, 100)[0]
 
 
+@pytest.mark.parametrize("d", [2, 4])
+def test_design_ceiling_of_the_ring_counts_one_pass_per_round(d):
+    """The ring steps D at a time in shared memory: above L2 its lattice
+    crosses device memory once per D steps (the depth kernel's bound at
+    D), in L2 once per launch; one step a pass is the default."""
+    big, small = 1024 * 1024, 512 * 512
+    assert profiling.design_ceiling(big, 100, steps_per_pass=d) == \
+        profiling.bound(big, d)
+    assert round(profiling.design_ceiling(big, 100, steps_per_pass=4)[0],
+                 5) == 0.00571
+    assert profiling.design_ceiling(small, 100, steps_per_pass=d) == \
+        profiling.bound(small, 100)
+    assert profiling.design_ceiling(big, 100, steps_per_pass=1) == \
+        profiling.design_ceiling(big, 100)
+
+
 def test_roofline_report_of_a_resident_run():
     """The report holds a run against the function's bound whichever
     kernel ran it."""
