@@ -111,9 +111,14 @@ printing JSON lines (any failure raises and exits non-zero):
              (D = 1, 2, 4, 8) and the ring (G = 16, 100; its D in
              ring_depths) over 4 shards on one card at 1024x1024 and
              16384x1024 (row plan), beside the unsharded best; the halo
-             copies alone; the plain shard step at 1024x1024 (the ring's
-             step-a-round form it replaced: scripts/ring_ab_torch.py run
-             on the parent commit);
+             exchange alone (events, and copies where the plan copies:
+             none for D = 1 on one card); the plain shard step at
+             1024x1024; then the wrap path, a wall-less 1024x1022 over 4
+             shards (wrap pad 2, the one-step seam kernel on every step):
+             200 calls against 200 plain shard steps (cells max abs error
+             0, launches: the seam kernel's alone), loop and device ms a
+             step (the forms each kernel replaced: scripts/ring_ab_torch.py
+             and scripts/seam_step_ab_torch.py run on the parent commit);
 14. wide_shard_timing - over 4 shards on one card, the x-plan against
              the row plan at 131072x128 and 16384x1024 (seam D=1, D=4,
              ring G=100), halo copies per call; the plain shard step of
@@ -168,7 +173,8 @@ Then the kernels line (every kernel, row and column modes, the on-chip
 resident form and the probe's three, with its launches on its path,
 error against its plain version, time, plain time and bound; the
 ring's rows also its D, its loop time and a design ceiling of one pass
-over the lattice per round), the nvidia-smi line, and a last line
+over the lattice per round; the seam one-step rows their loop time and,
+in row mode, the wrap path's device time), the nvidia-smi line, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 before
 printing anything. ``--phases a,b`` (for development) runs only the named
 phases after device and build, and then prints no kernels line and no ok
@@ -1215,6 +1221,8 @@ SHARD_SCENE_PLANS = {
 }
 SHARD_TIMING_GRIDS = ("1024x1024", "16384x1024")
 N_SHARDS = 4
+# The wrap path's timing case: wall-less, ny = 1022 no multiple of 4.
+WRAP_GRID, WRAP_STEPS = "1024x1022", 200
 
 
 def shard_mesh(torch, n, cards=1):
@@ -1360,9 +1368,8 @@ def expected_shard_launches(parts, shards, cards=1, cols=False):
         if seg.kernel == "ring":
             n["ring" + suffix] += seg.launches * cards
         else:
+            # The seam kernels sum tot_u in the launch: no reduce.
             n[f"{seg.kernel}_seam{suffix}"] += seg.launches * shards
-            if seg.kernel == "step":
-                n["reduce"] += seg.launches * shards
     return n
 
 
@@ -1548,13 +1555,18 @@ def phase_shard_timing(torch, timing):
         for label in ("seam D=1", "seam D=4"):
             impl = impls[label]
             copies[label] = _median_ms_shards(
-                torch, ss, lambda: ss.exchange(impl.halos, impl.k), 1, True)[0]
+                torch, ss, lambda: ss.exchange(impl.sources, impl.halos,
+                                               impl.k), 1, True)[0]
         unsharded = timing[name]["device_ms_per_step"]
         best = min(unsharded, key=lambda k: statistics.median(unsharded[k]))
         out = {"phase": "shard_timing", "grid": name, "shards": N_SHARDS,
                "devices": halo.describe_mesh(mesh),
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "halo_copy_device_ms_per_call": copies,
+               "halo_copies_per_call": {
+                   label: sum(not src.in_place for pair in
+                              impls[label].sources for src in pair)
+                   for label in copies},
                "ring_depths": {k: v.depth for k, v in impls.items()
                                if k.startswith("ring")},
                "unsharded_best": {best: statistics.median(unsharded[best])},
@@ -1573,7 +1585,53 @@ def phase_shard_timing(torch, timing):
         results[name] = out
         del ss, impls, cells
         torch.cuda.empty_cache()
+    results[WRAP_GRID] = shard_timing_wrap(torch)
     return results
+
+
+def shard_timing_wrap(torch):
+    """The wrap discipline's path: a wall-less WRAP_GRID over 4 shards,
+    whose ny does not divide the mesh, so ``auto`` pads 2 rows inside
+    shard 0 and runs the one-step seam kernel on every step. WRAP_STEPS
+    calls held to as many plain shard steps (cells max abs error 0, tots
+    at TOT_RTOL), then loop and device ms a step."""
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.parallel import halo
+
+    sp, cells, mesh = shard_case(torch, WRAP_GRID, "random", N_SHARDS, 97)
+    check(sp.mode == "wrap" and plan.describe(sp.segments) == "step x16",
+          f"{WRAP_GRID}: not the wrap plan: {sp.mode} {sp.segments}")
+    ss, plain = (halo.ShardSet(sp.params, cells, sp.obstacles, mesh,
+                               WRAP_STEPS) for _ in range(2))
+    impl = halo.SeamShardImpl(ss, 1, sp.wrap_pad)
+    fused.reset_launches()
+    for t in range(WRAP_STEPS):
+        impl.run(t)
+    ss.synchronize()
+    launches = dict(fused.LAUNCHES)
+    plain_shard_steps(plain, WRAP_STEPS, sp.wrap_pad)
+    got, want = ss.gather()[:, sp.pad:], plain.gather()[:, sp.pad:]
+    gt, wt = ss.av_vels(1.0), plain.av_vels(1.0)
+    out = {"phase": "shard_timing", "grid": WRAP_GRID, "shards": N_SHARDS,
+           "mask": "random, wall-less", "pad": f"{sp.mode} {sp.pad}",
+           "steps_checked": WRAP_STEPS,
+           "max_abs_err": float((got - want).abs().max()),
+           "tot_rel_err": float(((gt - wt).abs() / wt.abs()).max()),
+           "launches": {k: v for k, v in launches.items() if v}}
+    check(out["max_abs_err"] == 0.0 and out["tot_rel_err"] <= TOT_RTOL
+          and launches["step_seam"] == WRAP_STEPS * N_SHARDS
+          and sum(launches.values()) == launches["step_seam"],
+          f"the wrap path at {WRAP_GRID}: {out}")
+    del plain, got, want
+    loop, dev = time_turns(torch, {
+        "seam D=1": (lambda: impl.run(0), 1, ss)})
+    out.update({"loop_ms_per_step": loop, "device_ms_per_step": dev,
+                "method": "as the other shard_timing lines, one "
+                          "configuration"})
+    emit(out)
+    del ss, impl, cells
+    torch.cuda.empty_cache()
+    return out
 
 
 def wide_auto_depth(name, shards=1):
@@ -1617,7 +1675,7 @@ def phase_wide_shard_timing(torch):
                 impl = impls[label]
                 copies[f"{plan_name} {label}"] = _median_ms_shards(
                     torch, ss, lambda impl=impl, ss=ss: ss.exchange(
-                        impl.halos, impl.k), 1, True)[0]
+                        impl.sources, impl.halos, impl.k), 1, True)[0]
         loop, dev = time_turns(torch, calls, steps=100)
         out = {"phase": "wide_shard_timing", "grid": name,
                "shards": N_SHARDS, "devices": halo.describe_mesh(mesh),
@@ -2348,7 +2406,10 @@ def main() -> int:
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
                      f"{sharded}, one-step plan", shard_worst["step_seam"],
                      sdev["seam D=1"], splain,
-                     bound(cells, 1, halo_bytes(1))),
+                     bound(cells, 1, halo_bytes(1)), loop_ms=sloop["seam D=1"],
+                     wrap_path_ms=statistics.median(
+                         shard_timing[WRAP_GRID]["device_ms_per_step"][
+                             "seam D=1"])),
         kernel_entry("fused_depth_seam", "lbm_tpu_torch/csrc/fused_depth.cu",
                      "lbm_tpu/ops/pallas_fused.py:653",
                      runs["fused_depth_seam"], f"{sharded}, auto (D=4)",
@@ -2388,7 +2449,8 @@ def main() -> int:
                      runs["fused_step_seam_cols"], f"{wide_sharded}, one-step "
                      "plan", shard_worst["step_seam_cols"],
                      wsdev["x-plan seam D=1"], wsplain,
-                     bound(wcells, 1, whalo_bytes(1))),
+                     bound(wcells, 1, whalo_bytes(1)),
+                     loop_ms=wsloop["x-plan seam D=1"]),
         kernel_entry("fused_depth_seam_cols",
                      "lbm_tpu_torch/csrc/fused_depth.cu",
                      "lbm_tpu/ops/pallas_fused.py:804",

@@ -79,12 +79,9 @@ _SIGNATURES = {
          _c_int, _c_void_p],
         _c_int,
     ),
-    "lbm_fused_step_seam": (
-        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-         _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,
-         _c_float, _c_float, _c_float, _c_int, _c_int, _c_int, _c_void_p],
-        _c_int,
-    ),
+    "lbm_fused_step_seam": ([_c_void_p, _c_int, _c_int, _c_void_p], _c_int),
+    "lbm_seam_num_partials": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_seam_max_rows": ([_c_int], _c_int),
     "lbm_fused_depth_seam": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_void_p, _c_int, _c_void_p, _c_int, _c_int, _c_int, _c_int,

@@ -2,9 +2,9 @@
 CUDA launch (``csrc/fused_step.cu``, the port of
 ``lbm_tpu/ops/pallas_fused.py::_kernel``, in row and in column mode),
 plus a launch that sums the per-block tot_u partials on the device
-(``csrc/lbm_reduce.cuh``). Also
-what every kernel wrapper shares (:class:`LatticeKernel`) and the launch
-counts of all of them.
+(``csrc/lbm_reduce.cuh``); in seam mode (:class:`SeamStep`) the launch
+sums them itself. Also what every kernel wrapper shares
+(:class:`LatticeKernel`) and the launch counts of all of them.
 
 A tensor on the CPU runs the plain version, :mod:`.reference`; that is
 the only case the plain version stands in for the kernel. A CUDA tensor
@@ -12,6 +12,8 @@ launches the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -22,14 +24,14 @@ from lbm_tpu_torch.state import D2Q9
 
 # Launch counts of every kernel of the package, one per kernel: the
 # one-step kernel, the tot_u sum as a launch of its own (after every
-# launch of the one-step kernel, in both of its modes; the depth kernel
-# sums in its epilogue), the depth kernel, the resident kernel in its
-# device-memory and its on-chip form, the seam modes of the one-step and
-# depth kernels (one launch per shard) and the ring kernel (one launch
-# per card), each also in column mode (the
-# "_cols" counts: the transposed lattice of a wide grid), and the three
-# modes of the stream-cost probe. Each wrapper increments its kernel's
-# count where it launches it, nowhere else.
+# launch of the periodic one-step kernel, in both of its modes; the depth
+# kernel and the seam one-step kernel sum in the launch), the depth
+# kernel, the resident kernel in its device-memory and its on-chip form,
+# the seam modes of the one-step and depth kernels (one launch per shard)
+# and the ring kernel (one launch per card), each also in column mode
+# (the "_cols" counts: the transposed lattice of a wide grid), and the
+# three modes of the stream-cost probe. Each wrapper increments its
+# kernel's count where it launches it, nowhere else.
 _KERNELS = ("step", "depth", "resident", "resident_onchip", "step_seam",
             "depth_seam", "ring")
 LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
@@ -39,6 +41,21 @@ LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def new_scratch(rows: int, n: int, device):
+    """The scratch of a kernel that sums tot_u in the launch, and the
+    ``(rows, n)`` view of the last launch's per-tile partials. The
+    scratch is ``rows * n`` slots that are empty between launches (the
+    bits of -1, a NaN no sum produces), the block counter (one 32-bit
+    word, zero between launches) and the ``rows * n`` partials as the
+    block that summed them read them (``csrc/lbm_reduce.cuh``). Each
+    kernel object owns its own, so no two launches share slots."""
+    scratch = torch.full((2 * rows * n + 1,), -1, dtype=torch.int32,
+                         device=device)
+    scratch[rows * n] = 0
+    scratch = scratch.view(torch.float32)
+    return scratch, scratch[rows * n + 1:].view(rows, n)
 
 
 class LatticeKernel:
@@ -126,17 +143,6 @@ class LatticeKernel:
     def _scale(self, scale) -> float:
         return float(np.float32(scale))
 
-    def _reduce(self, partials, out, t: int, scale) -> None:
-        """``out[t] = scale * sum(partials)``: one launch of the
-        fixed-order sum, behind every launch of the one-step kernel (the
-        depth kernel runs that sum in its epilogue)."""
-        lib = self._lib
-        _build.check(lib, lib.lbm_reduce_tot(
-            partials.data_ptr(), partials.numel(), np.float32(scale),
-            out.data_ptr() + 4 * t, self._index, self._stream(),
-        ), "tot_u reduce launch")
-        LAUNCHES["reduce"] += 1
-
 
 class FusedStep(LatticeKernel):
     """The one-step kernel: ``step(src, dst, out, t, scale)`` writes one
@@ -183,6 +189,17 @@ class FusedStep(LatticeKernel):
         self.step(a, b, out, t, scale)
         return b, a
 
+    def _reduce(self, partials, out, t: int, scale) -> None:
+        """``out[t] = scale * sum(partials)``: one launch of the
+        fixed-order sum, behind every launch of this kernel (the depth
+        and seam kernels run that sum in the launch)."""
+        lib = self._lib
+        _build.check(lib, lib.lbm_reduce_tot(
+            partials.data_ptr(), partials.numel(), np.float32(scale),
+            out.data_ptr() + 4 * t, self._index, self._stream(),
+        ), "tot_u reduce launch")
+        LAUNCHES["reduce"] += 1
+
 
 class SeamKernel(LatticeKernel):
     """What the seam-mode wrappers share: a shard's mask rows, the static
@@ -220,47 +237,111 @@ class SeamKernel(LatticeKernel):
             self.row0, self.ny, self.w1, self.w2, self.omega, n, self.axis)
 
 
+class _SeamStepArgs(ctypes.Structure):
+    """``csrc/fused_step.cu``'s ``SeamStepArgs``, field for field."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in (
+            "src", "dst", "mask", "halo_s", "halo_n", "hmask_s", "hmask_n",
+            "scratch", "out")),
+        ("plane_s", ctypes.c_longlong), ("plane_n", ctypes.c_longlong),
+        *((name, ctypes.c_float) for name in ("scale", "w1", "w2", "omega")),
+        *((name, ctypes.c_int) for name in (
+            "h", "nx", "row0", "ny_global", "wrap_row", "mode", "axis")),
+    ]
+
+
 class SeamStep(SeamKernel):
     """The one-step kernel in seam mode, bound to one shard:
     ``run(a, b, halo_s, halo_n, out, t, scale)`` writes one step of ``a``
     into ``b`` with row -1 from the last row of ``halo_s`` and row h from
-    the first of ``halo_n``, ``scale * tot_u`` into ``out[t]``, and
-    returns ``(b, a)``. On a CPU tensor it runs the plain version,
+    the first of ``halo_n``, ``scale * tot_u`` into ``out[t]`` (summed in
+    the launch), and returns ``(b, a)``. A halo is any (9, k, nx) view
+    whose rows are contiguous, so it may be a neighbouring shard's rows in
+    place (plane stride h * nx) as well as a halo buffer. ``wrap_row``
+    (the wrap pad's row p - 1 of shard 0, or -1): a row whose speeds are
+    taken from row -1 instead, with its own obstacle flags, as the plain
+    shard step refreshes it. On a CPU tensor it runs the plain version,
     :func:`.reference.halo_multi_step`."""
 
     def __init__(self, mask, hmask_s, hmask_n, w1, w2, omega, row0: int,
-                 ny: int, axis: int = 0):
+                 ny: int, axis: int = 0, wrap_row: int = -1):
         super().__init__(mask, hmask_s, hmask_n, w1, w2, omega, row0, ny,
                          axis)
+        h, nx = mask.shape
+        if not -1 <= wrap_row < h:
+            raise ValueError(f"wrap_row {wrap_row} is not a row of the "
+                             f"{h}-row shard")
+        self.wrap_row = int(wrap_row)
         if self.on_cpu:
             return
-        h, nx = mask.shape
-        if h > self._lib.lbm_max_rows():
-            raise ValueError(f"{h} rows exceed the kernel's limit of "
-                             f"{self._lib.lbm_max_rows()}")
-        self._partials = torch.empty(self._lib.lbm_num_partials(h, nx),
-                                     dtype=torch.float32, device=self.device)
+        limit = self._lib.lbm_seam_max_rows(axis)
+        if h > limit:
+            raise ValueError(f"{h} rows exceed the kernel's limit of {limit}")
+        self._scratch, self._partials = new_scratch(
+            1, self._lib.lbm_seam_num_partials(h, nx, axis), self.device)
+
+    def _check_halos(self, halo_s, halo_n) -> None:
+        for t, name in ((halo_s, "halo_s"), (halo_n, "halo_n")):
+            if tuple(t.shape) != self.halo_shape or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be a float32 "
+                                 f"{self.halo_shape} tensor, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            if t.stride(2) != 1 or t.stride(1) != self.shape[2]:
+                raise ValueError(f"{name}'s rows must be contiguous")
+            # Another card's rows are read in place only as a peer's.
+            if t.device != self.device and not (
+                    t.device.type == self.device.type == "cuda"):
+                raise ValueError(f"{name} is on {t.device}, mask on "
+                                 f"{self.device}")
 
     def run(self, a, b, halo_s, halo_n, out, t: int = 0, scale=1.0):
+        if not self.on_cpu:
+            self.launcher(a, b, halo_s, halo_n, out, scale)(t, self._stream())
+            return b, a
         self._check_call(a, b, out, t)
         self._check_halos(halo_s, halo_n)
-        if self.on_cpu:
-            new, tots = self._plain(a, halo_s, halo_n, 1)
-            b.copy_(new)
-            out[t] = tots[0] * self._scale(scale)
-            return b, a
-        lib, h, nx = self._lib, self.shape[1], self.shape[2]
-        _build.check(lib, lib.lbm_fused_step_seam(
-            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
-            halo_s.data_ptr(), halo_n.data_ptr(),
-            self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
-            self.k, self._partials.data_ptr(), h, nx, self.row0, self.ny,
-            self.w1, self.w2, self.omega, self.mode, self.axis, self._index,
-            self._stream(),
-        ), "seam step launch")
-        self._launched("step_seam")
-        self._reduce(self._partials, out, t, scale)
+        src = a
+        if self.wrap_row >= 0:
+            src = a.clone()
+            src[:, self.wrap_row] = halo_s[:, -1]
+        new, tots = self._plain(src, halo_s, halo_n, 1)
+        b.copy_(new)
+        out[t] = tots[0] * self._scale(scale)
         return b, a
+
+    def launcher(self, a, b, halo_s, halo_n, out, scale=1.0):
+        """The launch of one step of ``a`` into ``b`` on these buffers,
+        checked once: ``go(t, stream)`` writes ``scale * tot_u`` into
+        ``out[t]`` and launches on the stream whose handle is ``stream``.
+        For a loop that pairs the same buffers every other step; ``go``
+        holds the tensors whose addresses it passes."""
+        self._check_call(a, b, out, 0)
+        self._check_halos(halo_s, halo_n)
+        if self.on_cpu:
+            raise ValueError("a launcher needs CUDA tensors")
+        k, (h, nx) = self.k, self.mask.shape
+        args = _SeamStepArgs(
+            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+            halo_s[:, k - 1].data_ptr(), halo_n[:, 0].data_ptr(),
+            self._hmask_u8[0][k - 1].data_ptr(),
+            self._hmask_u8[1][0].data_ptr(), self._scratch.data_ptr(),
+            out.data_ptr(), halo_s.stride(0), halo_n.stride(0),
+            self._scale(scale), self.w1, self.w2, self.omega, h, nx,
+            self.row0, self.ny, self.wrap_row, self.mode, self.axis)
+        lib, index, ref, n = self._lib, self._index, ctypes.byref(args), \
+            out.shape[0]
+        name = "step_seam_cols" if self.axis else "step_seam"
+
+        def go(t: int, stream) -> None:
+            if not 0 <= t < n:
+                raise ValueError(f"out[{t}] is not in a tensor of {n}")
+            _build.check(lib, lib.lbm_fused_step_seam(ref, t, index, stream),
+                         "seam step launch")
+            LAUNCHES[name] += 1
+
+        go.buffers = (a, b, halo_s, halo_n, out, args)
+        return go
 
 
 def fused_step(cells, obstacles, w1, w2, omega, axis: int = 0):

@@ -22,7 +22,8 @@ import torch
 
 from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import reference as ref_ops
-from lbm_tpu_torch.ops.fused import LAUNCHES, LatticeKernel, SeamKernel
+from lbm_tpu_torch.ops.fused import (LAUNCHES, LatticeKernel,
+                                     SeamKernel, new_scratch)
 from lbm_tpu_torch.state import D2Q9
 
 # Depths the kernel is built for, each depth's (TY, TX) output tile and
@@ -34,20 +35,6 @@ from lbm_tpu_torch.state import D2Q9
 DEPTHS = (8, 4, 2)
 TILES = {2: (24, 32), 4: (24, 32), 8: (16, 32)}
 HALO_X = {2: 4, 4: 4, 8: 8}
-
-
-def _new_scratch(depth: int, n: int, device):
-    """The kernel's scratch and the ``(depth, n)`` view of the last
-    launch's per-tile tot_u partials. The scratch is ``depth * n`` slots
-    that are empty between launches (the bits of -1, a NaN no sum
-    produces), the epilogue's block counter (one 32-bit word, zero between
-    launches) and the ``depth * n`` partials as the epilogue read them
-    (``csrc/lbm_reduce.cuh``)."""
-    scratch = torch.full((2 * depth * n + 1,), -1, dtype=torch.int32,
-                         device=device)
-    scratch[depth * n] = 0
-    scratch = scratch.view(torch.float32)
-    return scratch, scratch[depth * n + 1:].view(depth, n)
 
 
 class FusedDepth(LatticeKernel):
@@ -68,7 +55,7 @@ class FusedDepth(LatticeKernel):
             raise ValueError(
                 f"{ny} rows exceed the depth-{depth} kernel's limit of {limit}"
             )
-        self._scratch, self._partials = _new_scratch(
+        self._scratch, self._partials = new_scratch(
             depth, self._lib.lbm_depth_num_partials(depth, ny, nx),
             self.device)
 
@@ -118,7 +105,7 @@ class FusedDepthSeam(SeamKernel):
             raise ValueError(
                 f"{h} rows exceed the depth-{depth} kernel's limit of {limit}"
             )
-        self._scratch, self._partials = _new_scratch(
+        self._scratch, self._partials = new_scratch(
             depth, self._lib.lbm_depth_num_partials(depth, h, nx),
             self.device)
 

@@ -16,12 +16,15 @@ Each shard owns its rows on its device: two lattice buffers, its mask
 rows, the static mask rows of its halos, per-step tot_u, and on a GPU its
 own CUDA stream. Per call of a seam kernel:
 
-1. every receiving shard copies its neighbours' boundary rows into its
-   halo buffers, on its own stream after an event recorded on the
-   sender's (the twin of ``exchange_halos`` / ``_halo_seams``): the south
-   neighbour's top k rows and the north neighbour's bottom k rows, with
-   periodic wrap over the shard ring (a peer copy across cards, a
-   device-to-device copy on one);
+1. every shard's stream waits on an event recorded on each neighbour's
+   after its last launch (the twin of ``exchange_halos`` /
+   ``_halo_seams``): the south neighbour's top k rows and the north
+   neighbour's bottom k rows are its halos, with periodic wrap over the
+   shard ring (:func:`halo_sources`). The one-step kernel reads its
+   one-row halos in place in the neighbours' lattices, on one card or
+   between peers; the depth kernel's k-row halos, and any halo from a
+   card without peer access, are copied into the receiver's buffers (a
+   peer copy across cards, a device-to-device copy on one);
 2. each shard's kernel steps its rows from its halos, forcing by global
    row index; there is no device-wide synchronize per step.
 
@@ -32,8 +35,9 @@ the first shard's device (the ``device_get`` collate).
 
 Wall-less non-divisor runs pad the lattice with ``p`` obstacle rows inside
 shard 0 (the 'wrap' modes): shard 0 sends its row ``p`` north instead of
-row 0, and the south halo it receives refreshes pad row ``p - 1`` every
-step, so the wrap closes over the real lattice, bit-exact.
+row 0, and its pad row ``p - 1`` takes the south halo's speeds every step
+(the plain shard step copies them in; the seam kernel reads them there),
+so the wrap closes over the real lattice, bit-exact.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ import numpy as np
 import torch
 
 from lbm_tpu_torch.obstacles import num_non_obstacles_r
-from lbm_tpu_torch.ops import fused, fused_depth, plan
+from lbm_tpu_torch.ops import _build, fused, fused_depth, plan
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.params import Params
 from lbm_tpu_torch.parallel import resident_ring
@@ -304,6 +308,52 @@ def describe(sp: ShardPlan, mesh: Mesh) -> str:
 # --------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class HaloSource:
+    """Where one of a shard's k-row halos comes from: rows ``row`` ..
+    ``row + k - 1`` of shard ``shard``'s lattice, read in place from its
+    ``cells`` (``in_place``; plane stride ``plane`` = h * nx, the
+    sender's) or copied into the receiver's (9, k, nx) halo buffer
+    (``plane`` = k * nx)."""
+
+    shard: int
+    row: int
+    plane: int
+    in_place: bool
+
+
+def reachable(recv: torch.device, send: torch.device) -> bool:
+    """Whether a kernel on ``recv`` may read ``send``'s memory: the same
+    device, or two CUDA devices with peer access."""
+    return recv == send or (recv.type == send.type == "cuda"
+                            and torch.cuda.can_device_access_peer(recv, send))
+
+
+def halo_sources(ss: "ShardSet", k: int, wrap_pad: int = 0,
+                 reach=reachable) -> list[tuple[HaloSource, HaloSource]]:
+    """The halo plan, ``(south, north)`` for every shard: the south
+    neighbour's top k rows and the north neighbour's bottom k rows (row
+    ``wrap_pad`` instead of row 0 from shard 0 when wrap-padded), with
+    periodic wrap over the shard ring. One-row halos (the one-step seam
+    kernel, whose loads take a plane stride) are read in place wherever
+    ``reach(receiver, sender)`` holds; deeper halos (the depth kernel's
+    window loads take a packed (9, k, nx) buffer) and halos from an
+    unreachable sender are copied. Decided from the devices alone, never
+    by trying."""
+    shards, n, h = ss.shards, len(ss.shards), ss.h
+    plan = []
+    for r, sh in enumerate(shards):
+        north_row = wrap_pad if wrap_pad and (r + 1) % n == 0 else 0
+        pair = []
+        for nb, row in ((shards[(r - 1) % n], h - k),
+                        (shards[(r + 1) % n], north_row)):
+            here = k == 1 and reach(sh.device, nb.device)
+            pair.append(HaloSource(nb.index, row, (h if here else k) * ss.nx,
+                                   here))
+        plan.append(tuple(pair))
+    return plan
+
+
 @dataclasses.dataclass
 class Shard:
     """One shard's state on its device: the ping-pong lattice buffers
@@ -389,27 +439,44 @@ class ShardSet:
         return (torch.from_numpy(self.mask_np[south]).to(dev),
                 torch.from_numpy(self.mask_np[north]).to(dev))
 
-    def exchange(self, halos, k: int, wrap_pad: int = 0) -> None:
-        """Fill each shard's (9, k, nx) halos ``halos[r] = (south,
-        north)`` from its neighbours' current cells: the south
-        neighbour's top k rows, the north neighbour's bottom k rows (row
-        ``wrap_pad`` instead of row 0 for shard 0's when wrap-padded, and
-        shard 0's received south row then refreshes its pad row
-        ``wrap_pad - 1``)."""
-        shards, n, h = self.shards, len(self.shards), self.h
+    def halo_buffers(self, sources, k: int):
+        """Each shard's (south, north) (9, k, nx) buffers for the halos
+        ``sources`` (:func:`halo_sources`) copies; None where a halo is
+        read in place."""
+        return [tuple(None if src.in_place else torch.empty(
+                    (D2Q9.Q, k, self.nx), dtype=sh.cells.dtype,
+                    device=sh.device) for src in pair)
+                for sh, pair in zip(self.shards, sources)]
+
+    def exchange(self, sources, halos, k: int) -> None:
+        """Order each shard's next launch after its neighbours' last ones
+        and copy the halos ``sources`` copies into ``halos``. Each
+        receiver's stream waits on an event recorded on each sender's
+        stream now. That covers both hazards of a halo read in place: the
+        receiver reads the sender's new rows, and the sender's next
+        launch, which writes the buffer read here, waits in its turn for
+        the receiver's launch."""
+        shards = self.shards
         events = [self.record(sh) for sh in shards]
-        for r, sh in enumerate(shards):
-            south, north = shards[(r - 1) % n], shards[(r + 1) % n]
-            hs, hn = halos[r]
-            lo = wrap_pad if wrap_pad and north.index == 0 else 0
-            with self.on(sh):
-                for nb in (south, north):
-                    if sh.stream is not None:
-                        sh.stream.wait_event(events[nb.index])
-                self._copy(hs, south.cells[:, h - k:], sh, south)
-                self._copy(hn, north.cells[:, lo:lo + k], sh, north)
-                if wrap_pad and r == 0:
-                    sh.cells[:, wrap_pad - 1].copy_(hs[:, k - 1])
+        for sh, pair, bufs in zip(shards, sources, halos):
+            if sh.stream is not None:
+                for src in pair:
+                    sh.stream.wait_event(events[src.shard])
+            copied = [(shards[src.shard], src.row, buf)
+                      for src, buf in zip(pair, bufs) if not src.in_place]
+            if copied:
+                with self.on(sh):
+                    for send, row, buf in copied:
+                        self._copy(buf, send.cells[:, row:row + k], sh, send)
+
+    def halo_views(self, sources, halos, k: int):
+        """Each shard's (south, north) halos as its kernel reads them:
+        (9, k, nx) views into the senders' current cells, or the buffers.
+        Take them before any shard of the call swaps its buffers."""
+        return [tuple(self.shards[src.shard].cells[:, src.row:src.row + k]
+                      if src.in_place else buf
+                      for src, buf in zip(pair, bufs))
+                for pair, bufs in zip(sources, halos)]
 
     @staticmethod
     def _copy(dst, src, recv: Shard, send: Shard) -> None:
@@ -505,11 +572,16 @@ class SeamShardImpl:
     (``depth`` 1: the one-step kernel, else the depth kernel with
     ``depth``-row halos), under the x-plan of
     ``_TransposedPallasShardImpl`` (the kernels in column mode) and, with
-    ``wrap_pad``, of ``_WrapPallasShardImpl`` (one-step only). Each call
-    exchanges the halos, then launches one kernel per shard on its
-    stream."""
+    ``wrap_pad``, of ``_WrapPallasShardImpl`` (one-step only: shard 0's
+    kernel reads its pad row ``wrap_pad - 1`` from its south halo). Each
+    call orders the shards after their neighbours and copies the halos
+    the plan copies (:func:`halo_sources`, ``reach`` as there), then
+    launches one kernel per shard on its stream. On one card the
+    one-step kernel's halos are read in place, so a call is one launch a
+    shard and nothing else."""
 
-    def __init__(self, ss: ShardSet, depth: int = 1, wrap_pad: int = 0):
+    def __init__(self, ss: ShardSet, depth: int = 1, wrap_pad: int = 0,
+                 reach=reachable):
         _check_wrap_kernel(wrap_pad, "cuda", bool(ss.axis))
         if wrap_pad and (depth != 1 or not (
                 len(ss.shards) > 1 and 1 <= wrap_pad <= ss.h - 1)):
@@ -521,27 +593,59 @@ class SeamShardImpl:
         self.ss, self.k, self.wrap_pad = ss, depth, wrap_pad
         self.kernel = "step" if depth == 1 else "depth"
         self.steps_per_call = depth
-        p, nx = ss.params, ss.nx
-        self.halos, self.kernels = [], []
+        self.sources = halo_sources(ss, depth, wrap_pad, reach)
+        self.halos = ss.halo_buffers(self.sources, depth)
+        p = ss.params
+        self.kernels = []
         for sh in ss.shards:
             ms, mn = ss.halo_masks(sh.index, depth, wrap_pad)
             args = (sh.mask, ms, mn, p.accel_w1, p.accel_w2, p.omega,
                     sh.row0, ss.ny)
+            wrap_row = wrap_pad - 1 if wrap_pad and sh.index == 0 else -1
             self.kernels.append(
-                fused.SeamStep(*args, axis=ss.axis) if depth == 1
+                fused.SeamStep(*args, axis=ss.axis, wrap_row=wrap_row)
+                if depth == 1
                 else fused_depth.FusedDepthSeam(*args, depth, axis=ss.axis))
-            shape = (D2Q9.Q, depth, nx)
-            self.halos.append((
-                torch.empty(shape, dtype=sh.cells.dtype, device=sh.device),
-                torch.empty(shape, dtype=sh.cells.dtype, device=sh.device)))
+        self._launchers = {}
+        if ss.device_type == "cuda":
+            lib = _build.load()
+            for sh, pair in zip(ss.shards, self.sources):
+                for src in pair:
+                    send = ss.shards[src.shard].device
+                    if src.in_place and send != sh.device:
+                        _build.check(lib, lib.lbm_enable_peer_access(
+                            _index(sh.device), _index(send)), "peer access")
 
     def run(self, t: int) -> None:
-        ss = self.ss
-        ss.exchange(self.halos, self.k, self.wrap_pad)
-        for sh, kern, (hs, hn) in zip(ss.shards, self.kernels, self.halos):
+        ss, k = self.ss, self.k
+        if k == 1 and ss.device_type == "cuda":
+            # The shards' buffers alternate, so two sets of launches serve
+            # every step; the launchers hold their pointers.
+            key = tuple((sh.cells.data_ptr(), sh.spare.data_ptr())
+                        for sh in ss.shards)
+            launch = self._launchers.get(key)
+            if launch is None:
+                views = ss.halo_views(self.sources, self.halos, k)
+                launch = self._launchers[key] = [
+                    kern.launcher(sh.cells, sh.spare, hs, hn, sh.tots)
+                    for sh, kern, (hs, hn) in zip(ss.shards, self.kernels,
+                                                  views)]
+            ss.exchange(self.sources, self.halos, k)
+            for sh, go in zip(ss.shards, launch):
+                go(t, sh.stream.cuda_stream)
+                sh.cells, sh.spare = sh.spare, sh.cells
+            return
+        views = ss.halo_views(self.sources, self.halos, k)
+        ss.exchange(self.sources, self.halos, k)
+        for sh, kern, (hs, hn) in zip(ss.shards, self.kernels, views):
             with ss.on(sh):
                 sh.cells, sh.spare = kern.run(sh.cells, sh.spare, hs, hn,
                                               sh.tots, t)
+
+
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def make_impl(seg: plan.Segment, ss: ShardSet, wrap_pad: int = 0):

@@ -116,10 +116,11 @@ class RingShardImpl:
         self._step = 0  # steps run so far: the rounds' tags go on from it
         nx, n = ss.nx, len(ss.shards)
         if ss.device_type == "cpu":
+            from lbm_tpu_torch.parallel.halo import halo_sources
+
             self.hmasks = [ss.halo_masks(r, 1) for r in range(n)]
-            self.halos = [(torch.empty(D2Q9.Q, 1, nx, dtype=sh.cells.dtype),
-                           torch.empty(D2Q9.Q, 1, nx, dtype=sh.cells.dtype))
-                          for sh in ss.shards]
+            self.sources = halo_sources(ss, 1)
+            self.halos = ss.halo_buffers(self.sources, 1)
             return
         self._lib = lib = _build.load()
         self._groups = {}
@@ -231,9 +232,9 @@ class RingShardImpl:
     def _run_plain(self, t: int) -> None:
         ss = self.ss
         for s in range(self.gsteps):
-            ss.exchange(self.halos, 1)
-            for sh, (hs, hn), (ms, mn) in zip(ss.shards, self.halos,
-                                              self.hmasks):
+            views = ss.halo_views(self.sources, self.halos, 1)
+            ss.exchange(self.sources, self.halos, 1)
+            for sh, (hs, hn), (ms, mn) in zip(ss.shards, views, self.hmasks):
                 new, tots = ref_ops.halo_multi_step(
                     sh.cells, hs, hn, sh.mask, ms, mn, sh.row0, ss.ny,
                     self.w1, self.w2, self.omega, 1, self.axis)

@@ -725,3 +725,153 @@ def test_auto_runs_small_lattices_on_chip(cuda, monkeypatch):
     assert torch.equal(c_on, c_dev)
     np.testing.assert_allclose(av_on.cpu().numpy(), av_dev.cpu().numpy(),
                                rtol=TRAJ_RTOL)
+
+
+# The one-step seam kernel: halos read in place on one card, tot_u summed
+# in the launch.
+
+
+def _never(recv, send):
+    return False
+
+
+def _seam_sets(cuda, nx, ny, n, walls, axis, copies=3):
+    """``(pad, wrap_pad, sets)``: ``copies`` shard sets of one perturbed
+    NXxNY state over ``n`` shards on the card, the row plan padded as
+    planned (a wall-less mask wrap-pads where ny does not divide), or the
+    x-plan (``axis`` 1)."""
+    from lbm_tpu_torch.parallel import decomp, halo
+
+    p, cells, mask = _case(nx, ny, walls, seed=7, perturbed=True)
+    mesh = decomp.make_mesh(n, devices=[cuda] * n)
+    if axis:
+        c = torch.from_numpy(cells).to(cuda)
+        return 0, 0, [halo.ShardSet(p, c, mask, mesh, 64, axis=1)
+                      for _ in range(copies)]
+    sp = halo.plan_run(p, mask, mesh, "cuda", 16)
+    if sp.pad:
+        pad_cells = initial_state(sp.params).numpy()
+        pad_cells[:, sp.pad:] = cells
+        cells = pad_cells
+    c = torch.from_numpy(cells).to(cuda)
+    return sp.pad, sp.wrap_pad, [
+        halo.ShardSet(sp.params, c, sp.obstacles, mesh, 64)
+        for _ in range(copies)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1024, 1024, True, 0),
+                                  (1024, 1022, False, 0),
+                                  (131072, 128, True, 1)],
+                         ids=["1024x1024/4", "1024x1022/4-wrap",
+                              "131072x128/4-x-plan"])
+def test_seam_step_in_place_equals_copied_and_plain(cuda, case, monkeypatch):
+    """8 one-step calls over 4 shards on one card with halos read in
+    place, the same with every halo copied, and 8 plain shard steps: cells
+    max abs error 0 between all three; the two forms' tots the same bits.
+    The in-place calls launch one kernel a shard and nothing else: no
+    reduce, no copy."""
+    from lbm_tpu_torch.parallel import halo
+
+    _set_mode(monkeypatch, "paired")
+    nx, ny, walls, axis = case
+    pad, wrap_pad, (ss, copied_ss, plain) = _seam_sets(cuda, nx, ny, 4,
+                                                       walls, axis)
+    assert (wrap_pad == 2) == (not walls)
+    copies = []
+    real_copy = halo.ShardSet._copy
+    monkeypatch.setattr(halo.ShardSet, "_copy", staticmethod(
+        lambda *a: (copies.append(1), real_copy(*a))))
+    impl = halo.SeamShardImpl(ss, 1, wrap_pad)
+    copied = halo.SeamShardImpl(copied_ss, 1, wrap_pad, reach=_never)
+    fused.reset_launches()
+    for t in range(8):
+        impl.run(t)
+    ss.synchronize()
+    key = "step_seam_cols" if axis else "step_seam"
+    assert {k: v for k, v in fused.LAUNCHES.items() if v} == {key: 32}
+    assert copies == []
+    for t in range(8):
+        copied.run(t)
+    copied_ss.synchronize()
+    assert len(copies) == 8 * 4 * 2
+    _plain_steps(plain, 8, wrap_pad)
+    got = ss.gather()[:, pad:]
+    assert torch.equal(got, copied_ss.gather()[:, pad:])
+    assert torch.equal(got, plain.gather()[:, pad:])
+    for a, b in zip(ss.shards, copied_ss.shards):
+        assert torch.equal(a.tots[:8], b.tots[:8])
+    np.testing.assert_allclose(ss.av_vels(1.0)[:8].cpu().numpy(),
+                               plain.av_vels(1.0)[:8].cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_seam_step_sums_tot_u_in_the_launch(cuda, axis):
+    """A seam step leaves scale * tot_u in ``out[t]``, summed in the
+    launch: held against torch.sum of the tiles' partials (rtol 1e-6),
+    the slots empty and the counter zero after every launch, so two
+    consecutive launches give the bits of two fresh kernels'."""
+    from lbm_tpu_torch.state import transpose_state
+
+    p, cells, mask = _case(264, 100, False, seed=5, perturbed=True)
+    c, m = torch.from_numpy(cells).to(cuda), torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c), m.T.contiguous()
+    h, nx = m.shape
+    rows = torch.arange(-1, h + 1) % h
+    halo_s, halo_n = c[:, rows[:1]], c[:, rows[-1:]]
+    args = (m, m[rows[:1]], m[rows[-1:]], p.accel_w1, p.accel_w2, p.omega,
+            0, h)
+
+    def fresh():
+        return fused.SeamStep(*args, axis=axis)
+
+    kernel = fresh()
+    out = torch.full((4,), -1.0, device=cuda)
+    before = fused.LAUNCHES["reduce"]
+    dst = torch.empty_like(c)
+    for t in (1, 2):  # the same input twice
+        kernel.run(c, dst, halo_s, halo_n, out, t, 0.5)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["reduce"] == before
+    assert out[0] == -1 and out[3] == -1 and out[1] == out[2]
+    words = kernel._scratch.view(torch.int32)[:kernel._partials.numel() + 1]
+    assert (words[:-1] == -1).all() and words[-1] == 0
+    np.testing.assert_allclose(float(out[1]),
+                               float(kernel._partials.sum() * 0.5), rtol=1e-6)
+    again = torch.empty_like(out)
+    fresh().run(c, torch.empty_like(c), halo_s, halo_n, again, 1, 0.5)
+    assert again[1] == out[1]
+    new, tots = fused.ref_ops.halo_multi_step(
+        c, halo_s, halo_n, m, args[1], args[2], 0, h, p.accel_w1, p.accel_w2,
+        p.omega, 1, axis)
+    assert torch.equal(dst, new)
+    np.testing.assert_allclose(float(out[1]), float(tots[0] * 0.5),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+def test_wrap_path_chunks_and_resumes_bit_for_bit(cuda, monkeypatch,
+                                                  tmp_path):
+    """A wall-less 128x126 scene over 4 shards on one card (the wrap
+    discipline: every step a one-step seam call): 60 steps chunked by 25,
+    and checkpointed at 30 and resumed, give the single-shot run's cells
+    and av_vels bit for bit."""
+    from lbm_tpu_torch.parallel import decomp, halo
+    from lbm_tpu_torch.runner import run_simulation
+
+    p, _, mask = _case(128, 126, False)
+    mesh = decomp.make_mesh(4, devices=[cuda] * 4)
+    sp = halo.plan_run(p, mask, mesh, "auto", 60)
+    assert sp.mode == "wrap" and [s.kernel for s in sp.segments] == ["step"]
+    base = run_simulation(p, mask, n_iters=60, mesh=mesh)
+    chunked = run_simulation(p, mask, n_iters=60, mesh=mesh, chunk_iters=25)
+    ck = tmp_path / "ck.npz"
+    run_simulation(p, mask, n_iters=30, mesh=mesh, checkpoint_every=30,
+                   checkpoint_file=ck)
+    resumed = run_simulation(p, mask, n_iters=60, mesh=mesh, resume_from=ck)
+    for run in (chunked, resumed):
+        np.testing.assert_array_equal(run.cells, base.cells)
+        np.testing.assert_array_equal(run.av_vels, base.av_vels)
