@@ -21,7 +21,7 @@ printing JSON lines (any failure raises and exits non-zero):
              abs error 0; a step's tot_u the same bits at the first and at
              the last stage of a launch, and under D = 2 and D = 4) and the
              resident kernel for one call at G = 16 in both forms (the
-             on-chip form wherever a strip fits: cells max abs error 0),
+             on-chip form wherever a strip fits; cells max abs error 0),
              against n steps of the plain version, at 1024x1024 (scene
              mask), 128x128 (and an odd G = 5 there), a ragged 100x130
              wall-less mask, 16384x1024, 131072x128, 128x131072, 512x512
@@ -43,10 +43,12 @@ printing JSON lines (any failure raises and exits non-zero):
 5. scene   - the reference's 1024x1024 scene (20000 steps) through the
              port's CLI, once per plan: --kernel auto, the one-step
              kernel pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=1), the
-             resident kernel forced (LBM_RESIDENT=1) and a depth pinned
-             (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=...). Launch counts equal
-             the plan's, and each run is within the 0.3 % drift budget
-             of goldens/1024x1024.final_state.f64.npz;
+             resident kernel's device-memory form forced (LBM_RESIDENT=1
+             LBM_RESIDENT_FORM=device: its output files the same bytes as
+             auto's, D=4, whose per-step tots it shares bit for bit) and a
+             depth pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=...). Launch
+             counts equal the plan's, and each run is within the 0.3 %
+             drift budget of goldens/1024x1024.final_state.f64.npz;
 6. wide_gate - 131072x128 with the generator's walls and the scene's
              forcing, 500 steps, through the CLI under auto (the plan line
              says "transposed"), the one-step plan, the resident plan and
@@ -80,7 +82,12 @@ printing JSON lines (any failure raises and exits non-zero):
              small-grid floor), and both forms beside D=4 at 640x512,
              768x512, 1024x384, 600x600, 792x528 (the largest lattice whose
              strips fit), 1024x512, 768x768 and 1024x768 (the numbers
-             RESIDENT_AUTO_MAX_CELLS is set from);
+             RESIDENT_AUTO_MAX_CELLS is set from); then 4096x64 (a narrow
+             channel, row mode) and 1024x400 (a tall box, transposed,
+             column mode) as auto plans them, the plan asserted to be
+             "resident G=100 device-memory": 200 steps through the runner
+             with the plan's launches, and the planned kernel timed beside
+             D=4;
 10. shard_kernel - the sharded path's kernels, one call on every shard
              against the plain shard step (halo.ReferenceShardImpl) on
              the same inputs: the one-step kernel's seam mode, the depth
@@ -134,7 +141,7 @@ printing JSON lines (any failure raises and exits non-zero):
              at 1024x1024 (its launches are the probe kernels' counts in
              the kernels line);
 17. probe_timing - device ms per step of the three modes and of the
-             resident kernel (what forcing costs) at G = 100, in turns, at
+             resident kernel's device-memory form at G = 100, in turns, at
              1024x1024 (two 37.7 MB buffers, above the 50 MB L2), 512x512
              (in L2) and 16384x1024; the two streaming shares,
              (full - collide) / full and stream / full; the plain version;
@@ -228,7 +235,7 @@ TIMING_GRIDS = ("128x128", "256x256", "512x512", "1024x1024", "16384x1024")
 SCENE_PLANS = {
     "auto": {},
     "step": {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "1"},
-    "resident": {"LBM_RESIDENT": "1"},
+    "resident": {"LBM_RESIDENT": "1", "LBM_RESIDENT_FORM": "device"},
     "depth": {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
 }
 # The wide-grid path: the JAX package's wide stress grids (131072x128 and
@@ -258,6 +265,10 @@ ONCHIP_BLOCK_GRIDS = ("128x128", "256x256", "512x512", "1024x256")
 ONCHIP_BLOCKS = (32, 64, 128)
 CROSSOVER_GRIDS = ("640x512", "768x512", "1024x384", "600x600", "792x528",
                    "1024x512", "768x768", "1024x768")
+# Lattices under RESIDENT_AUTO_MAX_CELLS whose strips do not fit on chip:
+# auto runs them on the device-memory form (a narrow channel in row mode,
+# a tall box transposed, in column mode).
+AUTO_DEVICE_GRIDS = ("4096x64", "1024x400")
 
 
 def grid(name: str) -> tuple[int, int]:
@@ -354,9 +365,9 @@ def compare(torch, got, got_tots, want, want_tots):
 def check_depth(r, name, where):
     """What only the depth kernel's results hold: cells equal to the plain
     version's bit for bit, and a step's total independent of its stage
-    and of which of D = 2 and D = 4 ran it. The on-chip resident form's
-    cells too are the plain version's bit for bit."""
-    if name.startswith("resident_onchip"):
+    and of which of D = 2 and D = 4 ran it. Both resident forms' cells
+    too are the plain version's bit for bit."""
+    if name.startswith("resident"):
         check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
     if not name.startswith("depth"):
         return
@@ -675,6 +686,13 @@ def phase_scene(torch, np):
             # The single-shot run the resume phase holds its runs to.
             shutil.copy(av_file, SCENE_DIR / "auto_av_vels.dat")
             shutil.copy(fs_file, SCENE_DIR / "auto_final_state.dat")
+        elif label == "resident":
+            # The device-memory form's tots are the depth plan's bits.
+            check(av_file.read_bytes()
+                  == (SCENE_DIR / "auto_av_vels.dat").read_bytes()
+                  and fs_file.read_bytes()
+                  == (SCENE_DIR / "auto_final_state.dat").read_bytes(),
+                  "the resident plan's output files differ from auto's")
         reynolds = float(lines[1].split()[-1])
         compute = float(lines[3].split()[-2])
 
@@ -1198,7 +1216,65 @@ def phase_onchip_timing(torch):
         results[name] = out
         del cells, bufs, impls, calls
         torch.cuda.empty_cache()
+    for name in AUTO_DEVICE_GRIDS:
+        results[name] = auto_device_timing(torch, name)
     return results
+
+
+def auto_device_timing(torch, name):
+    """A lattice that auto runs on the device-memory form: its plan (the
+    form asserted), 200 steps through the runner with the plan's launches
+    and the plain version's cells, and the planned kernel's time beside
+    D=4 in the same layout, in turns."""
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.ops import fused, fused_depth, plan
+    from lbm_tpu_torch.ops import reference as ref_ops
+    from lbm_tpu_torch.state import initial_state
+
+    p = scene_params(name)
+    cells, mask = random_case(torch, name, p, seed=92, state="perturbed")
+    n = 2 * plan.G_PREF[0]
+    with env():
+        parts = runner.plan_run(p, "cuda", n, device="cuda")
+        axis = int(runner.plan_layout(p, "cuda"))
+        check(plan.describe(parts) == f"resident G=100 device-memory x{n // 100}",
+              f"{name} under auto plans {plan.describe(parts)}")
+        fused.reset_launches()
+        c, _ = runner.simulate(p, initial_state(p, "cuda"), mask,
+                               kernel="cuda", n_iters=n)
+        launches = dict(fused.LAUNCHES)
+        # The plain version in the run's layout (column mode on the
+        # transposed lattice rounds as the kernels there do).
+        c0, m0 = initial_state(p, "cuda"), mask
+        if axis:
+            c0, m0 = transposed(c0, mask)
+        want, _ = ref_ops.multi_step(c0, m0, p.accel_w1, p.accel_w2, p.omega,
+                                     n, axis)
+        if axis:
+            want = transposed(want, m0)[0]
+        err = float((c - want).abs().max())
+        check(launches == expected_launches(parts, cols=bool(axis)),
+              f"{name}: launches {launches}")
+        check(err == 0.0, f"{name}: cells != plain ({err})")
+        if axis:
+            cells, mask = transposed(cells, mask)
+        w = (mask, p.accel_w1, p.accel_w2, p.omega)
+        impls = {"planned": runner._make_impl(parts[0], mask, *w[1:], axis),
+                 "depth D=4": fused_depth.FusedDepth(*w, 4, axis)}
+    bufs = [cells, torch.empty_like(cells)]
+    av = torch.zeros(100, device="cuda")
+    loop, dev = time_turns(torch, {
+        label: (runner_call(impl, bufs, av), impl.steps_per_call, None)
+        for label, impl in impls.items()})
+    med = {k: statistics.median(v) for k, v in dev.items()}
+    out = {"phase": "onchip_timing", "grid": name, "plan":
+           plan.describe(parts), "layout": "transposed" if axis else
+           "physical", "launches": {k: v for k, v in launches.items() if v},
+           "max_abs_err_vs_plain": err, "loop_ms_per_step": loop,
+           "device_ms_per_step": dev,
+           "planned_over_depth4": med["planned"] / med["depth D=4"]}
+    emit(out)
+    return out
 
 
 # The sharded path: P shards on one card (a mesh that repeats the device),
@@ -1776,8 +1852,9 @@ def phase_probe_path(torch):
 
 
 def phase_probe_timing(torch):
-    """Device ms per step of the probe's modes and of the resident kernel
-    (the full mode plus forcing) at G = PROBE_TIMING_G, in turns; the two
+    """Device ms per step of the probe's modes and of the resident kernel's
+    device-memory form (rounds of depth tiles: the ratio to full is no
+    longer forcing alone) at G = PROBE_TIMING_G, in turns; the two
     streaming shares; the plain version at 1024x1024."""
     from lbm_tpu_torch.ops import probe, resident
     from lbm_tpu_torch.ops import reference as ref_ops
@@ -2245,6 +2322,7 @@ def main() -> int:
 
     # Fails here, before any output, when the package is not beside this
     # script.
+    from lbm_tpu_torch.ops import resident
     from lbm_tpu_torch.profiling import bound, design_ceiling
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2361,6 +2439,12 @@ def main() -> int:
     whalo_bytes = lambda k: N_SHARDS * 2 * k * wny * 37
     on_wide = f"{WIDE} (transposed)"
     wide_sharded = f"{WIDE} over {N_SHARDS} shards on one card (x-plan)"
+    # The device-memory form's rounds at G=100: one pass over the lattice
+    # a round is its design's ceiling.
+    g_rounds = resident.device_rounds(100)
+    per_pass = 100 / len(g_rounds)
+    rounds = "+".join(f"{g_rounds.count(d)}x{d}" for d in (4, 2, 1)
+                      if d in g_rounds)
     pt = probe_timing[SCENE]
     pdev = {k: statistics.median(v) for k, v in pt["device_ms_per_step"].items()}
     # The stream mode reads no mask (72 B a cell) and adds once a cell (its
@@ -2388,10 +2472,12 @@ def main() -> int:
                      epilogue_sum_abs_err=t["epilogue_abs_err"]),
         kernel_entry("resident", "lbm_tpu_torch/csrc/resident.cu",
                      "lbm_tpu/ops/pallas_resident.py:74", runs["resident"],
-                     f"{on_scene}, resident plan (G=100)", worst["resident"],
+                     f"{on_scene}, LBM_RESIDENT=1 LBM_RESIDENT_FORM=device "
+                     f"(G=100, rounds {rounds})", worst["resident"],
                      dev["resident G=100"], plain,
                      bound(cells, 100),
-                     ceiling=design_ceiling(cells, 100)),
+                     ceiling=design_ceiling(cells, 100,
+                                            steps_per_pass=per_pass)),
         kernel_entry("resident_onchip", "lbm_tpu_torch/csrc/resident_onchip.cu",
                      "lbm_tpu/ops/pallas_resident.py:74",
                      runs["resident_onchip"],
@@ -2443,7 +2529,8 @@ def main() -> int:
                      wide_worst["resident"], wdev["transposed resident G=100"],
                      wt["plain_transposed_device_ms_per_step"],
                      bound(wcells, 100),
-                     ceiling=design_ceiling(wcells, 100)),
+                     ceiling=design_ceiling(wcells, 100,
+                                            steps_per_pass=per_pass)),
         kernel_entry("fused_step_seam_cols", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:358",
                      runs["fused_step_seam_cols"], f"{wide_sharded}, one-step "

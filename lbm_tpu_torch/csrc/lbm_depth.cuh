@@ -1,13 +1,15 @@
 // The depth kernel's tile (fused_depth.cu): D D2Q9 BGK steps of a 32 x TY
 // tile of the lattice on a window of all nine speeds and the mask in
 // dynamic shared memory. Shared by the depth kernel, one block a tile, and
-// the ring (ring.cu), whose persistent blocks run many tiles a launch:
-// both give a cell and a step's per-tile partial the same bits.
+// the ring (ring.cu) and the device-memory resident form (resident.cu),
+// whose persistent blocks run many tiles a launch: all give a cell and a
+// step's per-tile partial the same bits.
 // fused_depth.cu's header comment describes the window, the threads and
 // the stages.
 
 #pragma once
 
+#include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
 
@@ -69,8 +71,9 @@ __device__ __forceinline__ void store_vec(uint8_t* p, const uint8_t (&v)[V]) {
     Vec<V>::pack(v, *reinterpret_cast<typename Vec<V>::M*>(p));
 }
 
-// The tile and window of depth D. D = 2 and D = 4 share TX, TY and HX
-// (and with them the thread of every owned cell).
+// The tile and window of depth D. D = 1, 2 and 4 share TX, TY and HX
+// (and with them the thread of every owned cell; D = 1 runs only in
+// resident.cu).
 template <int D, int V>
 struct Geo {
     static constexpr int TX = 32;
@@ -120,6 +123,22 @@ struct Args {
     bool vec;
     Halo halo;
 };
+
+// Opt a kernel of depth-kernel blocks (ring.cu, resident.cu) into the
+// card's limit of dynamic shared memory, less its static shared memory.
+// The attribute is the function's, shared by every launch of it: set to
+// one launch's size it would make another's larger launch fail.
+inline cudaError_t depth_opt_in(const void* fn, int device) {
+    int optin = 0;
+    cudaError_t err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                optin - (int)attr.sharedSizeBytes);
+}
 
 // Tiles along x and in all of an ny x nx lattice at this depth, 0 where
 // the count is too large for the partials' index.

@@ -7,7 +7,7 @@
 // totals, built to split a step's time between its two halves:
 //
 //   full     pull streaming, then bounce-back and BGK collision (what
-//            resident.cu runs when no row is forced); total: the sum of
+//            the resident kernel runs when no row is forced); total: the sum of
 //            |u| over fluid cells;
 //   collide  the same update of each cell from its own nine speeds, no
 //            streaming (an obstacle bounces its own speeds); same total;
@@ -22,9 +22,10 @@
 // and full - collide) from the arithmetic of the collision (collide, whose
 // nine loads are aligned and coalesced).
 //
-// What bounds it: as resident.cu, 37 B read (36 in stream mode) and 36 B
-// written per cell and step, plus one grid-wide barrier per step. The
-// structure is resident.cu's, so that the times compare: a cooperative
+// What bounds it: 37 B read (36 in stream mode) and 36 B written per cell
+// and step, plus one grid-wide barrier per step: a pass a step, the
+// structure the device-memory resident form had before it stepped rounds
+// of depth tiles (PERF.md), so that the modes compare: a cooperative
 // launch of co-resident 32x8 blocks, a grid-stride loop over 32x8 tiles per
 // step, grid.sync(), per-step block partials reduced in a fixed
 // shared-memory tree and summed in a fixed order after the last barrier
@@ -48,14 +49,14 @@ namespace {
 constexpr int kBX = 32;
 constexpr int kBY = 8;
 constexpr int kThreads = kBX * kBY;
-constexpr int kMaxPerSm = 4;  // as resident.cu: the barrier's cost grows with blocks
+constexpr int kMaxPerSm = 4;  // the barrier's cost grows with blocks
 
 constexpr int kFull = 0;
 constexpr int kCollide = 1;
 constexpr int kStream = 2;
 
 // a, b and partials are written and then read by other blocks after a
-// grid.sync(), so they carry no __restrict__ (see resident.cu).
+// grid.sync(), so they carry no __restrict__.
 template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 probe_kernel(float* a, float* b, const uint8_t* __restrict__ mask,

@@ -1,40 +1,59 @@
-// G D2Q9 BGK timesteps per launch in one persistent kernel, on a CUDA
-// device (sm_90a).
+// G D2Q9 BGK timesteps per launch in one persistent kernel with the lattice
+// in device memory, on a CUDA device (sm_90a).
 //
 // Replaces the TPU kernel lbm_tpu/ops/pallas_resident.py::_kernel_resident
 // (launched by _pallas_resident): G whole timesteps per call, ping-ponging
 // between two lattice buffers, with a (G,) vector of per-step tot_u. On the
 // TPU the lattice lives in VMEM for the whole call. The H100 has nothing on
-// chip that large (50 MB of L2; 1024x1024 is 37.7 MB a buffer), so here the
-// two buffers stay in device memory (L2 keeps what fits) and what the
-// kernel removes is the host: one launch runs G steps, with no per-step
-// launch, reduce launch or host round trip.
+// chip that large (50 MB of L2; 1024x1024 is 37.7 MB a buffer); where a
+// block's strip of rows fits its shared memory, resident_onchip.cu holds
+// it there. This is the form for every other lattice: the two buffers stay
+// in device memory (L2 keeps what fits).
 //
-// What bounds it: each step still reads 37 B and writes 36 B per cell, as
-// fused_step.cu does, plus one grid-wide barrier per step. The design:
+// What bounds it: a form that stepped the lattice in device memory once a
+// step paid a pass over both buffers every step (73 B a cell, 1.35x its
+// ceiling of one pass a step at 1024x1024: the form this replaces,
+// PERF.md). This one steps up to 4 at a time in shared memory, as the
+// depth kernel does (fused_depth.cu, lbm_depth.cuh), so the lattice
+// crosses device memory once a round and what is left is the depth
+// kernel's stage loop, issue-bound, plus one grid barrier a round. The
+// design (each choice measured against the others named, PERF.md):
 //
-// - A cooperative launch (cudaLaunchCooperativeKernel) of exactly as many
-//   32x8 blocks as can be co-resident (occupancy x SMs, at most four an
-//   SM, capped at the number of 32x8 tiles), so cooperative_groups'
-//   grid.sync() is legal.
-// - Each step is a grid-stride loop over 32x8 tiles of lbm_cell.cuh
-//   updates from one buffer into the other, then grid.sync(). Step s reads
-//   a when s is even and b when odd: the result is in a after an even G,
-//   in b after an odd G.
-// - Column mode (kCols, the transposed lattice of a wide grid: lane_accel,
-//   lbm_tpu/ops/pallas_resident.py:123-139, 196-251): the column accel of
-//   every row is the forced line (lbm_cell.cuh), and the block count is
-//   coprime with the tile columns. Block b takes tiles b, b + blocks, ...;
-//   were the count a multiple of the tile columns (528 blocks over 8 at
-//   1024x256), every tile of the forced column would go to the same few
-//   blocks, which then hold each step's barrier back.
-// - Forcing needs no in-place pass: the shared cell code forces the pulled
-//   copy, as fused_step.cu does.
-// - Each block reduces its |u| per step in a fixed shared-memory tree into
-//   partials[s][block]. After the last barrier, block b sums the partials
-//   of steps b, b + gridDim.x, ... in a fixed order and writes
-//   scale * sum into out[s]. No float atomics, so repeat runs are
-//   bit-identical.
+// - One cooperative launch of depth-kernel blocks: the (TY + 2D) x (32 +
+//   2 HX) window of all nine speeds and the mask in dynamic shared memory,
+//   one thread a group of V cells, sized for D = 4, two blocks an SM, as
+//   many as can be co-resident and at most one a tile.
+// - Rounds of 4, 2 and 1 steps (ops/resident.py: device_rounds): as many
+//   of 4 as fit, and the count of rounds has G's parity, so the result is
+//   in a after an even G and in b after an odd one, as the on-chip form
+//   leaves it (G = 100: 24 rounds of 4, then 2 of 2). Round k reads a
+//   when k is even and b when odd and writes the other, through
+//   lbm_depth_tile, the periodic depth launch's own tile (windows wrap
+//   modulo the lattice). The three depths share the 32 x 24 tile and the
+//   40-wide window, so an owned cell sits in the same thread, warp and tile
+//   at every depth. After the round, one grid barrier (cooperative groups'
+//   grid sync; a counter-and-generation barrier was as fast or slower).
+// - The tiles of a round of 4 are inlined into the round loop, with the
+//   round's arguments in the kernel's __grid_constant__ parameters, so the
+//   stage loop reads them as constant-bank operands and keeps its
+//   registers (in row mode one copy of the round for each parity; a tile
+//   that is a call of its own, or reads its arguments from shared memory,
+//   lost 19-43 %). The rounds of 2 and 1 are calls of their own, and each
+//   association has a kernel of its own.
+// - Each block draws its tiles by ticket, one atomicAdd a tile, the next
+//   drawn while the current one runs: the tiles on the forced line and the
+//   obstacles cost more, and a fixed stride left blocks waiting at the
+//   barrier (in column mode the forced column's tiles bunch on the blocks
+//   a stride of 4 tile columns gives them; with the ticket a block count
+//   coprime with the tile columns gains nothing).
+// - Per-step tot_u: each (step, tile) gets the partial the periodic depth
+//   kernel gives it (the same thread, warp and tile map); after the last
+//   barrier the blocks sum each step's partials in tile order
+//   (lbm_reduce.cuh's lbm_sum_rows, as the depth kernel's epilogue does),
+//   so a step's tot has the bits of the depth plan's. No float atomics.
+// - Coherence: round k + 1 reads what other blocks wrote in round k, in
+//   the same launch. The buffers and the partials carry no __restrict__
+//   and go through no read-only load path; the barrier orders them.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/resident.py.
 
@@ -42,88 +61,136 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lbm_cell.cuh"
+#include "lbm_depth.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-constexpr int kThreads = kBX * kBY;
-constexpr int kMaxPerSm = 4;
+// One launch's arguments: round k steps args[k & 1] (src a, dst b after an
+// even number of rounds; src b, dst a after an odd one).
+struct Resident {
+    Args args[2];
+    float* partials;           // (gsteps, n_tiles) per-tile partials
+    unsigned* tickets;         // two tile tickets, by round parity
+    float* out;                // out[s] = scale * tot_u of step s
+    int gsteps, rounds4, rounds2, rounds1;
+    float scale;
+};
 
-// a, b and partials are written and then read by other blocks after a
-// grid.sync(), so they carry no __restrict__: that keeps the compiler off
-// the non-coherent read-only load path for them.
 template <bool kCols>
-__global__ void __launch_bounds__(kThreads)
-resident_kernel(float* a, float* b, const uint8_t* __restrict__ mask,
-                float* partials, float* __restrict__ out,
-                int ny, int nx, int accel, float w1, float w2,
-                float omega, int mode, int gsteps, float scale) {
-    cg::grid_group grid = cg::this_grid();
-    __shared__ float red[kThreads];
-    const int tid = threadIdx.y * kBX + threadIdx.x;
-    const int tiles_x = (nx + kBX - 1) / kBX;
-    const int n_tiles = tiles_x * ((ny + kBY - 1) / kBY);
-    const size_t plane = (size_t)ny * (size_t)nx;
-    auto solid = [&](size_t o) { return mask[o] != 0; };
+using Block = Geo<4, kCellsPerThread<kCols>>;
 
-    for (int s = 0; s < gsteps; ++s) {
-        const float* src = (s & 1) ? b : a;
-        float* dst = (s & 1) ? a : b;
-        auto ld = [&](int k, size_t o) { return src[k * plane + o]; };
-        float acc = 0.0f;
-        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-            const int i = (tile % tiles_x) * kBX + threadIdx.x;
-            const int j = (tile / tiles_x) * kBY + threadIdx.y;
-            if (i >= nx || j >= ny) continue;
-            const int jm = (j == 0) ? ny - 1 : j - 1;
-            const int jp = (j == ny - 1) ? 0 : j + 1;
-            const int iw = (i == 0) ? nx - 1 : i - 1;
-            const int ie = (i == nx - 1) ? 0 : i + 1;
-            const size_t rj = (size_t)j * nx;
-            float cell[9];
-            const bool f0 = kCols ? i == accel : j == accel;
-            const bool f1 = kCols ? iw == accel : jm == accel;
-            const bool f2 = kCols ? ie == accel : jp == accel;
-            acc += lbm_cell_update<kCols, size_t>(
-                ld, solid, rj, (size_t)jm * nx, (size_t)jp * nx, (size_t)i,
-                (size_t)iw, (size_t)ie, f0, f1, f2, w1, w2, omega, mode, cell);
-#pragma unroll
-            for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = cell[k];
-        }
-        red[tid] = acc;
-        lbm_tree_sum<kThreads>(red, tid);
-        if (tid == 0) partials[(size_t)s * gridDim.x + blockIdx.x] = red[0];
-        grid.sync();
+// One round of D steps over every tile: the block draws its tiles by
+// ticket, one atomicAdd a tile, the next drawn before the current one runs.
+template <int D, bool kCols, int kMode>
+__device__ __forceinline__ void run_round(const Args& a, const Resident& r,
+                                          float* buf, float* part, int k) {
+    // A slot is written again only after every thread has read it: the
+    // draw two tiles on waits behind the next tile's barriers.
+    __shared__ int drawn[2];
+    const int tid = threadIdx.x, n = a.n_tiles;
+    unsigned* ticket = r.tickets + (k & 1);
+    if (tid == 0) drawn[0] = (int)atomicAdd(ticket, 1u);
+    __syncthreads();
+    int tile = drawn[0];
+    for (int i = 1; tile < n; ++i) {
+        int* next = &drawn[i & 1];
+        if (tid == 0) *next = (int)atomicAdd(ticket, 1u);
+        lbm_depth_tile<D, false, kCols, kMode>(a, buf, tile, part, (size_t)n);
+        tile = *next;
     }
+    // The other ticket was last drawn in round k - 1.
+    if (blockIdx.x == 0 && tid == 0) r.tickets[(k + 1) & 1] = 0;
+}
 
-    for (int s = blockIdx.x; s < gsteps; s += gridDim.x) {
-        float acc = 0.0f;
-        for (int p = tid; p < (int)gridDim.x; p += kThreads) {
-            acc += partials[(size_t)s * gridDim.x + p];
+// The rounds of 2 and 1 steps (at most three a launch) as calls of their
+// own: inlined, their stage loops crowd the registers of the round loop
+// and of the rounds of 4 (PERF.md).
+template <int D, bool kCols, int kMode>
+__device__ __noinline__ void round_call(const Args& a, const Resident& r,
+                                        float* buf, float* part, int k) {
+    run_round<D, kCols, kMode>(a, r, buf, part, k);
+}
+
+template <bool kCols, int kMode>
+__device__ __forceinline__ void round_of(int d, const Args& a,
+                                         const Resident& r, float* buf,
+                                         float* part, int k) {
+    if (d == 4) {
+        run_round<4, kCols, kMode>(a, r, buf, part, k);
+    } else if (d == 2) {
+        round_call<2, kCols, kMode>(a, r, buf, part, k);
+    } else {
+        round_call<1, kCols, kMode>(a, r, buf, part, k);
+    }
+}
+
+template <bool kCols, int kMode>
+__device__ __forceinline__ void resident_block(const Resident& r, float* buf) {
+    const int tid = threadIdx.x;
+    const int rounds = r.rounds4 + r.rounds2 + r.rounds1;
+    const int n = r.args[0].n_tiles;
+    int step = 0;
+    for (int k = 0; k < rounds; ++k) {
+        const int d = k < r.rounds4 ? 4 : k < r.rounds4 + r.rounds2 ? 2 : 1;
+        float* part = r.partials + (size_t)step * n;
+        if constexpr (kCols) {
+            round_of<kCols, kMode>(d, r.args[k & 1], r, buf, part, k);
+        } else if (k & 1) {
+            // Row mode: a copy of the round for each parity, whose
+            // arguments are then operands in the constant bank (PERF.md).
+            round_of<kCols, kMode>(d, r.args[1], r, buf, part, k);
+        } else {
+            round_of<kCols, kMode>(d, r.args[0], r, buf, part, k);
         }
-        red[tid] = acc;
-        lbm_tree_sum<kThreads>(red, tid);
-        if (tid == 0) out[s] = red[0] * scale;
+        cg::this_grid().sync();
+        step += d;
+    }
+    if (blockIdx.x == 0 && tid == 0) r.tickets[(rounds - 1) & 1] = 0;
+    // Each step's partials, summed in tile order: block b takes steps b,
+    // b + gridDim.x, ...
+    for (int s = blockIdx.x; s < r.gsteps; s += gridDim.x) {
+        lbm_sum_rows<1>(r.partials + (size_t)s * n, nullptr, n, r.scale,
+                        r.out + s, tid);
         __syncthreads();
     }
 }
 
-long long gcd(long long a, long long b) {
-    while (b) {
-        const long long t = a % b;
-        a = b;
-        b = t;
-    }
-    return a;
+// A kernel for each association: in one kernel that switched on it, the
+// three copies of the round loop spilled four times as much and ran 4-15 %
+// slower (PERF.md).
+template <bool kCols, int kMode>
+__global__ void __launch_bounds__(Block<kCols>::kThreads, 2)
+resident_kernel(const __grid_constant__ Resident r) {
+    extern __shared__ float4 smem[];
+    resident_block<kCols, kMode>(r, reinterpret_cast<float*>(smem));
 }
 
-const void* resident_fn(int axis) {
-    return axis ? (const void*)resident_kernel<true>
-                : (const void*)resident_kernel<false>;
+template <bool kCols>
+const void* kernel_of_mode(int mode) {
+    return mode == 1   ? (const void*)resident_kernel<kCols, 1>
+           : mode == 2 ? (const void*)resident_kernel<kCols, 2>
+                       : (const void*)resident_kernel<kCols, 0>;
+}
+
+// The kernel of an axis and association, its threads and its dynamic
+// shared memory.
+void resident_kernel_of(int axis, int mode, const void** fn, int* threads,
+                        size_t* bytes) {
+    if (axis) {
+        *fn = kernel_of_mode<true>(mode);
+        *threads = Block<true>::kThreads;
+        *bytes = Block<true>::kBytes;
+    } else {
+        *fn = kernel_of_mode<false>(mode);
+        *threads = Block<false>::kThreads;
+        *bytes = Block<false>::kBytes;
+    }
+}
+
+bool aligned(const void* p, uintptr_t bytes) {
+    return ((uintptr_t)p & (bytes - 1)) == 0;
 }
 
 }  // namespace
@@ -131,60 +198,93 @@ const void* resident_fn(int axis) {
 extern "C" {
 
 // Blocks of the cooperative launch on this device for an ny x nx lattice
-// in forcing mode axis (0 rows, 1 columns): as many as can be co-resident,
-// at most four an SM and one per 32x8 tile, and in column mode coprime
-// with the tile columns. Negative: a CUDA error code, negated (no
-// cooperative launch on this device is cudaErrorNotSupported).
+// in forcing mode axis (0 rows, 1 columns): as many as can be co-resident
+// with their shared memory, at most one a tile. Negative: a CUDA error
+// code, negated (no cooperative launch on this device is
+// cudaErrorNotSupported).
 int lbm_resident_blocks(int ny, int nx, int axis, int device) {
+    const void* fn;
+    int threads;
+    size_t bytes;
+    resident_kernel_of(axis, 0, &fn, &threads, &bytes);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return -(int)err;
     int coop = 0, sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (err != cudaSuccess) return -(int)err;
     if (!coop) return -(int)cudaErrorNotSupported;
+    err = depth_opt_in(fn, device);
+    if (err != cudaSuccess) return -(int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, resident_fn(axis), kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                        bytes);
     if (err != cudaSuccess) return -(int)err;
-    // At most kMaxPerSm blocks an SM: every block arrives at each step's
-    // grid barrier, and its cost grows with them. The column mode's 40
-    // registers would fit six (1.42x the row mode's time per step at
-    // 1024x256 on an H100, PERF.md); the row mode's 64 fit four.
-    if (per_sm > kMaxPerSm) per_sm = kMaxPerSm;
-    const long long tiles =
-        (long long)((nx + kBX - 1) / kBX) * ((ny + kBY - 1) / kBY);
+    int tiles_x, n_tiles;
+    depth_tiles(4, ny, nx, &tiles_x, &n_tiles);
+    if (n_tiles < 1) return -(int)cudaErrorInvalidValue;
     const long long blocks = (long long)per_sm * sms;
     if (blocks < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-    long long n = blocks < tiles ? blocks : tiles;
-    if (axis) {
-        // Coprime with the tile columns: the forced column's tiles spread
-        // over every block.
-        const long long tiles_x = (nx + kBX - 1) / kBX;
-        while (n > 1 && gcd(n, tiles_x) != 1) --n;
-    }
-    return (int)n;
+    return (int)(blocks < n_tiles ? blocks : n_tiles);
 }
 
-// gsteps steps ping-ponging a -> b -> a ...; the result is in a when gsteps
-// is even, in b when odd. partials holds gsteps * blocks floats, out
-// gsteps; out[s] = scale * step s's sum of fluid |u|. axis 0 forces row
-// accel, axis 1 (a transposed lattice) column accel; blocks comes from
-// lbm_resident_blocks for the same axis.
+// gsteps steps ping-ponging a -> b -> a ... in rounds4 rounds of 4 steps,
+// then rounds2 of 2, then rounds1 of 1 (ops/resident.py: device_rounds),
+// whose count has gsteps' parity: the result is in a when gsteps is even,
+// in b when odd. partials holds gsteps * n floats, n =
+// lbm_depth_num_partials(4, ny, nx); tickets two 32-bit words, zero before
+// the first launch (every launch leaves them so); out gets
+// gsteps values, out[s] = scale * step s's sum of fluid |u|. axis 0 forces
+// row accel, axis 1 (a transposed lattice) column accel; blocks comes from
+// lbm_resident_blocks for the same axis. A launch of more blocks than can
+// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
-                 float* out, int ny, int nx, int accel, float w1, float w2,
-                 float omega, int mode, int gsteps, float scale, int blocks,
-                 int axis, int device, void* stream) {
+                 unsigned* tickets, float* out, int ny, int nx, int accel,
+                 float w1, float w2, float omega, int mode, int gsteps,
+                 int rounds4, int rounds2, int rounds1, float scale,
+                 int blocks, int axis, int device, void* stream) {
+    if (gsteps < 1 || blocks < 1 || rounds4 < 0 || rounds2 < 0 ||
+        rounds1 < 0 || 4 * rounds4 + 2 * rounds2 + rounds1 != gsteps ||
+        (rounds4 + rounds2 + rounds1 - gsteps) % 2) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const void* fn;
+    int threads;
+    size_t bytes;
+    resident_kernel_of(axis, mode, &fn, &threads, &bytes);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    if (gsteps < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
-    void* args[] = {&a,    &b,  &mask, &partials, &out,  &ny,
-                    &nx,   &accel, &w1, &w2,      &omega, &mode,
-                    &gsteps, &scale};
-    err = cudaLaunchCooperativeKernel(resident_fn(axis), dim3(blocks),
-                                      dim3(kBX, kBY), args, 0,
-                                      (cudaStream_t)stream);
+    err = depth_opt_in(fn, device);
     if (err != cudaSuccess) return (int)err;
+    const Halo periodic{nullptr, nullptr, nullptr, nullptr, 0, 0, ny};
+    Resident r{};
+    r.args[0] = Args{a, b, mask, nullptr, 1.0f, nullptr, ny, nx, accel,
+                     w1, w2, omega, mode, 0, 0,
+                     nx % 4 == 0 && aligned(a, 16) && aligned(b, 16) &&
+                         aligned(mask, 4),
+                     periodic};
+    depth_tiles(4, ny, nx, &r.args[0].tiles_x, &r.args[0].n_tiles);
+    if (r.args[0].n_tiles < 1) return (int)cudaErrorInvalidValue;
+    r.args[1] = r.args[0];
+    r.args[1].src = b;
+    r.args[1].dst = a;
+    r.partials = partials;
+    r.tickets = tickets;
+    r.out = out;
+    r.gsteps = gsteps;
+    r.rounds4 = rounds4;
+    r.rounds2 = rounds2;
+    r.rounds1 = rounds1;
+    r.scale = scale;
+    void* args[] = {&r};
+    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args,
+                                      bytes, (cudaStream_t)stream);
+    if (err != cudaSuccess) {
+        // A refused launch never ran; its error is returned here and must
+        // not stay behind for the next launch's check.
+        cudaGetLastError();
+        return (int)err;
+    }
     return (int)cudaGetLastError();
 }
 

@@ -317,22 +317,6 @@ bool ring_kernel_of(int depth, int axis, const void** fn, int* threads,
     return true;
 }
 
-// Opt the kernel into the card's limit of dynamic shared memory, less its
-// static shared memory. The attribute is the function's, shared by every
-// launch of it: set to one launch's size it would make another's larger
-// launch fail.
-cudaError_t opt_in(const void* fn, int device) {
-    int optin = 0;
-    cudaError_t err = cudaDeviceGetAttribute(
-        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, fn);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                optin - (int)attr.sharedSizeBytes);
-}
-
 }  // namespace
 
 extern "C" {
@@ -355,7 +339,7 @@ int lbm_ring_blocks(int depth, int axis, int device) {
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
     if (err != cudaSuccess) return -(int)err;
     if (!coop) return -(int)cudaErrorNotSupported;
-    err = opt_in(fn, device);
+    err = depth_opt_in(fn, device);
     if (err != cudaSuccess) return -(int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return -(int)err;
@@ -402,7 +386,7 @@ int lbm_ring(const void* shards, int n_shards, int bps, int h, int nx,
     }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    err = opt_in(fn, device);
+    err = depth_opt_in(fn, device);
     if (err != cudaSuccess) return (int)err;
     Ring r{(const RingShard*)shards, bps, h, nx, ny_global,
            axis ? (nx - 2) % nx : (ny_global - 2) % ny_global,
@@ -417,7 +401,12 @@ int lbm_ring(const void* shards, int n_shards, int bps, int h, int nx,
     void* args[] = {&r};
     err = cudaLaunchCooperativeKernel(fn, dim3(n_shards * bps), dim3(threads),
                                       args, bytes, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) {
+        // A refused launch never ran; its error is returned here and must
+        // not stay behind for the next launch's check.
+        cudaGetLastError();
+        return (int)err;
+    }
     return (int)cudaGetLastError();
 }
 

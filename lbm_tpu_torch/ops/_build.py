@@ -61,9 +61,10 @@ _SIGNATURES = {
     "lbm_depth_num_partials": ([_c_int, _c_int, _c_int], _c_int),
     "lbm_depth_max_rows": ([_c_int], _c_int),
     "lbm_resident": (
-        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
-         _c_int, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int,
-         _c_float, _c_int, _c_int, _c_int, _c_void_p],
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+         _c_int, _c_int, _c_int, _c_float, _c_float, _c_float, _c_int,
+         _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
+         _c_void_p],
         _c_int,
     ),
     "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),

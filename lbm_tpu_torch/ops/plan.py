@@ -37,13 +37,16 @@ from lbm_tpu_torch.ops.fused_depth import DEPTHS
 # main + tail split at G=100.
 G_PREF = (100, 64, 50, 32, 20, 16)
 
-# Automatic choice, set from chip_smoke.py's timing phases on an NVIDIA
-# H100 80GB HBM3 at 700 W (PERF.md, "Where the time goes"). The resident
-# kernel removes the per-step launches. Its on-chip form (where a strip
-# fits, up to about 418K cells) beat the depth kernel at D=4 at every
-# lattice measured, and its device-memory form, one pass over both
-# buffers a step, beat D=4 up to RESIDENT_AUTO_MAX_CELLS and lost from
-# 1024x1024 (two 37.7 MB buffers) up. D=4 is the depth kernel's best at
+# Automatic choice, set from chip_smoke.py's timing phases and
+# scripts/resident_ab_torch.py on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, "Where the time goes"). The resident kernel removes the
+# per-step launches. Its on-chip form (where a strip fits, up to about
+# 418K cells) beat the depth kernel at D=4 at every lattice measured. Its
+# device-memory form, rounds of up to four steps on the depth kernel's
+# tiles, is 0.97-1.04x D=4 up to RESIDENT_AUTO_MAX_CELLS and 1.07-1.12x
+# above it in row mode (0.98x on the transposed 131072x128 and
+# 16384x1024): faster by 2 % nowhere above the limit, which stays where
+# the on-chip form's strips stop fitting. D=4 is the depth kernel's best at
 # 1024x1024 and 16384x1024, D=2 its next, and so on the transposed
 # 131072x128 too (D=8 about 1.37x D=4): the JAX package's D=8 preference
 # at 128 lanes, a TPU measurement, is not carried over.

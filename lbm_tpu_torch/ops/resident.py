@@ -9,7 +9,9 @@ size (:func:`.plan.resident_form`):
   of rows in shared memory for all G steps and trades its edge rows with
   its two neighbours through L2, under a flag per (direction, slot);
 - ``"device"`` (``csrc/resident.cu``): the lattice stays in device
-  memory, a grid-stride pass per step behind a grid barrier.
+  memory; the blocks step it in rounds of up to four steps on the depth
+  kernel's shared-memory tiles (``csrc/lbm_depth.cuh``), one grid barrier
+  a round (:func:`device_rounds`).
 
 A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`, whatever the form; a CUDA tensor launches
@@ -19,14 +21,15 @@ falls back to the other. Both ping-pong between the two buffers they are
 given, so the result is in the first after an even ``gsteps`` and in the
 second after an odd one; the CPU path keeps the same contract.
 :func:`resident_onchip_emulated` is the on-chip form's strips, halo slots
-and sums in plain PyTorch, for the CPU tests.
+and sums in plain PyTorch, :func:`resident_device_emulated` the device
+form's rounds, for the CPU tests.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lbm_tpu_torch.ops import _build, plan
+from lbm_tpu_torch.ops import _build, fused_depth, plan
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.ops.fused import LatticeKernel
 from lbm_tpu_torch.state import D2Q9
@@ -37,6 +40,28 @@ NORTH_SPEEDS = (2, 5, 6)
 SOUTH_SPEEDS = (4, 7, 8)
 # Tags restart from zero (flags zeroed) before they would pass 2**31.
 _TAG_LIMIT = 1 << 31
+
+
+def device_rounds(gsteps: int) -> list[int]:
+    """The steps of each round of the device form's launch of ``gsteps``
+    steps, in order: as many rounds of 4 as fit, then 2, then 1, with one
+    round of 4 (or, where there is none, of 2) split in two halves where
+    that is what gives the count of rounds the parity of ``gsteps``. Each
+    round moves the lattice from one buffer to the other, so the result
+    lands where the contract puts it: the first buffer after an even
+    ``gsteps``, the second after an odd one (100: 24 rounds of 4, then 2
+    of 2). The three depths share the depth kernel's tile and thread map,
+    so every step's tot_u has the bits of the depth plan's."""
+    if gsteps < 1:
+        raise ValueError(f"gsteps must be positive, got {gsteps}")
+    n4, rest = divmod(gsteps, 4)
+    n2, n1 = divmod(rest, 2)
+    if (n4 + n2 + n1 - gsteps) % 2:
+        if n4:
+            n4, n2 = n4 - 1, n2 + 2
+        else:
+            n2, n1 = n2 - 1, n1 + 2
+    return [4] * n4 + [2] * n2 + [1] * n1
 
 
 def device_limits(device) -> tuple[int, int]:
@@ -67,10 +92,12 @@ class Resident(LatticeKernel):
     scale)`` runs ``gsteps`` steps from ``a`` and returns ``(cells,
     spare)``: ``(a, b)`` for an even ``gsteps``, ``(b, a)`` for an odd
     one. ``form``: "onchip" or "device"; None takes
-    :func:`planned_form`. ``blocks``: the on-chip form's block count
-    (default :func:`.plan.onchip_blocks`). On a CUDA mask the launch
-    geometry is fixed at construction and the scratch (partials; on chip
-    also halo slots, flags and the ticket) allocated once."""
+    :func:`planned_form`. ``blocks``: the block count (default: the
+    on-chip form's :func:`.plan.onchip_blocks`; the device form's as many
+    as can be co-resident, at most one a tile); a device-form launch of
+    more than can be co-resident raises. On a CUDA mask the launch
+    geometry is fixed at construction and the scratch (partials and tile
+    tickets; on chip halo slots, flags and the ticket) allocated once."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, gsteps: int,
                  axis: int = 0, form: str | None = None,
@@ -91,13 +118,19 @@ class Resident(LatticeKernel):
         if self.form == "onchip":
             self._init_onchip(ny, nx, blocks)
             return
-        n = self._lib.lbm_resident_blocks(ny, nx, axis, self._index)
+        lib = self._lib
+        n = lib.lbm_resident_blocks(ny, nx, axis, self._index)
         if n < 0:
-            _build.check(self._lib, -n, "resident launch geometry")
-        self.blocks = n
+            _build.check(lib, -n, "resident launch geometry")
+        self.blocks = n if blocks is None else int(blocks)
+        if self.blocks < 1:
+            raise ValueError(f"{self.blocks} blocks")
+        self.rounds = device_rounds(self.gsteps)
         self._partials = torch.empty(
-            self.gsteps * n, dtype=torch.float32, device=self.device
-        )
+            self.gsteps * lib.lbm_depth_num_partials(4, ny, nx),
+            dtype=torch.float32, device=self.device)
+        # The tile tickets of even and odd rounds, zero between launches.
+        self._tickets = torch.zeros(2, dtype=torch.int32, device=self.device)
 
     def _init_onchip(self, ny: int, nx: int, blocks: int | None) -> None:
         lib = self._lib
@@ -157,12 +190,14 @@ class Resident(LatticeKernel):
             self._step_base += g
             self._launched("resident_onchip")
             return result
+        rounds = self.rounds
         _build.check(lib, lib.lbm_resident(
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
-            self._partials.data_ptr(), out.data_ptr() + 4 * t, ny, nx,
-            self.accel, self.w1, self.w2, self.omega, self.mode, g,
-            self._scale(scale), self.blocks, self.axis, self._index,
-            self._stream(),
+            self._partials.data_ptr(), self._tickets.data_ptr(),
+            out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1, self.w2,
+            self.omega, self.mode, g, rounds.count(4), rounds.count(2),
+            rounds.count(1), self._scale(scale), self.blocks, self.axis,
+            self._index, self._stream(),
         ), f"resident G={g} cooperative launch")
         self._launched("resident")
         return result
@@ -186,6 +221,24 @@ def resident_plain(cells, obstacles, w1, w2, omega, gsteps: int,
                    axis: int = 0):
     """The kernel's plain version: :func:`.reference.multi_step`."""
     return ref_ops.multi_step(cells, obstacles, w1, w2, omega, gsteps, axis)
+
+
+def resident_device_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
+                             axis: int = 0):
+    """The device form's rounds in plain PyTorch: each round of
+    :func:`device_rounds` is :func:`.fused_depth.fused_depth_emulated` at
+    that depth on the depth kernel's 32 x 24 tile and 40-wide window (the
+    kernel's tile at every depth, 1 included), its tots summed by tile in
+    tile order, as the kernel sums them. Returns ``(new_cells, tots)``;
+    cells are bit-identical to :func:`.reference.multi_step`, tots differ
+    from its by summation order."""
+    tots, c = [], cells
+    for d in device_rounds(gsteps):
+        c, t = fused_depth.fused_depth_emulated(
+            c, obstacles, w1, w2, omega, d, tile=fused_depth.TILES[4],
+            axis=axis, halo_x=fused_depth.HALO_X[4])
+        tots.append(t)
+    return c, torch.cat(tots)
 
 
 def strips(ny: int, blocks: int) -> list[tuple[int, int]]:

@@ -131,9 +131,10 @@ def design_ceiling(cells: int, steps_per_launch: int = 1, chip: str = "h100",
                    steps_per_pass: int = 1):
     """``(ms per step, "bytes" or "operations")``: the least time per step
     of a kernel that keeps the lattice in device memory between the passes
-    of a launch, a pass covering ``steps_per_pass`` steps (1: the resident
-    kernel's device-memory form, the probe; D: the ring, which steps D at
-    a time in shared memory, as ``roofline_report``'s ``steps_per_pass``).
+    of a launch, a pass covering ``steps_per_pass`` steps (1: the probe;
+    D: the ring and the resident kernel's device-memory form, which step D
+    at a time in shared memory, as ``roofline_report``'s
+    ``steps_per_pass``).
     Such a kernel passes over device memory once per pass whenever its
     working set, ``bytes_per_cell * cells`` (both buffers and the mask),
     exceeds the card's L2 cache; while it fits, the launch's bytes move

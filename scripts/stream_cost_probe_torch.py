@@ -3,8 +3,8 @@
 scripts/stream_cost_probe.py for the PyTorch/CUDA port.
 
 Three variants of the persistent G-steps-per-launch kernel
-(``lbm_tpu_torch/csrc/probe.cu``, the structure of ``csrc/resident.cu``
-without forcing) that differ only in the per-cell body:
+(``lbm_tpu_torch/csrc/probe.cu``: a pass over the lattice a step behind a
+grid barrier, without forcing) that differ only in the per-cell body:
 
 - ``full``     pull streaming + BGK collision (the production operation mix),
 - ``collide``  BGK collision of each cell's own speeds (streaming elided),

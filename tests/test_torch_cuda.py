@@ -105,8 +105,8 @@ def _set_mode(monkeypatch, mode):
 def test_many_step_kernel_matches_multi_step(cuda, grid, mode, kernel, steps,
                                               monkeypatch):
     """Each many-step kernel, the resident kernel in both forms
-    ("resident": the device-memory form; the on-chip form gives the
-    plain version's cells bit for bit)."""
+    ("resident": the device-memory form); both resident forms give the
+    plain version's cells bit for bit."""
     _set_mode(monkeypatch, mode)
     p, cells, mask = _case(grid, grid, True, seed=grid + steps, perturbed=True)
     c = torch.from_numpy(cells).to(cuda)
@@ -123,7 +123,7 @@ def test_many_step_kernel_matches_multi_step(cuda, grid, mode, kernel, steps,
     assert fused.LAUNCHES[kernel] == before[kernel] + 1
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=RTOL, atol=ATOL)
-    if kernel == "resident_onchip":
+    if kernel in ("resident", "resident_onchip"):
         assert torch.equal(got, want)
     np.testing.assert_allclose(got_tots.cpu().numpy(),
                                want_tots.cpu().numpy(), rtol=TOT_RTOL)
@@ -725,6 +725,89 @@ def test_auto_runs_small_lattices_on_chip(cuda, monkeypatch):
     assert torch.equal(c_on, c_dev)
     np.testing.assert_allclose(av_on.cpu().numpy(), av_dev.cpu().numpy(),
                                rtol=TRAJ_RTOL)
+
+
+# The resident kernel's device-memory form (csrc/resident.cu): rounds of
+# up to four steps on the depth kernel's tiles, a grid barrier a round.
+
+
+def _device_form_case(cuda, axis, seed):
+    """256x256 in row mode, or the transposed 512x128 in column mode (the
+    forced column 126 in a tile column of its own), perturbed."""
+    from lbm_tpu_torch.state import transpose_state
+
+    nx, ny = (512, 128) if axis else (256, 256)
+    p, cells, mask = _case(nx, ny, True, seed=seed, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c).contiguous(), m.T.contiguous()
+    return p, c, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+@pytest.mark.parametrize("g,depth", [(16, 4), (100, 4), (50, 2)],
+                         ids=["G16-D4", "G100-D4", "G50-D2"])
+def test_device_form_tots_are_the_depth_plans_bits(cuda, g, depth, axis,
+                                                   mode, monkeypatch):
+    """Where D divides G, one launch of the device form gives each step's
+    tot_u the bits of G / D depth launches (the same tile, thread and
+    warp map, the same sum), and their cells."""
+    _set_mode(monkeypatch, mode)
+    p, c, m = _device_form_case(cuda, axis, seed=g + axis)
+    w = (m, p.accel_w1, p.accel_w2, p.omega)
+    got, tots = resident.resident(c, *w, g, axis, form="device")
+    dep = fused_depth.FusedDepth(*w, depth, axis)
+    want, spare = c.clone(), torch.empty_like(c)
+    want_tots = torch.zeros(g, device=cuda)
+    for t in range(0, g, depth):
+        want, spare = dep.run(want, spare, want_tots, t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(tots, want_tots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,blocks", [(256, None), (256, 7), (1024, None)],
+                         ids=["256x256", "256x256-7-blocks", "1024x1024"])
+def test_device_form_200_rounds_keep_every_bit(cuda, grid, blocks):
+    """200 rounds of 4 steps in one launch on a perturbed state, every
+    round reading what other blocks wrote in the round before: the plain
+    version's cells bit for bit (a stale or non-coherent load of a
+    neighbour's rows would show), tots within the bound; with 7 blocks
+    each takes many tiles a round."""
+    p, cells, mask = _case(grid, grid, True, seed=3, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    args = (m, p.accel_w1, p.accel_w2, p.omega, 800)
+    kernel = resident.Resident(*args, form="device", blocks=blocks)
+    assert kernel.rounds == [4] * 200
+    bufs, out = [c.clone(), torch.empty_like(c)], torch.zeros(800, device=cuda)
+    before = fused.LAUNCHES["resident"]
+    bufs[:] = kernel.run(bufs[0], bufs[1], out)
+    want, want_tots = fused_depth.fused_depth_plain(c, *args)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["resident"] == before + 1
+    assert torch.equal(bufs[0], want)
+    np.testing.assert_allclose(out.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_device_form_blocks_that_cannot_be_co_resident_raise(cuda, axis):
+    """A cooperative launch of more blocks than the card holds at once is
+    refused; the wrapper raises and falls back to nothing."""
+    p, c, m = _device_form_case(cuda, axis, seed=1)
+    kernel = resident.Resident(m, p.accel_w1, p.accel_w2, p.omega, 16, axis,
+                               form="device", blocks=4096)
+    key = "resident" + ("_cols" if axis else "")
+    before = fused.LAUNCHES[key]
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        kernel.run(c.clone(), torch.empty_like(c), torch.zeros(16, device=cuda))
+    assert fused.LAUNCHES[key] == before
 
 
 # The one-step seam kernel: halos read in place on one card, tot_u summed

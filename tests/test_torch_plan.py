@@ -116,8 +116,9 @@ def test_depth_pins(pins):
 
 def test_automatic_choice_is_resident_small_and_depth_large(pins):
     """Resident up to RESIDENT_AUTO_MAX_CELLS (792x528, the largest
-    lattice whose strips fit on chip, where both resident forms beat D=4
-    on the H100), depth above."""
+    lattice whose strips fit on chip; the on-chip form beats D=4 there on
+    the H100 and the device-memory form is not 2 % faster above it),
+    depth above."""
     assert plan.RESIDENT_AUTO_MAX_CELLS == 792 * 528
     assert plan.resident_prefs(528, 792) == plan.G_PREF
     assert plan.resident_prefs(528, 793) is None
@@ -229,6 +230,29 @@ def test_resident_form_at_the_capacity_boundary():
     # Fewer SMs than rows: strips of two.
     assert plan.onchip_blocks(128, 2048, 64) == 64
     assert plan.resident_form(128, 2048, 64, H100[1]) == "device"
+
+
+@pytest.mark.parametrize("nx,ny,transposed,form", [
+    (4096, 64, False, "device"), (8192, 32, False, "device"),
+    (400, 1024, False, "device"), (1024, 400, True, "device"),
+    (3200, 128, True, "device"), (792, 528, False, "onchip")],
+    ids=["4096x64", "8192x32", "400x1024", "1024x400", "3200x128",
+         "792x528"])
+def test_auto_plans_narrow_and_tall_lattices_on_the_device_form(
+        pins, nx, ny, transposed, form):
+    """Under auto, on the H100's 132 SMs and 232448 B, narrow channels
+    and tall boxes up to RESIDENT_AUTO_MAX_CELLS whose strips do not fit
+    on chip take the resident kernel's device-memory form (on their
+    transposed rows and lanes where the layout rule transposes them);
+    792x528 fits on chip."""
+    p = Params(nx=nx, ny=ny, max_iters=100, reynolds_dim=10, density=0.1,
+               accel=0.005, omega=1.85)
+    t, rows, lanes = plan.layout(p)
+    assert t == transposed
+    f = plan.resident_form(rows, lanes, *H100)
+    assert f == form
+    assert plan.describe(plan.segments(rows, lanes, 100, f)) == \
+        f"resident G=100 {'device-memory' if form == 'device' else 'on-chip'} x1"
 
 
 def test_describe_names_the_form(pins):

@@ -4,7 +4,9 @@ the JAX package's ``_kernel_resident`` in interpret mode
 (``ResidentStep``), run as tests/test_resident.py runs it, with one row
 block and with several; the on-chip form's emulation (strips, halo slots
 by parity, fixed-order sums) against both, and a model of its flag
-protocol. The CUDA kernels themselves are compared with the plain
+protocol; the device-memory form's emulation (rounds of the depth
+kernel's tiles) against the depth kernel's emulation, the plain version
+and JAX. The CUDA kernels themselves are compared with the plain
 version on the card (tests/test_torch_cuda.py and chip_smoke.py).
 
 Tolerances: cells rtol 2e-5 / atol 5e-8 and tot rtol 1e-4, the repo's
@@ -21,7 +23,7 @@ from lbm_tpu.ops import pallas_fused as pf
 from lbm_tpu.ops.pallas_resident import ResidentStep
 from lbm_tpu.params import Params
 from lbm_tpu.state import initial_state, initial_state_np
-from lbm_tpu_torch.ops import fused, resident
+from lbm_tpu_torch.ops import fused, fused_depth, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 
 torch.set_num_threads(2)
@@ -134,6 +136,105 @@ def test_multi_step_is_n_fused_steps():
     assert torch.equal(got, c)
     with pytest.raises(ValueError, match="positive"):
         ref_ops.multi_step(c0, *args, 0)
+
+
+# The device-memory form's rounds (ops.resident.device_rounds,
+# resident_device_emulated).
+
+
+def test_device_rounds_keep_the_buffer_parity():
+    """As many rounds of 4 as fit; the count of rounds has G's parity (the
+    result lands in the first buffer after an even G), so one round of 4,
+    or of 2 where there is none, is split in two."""
+    want = {100: (24, 2, 0), 64: (16, 0, 0), 50: (11, 3, 0), 32: (8, 0, 0),
+            20: (4, 2, 0), 16: (4, 0, 0), 8: (2, 0, 0), 6: (1, 1, 0),
+            5: (0, 2, 1), 4: (0, 2, 0), 2: (0, 0, 2), 1: (0, 0, 1)}
+    for g, counts in want.items():
+        rounds = resident.device_rounds(g)
+        assert tuple(rounds.count(d) for d in (4, 2, 1)) == counts, g
+        assert rounds == sorted(rounds, reverse=True)
+    for g in range(1, 230):
+        rounds = resident.device_rounds(g)
+        assert sum(rounds) == g and len(rounds) % 2 == g % 2
+        assert rounds.count(1) <= 3 and rounds.count(2) <= 3
+    with pytest.raises(ValueError, match="positive"):
+        resident.device_rounds(0)
+
+
+def _device_case(kind, axis, seed):
+    """A perturbed state on a ragged lattice (24 and 32 divide neither
+    side) and its mask, ``kind`` "walls" or "wall-less" (random
+    obstacles, periodic both ways), the forced line failing the guard in
+    places; ``axis`` 1: a wide grid's transposed lattice."""
+    rows, lanes = (100, 40) if axis else (50, 70)
+    p = _params(rows, lanes, 8)
+    rng = np.random.default_rng(seed)
+    eq = initial_state_np(p)
+    c = (eq * (1 + 0.2 * (rng.random(eq.shape) - 0.5))).astype(np.float32)
+    if axis:
+        c[8, :, lanes - 2][rng.random(rows) < 0.3] = np.float32(p.accel_w2)
+    else:
+        c[6, rows - 2][rng.random(lanes) < 0.3] = np.float32(p.accel_w2)
+    mask = (generate_obstacles(lanes, rows) if kind == "walls"
+            else rng.random((rows, lanes)) < 0.15)
+    return p, torch.from_numpy(c), torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("g,depth", [(8, 4), (6, 2)], ids=["G8-D4", "G6-D2"])
+@pytest.mark.parametrize("kind", ["walls", "wall-less"])
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_device_emulation_is_the_depth_emulation_g_over_d_times(axis, kind,
+                                                                g, depth):
+    """Where D divides G, the device form's rounds give every bit of G / D
+    depth-kernel calls, in cells and in each step's tot (the depths share
+    the tile, so a step sums the same way whichever round runs it)."""
+    p, c0, mask = _device_case(kind, axis, seed=g + 10 * axis)
+    args = (mask, p.accel_w1, p.accel_w2, p.omega)
+    got, tots = resident.resident_device_emulated(c0, *args, g, axis=axis)
+    c, want_tots = c0, []
+    for _ in range(g // depth):
+        c, t = fused_depth.fused_depth_emulated(c, *args, depth, axis=axis)
+        want_tots.append(t)
+    assert torch.equal(got, c)
+    assert torch.equal(tots, torch.cat(want_tots))
+    want, _ = ref_ops.multi_step(c0, *args, g, axis)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("g", [5, 1])
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_device_emulation_of_an_odd_g(axis, g):
+    """An odd G ends on a one-step round: the plain version's cells bit
+    for bit, tots within the bound."""
+    p, c0, mask = _device_case("walls", axis, seed=g)
+    args = (mask, p.accel_w1, p.accel_w2, p.omega, g)
+    got, tots = resident.resident_device_emulated(c0, *args, axis=axis)
+    want, want_tots = ref_ops.multi_step(c0, *args, axis)
+    assert resident.device_rounds(g)[-1] == 1
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(tots.numpy(), want_tots.numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.parametrize("blocks", ["single-block", "multiblock"])
+def test_device_emulation_matches_resident_step(blocks, monkeypatch):
+    """The device form's rounds from rest against the JAX package's
+    ``_kernel_resident`` in interpret mode (``ResidentStep``), with one
+    of its row blocks per step and with several, as
+    tests/test_resident.py runs it."""
+    if blocks == "multiblock":
+        monkeypatch.setattr(pf, "_SLOT_BYTES", 8 * 9 * 64 * 4)
+        p = _params(32, 64, 6)
+        assert pf._pick_block_rows(p.ny, p.nx) == 8
+    else:
+        p = _params(32, 128, 8)
+    want, want_tots = _jax_resident(p, p.max_iters)
+    mask = torch.from_numpy(generate_obstacles(p.nx, p.ny))
+    got, tots = resident.resident_device_emulated(
+        torch.from_numpy(initial_state_np(p)), mask, p.accel_w1, p.accel_w2,
+        p.omega, p.max_iters)
+    np.testing.assert_allclose(got.numpy(), want, rtol=ONCHIP_RTOL, atol=ATOL)
+    np.testing.assert_allclose(tots.numpy(), want_tots, rtol=ONCHIP_RTOL)
 
 
 # The on-chip form's schedule (ops.resident.resident_onchip_emulated):
