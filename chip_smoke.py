@@ -131,12 +131,14 @@ printing JSON lines (any failure raises and exits non-zero):
              ring G=100), halo copies per call; the plain shard step of
              the x-plan at 131072x128.
 
-15. probe_kernel - the stream-cost probe (csrc/probe.cu) in its three
-             modes for one call at G = 16 against its plain version
-             (ops.reference.probe_multi_step) at 1024x1024, 128x128, a
-             ragged wall-less 100x130 and 16384x1024: cells max abs error
-             0; full mode's cells also equal the resident kernel's with
-             the forcing set to 0;
+15. probe_kernel - the stream-cost probe (csrc/probe.cu: the
+             device-memory resident form's rounds with the probe's stage
+             bodies) in its three modes for one call at G = 16 against its
+             plain version (ops.reference.probe_multi_step) at 1024x1024,
+             128x128, a ragged wall-less 100x130 and 16384x1024: cells max
+             abs error 0; full mode's cells also equal the resident
+             kernel's with the forcing set to 0, and its totals are the
+             bits of the device-memory form's with the forcing set to 0;
 16. probe_path - the probe's own path, scripts/stream_cost_probe_torch.py
              at 1024x1024 (its launches are the probe kernels' counts in
              the kernels line);
@@ -144,7 +146,8 @@ printing JSON lines (any failure raises and exits non-zero):
              resident kernel's device-memory form at G = 100, in turns, at
              1024x1024 (two 37.7 MB buffers, above the 50 MB L2), 512x512
              (in L2) and 16384x1024; the two streaming shares,
-             (full - collide) / full and stream / full; the plain version;
+             (full - collide) / full and stream / full; each mode's blocks
+             and rounds; the plain version;
 18. resume   - the 1024x1024 scene, 20000 steps, through the CLI in
              subprocesses: --chunk-iters 3002 (even, no multiple of D = 4;
              a 1988-step tail);
@@ -180,7 +183,8 @@ Then the kernels line (every kernel, row and column modes, the on-chip
 resident form and the probe's three, with its launches on its path,
 error against its plain version, time, plain time and bound; the
 ring's rows also its D, its loop time and a design ceiling of one pass
-over the lattice per round; the seam one-step rows their loop time and,
+over the lattice per round, the resident and probe rows that ceiling too
+(the probe's also its blocks); the seam one-step rows their loop time and,
 in row mode, the wrap path's device time), the nvidia-smi line, and a last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 before
 printing anything. ``--phases a,b`` (for development) runs only the named
@@ -1816,6 +1820,15 @@ def phase_probe_kernel(torch):
                         torch.equal(got, same))
                     check(res["full_equals_resident_without_forcing"],
                           f"probe full != resident with accel 0 at {name}")
+                    # The device-memory form, whose code full runs with no
+                    # forced line: the same bits in every step's total.
+                    _, dev_tots = resident.resident(
+                        cells, mask, 0.0, 0.0, p.omega, PROBE_G,
+                        form="device")
+                    res["full_tots_equal_device_form"] = bool(
+                        torch.equal(tots, dev_tots))
+                    check(res["full_tots_equal_device_form"],
+                          f"probe full tots != device form's at {name}")
                 del got, want
         emit({"phase": "probe_kernel", "grid": name, "mask": kind,
               "gsteps": PROBE_G, **res})
@@ -1878,8 +1891,18 @@ def phase_probe_timing(torch):
         loop, dev = time_turns(torch, calls)
         med = {k: statistics.median(v) for k, v in dev.items()}
         full = med["probe full"]
+        geometry = {m: {"blocks": k.blocks, "rounds": k.rounds}
+                    for m, k in kernels.items()}
+        check(all(v == geometry["full"] for v in geometry.values()),
+              f"probe modes launch different geometries at {name}")
         out = {"phase": "probe_timing", "grid": name, "gsteps": g,
                "buffer_mb": cells.numel() * 4 / 1e6,
+               "blocks": {m: v["blocks"] for m, v in geometry.items()},
+               "rounds": {m: "+".join(f"{v['rounds'].count(d)}x{d}"
+                                      for d in (4, 2, 1)
+                                      if d in v["rounds"])
+                          for m, v in geometry.items()},
+               "resident_blocks": res.blocks,
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "stream_share_subtractive": (full - med["probe collide"]) / full,
                "stream_share_direct": med["probe stream"] / full,
@@ -2447,10 +2470,9 @@ def main() -> int:
                       if d in g_rounds)
     pt = probe_timing[SCENE]
     pdev = {k: statistics.median(v) for k, v in pt["device_ms_per_step"].items()}
-    # The stream mode reads no mask (72 B a cell) and adds once a cell (its
-    # total).
-    probe_cost = {"full": {}, "collide": {},
-                  "stream": {"bytes_per_cell": 72, "ops_per_cell": 1}}
+    # Every mode's window loads the mask (73 B a cell); the stream mode
+    # adds once a cell (its total).
+    probe_cost = {"full": {}, "collide": {}, "stream": {"ops_per_cell": 1}}
     emit({"kernels": [
         kernel_entry("fused_step", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step"],
@@ -2554,17 +2576,20 @@ def main() -> int:
                      ceiling=design_ceiling(wcells, 100, steps_per_pass=wsr),
                      depth=wsr, loop_ms=wsloop["x-plan ring G=100"]),
         # The probe: its launches are the probe script's run; a launch
-        # moves the lattice once for its G steps. Like the resident kernel
-        # and the ring it keeps the lattice in device memory between its
-        # steps, which is what its design ceiling counts.
+        # moves the lattice once for its G steps. It runs the device-memory
+        # resident form's rounds, so one pass over the lattice a round is
+        # its design's ceiling, as that form's.
         *(kernel_entry(f"probe_{m}", "lbm_tpu_torch/csrc/probe.cu",
                        "scripts/stream_cost_probe.py:53", runs[f"probe_{m}"],
                        f"scripts/stream_cost_probe_torch.py at {SCENE} "
-                       f"(times: G={PROBE_TIMING_G})", probe_worst[m],
-                       pdev[f"probe {m}"], pt["plain_device_ms_per_step"][m],
+                       f"(times: G={PROBE_TIMING_G}, rounds {rounds})",
+                       probe_worst[m], pdev[f"probe {m}"],
+                       pt["plain_device_ms_per_step"][m],
                        bound(cells, PROBE_TIMING_G, **probe_cost[m]),
                        ceiling=design_ceiling(cells, PROBE_TIMING_G,
-                                              **probe_cost[m]))
+                                              steps_per_pass=per_pass,
+                                              **probe_cost[m]),
+                       blocks=pt["blocks"][m])
           for m in ("full", "collide", "stream")),
     ]})
     print(smi, flush=True)

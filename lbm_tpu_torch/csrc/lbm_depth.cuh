@@ -1,9 +1,9 @@
 // The depth kernel's tile (fused_depth.cu): D D2Q9 BGK steps of a 32 x TY
 // tile of the lattice on a window of all nine speeds and the mask in
 // dynamic shared memory. Shared by the depth kernel, one block a tile, and
-// the ring (ring.cu) and the device-memory resident form (resident.cu),
-// whose persistent blocks run many tiles a launch: all give a cell and a
-// step's per-tile partial the same bits.
+// the ring (ring.cu), the device-memory resident form (resident.cu) and the
+// stream-cost probe (probe.cu), whose persistent blocks run many tiles a
+// launch: all give a cell and a step's per-tile partial the same bits.
 // fused_depth.cu's header comment describes the window, the threads and
 // the stages.
 
@@ -170,8 +170,24 @@ __device__ __forceinline__ constexpr int pull_tag(int k) {
          : k == 5 ? 4 : k == 6 ? 5 : k == 7 ? 8 : 7;
 }
 
+// The stage body of a tile, a compile-time parameter: the step every
+// kernel runs, and the two variants of it that the stream-cost probe
+// (probe.cu) times under the same window load, stages, barriers, partials
+// and stores.
+//   kStageFull     pull streaming, forcing of the copies pulled from the
+//                  forced line, bounce-back, BGK; partial: owned fluid |u|;
+//   kStageCollide  bounce-back and BGK of each cell's own nine speeds, read
+//                  at its own window site (no streaming, no forced line);
+//                  the same partial;
+//   kStageStream   the pulled speeds copied through (no collision, the
+//                  mask unread); partial: speed 0 of every owned cell.
+constexpr int kStageFull = 0;
+constexpr int kStageCollide = 1;
+constexpr int kStageStream = 2;
+
 // One tile's D stages for a compile-time association kMode (lbm_cell.cuh's
-// mode: the update's branches on it fold away): load the tile's window
+// mode: the update's branches on it fold away) and stage body kStage
+// (kStageFull everywhere but in the probe): load the tile's window
 // from a.src (rows outside the lattice from a.halo in seam mode), run the
 // stages in shared memory, store the tile into a.dst, and store the
 // tile's partial of stage s (its owned fluid cells' |u|, summed by thread,
@@ -179,7 +195,8 @@ __device__ __forceinline__ constexpr int pull_tag(int k) {
 // of the block calls it; the block may call it again for another tile
 // right away (the window's last reads are behind the last stage's
 // barrier). buf_a: the window's dynamic shared memory, Geo<D, V>::kBytes.
-template <int D, bool kSeam, bool kCols, int kMode>
+template <int D, bool kSeam, bool kCols, int kMode,
+          int kStage = kStageFull>
 __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
                                                int tile, float* rows,
                                                size_t row_stride) {
@@ -304,14 +321,21 @@ __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
             // 3 from the cell's row, 2, 5, 6 from the row below, 4, 7, 8
             // from the row above.
             float q[9][kV];
+            if constexpr (kStage == kStageCollide) {
+                // No streaming: each speed's quad from the cell's own row.
 #pragma unroll
-            for (int k = 0; k < 9; ++k) {
-                const int dr = (k == 2 || k == 5 || k == 6) ? -WW
-                             : (k == 4 || k == 7 || k == 8) ? WW : 0;
-                load_vec(at + k * WC + dr, q[k]);
+                for (int k = 0; k < 9; ++k) load_vec(at + k * WC, q[k]);
+            } else {
+#pragma unroll
+                for (int k = 0; k < 9; ++k) {
+                    const int dr = (k == 2 || k == 5 || k == 6) ? -WW
+                                 : (k == 4 || k == 7 || k == 8) ? WW : 0;
+                    load_vec(at + k * WC + dr, q[k]);
+                }
             }
             // Speeds 1, 5, 8 are pulled from x - 1, speeds 3, 6, 7 from
-            // x + 1: one more float each.
+            // x + 1: one more float each (the collide body reads none, and
+            // the stream body no mask: the compiler drops unread loads).
             const float e1 = at[1 * WC - 1];
             const float e5 = at[5 * WC - WW - 1];
             const float e8 = at[8 * WC + WW - 1];
@@ -323,6 +347,22 @@ __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
             float o[9][kV];
 #pragma unroll
             for (int i = 0; i < kV; ++i) {
+                if constexpr (kStage == kStageCollide) {
+                    // The cell's own nine speeds and obstacle flag; no
+                    // forced line, so the update reads nothing else.
+                    float v[9], out[9];
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) v[k] = q[k][i];
+                    const bool solid0 = m[i] != 0;
+                    const float um = lbm_cell_update<kCols, int>(
+                        [&](int k, int) { return v[k]; },
+                        [&](int) { return solid0; }, 0, 0, 0, 0, 0, 0,
+                        false, false, false, w1, w2, omega, kMode, out);
+                    if ((own >> i) & 1u) acc += um;
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) o[k][i] = out[k];
+                    continue;
+                }
                 // The nine speeds cell i pulls, by speed.
                 const int iw = i == 0 ? 0 : i - 1;
                 const int ie = i == kV - 1 ? 0 : i + 1;
@@ -336,6 +376,12 @@ __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
                     i == kV - 1 ? e6 : q[6][ie],
                     i == kV - 1 ? e7 : q[7][ie],
                     i == 0 ? e8 : q[8][iw]};
+                if constexpr (kStage == kStageStream) {
+                    if ((own >> i) & 1u) acc += v[0];
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) o[k][i] = v[k];
+                    continue;
+                }
                 const bool solid0 = m[i] != 0;
                 auto ld = [&](int k, Site t) -> float {
                     return t.tag == pull_tag(k) ? v[k]

@@ -4,136 +4,78 @@
 // Replaces the TPU kernel scripts/stream_cost_probe.py::_probe_call: the
 // resident stepping kernel without forcing, periodic in both directions,
 // ping-ponging between two lattice buffers, with a (G,) vector of per-step
-// totals, built to split a step's time between its two halves:
+// totals, built to split a step's time between its two halves under an
+// identical memory and loop structure, its modes differing only in the
+// per-block stage body:
 //
 //   full     pull streaming, then bounce-back and BGK collision (what
-//            the resident kernel runs when no row is forced); total: the sum of
-//            |u| over fluid cells;
+//            the resident kernel runs when no row is forced); total: the
+//            sum of |u| over fluid cells;
 //   collide  the same update of each cell from its own nine speeds, no
 //            streaming (an obstacle bounces its own speeds); same total;
-//   stream   the pulled speeds copied through, no collision, the mask
-//            unread; total: the sum of speed 0 over all cells.
+//   stream   the pulled speeds copied through, no collision; total: the
+//            sum of speed 0 over all cells.
 //
 // collide and stream are wrong physics on purpose (values stay bounded:
-// relaxation converges, streaming permutes). On the TPU the three differ
-// in vector operations on a lattice held in VMEM. Here the lattice stays
-// in device memory (L2 keeps what fits), so what the modes separate is the
-// eight shifted, partly unaligned plane loads of pull streaming (stream,
-// and full - collide) from the arithmetic of the collision (collide, whose
-// nine loads are aligned and coalesced).
+// relaxation converges, streaming permutes).
 //
-// What bounds it: 37 B read (36 in stream mode) and 36 B written per cell
-// and step, plus one grid-wide barrier per step: a pass a step, the
-// structure the device-memory resident form had before it stepped rounds
-// of depth tiles (PERF.md), so that the modes compare: a cooperative
-// launch of co-resident 32x8 blocks, a grid-stride loop over 32x8 tiles per
-// step, grid.sync(), per-step block partials reduced in a fixed
-// shared-memory tree and summed in a fixed order after the last barrier
-// (no float atomics: repeat runs are bit-identical). The mode is a template
-// parameter: the three kernels differ only in the per-cell body, and full
-// and collide are lbm_cell.cuh's update, called with no forced line and,
-// for collide, with every neighbour index the cell's own.
+// The structure is the device-memory resident form's (resident.cu, whose
+// header comment gives the design): a cooperative launch of depth-kernel
+// blocks runs lbm_rounds.cuh's round loop, rounds of 4, 2 and 1 steps on
+// the depth kernel's tiles drawn by ticket, one grid barrier a round, each
+// step's partials summed in tile order after the last round. The stage body
+// is lbm_depth_tile's kStage (lbm_depth.cuh): the window load of all nine
+// speeds and the mask, the shrinking stages, the one barrier a stage, the
+// owned-cell partials and the tile's store are the same in every mode, so
+// what the modes separate is the stage loop's work: the shifted quads and
+// edge floats of pull streaming (stream, and full - collide) and the
+// arithmetic of the collision (collide). full is resident_kernel's code
+// with no forced line (accel -1), so its cells and totals are the bits of
+// the resident kernel's device-memory form with the forcing set to 0.
+//
+// What bounds it: as the resident form, 73 B a cell a launch over the card's
+// memory rate, or its operations (90 a cell and step; stream mode one
+// addition), whichever is larger; its design reaches one pass over device
+// memory a round once both buffers and the mask outgrow the L2.
+//
+// Row mode only (the TPU probe has no lane mode). full and collide have a
+// kernel per association, as the resident form has; stream has none. All
+// seven kernels take the launch bounds of two blocks an SM, so the three
+// modes launch the same block count from the same occupancy query.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/probe.py.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lbm_cell.cuh"
-
-namespace cg = cooperative_groups;
+#include "lbm_rounds.cuh"
 
 namespace {
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-constexpr int kThreads = kBX * kBY;
-constexpr int kMaxPerSm = 4;  // the barrier's cost grows with blocks
+using ProbeBlock = Block<false>;
 
-constexpr int kFull = 0;
-constexpr int kCollide = 1;
-constexpr int kStream = 2;
-
-// a, b and partials are written and then read by other blocks after a
-// grid.sync(), so they carry no __restrict__.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-probe_kernel(float* a, float* b, const uint8_t* __restrict__ mask,
-             float* partials, float* __restrict__ out, int ny, int nx,
-             float omega, int assoc, int gsteps) {
-    cg::grid_group grid = cg::this_grid();
-    __shared__ float red[kThreads];
-    const int tid = threadIdx.y * kBX + threadIdx.x;
-    const int tiles_x = (nx + kBX - 1) / kBX;
-    const int n_tiles = tiles_x * ((ny + kBY - 1) / kBY);
-    const size_t plane = (size_t)ny * (size_t)nx;
-    auto solid = [&](size_t o) { return mask[o] != 0; };
-
-    for (int s = 0; s < gsteps; ++s) {
-        const float* src = (s & 1) ? b : a;
-        float* dst = (s & 1) ? a : b;
-        auto ld = [&](int k, size_t o) { return src[k * plane + o]; };
-        float acc = 0.0f;
-        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-            const int i = (tile % tiles_x) * kBX + threadIdx.x;
-            const int j = (tile / tiles_x) * kBY + threadIdx.y;
-            if (i >= nx || j >= ny) continue;
-            const size_t rc = (size_t)j * nx, ic = (size_t)i;
-            float cell[9];
-            if constexpr (kMode == kCollide) {
-                acc += lbm_cell_update<false, size_t>(
-                    ld, solid, rc, rc, rc, ic, ic, ic, false, false, false,
-                    0.0f, 0.0f, omega, assoc, cell);
-            } else {
-                const size_t rm = (size_t)((j == 0) ? ny - 1 : j - 1) * nx;
-                const size_t rp = (size_t)((j == ny - 1) ? 0 : j + 1) * nx;
-                const size_t iw = (size_t)((i == 0) ? nx - 1 : i - 1);
-                const size_t ie = (size_t)((i == nx - 1) ? 0 : i + 1);
-                if constexpr (kMode == kFull) {
-                    acc += lbm_cell_update<false, size_t>(
-                        ld, solid, rc, rm, rp, ic, iw, ie, false, false,
-                        false, 0.0f, 0.0f, omega, assoc, cell);
-                } else {
-                    // The pulls of lbm_cell_update, copied through.
-                    cell[0] = ld(0, rc + ic);
-                    cell[1] = ld(1, rc + iw);
-                    cell[2] = ld(2, rm + ic);
-                    cell[3] = ld(3, rc + ie);
-                    cell[4] = ld(4, rp + ic);
-                    cell[5] = ld(5, rm + iw);
-                    cell[6] = ld(6, rm + ie);
-                    cell[7] = ld(7, rp + ie);
-                    cell[8] = ld(8, rp + iw);
-                    acc += cell[0];
-                }
-            }
-#pragma unroll
-            for (int k = 0; k < 9; ++k) dst[k * plane + rc + ic] = cell[k];
-        }
-        red[tid] = acc;
-        lbm_tree_sum<kThreads>(red, tid);
-        if (tid == 0) partials[(size_t)s * gridDim.x + blockIdx.x] = red[0];
-        grid.sync();
-    }
-
-    for (int s = blockIdx.x; s < gsteps; s += gridDim.x) {
-        float acc = 0.0f;
-        for (int p = tid; p < (int)gridDim.x; p += kThreads) {
-            acc += partials[(size_t)s * gridDim.x + p];
-        }
-        red[tid] = acc;
-        lbm_tree_sum<kThreads>(red, tid);
-        if (tid == 0) out[s] = red[0];
-        __syncthreads();
-    }
+template <int kStage, int kMode>
+__global__ void __launch_bounds__(ProbeBlock::kThreads, 2)
+probe_kernel(const __grid_constant__ Resident r) {
+    extern __shared__ float4 smem[];
+    resident_block<false, kMode, kStage>(r, reinterpret_cast<float*>(smem));
 }
 
-const void* probe_fn(int probe_mode) {
+template <int kStage>
+const void* kernel_of_assoc(int assoc) {
+    return assoc == 1   ? (const void*)probe_kernel<kStage, 1>
+           : assoc == 2 ? (const void*)probe_kernel<kStage, 2>
+                        : (const void*)probe_kernel<kStage, 0>;
+}
+
+// The kernel of probe mode 0 (full), 1 (collide) or 2 (stream) and BGK
+// association assoc (lbm_cell.cuh's mode; stream has none); nullptr for an
+// unknown mode.
+const void* probe_fn(int probe_mode, int assoc) {
     switch (probe_mode) {
-        case kFull: return (const void*)probe_kernel<kFull>;
-        case kCollide: return (const void*)probe_kernel<kCollide>;
-        case kStream: return (const void*)probe_kernel<kStream>;
+        case kStageFull: return kernel_of_assoc<kStageFull>(assoc);
+        case kStageCollide: return kernel_of_assoc<kStageCollide>(assoc);
+        case kStageStream: return (const void*)probe_kernel<kStageStream, 0>;
         default: return nullptr;
     }
 }
@@ -144,49 +86,36 @@ extern "C" {
 
 // Blocks of the cooperative launch on this device for an ny x nx lattice
 // in probe mode 0 (full), 1 (collide) or 2 (stream): as many as can be
-// co-resident, at most four an SM and one per 32x8 tile. Negative: a CUDA
-// error code, negated.
+// co-resident with their shared memory, at most one a tile. Negative: a
+// CUDA error code, negated.
 int lbm_probe_blocks(int ny, int nx, int probe_mode, int device) {
-    const void* fn = probe_fn(probe_mode);
+    const void* fn = probe_fn(probe_mode, 0);
     if (fn == nullptr) return -(int)cudaErrorInvalidValue;
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return -(int)err;
-    int coop = 0, sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return -(int)err;
-    if (!coop) return -(int)cudaErrorNotSupported;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
-                                                        0);
-    if (err != cudaSuccess) return -(int)err;
-    if (per_sm > kMaxPerSm) per_sm = kMaxPerSm;
-    const long long tiles =
-        (long long)((nx + kBX - 1) / kBX) * ((ny + kBY - 1) / kBY);
-    const long long blocks = (long long)per_sm * sms;
-    if (blocks < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-    return (int)(blocks < tiles ? blocks : tiles);
+    return rounds_blocks(fn, ProbeBlock::kThreads, ProbeBlock::kBytes, ny,
+                         nx, device);
 }
 
-// gsteps (even) variant-steps ping-ponging a -> b -> a ...; the result is
-// in a. partials holds gsteps * blocks floats, out gsteps; out[s] is step
-// s's total. assoc is the BGK association (lbm_cell.cuh's mode); blocks
-// comes from lbm_probe_blocks for the same probe mode.
+// gsteps (even) variant-steps ping-ponging a -> b -> a ... in rounds4
+// rounds of 4, then rounds2 of 2, then rounds1 of 1 (ops/resident.py:
+// device_rounds); the result is in a. partials holds gsteps * n floats, n =
+// lbm_depth_num_partials(4, ny, nx); tickets two 32-bit words, zero before
+// the first launch (every launch leaves them so); out[s] is step s's total.
+// assoc is the BGK association (lbm_cell.cuh's mode); blocks comes from
+// lbm_probe_blocks. A launch of more blocks than can be co-resident is
+// refused (cudaErrorCooperativeLaunchTooLarge).
 int lbm_probe(float* a, float* b, const uint8_t* mask, float* partials,
-              float* out, int ny, int nx, float omega, int assoc, int gsteps,
+              unsigned* tickets, float* out, int ny, int nx, float omega,
+              int assoc, int gsteps, int rounds4, int rounds2, int rounds1,
               int probe_mode, int blocks, int device, void* stream) {
-    const void* fn = probe_fn(probe_mode);
-    if (fn == nullptr || gsteps < 2 || gsteps % 2 || blocks < 1) {
-        return (int)cudaErrorInvalidValue;
-    }
-    cudaError_t err = cudaSetDevice(device);
+    const void* fn = probe_fn(probe_mode, assoc);
+    if (fn == nullptr || gsteps % 2) return (int)cudaErrorInvalidValue;
+    Resident r;
+    const cudaError_t err = resident_args(
+        &r, a, b, mask, partials, tickets, out, ny, nx, -1, 0.0f, 0.0f,
+        omega, assoc, gsteps, rounds4, rounds2, rounds1, 1.0f);
     if (err != cudaSuccess) return (int)err;
-    void* args[] = {&a,  &b,  &mask,  &partials, &out,
-                    &ny, &nx, &omega, &assoc,    &gsteps};
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kBX, kBY), args,
-                                      0, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    return (int)launch_rounds(fn, ProbeBlock::kThreads, ProbeBlock::kBytes, r,
+                              blocks, device, stream);
 }
 
 }  // extern "C"

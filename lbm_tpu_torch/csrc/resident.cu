@@ -55,107 +55,17 @@
 //   the same launch. The buffers and the partials carry no __restrict__
 //   and go through no read-only load path; the barrier orders them.
 //
+// The round loop is lbm_rounds.cuh's, which the stream-cost probe
+// (probe.cu) runs around its own stage bodies.
+//
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/resident.py.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "lbm_depth.cuh"
-
-namespace cg = cooperative_groups;
+#include "lbm_rounds.cuh"
 
 namespace {
-
-// One launch's arguments: round k steps args[k & 1] (src a, dst b after an
-// even number of rounds; src b, dst a after an odd one).
-struct Resident {
-    Args args[2];
-    float* partials;           // (gsteps, n_tiles) per-tile partials
-    unsigned* tickets;         // two tile tickets, by round parity
-    float* out;                // out[s] = scale * tot_u of step s
-    int gsteps, rounds4, rounds2, rounds1;
-    float scale;
-};
-
-template <bool kCols>
-using Block = Geo<4, kCellsPerThread<kCols>>;
-
-// One round of D steps over every tile: the block draws its tiles by
-// ticket, one atomicAdd a tile, the next drawn before the current one runs.
-template <int D, bool kCols, int kMode>
-__device__ __forceinline__ void run_round(const Args& a, const Resident& r,
-                                          float* buf, float* part, int k) {
-    // A slot is written again only after every thread has read it: the
-    // draw two tiles on waits behind the next tile's barriers.
-    __shared__ int drawn[2];
-    const int tid = threadIdx.x, n = a.n_tiles;
-    unsigned* ticket = r.tickets + (k & 1);
-    if (tid == 0) drawn[0] = (int)atomicAdd(ticket, 1u);
-    __syncthreads();
-    int tile = drawn[0];
-    for (int i = 1; tile < n; ++i) {
-        int* next = &drawn[i & 1];
-        if (tid == 0) *next = (int)atomicAdd(ticket, 1u);
-        lbm_depth_tile<D, false, kCols, kMode>(a, buf, tile, part, (size_t)n);
-        tile = *next;
-    }
-    // The other ticket was last drawn in round k - 1.
-    if (blockIdx.x == 0 && tid == 0) r.tickets[(k + 1) & 1] = 0;
-}
-
-// The rounds of 2 and 1 steps (at most three a launch) as calls of their
-// own: inlined, their stage loops crowd the registers of the round loop
-// and of the rounds of 4 (PERF.md).
-template <int D, bool kCols, int kMode>
-__device__ __noinline__ void round_call(const Args& a, const Resident& r,
-                                        float* buf, float* part, int k) {
-    run_round<D, kCols, kMode>(a, r, buf, part, k);
-}
-
-template <bool kCols, int kMode>
-__device__ __forceinline__ void round_of(int d, const Args& a,
-                                         const Resident& r, float* buf,
-                                         float* part, int k) {
-    if (d == 4) {
-        run_round<4, kCols, kMode>(a, r, buf, part, k);
-    } else if (d == 2) {
-        round_call<2, kCols, kMode>(a, r, buf, part, k);
-    } else {
-        round_call<1, kCols, kMode>(a, r, buf, part, k);
-    }
-}
-
-template <bool kCols, int kMode>
-__device__ __forceinline__ void resident_block(const Resident& r, float* buf) {
-    const int tid = threadIdx.x;
-    const int rounds = r.rounds4 + r.rounds2 + r.rounds1;
-    const int n = r.args[0].n_tiles;
-    int step = 0;
-    for (int k = 0; k < rounds; ++k) {
-        const int d = k < r.rounds4 ? 4 : k < r.rounds4 + r.rounds2 ? 2 : 1;
-        float* part = r.partials + (size_t)step * n;
-        if constexpr (kCols) {
-            round_of<kCols, kMode>(d, r.args[k & 1], r, buf, part, k);
-        } else if (k & 1) {
-            // Row mode: a copy of the round for each parity, whose
-            // arguments are then operands in the constant bank (PERF.md).
-            round_of<kCols, kMode>(d, r.args[1], r, buf, part, k);
-        } else {
-            round_of<kCols, kMode>(d, r.args[0], r, buf, part, k);
-        }
-        cg::this_grid().sync();
-        step += d;
-    }
-    if (blockIdx.x == 0 && tid == 0) r.tickets[(rounds - 1) & 1] = 0;
-    // Each step's partials, summed in tile order: block b takes steps b,
-    // b + gridDim.x, ...
-    for (int s = blockIdx.x; s < r.gsteps; s += gridDim.x) {
-        lbm_sum_rows<1>(r.partials + (size_t)s * n, nullptr, n, r.scale,
-                        r.out + s, tid);
-        __syncthreads();
-    }
-}
 
 // A kernel for each association: in one kernel that switched on it, the
 // three copies of the round loop spilled four times as much and ran 4-15 %
@@ -189,10 +99,6 @@ void resident_kernel_of(int axis, int mode, const void** fn, int* threads,
     }
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-    return ((uintptr_t)p & (bytes - 1)) == 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -207,25 +113,7 @@ int lbm_resident_blocks(int ny, int nx, int axis, int device) {
     int threads;
     size_t bytes;
     resident_kernel_of(axis, 0, &fn, &threads, &bytes);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return -(int)err;
-    int coop = 0, sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-    if (err != cudaSuccess) return -(int)err;
-    if (!coop) return -(int)cudaErrorNotSupported;
-    err = depth_opt_in(fn, device);
-    if (err != cudaSuccess) return -(int)err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return -(int)err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
-                                                        bytes);
-    if (err != cudaSuccess) return -(int)err;
-    int tiles_x, n_tiles;
-    depth_tiles(4, ny, nx, &tiles_x, &n_tiles);
-    if (n_tiles < 1) return -(int)cudaErrorInvalidValue;
-    const long long blocks = (long long)per_sm * sms;
-    if (blocks < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
-    return (int)(blocks < n_tiles ? blocks : n_tiles);
+    return rounds_blocks(fn, threads, bytes, ny, nx, device);
 }
 
 // gsteps steps ping-ponging a -> b -> a ... in rounds4 rounds of 4 steps,
@@ -243,49 +131,16 @@ int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
                  float w1, float w2, float omega, int mode, int gsteps,
                  int rounds4, int rounds2, int rounds1, float scale,
                  int blocks, int axis, int device, void* stream) {
-    if (gsteps < 1 || blocks < 1 || rounds4 < 0 || rounds2 < 0 ||
-        rounds1 < 0 || 4 * rounds4 + 2 * rounds2 + rounds1 != gsteps ||
-        (rounds4 + rounds2 + rounds1 - gsteps) % 2) {
-        return (int)cudaErrorInvalidValue;
-    }
+    Resident r;
+    const cudaError_t err = resident_args(
+        &r, a, b, mask, partials, tickets, out, ny, nx, accel, w1, w2, omega,
+        mode, gsteps, rounds4, rounds2, rounds1, scale);
+    if (err != cudaSuccess) return (int)err;
     const void* fn;
     int threads;
     size_t bytes;
     resident_kernel_of(axis, mode, &fn, &threads, &bytes);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    err = depth_opt_in(fn, device);
-    if (err != cudaSuccess) return (int)err;
-    const Halo periodic{nullptr, nullptr, nullptr, nullptr, 0, 0, ny};
-    Resident r{};
-    r.args[0] = Args{a, b, mask, nullptr, 1.0f, nullptr, ny, nx, accel,
-                     w1, w2, omega, mode, 0, 0,
-                     nx % 4 == 0 && aligned(a, 16) && aligned(b, 16) &&
-                         aligned(mask, 4),
-                     periodic};
-    depth_tiles(4, ny, nx, &r.args[0].tiles_x, &r.args[0].n_tiles);
-    if (r.args[0].n_tiles < 1) return (int)cudaErrorInvalidValue;
-    r.args[1] = r.args[0];
-    r.args[1].src = b;
-    r.args[1].dst = a;
-    r.partials = partials;
-    r.tickets = tickets;
-    r.out = out;
-    r.gsteps = gsteps;
-    r.rounds4 = rounds4;
-    r.rounds2 = rounds2;
-    r.rounds1 = rounds1;
-    r.scale = scale;
-    void* args[] = {&r};
-    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args,
-                                      bytes, (cudaStream_t)stream);
-    if (err != cudaSuccess) {
-        // A refused launch never ran; its error is returned here and must
-        // not stay behind for the next launch's check.
-        cudaGetLastError();
-        return (int)err;
-    }
-    return (int)cudaGetLastError();
+    return (int)launch_rounds(fn, threads, bytes, r, blocks, device, stream);
 }
 
 }  // extern "C"

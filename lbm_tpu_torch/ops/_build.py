@@ -99,8 +99,9 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_probe": (
-        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
-         _c_int, _c_float, _c_int, _c_int, _c_int, _c_int, _c_int, _c_void_p],
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+         _c_int, _c_int, _c_float, _c_int, _c_int, _c_int, _c_int, _c_int,
+         _c_int, _c_int, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_probe_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),

@@ -152,7 +152,7 @@ def fused_depth_plain(cells, obstacles, w1, w2, omega, depth: int,
 
 def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
                          tile: tuple[int, int] | None = None, axis: int = 0,
-                         halo_x: int | None = None):
+                         halo_x: int | None = None, stage=None):
     """The depth kernel's tiling in plain PyTorch: for each ``(TY, TX)``
     tile (default :data:`TILES`), gather the periodic window of
     ``depth`` rows and ``halo_x`` columns (default :data:`HALO_X`) more on
@@ -168,7 +168,14 @@ def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
     step's total does not depend on its stage, nor on which of two
     depths that share a tile ran it. Returns ``(new_cells, tots)``; cells
     are bit-identical to :func:`.reference.multi_step`, tots differ from
-    its by summation order."""
+    its by summation order.
+
+    ``stage``: another stage body in place of the step's, as the tile's
+    ``kStage`` in ``csrc/lbm_depth.cuh`` (the stream-cost probe's,
+    :mod:`.probe`): ``stage(win, wmask)`` gives the (9, H-2, W-2) new
+    interior and the (H-2, W-2) values whose sum over the tile's in-grid
+    cells, obstacles included, is the stage's total; the forcing is not
+    applied."""
     ty, tx = TILES[depth] if tile is None else tile
     hx = HALO_X[depth] if halo_x is None else halo_x
     if hx < depth:
@@ -192,12 +199,17 @@ def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
             # The window's cells on the forced line (row or column flags).
             forced = ((rows == accel)[:, None] if axis == 0
                       else (cols == accel)[None, :]).expand(wmask.shape)
-            # Owned fluid cells: in the tile, in the grid, not an obstacle.
+            # Owned fluid cells: in the tile, in the grid, not an obstacle
+            # (any owned cell under another stage body).
             counted = torch.zeros((ty, tx), dtype=torch.bool)
-            counted[:hy, :wx] = ~wmask[own][:hy, :wx]
+            counted[:hy, :wx] = True if stage is not None \
+                else ~wmask[own][:hy, :wx]
             for s in range(depth):
-                inner, umag, _, _ = _stage(win, wmask, forced, deltas,
-                                           guards, omega)
+                if stage is None:
+                    inner, umag, _, _ = _stage(win, wmask, forced, deltas,
+                                               guards, omega)
+                else:
+                    inner, umag = stage(win, wmask)
                 # The stage's results inside a ring of garbage.
                 win = torch.full_like(win, float("nan"))
                 win[:, 1:-1, 1:-1] = inner

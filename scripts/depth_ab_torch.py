@@ -15,9 +15,12 @@ and, with ``--check``, one call of every depth and mode against
 ``ops.reference.multi_step`` (cells: max abs error; totals: relative
 error) and a step's total at the first and at the last stage of a launch
 (``stage_bits_equal``). ``--sass`` adds the opcode counts of the row-mode
-D = 4 kernel as ``cuobjdump -sass`` prints it (static counts: how many
-loads, stores, shuffles, barriers and arithmetic instructions the compiler
-emitted, and whether it spilled to local memory).
+D = 4 kernel, the device-memory resident form's row-mode kernel and the
+stream-cost probe's three modes (paired association) as ``cuobjdump
+-sass`` prints them (static counts: how many loads, stores, shuffles,
+barriers and arithmetic instructions the compiler emitted, and whether it
+spilled to local memory; the probe's modes differ only in the stage body,
+so their shared loads, ``LDS``, say what each body reads).
 
 To compare two checkouts on one card, run this script once per checkout
 in one job, in turns (parent, change, change, parent): ``--repo DIR``
@@ -129,27 +132,37 @@ def check_kernel(torch, cs, depths) -> dict:
     return out
 
 
+# The kernels --sass counts, by a part of their mangled names.
+SASS_KERNELS = {"fused_depth_kernel<4,0,0>": "fused_depth_kernelILi4ELb0ELb0",
+                "resident_kernel<0,0>": "resident_kernelILb0ELi0E",
+                "probe full": "probe_kernelILi0ELi0E",
+                "probe collide": "probe_kernelILi1ELi0E",
+                "probe stream": "probe_kernelILi2ELi0E"}
+
+
 def sass_opcodes(library: Path) -> dict:
-    """``{opcode: count}`` of ``fused_depth_kernel<4, false, false>`` in
-    the built library, most frequent first; memory opcodes keep their
-    width (``LDS.64``), the others only their name."""
+    """``{kernel: {opcode: count}}`` of each of :data:`SASS_KERNELS` in
+    the built library (a kernel the library lacks: none), most frequent
+    first; memory opcodes keep their width (``LDS.64``), the others only
+    their name."""
     import collections
     import re
 
     out = subprocess.run(["cuobjdump", "-sass", str(library)],
                          capture_output=True, text=True, check=True).stdout
-    counts, inside = collections.Counter(), False
+    counts, inside = collections.defaultdict(collections.Counter), None
     for ln in out.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            inside = "fused_depth_kernelILi4ELb0ELb0" in m.group(1)
+            inside = next((k for k, part in SASS_KERNELS.items()
+                           if part in m.group(1)), None)
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)", ln)
         if m and inside:
             parts = m.group(1).split(".")
             memory = parts[0] in ("LDS", "STS", "LDG", "STG", "LDL", "STL")
-            counts[".".join(parts[:2]) if memory else parts[0]] += 1
-    return dict(counts.most_common())
+            counts[inside][".".join(parts[:2]) if memory else parts[0]] += 1
+    return {k: dict(c.most_common()) for k, c in counts.items()}
 
 
 def main(argv=None) -> int:
@@ -179,7 +192,7 @@ def main(argv=None) -> int:
     result = {"repo": args.repo, "card": smi, "build_s": seconds,
               "ptxas": {k: v for k, v in cs.ptxas_table(
                   log.read_text() if log.exists() else "").items()
-                  if "depth" in k}}
+                  if "depth" in k or "resident_kernel" in k or "probe" in k}}
     if args.sass:
         result["sass_opcodes"] = sass_opcodes(path)
     if args.check:

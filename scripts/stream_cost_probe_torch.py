@@ -2,9 +2,13 @@
 """Measure the streaming share of a lattice step on the card: the twin of
 scripts/stream_cost_probe.py for the PyTorch/CUDA port.
 
-Three variants of the persistent G-steps-per-launch kernel
-(``lbm_tpu_torch/csrc/probe.cu``: a pass over the lattice a step behind a
-grid barrier, without forcing) that differ only in the per-cell body:
+Three variants of one persistent cooperative launch of G steps
+(``lbm_tpu_torch/csrc/probe.cu``): the device-memory resident form's
+structure (``csrc/resident.cu``), rounds of 4, 2 and 1 steps on the depth
+kernel's tiles with one grid barrier a round, without forcing. The
+variants differ only in the tile's stage body (``csrc/lbm_depth.cuh``'s
+``kStage``); the window load, the stages, their barriers, the partials
+and the store are the same in all three:
 
 - ``full``     pull streaming + BGK collision (the production operation mix),
 - ``collide``  BGK collision of each cell's own speeds (streaming elided),
@@ -13,12 +17,14 @@ grid barrier, without forcing) that differ only in the per-cell body:
                completion).
 
 ``collide`` and ``stream`` are wrong physics by construction (values stay
-bounded); they exist only to split a step's time between its two halves
-under one memory and loop structure. Each mode is timed with CUDA events
-over ``--repeats`` launches of ``--gsteps`` steps after one untimed launch,
-the modes in turns (forward, then reverse). Two estimates of the streaming
-share come out: subtractive, (full - collide) / full, and direct, stream /
-full. They bracket the truth where the halves overlap.
+bounded); they exist only to split the stage loop's time between a
+step's two halves under one memory and loop structure. Each mode is
+timed with CUDA events over ``--repeats`` launches of ``--gsteps`` steps
+after one untimed launch, the modes in turns (forward, then reverse). Two
+estimates of the streaming share come out: subtractive, (full - collide)
+/ full, and direct, stream / full. They bracket the truth where the
+halves overlap. The summary names the card (``nvidia-smi`` name and power
+limit), the launch's blocks and its rounds.
 
 Usage: python scripts/stream_cost_probe_torch.py [--grid 1024x1024]
            [--gsteps 2000] [--repeats 3] [-o artifact.json]
@@ -38,10 +44,10 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
-def measure(nx: int, ny: int, gsteps: int, repeats: int) -> dict:
-    """Device seconds per launch of each mode (the median over
-    ``repeats`` in each of two turns), on the equilibrium state with the
-    generator's obstacle walls."""
+def measure(nx: int, ny: int, gsteps: int, repeats: int):
+    """``(seconds, kernels)``: device seconds per launch of each mode (the
+    median over ``repeats`` in each of two turns), on the equilibrium
+    state with the generator's obstacle walls, and the mode's kernel."""
     import numpy as np
     import torch
 
@@ -72,7 +78,7 @@ def measure(nx: int, ny: int, gsteps: int, repeats: int) -> dict:
             t1.record()
             t1.synchronize()
             times[mode].append(t0.elapsed_time(t1) / 1e3)
-    return {m: statistics.median(v) for m, v in times.items()}
+    return {m: statistics.median(v) for m, v in times.items()}, kernels
 
 
 def main(argv=None) -> int:
@@ -99,7 +105,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
-    seconds = measure(nx, ny, args.gsteps, args.repeats)
+    seconds, kernels = measure(nx, ny, args.gsteps, args.repeats)
     rows = [{"mode": m, "nx": nx, "ny": ny, "gsteps": args.gsteps,
              "seconds": s, "ms_per_step": s / args.gsteps * 1e3,
              "glups": nx * ny * args.gsteps / s / 1e9, "backend": "cuda"}
@@ -110,6 +116,11 @@ def main(argv=None) -> int:
     summary = {
         "grid": args.grid, "gsteps": args.gsteps, "rows": rows,
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        # The launch geometry, the same in every mode.
+        "blocks": kernels["full"].blocks,
+        "rounds": "+".join(f"{kernels['full'].rounds.count(d)}x{d}"
+                           for d in (4, 2, 1)
+                           if d in kernels["full"].rounds),
         # Two independent estimates of the streaming share: they bracket
         # the truth where the halves overlap.
         "stream_share_subtractive": (t_full - seconds["collide"]) / t_full,

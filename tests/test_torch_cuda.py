@@ -810,6 +810,90 @@ def test_device_form_blocks_that_cannot_be_co_resident_raise(cuda, axis):
     assert fused.LAUNCHES[key] == before
 
 
+# The stream-cost probe (csrc/probe.cu): the device-memory form's rounds
+# with the probe's stage bodies.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("g", [16, 100], ids=["G16", "G100"])
+def test_probe_full_tots_are_the_device_forms_bits(cuda, g, mode,
+                                                   monkeypatch):
+    """``full`` runs the device-memory resident form's code with no
+    forced line: in every association its cells and each step's total are
+    the bits of that form's with the forcing set to 0."""
+    from lbm_tpu_torch.ops import probe
+
+    _set_mode(monkeypatch, mode)
+    p, c, m = _device_form_case(cuda, 0, seed=g)
+    got, tots = probe.probe(c, m, p.omega, g, "full")
+    want, want_tots = resident.resident(c, m, 0.0, 0.0, p.omega, g,
+                                        form="device")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(tots, want_tots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["full", "collide", "stream"])
+@pytest.mark.parametrize("grid", [256, 1024], ids=["256x256", "1024x1024"])
+def test_probe_200_rounds_keep_every_bit(cuda, grid, mode):
+    """200 rounds of 4 variant-steps in one launch on a perturbed state,
+    every round reading what other blocks wrote in the round before: the
+    plain version's cells bit for bit (a stale or non-coherent load of a
+    neighbour's rows would show), totals within the bound."""
+    from lbm_tpu_torch.ops import probe
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    p, cells, mask = _case(grid, grid, True, seed=5, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    kernel = probe.Probe(m, p.omega, 800, mode)
+    assert kernel.rounds == [4] * 200
+    a, out = c.clone(), torch.zeros(800, device=cuda)
+    before = fused.LAUNCHES[f"probe_{mode}"]
+    kernel.run(a, torch.empty_like(c), out)
+    want, want_tots = ref_ops.probe_multi_step(c, m, p.omega, 800, mode)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[f"probe_{mode}"] == before + 1
+    assert torch.equal(a, want)
+    np.testing.assert_allclose(out.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(256, 256), (1024, 1024), (1024, 16384)],
+                         ids=["256x256", "1024x1024", "16384x1024"])
+def test_probe_modes_launch_the_same_blocks(cuda, grid):
+    """The three modes launch the same blocks and rounds from the same
+    occupancy query, the device-memory resident form's: only the stage
+    body differs."""
+    from lbm_tpu_torch.ops import probe
+
+    m = torch.from_numpy(generate_obstacles(grid[1], grid[0])).to(cuda)
+    kernels = [probe.Probe(m, 1.85, 100, mode) for mode in probe.MODES]
+    form = resident.Resident(m, 0.0, 0.0, 1.85, 100, form="device")
+    assert {k.blocks for k in kernels} == {form.blocks}
+    assert all(k.rounds == form.rounds for k in kernels)
+
+
+@pytest.mark.cuda
+def test_probe_blocks_that_cannot_be_co_resident_raise(cuda):
+    """A cooperative launch of more blocks than the card holds at once is
+    refused; the wrapper raises and falls back to nothing."""
+    from lbm_tpu_torch.ops import probe
+
+    p, c, m = _device_form_case(cuda, 0, seed=1)
+    kernel = probe.Probe(m, p.omega, 16, "full")
+    kernel.blocks = 4096
+    before = fused.LAUNCHES["probe_full"]
+    a = c.clone()
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        kernel.run(a, torch.empty_like(c), torch.zeros(16, device=cuda))
+    assert fused.LAUNCHES["probe_full"] == before
+    assert torch.equal(a, c)
+
+
 # The one-step seam kernel: halos read in place on one card, tot_u summed
 # in the launch.
 

@@ -9,8 +9,14 @@ package's own tests run the resident kernel on the CPU: in interpret mode,
 through a wrapper around ``jax.experimental.pallas.pallas_call`` that the
 test installs for the call; nothing in the script changes.
 
+The kernel's schedule (``ops.probe.probe_device_emulated``: the
+device-memory resident form's rounds of depth tiles with the mode's stage
+body) against the plain version, and its ``full`` totals against the
+resident form's with the forcing at 0.
+
 Bounds: cells at atol 5e-8 / rtol 2e-5 and totals at rtol 2e-5 (the
-repo's kernel-vs-reference bounds, tests/test_pallas.py).
+repo's kernel-vs-reference bounds, tests/test_pallas.py); the schedule's
+cells bit for bit, its totals at rtol 2e-5 (another summation order).
 """
 
 import importlib.util
@@ -24,7 +30,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from lbm_tpu_torch.obstacles import generate_obstacles
-from lbm_tpu_torch.ops import fused, probe
+from lbm_tpu_torch.ops import fused, probe, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 
 torch.set_num_threads(2)
@@ -126,6 +132,53 @@ def test_stream_mode_permutes_and_collide_mode_conserves(case):
     np.testing.assert_allclose(got.sum(0).numpy(), c.sum(0).numpy(), rtol=1e-5)
     # An obstacle bounces its own speeds: after an even count they are back.
     assert torch.equal(got[:, m], c[:, m])
+
+
+@pytest.mark.parametrize("gsteps", [4, 6, 10])
+@pytest.mark.parametrize("mode", probe.MODES)
+@pytest.mark.parametrize("case", CASES)
+def test_device_schedule_matches_the_plain_probe(case, mode, gsteps):
+    """The kernel's rounds (4; 4 + 2; 4 + 2 + 2 + 2, a count with G's
+    parity) of depth tiles with the mode's stage body: the plain
+    version's cells bit for bit, totals summed by tile within the
+    bound."""
+    cells, mask = _case(case)
+    c, m = torch.from_numpy(cells), torch.from_numpy(mask)
+    assert sum(resident.device_rounds(gsteps)) == gsteps
+    got, tots = probe.probe_device_emulated(c, m, OMEGA, gsteps, mode)
+    want, want_tots = ref_ops.probe_multi_step(c, m, OMEGA, gsteps, mode)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(tots.numpy(), want_tots.numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_device_schedule_full_is_the_resident_forms_bits(case):
+    """``full`` runs the resident form's stage body with no forced line:
+    its totals, obstacles counted as 0, are the bits of the device form's
+    with the forcing at 0 (fluid cells counted), and so are its cells."""
+    cells, mask = _case(case)
+    c, m = torch.from_numpy(cells), torch.from_numpy(mask)
+    got, tots = probe.probe_device_emulated(c, m, OMEGA, 10, "full")
+    want, want_tots = resident.resident_device_emulated(c, m, 0.0, 0.0,
+                                                        OMEGA, 10)
+    assert torch.equal(got, want) and torch.equal(tots, want_tots)
+
+
+def test_device_schedule_counts_obstacles_in_stream_mode():
+    """``stream`` sums speed 0 of every owned cell, obstacles included, as
+    the plain version sums the whole plane: with speed 0 zero in the
+    fluid, the total is the obstacles' alone."""
+    cells, mask = _case("interior-24x40")
+    c, m = torch.from_numpy(cells), torch.from_numpy(mask)
+    c[0][~m] = 0.0
+    _, tots = probe.probe_device_emulated(c, m, OMEGA, 4, "stream")
+    np.testing.assert_allclose(tots.numpy(),
+                               torch.sum(c[0]).expand(4).numpy(),
+                               rtol=TOT_RTOL)
+    assert (tots > 0).all()
+    with pytest.raises(ValueError, match="unknown probe mode"):
+        probe.probe_device_emulated(c, m, OMEGA, 4, "both")
 
 
 def test_wrapper_on_the_cpu_runs_the_plain_version():

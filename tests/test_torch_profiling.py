@@ -42,8 +42,8 @@ def test_cost_model_constants_are_the_documented_ones():
     assert by == "bytes" and round(ms * 1e3, 2) == 5.71
     ms, by = profiling.bound(cells, 100)
     assert by == "operations" and round(ms * 1e3, 2) == 1.41
-    # Halo bytes add to the launch's traffic; the probe's stream mode
-    # moves 72 B a cell and adds once.
+    # Halo bytes add to the launch's traffic; a launch that reads no mask
+    # moves 72 B a cell, and one that adds once a cell is bound by bytes.
     assert profiling.bound(cells, 1, extra_bytes=10**6)[0] > \
         profiling.bound(cells, 1)[0]
     ms, by = profiling.bound(cells, 100, bytes_per_cell=72, ops_per_cell=1)
