@@ -177,7 +177,16 @@ printing JSON lines (any failure raises and exits non-zero):
              name with exactly the plan's launches and, on these depth
              plans, no launch of the tot_u sum, and gives the card's
              busy share and the longest idle gaps; traced against untraced
-             compute seconds.
+             compute seconds;
+21. harness  - the host module and the harness scripts: the 1024x1024
+             and 16384x1024 final states through the C writer
+             (csrc_host/lbm_io.c) and the plain numpy writer, the same
+             bytes, both times; scripts/validate_scenes_torch.py on the
+             256x256 scene (both associations within 0.3 % of its float64
+             golden); scripts/full_scenes_torch.py on 2048x1024 for 2000
+             steps (auto against the plain float32 path); dryrun_torch's
+             dryrun_multichip(4) as four shards on the card; one cell of
+             scripts/ab_kernel_torch.py. Any row that is not ok fails.
 
 Then the kernels line (every kernel, row and column modes, the on-chip
 resident form and the probe's three, with its launches on its path,
@@ -510,8 +519,13 @@ def phase_build():
 
     path, seconds = _build.build()
     _build.load()
+    t0 = time.perf_counter()
+    host = _build.build_host()
+    _build.load_host()
     log = path.with_suffix(".log")
     emit({"phase": "build", "seconds": seconds, "library": str(path.name),
+          "host_library": host.name,
+          "host_seconds": time.perf_counter() - t0,
           "sources": [s.name for s in _build.sources()],
           "nvcc_flags": " ".join(_build.NVCC_FLAGS),
           "ptxas": ptxas_table(log.read_text()) if log.exists() else {}})
@@ -2305,6 +2319,101 @@ def phase_trace(torch, np):
     return results
 
 
+HARNESS_DIR = REPO / "build" / "lbm_tpu_torch" / "harness"
+WRITER_GRIDS = (SCENE, "16384x1024")
+
+
+def same_bytes(a: Path, b: Path, chunk: int = 1 << 24) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def harness_script(name):
+    """A module of ``scripts/`` (the port's harness scripts)."""
+    import importlib
+
+    if str(REPO / "scripts") not in sys.path:
+        sys.path.insert(0, str(REPO / "scripts"))
+    return importlib.import_module(name)
+
+
+def phase_harness(torch, np):
+    """The host writers at 1024x1024 and 16384x1024, and the harness
+    scripts' paths on the card (see the module docstring, 21)."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.state import initial_state_np
+
+    import dryrun_torch
+
+    HARNESS_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(12)
+    out = {}
+    for name in WRITER_GRIDS:
+        p = scene_params(name)
+        nx, ny = grid(name)
+        cells = initial_state_np(p) * (
+            np.float32(0.9) + rng.random((9, ny, nx), dtype=np.float32)
+            * np.float32(0.2))
+        mask = scene_mask() if name == SCENE else generate_obstacles(nx, ny)
+        files = HARNESS_DIR / "c.dat", HARNESS_DIR / "plain.dat"
+        times = {}
+        for label, writer, path in (("c", lio.write_final_state, files[0]),
+                                    ("plain", lio.write_final_state_plain,
+                                     files[1])):
+            t0 = time.perf_counter()
+            writer(path, p, cells, mask)
+            times[label] = time.perf_counter() - t0
+        size = files[0].stat().st_size
+        equal = same_bytes(*files)
+        for f in files:
+            f.unlink()
+        row = {"phase": "harness", "writer": "final_state.dat", "grid": name,
+               "lines": nx * ny, "bytes": size, "equal_bytes": equal,
+               "c_s": times["c"], "plain_s": times["plain"],
+               "plain_over_c": times["plain"] / times["c"]}
+        emit(row)
+        check(equal, f"the C writer's {name} final_state.dat differs from "
+              "the numpy writer's")
+        out[name] = row
+        del cells
+
+    validate = harness_script("validate_scenes_torch")
+    full = harness_script("full_scenes_torch")
+    ab = harness_script("ab_kernel_torch")
+    for label, mod, args in (
+            ("validate_scenes_torch", validate, ["--scenes", "256x256"]),
+            ("full_scenes_torch", full,
+             ["--scenes", "2048x1024", "--iters", "2000"])):
+        path = HARNESS_DIR / f"{label}.json"
+        rc = mod.main([*args, "-o", str(path)])
+        rows = json.loads(path.read_text())["scenes"]
+        emit({"phase": "harness", "script": f"scripts/{label}.py",
+              "rc": rc, "rows": rows})
+        check(rc == 0 and rows and all(r["pass"] for r in rows),
+              f"{label}: a row failed")
+        out[label] = rows
+
+    lines = dryrun_torch.dryrun_multichip(4, device="cuda")
+    cases = dryrun_torch._dryrun_cases(4)
+    emit({"phase": "harness", "script": "dryrun_torch.dryrun_multichip(4, "
+          "device='cuda')", "ok": len(lines), "cases": len(cases)})
+    check(len(lines) == len(cases), "dryrun: a case did not finish")
+
+    cell = ab.run_one("1024sq-omega", 1024, 1024, 2000, {"LBM_OMEGA_EQ": "1"},
+                      repeats=2)
+    emit({"phase": "harness", "script": "scripts/ab_kernel_torch.py",
+          **cell})
+    check("error" not in cell and cell["glups"] > 0, "ab_kernel cell failed")
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    return out
+
+
 def reduce_bound(partials):
     """The reduce launch's bound: ``partials`` floats in, one out, one
     addition each (lbm_tpu_torch.profiling's data-sheet peaks)."""
@@ -2391,6 +2500,7 @@ def main() -> int:
         run("resume", phase_resume, torch, np)
     run("debug", phase_debug, torch, np)
     run("trace", phase_trace, torch, np)
+    run("harness", phase_harness, torch, np)
     check("jax" not in sys.modules, "the port imported jax")
     check(not any(m == "lbm_tpu" or m.startswith("lbm_tpu.")
                   for m in sys.modules), "the port imported lbm_tpu")

@@ -2,19 +2,24 @@
 reference's exact byte formats (d2q9-bgk.c:698-752) and a golden-output
 comparator with check/check.py's semantics (check/check.py:57-151).
 
-The port's own copy of the numpy paths of :mod:`lbm_tpu.io`, so both
-packages write byte-identical files (``tests/test_torch_scene_layer.py``
-checks the bytes). The JAX package's optional C writer is not carried
-over: its output is the same bytes as the numpy writer's.
+The writers are C (``csrc_host/lbm_io.c``, built by the host compiler
+on first use, :func:`.ops._build.load_host`): formatting 1M-16.8M lines
+of ``%.12E`` in Python takes longer than the scene's compute on the
+card. A failed build raises; nothing gives way to the numpy writers.
+Those stay as the plain versions (``write_final_state_plain``,
+``write_av_vels_plain``), the port's own copy of :mod:`lbm_tpu.io`'s
+Python paths, which the tests hold the C writers to byte for byte.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from pathlib import Path
 
 import numpy as np
 
+from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.params import Params
 
 FINAL_STATE_FILE = "final_state.dat"
@@ -54,6 +59,13 @@ def final_state_fields(
     return u_x, u_y, u, pressure
 
 
+def _host_call(path, fn, *args) -> None:
+    """One call of the C library; its errno as an OSError on ``path``."""
+    code = fn(os.fsencode(path), *args)
+    if code:
+        raise OSError(code, os.strerror(code), str(path))
+
+
 def write_final_state(
     path: str | Path,
     params: Params,
@@ -61,7 +73,45 @@ def write_final_state(
     obstacles: np.ndarray,
 ) -> None:
     """Write ``final_state.dat``: ``ii jj u_x u_y |u| pressure obstacle``
-    with %.12E floats, row-major over (jj, ii) (d2q9-bgk.c:710-741)."""
+    with %.12E floats, row-major over (jj, ii) (d2q9-bgk.c:710-741), in C;
+    float32 or float64 fields as ``cells`` has them."""
+    fields = final_state_fields(params, cells, obstacles)
+    f64 = fields[0].dtype == np.float64
+    u_x, u_y, u, pressure = (np.ascontiguousarray(f) for f in fields)
+    obs = np.ascontiguousarray(obstacles, dtype=np.int32)
+    ny, nx = u.shape
+    if obs.shape != (ny, nx):
+        raise ValueError(f"obstacles have shape {obs.shape}, the lattice "
+                         f"({ny}, {nx})")
+    lib = _build.load_host()
+    _host_call(path, lib.lbm_write_final_state, nx, ny, u_x.ctypes.data,
+               u_y.ctypes.data, u.ctypes.data, pressure.ctypes.data,
+               obs.ctypes.data, int(f64))
+
+
+def _av_array(av_vels) -> np.ndarray:
+    av_vels = np.asarray(av_vels)
+    if av_vels.dtype not in (np.float32, np.float64):
+        av_vels = av_vels.astype(np.float32)
+    return av_vels
+
+
+def write_av_vels(path: str | Path, av_vels: np.ndarray) -> None:
+    """Write ``av_vels.dat``: one ``tt:\\t%.12E`` line per step
+    (d2q9-bgk.c:744-749), in C."""
+    av = np.ascontiguousarray(_av_array(av_vels)).reshape(-1)
+    _host_call(path, _build.load_host().lbm_write_av_vels, av.size,
+               av.ctypes.data, int(av.dtype == np.float64))
+
+
+def write_final_state_plain(
+    path: str | Path,
+    params: Params,
+    cells: np.ndarray,
+    obstacles: np.ndarray,
+) -> None:
+    """:func:`write_final_state` in numpy and Python's ``%`` formatting:
+    the plain version the C writer is held to."""
     u_x, u_y, u, pressure = final_state_fields(params, cells, obstacles)
     obs_int = np.asarray(obstacles, dtype=np.int32)
     ny, nx = u.shape
@@ -82,12 +132,9 @@ def write_final_state(
         fh.write("".join(lines))
 
 
-def write_av_vels(path: str | Path, av_vels: np.ndarray) -> None:
-    """Write ``av_vels.dat``: one ``tt:\\t%.12E`` line per step
-    (d2q9-bgk.c:744-749)."""
-    av_vels = np.asarray(av_vels)
-    if av_vels.dtype not in (np.float32, np.float64):
-        av_vels = av_vels.astype(np.float32)
+def write_av_vels_plain(path: str | Path, av_vels: np.ndarray) -> None:
+    """:func:`write_av_vels` in Python: the plain version."""
+    av_vels = _av_array(av_vels)
     with open(path, "w") as fh:
         fh.write(
             "".join(

@@ -5,16 +5,30 @@ scattered into a row-major mask (``d2q9-bgk.c:626-644``) and ships a
 generator of boundary walls plus optional interior verticals
 (``generate_obstacles.py:1-21``). The mask is a ``(ny, nx)`` bool array.
 
-The port's own copy of :mod:`lbm_tpu.obstacles` (numpy only, without the
-optional C parser, which gives the same masks);
-``tests/test_torch_scene_layer.py`` holds the two equal.
+The port's own copy of :mod:`lbm_tpu.obstacles`;
+``tests/test_torch_scene_layer.py`` holds the two equal. The parser is C
+(``csrc_host/lbm_io.c``, :func:`.ops._build.load_host`), with the errors
+of its plain version, :func:`load_obstacles_plain`, in the same order.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 
 import numpy as np
+
+from lbm_tpu_torch.ops import _build
+
+# lbm_read_obstacles' parse codes, each the plain version's exception.
+_PARSE_ERRORS = {
+    -1: (ValueError, "expected 3 values per line in obstacle file"),
+    -2: (OverflowError, "Python int too large to convert to C long"),
+    -3: (ValueError, "expected 3 values per line in obstacle file"),
+    -4: (ValueError, "obstacle x-coord out of range"),
+    -5: (ValueError, "obstacle y-coord out of range"),
+    -6: (ValueError, "obstacle blocked value should be 1"),
+}
 
 
 def load_obstacles(path: str | Path, nx: int, ny: int) -> np.ndarray:
@@ -22,6 +36,21 @@ def load_obstacles(path: str | Path, nx: int, ny: int) -> np.ndarray:
     the reference's validation: 3 values per triplet, coordinates in
     range, blocked flag == 1 (``d2q9-bgk.c:628-633``). Duplicate entries
     (the shipped files repeat the corners) set the same cell."""
+    mask = np.zeros((ny, nx), dtype=np.uint8)
+    code = _build.load_host().lbm_read_obstacles(
+        os.fsencode(path), nx, ny, mask.ctypes.data)
+    if code > 0:
+        raise FileNotFoundError(
+            f"could not open input obstacles file: {path}") \
+            from OSError(code, os.strerror(code), str(path))
+    if code < 0:
+        exc, text = _PARSE_ERRORS[code]
+        raise exc(text)
+    return mask.view(bool)
+
+
+def load_obstacles_plain(path: str | Path, nx: int, ny: int) -> np.ndarray:
+    """:func:`load_obstacles` in numpy: the plain version."""
     try:
         tokens = Path(path).read_text().split()
     except OSError as exc:

@@ -8,6 +8,13 @@ The library is named by a hash of the sources, the shared headers
 (``csrc/*.cuh``) and the flags, so an edit rebuilds it; it is loaded
 with ``ctypes``. Nothing here runs at
 import time: a CPU-only machine imports this module and never builds.
+
+The host compiler builds the port's one C file for the CPU,
+``csrc_host/lbm_io.c`` (the ``.dat`` writers and the obstacle parser),
+the same way: on first use, into the same directory, named by a hash of
+the source, the compiler and its flags (:func:`build_host`,
+:func:`load_host`). It builds on any machine with a C compiler, the CPU
+test machine included.
 """
 
 from __future__ import annotations
@@ -108,7 +115,24 @@ _SIGNATURES = {
     "lbm_error_string": ([_c_int], ctypes.c_char_p),
 }
 
+_c_char_p = ctypes.c_char_p
+_HOST_SIGNATURES = {
+    "lbm_write_final_state": (
+        [_c_char_p, _c_int, _c_int, _c_void_p, _c_void_p, _c_void_p,
+         _c_void_p, _c_void_p, _c_int],
+        _c_int,
+    ),
+    "lbm_write_av_vels": (
+        [_c_char_p, ctypes.c_longlong, _c_void_p, _c_int], _c_int),
+    "lbm_read_obstacles": ([_c_char_p, _c_int, _c_int, _c_void_p], _c_int),
+}
+HOST_CSRC = PACKAGE_DIR / "csrc_host"
+# -O2 and no -ffast-math: the writers' formatting is exact integer
+# arithmetic, and the compiler may not reassociate it.
+HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
+
 _lib = None
+_host_libs: dict = {}
 
 
 def sources() -> list[Path]:
@@ -200,6 +224,65 @@ def load() -> ctypes.CDLL:
             fn.restype = restype
         _lib = lib
     return _lib
+
+
+def host_sources() -> list[Path]:
+    return sorted(HOST_CSRC.glob("*.c"))
+
+
+def host_compiler() -> str:
+    """The host C compiler: ``$CC``, else ``cc``."""
+    return os.environ.get("CC") or "cc"
+
+
+def host_library_path(defines: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256()
+    for src in host_sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join((host_compiler(), *HOST_CFLAGS, *defines)).encode())
+    return BUILD_DIR / f"liblbm_io-{h.hexdigest()[:16]}.so"
+
+
+def build_host(defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``csrc_host/*.c`` with the host compiler and ``defines``
+    (``-D`` flags; the port uses none, ``scripts/writer_ab_torch.py``
+    builds an A/B variant) unless this hash is built; raises with the
+    compiler's message on failure."""
+    out = host_library_path(defines)
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [host_compiler(), *HOST_CFLAGS, *defines, "-o", str(tmp),
+           *(str(src) for src in host_sources())]
+    try:
+        p = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+    except OSError as exc:
+        raise RuntimeError(f"host compiler {cmd[0]!r} could not run "
+                           f"building {out.name}: {exc}") from exc
+    if p.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cmd[0]} failed (exit {p.returncode}) building "
+                           f"{out.name}:\n{p.stdout[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_host(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built host library, built on first use, with its C
+    signatures declared."""
+    path = build_host(defines)
+    lib = _host_libs.get(path)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _HOST_SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _host_libs[path] = lib
+    return lib
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -1042,3 +1042,38 @@ def test_wrap_path_chunks_and_resumes_bit_for_bit(cuda, monkeypatch,
     for run in (chunked, resumed):
         np.testing.assert_array_equal(run.cells, base.cells)
         np.testing.assert_array_equal(run.av_vels, base.av_vels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_multichip_on_the_card(cuda, n, monkeypatch):
+    """``dryrun_torch``'s cases as n shards on one card, the CUDA kernels
+    against the unsharded plain run on the card."""
+    import sys
+    from pathlib import Path
+
+    monkeypatch.delenv("LBM_SHARD_RESIDENT", raising=False)
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent))
+    import dryrun_torch
+
+    lines = dryrun_torch.dryrun_multichip(n, device="cuda")
+    assert len(lines) == len(dryrun_torch._dryrun_cases(n))
+
+
+@pytest.mark.cuda
+def test_entry_step_on_the_card_matches_the_cpu_step(cuda, monkeypatch):
+    from pathlib import Path
+
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parent.parent))
+    import dryrun_torch
+
+    step, (cells, obstacles) = dryrun_torch.entry()
+    assert cells.device.type == "cuda"
+    before = fused.LAUNCHES["step"]
+    new, tot = step(cells, obstacles)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["step"] == before + 1
+    cstep, (ccells, cobstacles) = dryrun_torch.entry(device="cpu")
+    cnew, ctot = cstep(ccells, cobstacles)
+    np.testing.assert_array_equal(new.cpu().numpy(), cnew.numpy())
+    assert np.isclose(float(tot), float(ctot), rtol=1e-6)

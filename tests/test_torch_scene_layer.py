@@ -21,11 +21,13 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _port_sources():
-    """Every module of the port, its on-card check and its scripts (the
-    port's scripts are named ``*_torch.py``)."""
+    """Every module of the port, its on-card check, its scripts and its
+    root entry points (the port's scripts and root files are named
+    ``*_torch.py``)."""
     return (sorted((REPO / "lbm_tpu_torch").rglob("*.py"))
             + [REPO / "chip_smoke.py"]
-            + sorted((REPO / "scripts").glob("*_torch.py")))
+            + sorted((REPO / "scripts").glob("*_torch.py"))
+            + sorted(REPO.glob("*_torch.py")))
 
 
 def _foreign_imports(path: Path, root: Path = REPO) -> list[str]:
@@ -51,7 +53,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(sources) > 20
     names = {p.name for p in sources}
     assert {"probe.py", "profiling.py", "stream_cost_probe_torch.py",
-            "trace_report_torch.py", "chip_smoke.py"} <= names
+            "trace_report_torch.py", "chip_smoke.py", "dryrun_torch.py",
+            "validate_scenes_torch.py", "full_scenes_torch.py",
+            "sharded_overhead_torch.py", "sweep_torch.py",
+            "plot_roofline_torch.py", "ab_kernel_torch.py",
+            "writer_ab_torch.py"} <= names
     bad = [b for path in sources for b in _foreign_imports(path)]
     assert not bad, "\n".join(bad)
 
