@@ -26,7 +26,11 @@ printing JSON lines (any failure raises and exits non-zero):
              mask), 128x128 (and an odd G = 5 there), a ragged 100x130
              wall-less mask, 16384x1024, 131072x128, 128x131072, 512x512
              and 1024x256, physical layout; all three BGK associations at
-             256x256; then 200 steps at
+             256x256; the on-chip form's single-buffer mode wherever its
+             strips fit (cells max abs error 0, tots the two-buffer
+             mode's bits where both fit), and alone at 4096x64, 768x768,
+             1024x400 and 1024x512 (the last two transposed, column mode)
+             for one call at G = 1, 2, 99 and 100; then 200 steps at
              1024x1024 of every kernel through the runner against the
              one-step kernel, with bit-identical repeats;
 4. wide_kernel - the same calls in column mode on the transposed lattice
@@ -40,6 +44,15 @@ printing JSON lines (any failure raises and exits non-zero):
              device, in turns: launch counts equal the plan's, drift
              within 0.3 % of goldens/256x256.final_state.f64.npz, the two
              forms' final states the same bytes, Compute seconds;
+4c. inplace_scene - the single-buffer mode's path: 1024x512 with the
+             wide scenes' parameters (accel 0.01, omega 1.85) and the
+             generator's walls, 20000 steps through the CLI under auto
+             (transposed: "resident G=100 on-chip 1-buf x200") and with
+             LBM_RESIDENT=0 (D=4), in turns: launch counts equal the
+             plan's, the final states the same bytes, av_vels within
+             1e-4, the cells through the runner bit for bit; 500 steps
+             under auto within 0.3 % of the port's plain float64 run on
+             the card; the planned kernel beside D=4, in turns;
 5. scene   - the reference's 1024x1024 scene (20000 steps) through the
              port's CLI, once per plan: --kernel auto, the one-step
              kernel pinned (LBM_RESIDENT=0 LBM_PALLAS_DEPTH=1), the
@@ -81,13 +94,17 @@ printing JSON lines (any failure raises and exits non-zero):
              one an SM at 128x128, 256x256, 512x512 and 1024x256 (the
              small-grid floor), and both forms beside D=4 at 640x512,
              768x512, 1024x384, 600x600, 792x528 (the largest lattice whose
-             strips fit), 1024x512, 768x768 and 1024x768 (the numbers
-             RESIDENT_AUTO_MAX_CELLS is set from); then 4096x64 (a narrow
-             channel, row mode) and 1024x400 (a tall box, transposed,
-             column mode) as auto plans them, the plan asserted to be
-             "resident G=100 device-memory": 200 steps through the runner
-             with the plan's launches, and the planned kernel timed beside
-             D=4;
+             two-buffer strips fit), 1024x512, 768x768 and 1024x768 (the
+             numbers RESIDENT_AUTO_MAX_CELLS is set from), and at 1600x264
+             and 1200x396 (one-buffer strips of 2 and 3 rows), with the
+             single-buffer mode wherever its strips fit; then 4096x64 and
+             400x1024 (narrow channels, row mode), 1024x400 and 3200x128
+             (tall boxes, transposed, column mode) as auto plans them, the
+             plan asserted to be the form plan.resident_form gives (the
+             single-buffer mode; the device-memory form for 4096x64's
+             one-row strips): 200 steps through the runner with the plan's
+             launches, and the single-buffer mode, the device-memory form
+             and D=4 timed in turns;
 10. shard_kernel - the sharded path's kernels, one call on every shard
              against the plain shard step (halo.ReferenceShardImpl) on
              the same inputs: the one-step kernel's seam mode, the depth
@@ -189,7 +206,9 @@ printing JSON lines (any failure raises and exits non-zero):
              scripts/ab_kernel_torch.py. Any row that is not ok fails.
 
 Then the kernels line (every kernel, row and column modes, the on-chip
-resident form and the probe's three, with its launches on its path,
+resident form in two buffers and in one (row mode: 400x1024 through the
+runner; column mode: the 1024x512 scene), the probe's three, with its
+launches on its path,
 error against its plain version, time, plain time and bound; the
 ring's rows also its D, its loop time and a design ceiling of one pass
 over the lattice per round, the resident and probe rows that ceiling too
@@ -267,7 +286,7 @@ WIDE_TIMING_GRIDS = (WIDE, "16384x1024", WIDE_RESIDENT, WIDE_LIMIT)
 # The on-chip resident form's path: the reference coursework's 256x256
 # scene (the generator's walls, no column; accel 0.005), all 80000 steps,
 # against its float64 golden.
-ONCHIP_SCENE, ONCHIP_ITERS = "256x256", 80000
+ONCHIP_SCENE, ONCHIP_ITERS, ONCHIP_ACCEL = "256x256", 80000, 0.005
 ONCHIP_GOLDEN = REPO / "goldens" / "256x256.final_state.f64.npz"
 ONCHIP_SCENE_PLANS = {"auto": {}, "device": {"LBM_RESIDENT_FORM": "device"}}
 # The small-grid floor: the on-chip form at these block counts (and the
@@ -277,11 +296,31 @@ ONCHIP_SCENE_PLANS = {"auto": {}, "device": {"LBM_RESIDENT_FORM": "device"}}
 ONCHIP_BLOCK_GRIDS = ("128x128", "256x256", "512x512", "1024x256")
 ONCHIP_BLOCKS = (32, 64, 128)
 CROSSOVER_GRIDS = ("640x512", "768x512", "1024x384", "600x600", "792x528",
-                   "1024x512", "768x768", "1024x768")
-# Lattices under RESIDENT_AUTO_MAX_CELLS whose strips do not fit on chip:
-# auto runs them on the device-memory form (a narrow channel in row mode,
-# a tall box transposed, in column mode).
-AUTO_DEVICE_GRIDS = ("4096x64", "1024x400")
+                   "1024x512", "768x768", "1024x640", "1024x768")
+# Physical lattices whose two-buffer strips do not fit and whose
+# one-buffer strips are 2 and 3 rows (264 and 396 rows over 132 blocks):
+# the strip heights between a one-row strip (4096x64) and the crossover
+# grids' 4 to 6 rows, the numbers plan.INPLACE_MIN_ROWS is set from.
+STRIP_GRIDS = ("1600x264", "1200x396")
+# Lattices under RESIDENT_AUTO_MAX_CELLS whose two-buffer strips do not fit
+# on chip, as auto runs them: narrow channels in row mode (4096x64, strips
+# of one row, on the device-memory form; 400x1024) and tall boxes
+# transposed, in column mode (1024x400, 3200x128), on the single-buffer
+# mode.
+AUTO_GRIDS = ("4096x64", "1024x400", "400x1024", "3200x128")
+# The single-buffer mode's path: 1024x512 with the parameters of the
+# scenes 1024 and more wide (scripts/sweep.py: accel 0.01, omega 1.85) and
+# the generator's walls; auto runs it transposed, on the single-buffer
+# mode, above RESIDENT_AUTO_MAX_CELLS. And the mode against the plain
+# version at its shapes (4096x64 pinned: auto leaves its one-row strips
+# to the device form).
+INPLACE_SCENE, INPLACE_ITERS, INPLACE_GATE_ITERS = "1024x512", 20000, 500
+INPLACE_ACCEL = 0.01
+INPLACE_KERNEL_CASES = [("4096x64", 0), ("768x768", 0), ("1024x400", 1),
+                        (INPLACE_SCENE, 1)]
+INPLACE_GS = (1, 2, 99, 100)
+# The row-mode path of the kernels line: AUTO_GRIDS' 400x1024.
+INPLACE_ROW_GRID = "400x1024"
 
 
 def grid(name: str) -> tuple[int, int]:
@@ -382,6 +421,9 @@ def check_depth(r, name, where):
     too are the plain version's bit for bit."""
     if name.startswith("resident"):
         check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
+        # One buffer updates and sums each cell as two do.
+        check(r.get("tots_equal_two_buffer", True),
+              f"{name}: tots differ from the two-buffer mode's at {where}")
     if not name.startswith("depth"):
         return
     check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
@@ -444,24 +486,32 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     res["depth D=2"]["equals_first_stages_of_D4"] = bool(
         torch.equal(depth_tots[2], depth_tots[4][:2]))
     onchip = onchip_fits(cells.shape[1], cells.shape[2])
+    inplace = onchip_fits(cells.shape[1], cells.shape[2], buffers=1)
     for g in sorted(keep - set(DEPTHS) - before):
         got, t = resident.resident(cells, *args, g, axis=axis, form="device")
         res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
         if onchip:
-            got, t = resident.resident(cells, *args, g, axis=axis,
-                                       form="onchip")
-            res[f"resident_onchip G={g}"] = compare(torch, got, t, plain[g],
+            got, two = resident.resident(cells, *args, g, axis=axis,
+                                         form="onchip")
+            res[f"resident_onchip G={g}"] = compare(torch, got, two, plain[g],
                                                     tots[:g])
+        if inplace:
+            got, t = resident.resident(cells, *args, g, axis=axis,
+                                       form="inplace")
+            r = res[f"resident_onchip_inplace G={g}"] = compare(
+                torch, got, t, plain[g], tots[:g])
+            if onchip:
+                r["tots_equal_two_buffer"] = bool(torch.equal(t, two))
     return res
 
 
-def onchip_fits(rows, lanes):
-    """Whether the on-chip resident form takes a rows x lanes lattice on
-    this card."""
+def onchip_fits(rows, lanes, buffers=2):
+    """Whether the on-chip resident form's strips of a rows x lanes
+    lattice fit this card in ``buffers`` buffers."""
     from lbm_tpu_torch.ops import plan, resident
 
-    return plan.resident_form(rows, lanes,
-                              *resident.device_limits("cuda")) == "onchip"
+    return plan.onchip_fits(rows, lanes, *resident.device_limits("cuda"),
+                            buffers)
 
 
 def phase_device(torch):
@@ -562,6 +612,20 @@ def phase_kernel(torch):
         emit({"phase": "kernel", "grid": "256x256", "mode": mode, **res})
         record(res, f"256x256 {mode}")
 
+    # The single-buffer mode at its own shapes (two buffers do not fit),
+    # column mode kept apart for the kernels line.
+    for i, (name, axis) in enumerate(INPLACE_KERNEL_CASES):
+        with env():
+            res = inplace_against_plain(torch, name, axis, seed=60 + i)
+        emit({"phase": "kernel", "grid": name, "single_buffer": True,
+              "layout": "transposed" if axis else "physical", **res})
+        key = "resident_onchip_inplace" + ("_cols" if axis else "")
+        for label, r in res.items():
+            worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+            check(r["max_abs_err"] == 0.0 and r["tot_ok"],
+                  f"single-buffer {label} != plain at {name}")
+        torch.cuda.empty_cache()
+
     # TRAJ_STEPS steps of each plan through the runner, twice, against
     # the one-step kernel and the plain version.
     n = TRAJ_STEPS
@@ -597,6 +661,33 @@ def phase_kernel(torch):
               f"{n}-step av_vels of {label} disagree with the plain version")
         check(same, f"two runs of {label} differ")
     return worst
+
+
+def inplace_against_plain(torch, name, axis, seed):
+    """The single-buffer mode for one call at each G of INPLACE_GS from a
+    perturbed state against as many plain steps (``axis`` 1: on the
+    transposed lattice, column mode)."""
+    from lbm_tpu_torch.ops import resident
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    p = scene_params(name)
+    cells, mask = random_case(torch, name, p, seed, "walls", "perturbed")
+    if axis:
+        cells, mask = transposed(cells, mask)
+    args = (mask, p.accel_w1, p.accel_w2, p.omega)
+    plain, tots, c = {}, [], cells
+    for n in range(1, max(INPLACE_GS) + 1):
+        c, tot = ref_ops.fused_step(c, *args, axis=axis)
+        tots.append(tot)
+        if n in INPLACE_GS:
+            plain[n] = c
+    tots = torch.stack(tots)
+    res = {}
+    for g in INPLACE_GS:
+        got, t = resident.resident(cells, *args, g, axis=axis, form="inplace")
+        res[f"resident_onchip_inplace G={g}"] = compare(torch, got, t,
+                                                        plain[g], tots[:g])
+    return res
 
 
 def phase_wide_kernel(torch):
@@ -679,8 +770,7 @@ def phase_scene(torch, np):
     per_plan = {}
     for label, plan_env in SCENE_PLANS.items():
         with env(**plan_env):
-            parts = plan.segments(ny, nx, ITERS,
-                                  resident.planned_form(ny, nx, "cuda"))
+            parts = resident.segments(ny, nx, ITERS, "cuda")
             want = expected_launches(parts)
             fused.reset_launches()
             out = io.StringIO()
@@ -1095,17 +1185,19 @@ def phase_wide_timing(torch):
     return results
 
 
-def onchip_scene_files():
-    """The 256x256 reference scene's params and obstacle files, written
-    on first use: ``(params, obstacles)`` paths."""
+def walls_scene_files(name, iters, accel):
+    """The scene of grid ``name`` with the generator's walls, density 0.1
+    and omega 1.85, for ``iters`` steps at ``accel``: ``(params,
+    obstacles)`` paths, written on first use."""
     from lbm_tpu_torch.obstacles import generate_obstacles, write_obstacles
 
-    nx, ny = grid(ONCHIP_SCENE)
-    d = SCENE_DIR.parent / f"scene_{ONCHIP_SCENE}"
-    params, obs = d / f"input_{ONCHIP_SCENE}.params", d / "obstacles.dat"
-    if not (params.exists() and obs.exists()):
-        d.mkdir(parents=True, exist_ok=True)
-        params.write_text(f"{nx}\n{ny}\n{ONCHIP_ITERS}\n10\n0.1\n0.005\n1.85\n")
+    nx, ny = grid(name)
+    d = SCENE_DIR.parent / f"scene_{name}"
+    params, obs = d / f"input_{name}_{iters}.params", d / "obstacles.dat"
+    d.mkdir(parents=True, exist_ok=True)
+    if not params.exists():
+        params.write_text(f"{nx}\n{ny}\n{iters}\n10\n0.1\n{accel}\n1.85\n")
+    if not obs.exists():
         write_obstacles(obs, generate_obstacles(nx, ny))
     return params, obs
 
@@ -1118,35 +1210,25 @@ def phase_onchip_scene(torch, np):
     the 0.3 % budget, Compute seconds and GLUPS. The two forms' final
     states are the same bytes (both give the plain version's cells).
     Returns each run's launch counts."""
-    from lbm_tpu_torch import cli
     from lbm_tpu_torch import io as lio
     from lbm_tpu_torch.obstacles import generate_obstacles
-    from lbm_tpu_torch.ops import fused, plan, resident
+    from lbm_tpu_torch.ops import plan, resident
 
     golden = np.load(ONCHIP_GOLDEN)
     nx, ny = grid(ONCHIP_SCENE)
     check(np.array_equal(generate_obstacles(nx, ny),
                          golden["u"].reshape(ny, nx) == 0),
           "256x256 mask differs from the golden's zero-velocity cells")
-    params, obs = onchip_scene_files()
-    out_dir = params.parent
+    params, obs = walls_scene_files(ONCHIP_SCENE, ONCHIP_ITERS, ONCHIP_ACCEL)
     runs, finals = {}, {}
     for i, label in enumerate(("auto", "device", "device", "auto")):
         plan_env = ONCHIP_SCENE_PLANS[label]
-        av_f, fs_f = out_dir / f"av_{label}.dat", out_dir / f"fs_{label}.dat"
         with env(**plan_env):
             form = resident.planned_form(ny, nx, "cuda")
-            parts = plan.segments(ny, nx, ONCHIP_ITERS, form)
-            want = expected_launches(parts)
-            fused.reset_launches()
-            out, err = io.StringIO(), io.StringIO()
-            with contextlib.redirect_stdout(out), \
-                    contextlib.redirect_stderr(err):
-                rc = cli.main([str(params), str(obs), "--av-vels-file",
-                               str(av_f), "--final-state-file", str(fs_f)])
-            launches = dict(fused.LAUNCHES)
-        lines, plan_line = out.getvalue().splitlines(), err.getvalue().strip()
-        check(rc == 0, f"256x256 CLI exit {rc} ({label}): {plan_line}")
+            parts = resident.segments(ny, nx, ONCHIP_ITERS, "cuda")
+        want = expected_launches(parts)
+        lines, plan_line, launches, av_f, fs_f = _cli_run(
+            params, obs, params.parent, label, plan_env)
         check(form == ("onchip" if label == "auto" else "device"),
               f"256x256 {label}: form {form}")
         check(plan_line == "kernel: cuda on cuda (float32): "
@@ -1184,12 +1266,14 @@ def phase_onchip_scene(torch, np):
 def phase_onchip_timing(torch):
     """Device ms per step of the on-chip resident form at several block
     counts (the small-grid floor) and of both forms beside D=4 at the
-    crossover grids, in turns, at G = 100."""
+    crossover grids, with the single-buffer mode wherever its strips fit,
+    in turns, at G = 100; then the lattices of AUTO_GRIDS as auto runs
+    them."""
     from lbm_tpu_torch.ops import fused_depth, plan, resident
 
-    sms = resident.device_limits("cuda")[0]
+    sms, smem = resident.device_limits("cuda")
     results = {}
-    for name in ONCHIP_BLOCK_GRIDS + CROSSOVER_GRIDS:
+    for name in ONCHIP_BLOCK_GRIDS + CROSSOVER_GRIDS + STRIP_GRIDS:
         nx, ny = grid(name)
         p = scene_params(name)
         cells, mask = random_case(torch, name, p, seed=93, state="perturbed")
@@ -1202,22 +1286,24 @@ def phase_onchip_timing(torch):
                 counts = ONCHIP_BLOCKS + (sms,) \
                     if name in ONCHIP_BLOCK_GRIDS else (sms,)
                 for b in sorted({min(c, ny) for c in counts}):
-                    if plan.onchip_smem_bytes(ny, nx, b) <= \
-                            resident.device_limits("cuda")[1]:
+                    if plan.onchip_smem_bytes(ny, nx, b) <= smem:
                         impls[f"on-chip B={b}"] = resident.Resident(
                             *w, 100, form="onchip", blocks=b)
+            if onchip_fits(ny, nx, buffers=1):
+                impls["on-chip 1-buf"] = resident.Resident(*w, 100,
+                                                           form="inplace")
             impls["device"] = resident.Resident(*w, 100, form="device")
             impls["depth D=4"] = fused_depth.FusedDepth(*w, 4)
         calls = {label: (runner_call(impl, bufs, av), impl.steps_per_call,
                          None) for label, impl in impls.items()}
         loop, dev = time_turns(torch, calls)
         med = {k: statistics.median(v) for k, v in dev.items()}
-        onchip = {k: v for k, v in med.items() if k.startswith("on-chip")}
+        onchip = {k: v for k, v in med.items() if k.startswith("on-chip B")}
         best = min(onchip, key=onchip.get) if onchip else None
         out = {"phase": "onchip_timing", "grid": name, "cells": nx * ny,
-               "form": plan.resident_form(ny, nx, *resident.device_limits(
-                   "cuda")),
+               "form": plan.resident_form(ny, nx, sms, smem),
                "planned_blocks": plan.onchip_blocks(ny, nx, sms),
+               "strip_rows": -(-ny // plan.onchip_blocks(ny, nx, sms)),
                "fastest_blocks": best,
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
                "resident_over_depth4": {
@@ -1234,18 +1320,20 @@ def phase_onchip_timing(torch):
         results[name] = out
         del cells, bufs, impls, calls
         torch.cuda.empty_cache()
-    for name in AUTO_DEVICE_GRIDS:
-        results[name] = auto_device_timing(torch, name)
+    for name in AUTO_GRIDS:
+        results[name] = auto_timing(torch, name)
     return results
 
 
-def auto_device_timing(torch, name):
-    """A lattice that auto runs on the device-memory form: its plan (the
-    form asserted), 200 steps through the runner with the plan's launches
-    and the plain version's cells, and the planned kernel's time beside
-    D=4 in the same layout, in turns."""
+def auto_timing(torch, name):
+    """A lattice whose two-buffer strips do not fit on chip, as auto runs
+    it: its plan (the form plan.resident_form gives, asserted), 200 steps
+    through the runner with the plan's launches (counted from zero just
+    before) and the plain version's cells, then the single-buffer mode
+    (where its strips fit), the device-memory form and D=4 timed in the
+    run's layout, in turns, and the plain version's step."""
     from lbm_tpu_torch import runner
-    from lbm_tpu_torch.ops import fused, fused_depth, plan
+    from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
     from lbm_tpu_torch.ops import reference as ref_ops
     from lbm_tpu_torch.state import initial_state
 
@@ -1255,8 +1343,12 @@ def auto_device_timing(torch, name):
     with env():
         parts = runner.plan_run(p, "cuda", n, device="cuda")
         axis = int(runner.plan_layout(p, "cuda"))
-        check(plan.describe(parts) == f"resident G=100 device-memory x{n // 100}",
-              f"{name} under auto plans {plan.describe(parts)}")
+        rows, lanes = (p.nx, p.ny) if axis else (p.ny, p.nx)
+        form = plan.resident_form(rows, lanes,
+                                  *resident.device_limits("cuda"))
+        check(form != "onchip" and plan.describe(parts) == plan.describe(
+            [plan.Segment("resident", 100, n, form)]),
+            f"{name} under auto plans {plan.describe(parts)}")
         fused.reset_launches()
         c, _ = runner.simulate(p, initial_state(p, "cuda"), mask,
                                kernel="cuda", n_iters=n)
@@ -1277,22 +1369,169 @@ def auto_device_timing(torch, name):
         if axis:
             cells, mask = transposed(cells, mask)
         w = (mask, p.accel_w1, p.accel_w2, p.omega)
-        impls = {"planned": runner._make_impl(parts[0], mask, *w[1:], axis),
-                 "depth D=4": fused_depth.FusedDepth(*w, 4, axis)}
+        impls = {}
+        if onchip_fits(rows, lanes, buffers=1):
+            impls["on-chip 1-buf"] = resident.Resident(*w, 100, axis,
+                                                       form="inplace")
+        impls["device"] = resident.Resident(*w, 100, axis, form="device")
+        impls["depth D=4"] = fused_depth.FusedDepth(*w, 4, axis)
     bufs = [cells, torch.empty_like(cells)]
     av = torch.zeros(100, device="cuda")
     loop, dev = time_turns(torch, {
         label: (runner_call(impl, bufs, av), impl.steps_per_call, None)
         for label, impl in impls.items()})
     med = {k: statistics.median(v) for k, v in dev.items()}
+
+    def plain_step():
+        new, tot = ref_ops.fused_step(bufs[0], *w, axis=axis)
+        av[0] = tot
+
+    planned = "on-chip 1-buf" if form == "inplace" else "device"
     out = {"phase": "onchip_timing", "grid": name, "plan":
            plan.describe(parts), "layout": "transposed" if axis else
-           "physical", "launches": {k: v for k, v in launches.items() if v},
+           "physical", "execution": [rows, lanes],
+           "launches": {k: v for k, v in launches.items() if v},
            "max_abs_err_vs_plain": err, "loop_ms_per_step": loop,
-           "device_ms_per_step": dev,
-           "planned_over_depth4": med["planned"] / med["depth D=4"]}
+           "device_ms_per_step": dev, "planned": planned,
+           "over_depth4": {k: v / med["depth D=4"] for k, v in med.items()},
+           "plain_device_ms_per_step": _median_ms(torch, plain_step, 1, True,
+                                                  steps=4, batches=3)[0]}
     emit(out)
     return out
+
+
+def _cli_run(params, obs, out_dir, label, plan_env):
+    """One in-process CLI run under ``plan_env``: ``(stdout lines, plan
+    line, launch counts from zero, av_vels file, final state file)``."""
+    from lbm_tpu_torch import cli
+    from lbm_tpu_torch.ops import fused
+
+    av_f, fs_f = out_dir / f"av_{label}.dat", out_dir / f"fs_{label}.dat"
+    with env(**plan_env):
+        fused.reset_launches()
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([str(params), str(obs), "--av-vels-file", str(av_f),
+                           "--final-state-file", str(fs_f)])
+        launches = dict(fused.LAUNCHES)
+    plan_line = err.getvalue().strip()
+    check(rc == 0, f"CLI exit {rc} ({label}): {plan_line}")
+    return out.getvalue().splitlines(), plan_line, launches, av_f, fs_f
+
+
+def phase_inplace_scene(torch, np):
+    """The single-buffer mode's path: the 1024x512 scene, INPLACE_ITERS
+    steps through the CLI under auto (transposed, ``resident G=100 on-chip
+    1-buf x200``) and with LBM_RESIDENT=0 (D=4), in turns (auto, off,
+    off, auto): plan lines and launch counts equal the plans', the final
+    states the same bytes, av_vels within TRAJ_RTOL, Compute seconds; the
+    two plans' cells through the runner, bit for bit; INPLACE_GATE_ITERS
+    steps under auto through the CLI against the port's plain float64 run
+    on the card within the 0.3 % budget; the planned kernel beside D=4 in
+    turns, and the plain version's step. Returns each plan's launches and
+    the timings."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.ops import fused_depth, plan
+    from lbm_tpu_torch.ops import reference as ref_ops
+    from lbm_tpu_torch.state import initial_state
+
+    nx, ny = grid(INPLACE_SCENE)
+    p = scene_params(INPLACE_SCENE, INPLACE_ITERS)
+    plans = {"auto": {}, "off": {"LBM_RESIDENT": "0"}}
+    want_plan = {"auto": f"resident G=100 on-chip 1-buf x{INPLACE_ITERS // 100}",
+                 "off": f"depth D=4 x{INPLACE_ITERS // 4}"}
+    params, obs = walls_scene_files(INPLACE_SCENE, INPLACE_ITERS,
+                                    INPLACE_ACCEL)
+    runs, files, avs = {}, {}, {}
+    for i, label in enumerate(("auto", "off", "off", "auto")):
+        with env(**plans[label]):
+            cols = runner.plan_layout(p, "cuda")
+            parts = runner.plan_run(p, "cuda", INPLACE_ITERS, device="cuda")
+        lines, plan_line, launches, av_f, fs_f = _cli_run(
+            params, obs, params.parent, label, plans[label])
+        check(cols and plan.describe(parts) == want_plan[label],
+              f"{INPLACE_SCENE} {label} plans {plan.describe(parts)}")
+        check(plan_line == "kernel: cuda on cuda (float32), transposed: "
+              + plan.describe(parts), f"{INPLACE_SCENE} plan line: {plan_line}")
+        check(launches == expected_launches(parts, cols=True),
+              f"{INPLACE_SCENE} {label}: launches {launches}")
+        compute = float(lines[3].split()[-2])
+        emit({"phase": "inplace_scene", "grid": INPLACE_SCENE, "turn": i,
+              "plan": label, "env": plans[label], "plan_line": plan_line,
+              "steps": INPLACE_ITERS,
+              "launches": {k: v for k, v in launches.items() if v},
+              "compute_s": compute,
+              "glups": nx * ny * INPLACE_ITERS / compute / 1e9})
+        runs.setdefault(label, launches)
+        files.setdefault(label, fs_f.read_bytes())
+        avs.setdefault(label, lio.load_av_vels(av_f))
+    av_rel = float(np.max(np.abs(avs["auto"] - avs["off"])
+                          / np.abs(avs["off"])))
+    same = files["auto"] == files["off"]
+
+    # The cells themselves, through the runner.
+    mask = torch.from_numpy(generate_obstacles(nx, ny)).cuda()
+    cells = {}
+    for label, plan_env in plans.items():
+        with env(**plan_env):
+            cells[label], _ = runner.simulate(p, initial_state(p, "cuda"),
+                                              mask, kernel="cuda")
+    cells_equal = bool(torch.equal(cells["auto"], cells["off"]))
+    del cells
+
+    # Against the plain float64 run.
+    gate = scene_params(INPLACE_SCENE, INPLACE_GATE_ITERS)
+    mask_np = mask.cpu().numpy()
+    with env():
+        ref = runner.run_simulation(
+            scene_params(INPLACE_SCENE, INPLACE_GATE_ITERS, np.float64),
+            mask_np, kernel="reference")
+    ref_p = lio.final_state_fields(gate, ref.cells, mask_np)[3].ravel()
+    g_params, _ = walls_scene_files(INPLACE_SCENE, INPLACE_GATE_ITERS,
+                                    INPLACE_ACCEL)
+    _, g_line, g_launches, g_av, g_fs = _cli_run(g_params, obs,
+                                                 params.parent, "gate", {})
+    d, ok = drift(np, ref.av_vels, ref_p, lio.load_av_vels(g_av),
+                  lio.load_final_state(g_fs)[:, 2])
+
+    # The planned kernel beside D=4 on the transposed lattice, in turns.
+    c0, m0 = random_case(torch, INPLACE_SCENE, p, seed=91, state="perturbed")
+    c0, m0 = transposed(c0, m0)
+    w = (m0, p.accel_w1, p.accel_w2, p.omega)
+    with env():
+        impls = {"planned": runner._make_impl(
+            plan.Segment("resident", 100, 100, "inplace"), *w, 1),
+            "depth D=4": fused_depth.FusedDepth(*w, 4, 1)}
+    bufs, av = [c0, torch.empty_like(c0)], torch.zeros(100, device="cuda")
+    loop, dev = time_turns(torch, {
+        label: (runner_call(impl, bufs, av), impl.steps_per_call, None)
+        for label, impl in impls.items()})
+
+    def plain_step():
+        new, tot = ref_ops.fused_step(bufs[0], *w, axis=1)
+        av[0] = tot
+
+    plain_ms = _median_ms(torch, plain_step, 1, True, steps=4, batches=3)[0]
+    med = {k: statistics.median(v) for k, v in dev.items()}
+    out = {"phase": "inplace_scene", "grid": INPLACE_SCENE,
+           "final_states_same_bytes": same, "cells_bit_identical": cells_equal,
+           "av_vels_max_rel_err": av_rel, "gate_steps": INPLACE_GATE_ITERS,
+           "gate_plan_line": g_line, **d,
+           "reference": "plain float64 on the card",
+           "loop_ms_per_step": loop, "device_ms_per_step": dev,
+           "planned_over_depth4": med["planned"] / med["depth D=4"],
+           "plain_device_ms_per_step": plain_ms}
+    emit(out)
+    check(same and cells_equal, f"{INPLACE_SCENE}: auto and LBM_RESIDENT=0 "
+          "cells differ")
+    check(av_rel <= TRAJ_RTOL, f"{INPLACE_SCENE}: av_vels differ by {av_rel}")
+    check(ok, f"{INPLACE_SCENE}: outside the drift budget")
+    check(g_launches["resident_onchip_inplace_cols"] > 0,
+          f"{INPLACE_SCENE} gate: no single-buffer launch")
+    return {"launches": runs, "device_ms": med["planned"],
+            "plain_ms": plain_ms}
 
 
 # The sharded path: P shards on one card (a mesh that repeats the device),
@@ -2482,11 +2721,12 @@ def main() -> int:
     wide_worst = run("wide_kernel", phase_wide_kernel, torch)
     launches = run("scene", phase_scene, torch, np)
     onchip_runs = run("onchip_scene", phase_onchip_scene, torch, np)
+    inplace = run("inplace_scene", phase_inplace_scene, torch, np)
     wide_runs = run("wide_gate", phase_wide_gate, torch, np)
     run("stress", phase_stress, torch)
     timing = run("timing", phase_timing, torch)
     wide_timing = run("wide_timing", phase_wide_timing, torch)
-    run("onchip_timing", phase_onchip_timing, torch)
+    onchip_timing = run("onchip_timing", phase_onchip_timing, torch)
     shard_worst = run("shard_kernel", phase_shard_kernel, torch)
     shard_launches = run("shard_scene", phase_shard_scene, torch, np)
     wide_shard_launches = run("wide_shard", phase_wide_shard, torch, np)
@@ -2521,6 +2761,12 @@ def main() -> int:
             "fused_depth": launches["auto"]["depth"],
             "resident": launches["resident"]["resident"],
             "resident_onchip": onchip_runs["auto"]["resident_onchip"],
+            # 200 steps of 400x1024 through the runner under auto (row
+            # mode), and the 1024x512 scene (transposed, column mode).
+            "resident_onchip_inplace": onchip_timing[INPLACE_ROW_GRID][
+                "launches"].get("resident_onchip_inplace", 0),
+            "resident_onchip_inplace_cols": inplace["launches"]["auto"][
+                "resident_onchip_inplace_cols"],
             "fused_step_seam": shard_launches["step"]["step_seam"],
             "fused_depth_seam": shard_launches["auto"]["depth_seam"],
             "ring": shard_launches["ring"]["ring"],
@@ -2541,6 +2787,10 @@ def main() -> int:
     onx, ony = grid(ONCHIP_SCENE)
     ocells = onx * ony
     oworst = max(worst["resident_onchip"], wide_worst["resident_onchip"])
+    # The single-buffer mode: its row and column paths.
+    irow = onchip_timing[INPLACE_ROW_GRID]
+    inx, iny = grid(INPLACE_ROW_GRID)
+    snx, sny = grid(INPLACE_SCENE)
     st = shard_timing[SCENE]
     sdev = {k: statistics.median(v) for k, v in st["device_ms_per_step"].items()}
     sloop = {k: statistics.median(v) for k, v in st["loop_ms_per_step"].items()}
@@ -2620,6 +2870,32 @@ def main() -> int:
                      statistics.median(ot["plain_device_ms_per_step"]),
                      bound(ocells, 100),
                      ceiling=design_ceiling(ocells, 100)),
+        # The on-chip form's single-buffer mode; its strips never leave
+        # the chip either, so its ceiling is its bound.
+        kernel_entry("resident_onchip_inplace",
+                     "lbm_tpu_torch/csrc/resident_onchip.cu",
+                     "lbm_tpu/ops/pallas_resident.py:217",
+                     runs["resident_onchip_inplace"],
+                     f"{INPLACE_ROW_GRID}, auto, {2 * 100} steps through the "
+                     "runner (G=100 on-chip 1-buf)",
+                     max(worst["resident_onchip_inplace"],
+                         irow["max_abs_err_vs_plain"]),
+                     statistics.median(
+                         irow["device_ms_per_step"]["on-chip 1-buf"]),
+                     irow["plain_device_ms_per_step"],
+                     bound(inx * iny, 100),
+                     ceiling=design_ceiling(inx * iny, 100)),
+        kernel_entry("resident_onchip_inplace_cols",
+                     "lbm_tpu_torch/csrc/resident_onchip.cu",
+                     "lbm_tpu/ops/pallas_resident.py:217",
+                     runs["resident_onchip_inplace_cols"],
+                     f"{INPLACE_SCENE} scene (transposed), auto (G=100 "
+                     "on-chip 1-buf)",
+                     max(worst["resident_onchip_inplace_cols"],
+                         wide_worst["resident_onchip_inplace"]),
+                     inplace["device_ms"], inplace["plain_ms"],
+                     bound(snx * sny, 100),
+                     ceiling=design_ceiling(snx * sny, 100)),
         kernel_entry("fused_step_seam", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
                      f"{sharded}, one-step plan", shard_worst["step_seam"],

@@ -77,14 +77,15 @@ _SIGNATURES = {
     "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),
     "lbm_sm_count": ([_c_int], _c_int),
     "lbm_smem_optin": ([_c_int], _c_int),
-    "lbm_onchip_smem_bytes": ([_c_int, _c_int, _c_int], ctypes.c_longlong),
+    "lbm_onchip_smem_bytes": (
+        [_c_int, _c_int, _c_int, _c_int], ctypes.c_longlong),
     "lbm_onchip_prepare": (
-        [_c_int, _c_int, ctypes.c_longlong, _c_int, _c_int], _c_int),
+        [_c_int, _c_int, _c_int, ctypes.c_longlong, _c_int, _c_int], _c_int),
     "lbm_resident_onchip": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_float,
          _c_float, _c_int, _c_int, _c_float, ctypes.c_uint, _c_int, _c_int,
-         _c_int, _c_void_p],
+         _c_int, _c_int, _c_void_p],
         _c_int,
     ),
     "lbm_fused_step_seam": ([_c_void_p, _c_int, _c_int, _c_void_p], _c_int),

@@ -4,23 +4,27 @@ The twin of the JAX package's planning functions, with the same env pins
 and meanings:
 
 - ``lbm_tpu.ops.pallas_resident``: ``resident_prefs``,
-  ``resident_gsteps``, ``_pinned_steps`` and ``_G_PREF``;
-- ``lbm_tpu.ops.pallas_fused``: ``_depth_preference``, ``plan_split`` /
-  ``plan_iters`` and the kernel choice of ``make_carry_step``;
+  ``_pinned_steps`` and ``_G_PREF``;
+- ``lbm_tpu.ops.pallas_fused``: ``_depth_preference``, ``plan_split``
+  and the kernel choice of ``make_carry_step``;
 - ``lbm_tpu.runner._segments``.
 
 Pins: ``LBM_RESIDENT`` ("0" disables the resident kernel, "1" forces
-it), ``LBM_RESIDENT_STEPS`` (pins G; must be a positive even integer, as
-for the JAX package's two-buffer kernel) and ``LBM_PALLAS_DEPTH`` (caps
-the depth kernel's D and prefers the cap; 1 leaves the one-step kernel);
-the port's own ``LBM_RESIDENT_FORM`` ("onchip" or "device") pins the
-resident kernel's form, which is otherwise :func:`resident_form`'s size
-rule.
+it), ``LBM_RESIDENT_STEPS`` (pins G; a positive integer, even unless the
+planned form is the single-buffer one, as the JAX package's
+``_pinned_steps``), ``LBM_RESIDENT_INPLACE`` ("1" pins the on-chip form's
+single-buffer mode, "0", "" or "false" its two buffers; the JAX
+package's knob for ``_kernel_resident``'s in-place mode) and
+``LBM_PALLAS_DEPTH`` (caps the depth kernel's D and prefers the cap; 1
+leaves the one-step kernel); the port's own ``LBM_RESIDENT_FORM``
+("onchip", its two buffers, or "device") pins the resident kernel's
+form, which is otherwise :func:`resident_form`'s size rule.
 
 What the automatic choice prefers is measured on the H100, not carried
 over from the TPU's VMEM gates (PERF.md, "Where the time goes"). The
-TPU's in-place single-buffer resident mode and ``LBM_RESIDENT_SHIFT``
-are VMEM workarounds and have no counterpart here.
+single-buffer mode has the JAX package's place in the order (two buffers
+where they fit, else one); where it runs under ``auto`` was measured
+again on the H100. ``LBM_RESIDENT_SHIFT`` is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -40,32 +44,46 @@ G_PREF = (100, 64, 50, 32, 20, 16)
 # Automatic choice, set from chip_smoke.py's timing phases and
 # scripts/resident_ab_torch.py on an NVIDIA H100 80GB HBM3 at 700 W
 # (PERF.md, "Where the time goes"). The resident kernel removes the
-# per-step launches. Its on-chip form (where a strip fits, up to about
-# 418K cells) beat the depth kernel at D=4 at every lattice measured. Its
-# device-memory form, rounds of up to four steps on the depth kernel's
-# tiles, is 0.97-1.04x D=4 up to RESIDENT_AUTO_MAX_CELLS and 1.07-1.12x
-# above it in row mode (0.98x on the transposed 131072x128 and
-# 16384x1024): faster by 2 % nowhere above the limit, which stays where
-# the on-chip form's strips stop fitting. D=4 is the depth kernel's best at
-# 1024x1024 and 16384x1024, D=2 its next, and so on the transposed
-# 131072x128 too (D=8 about 1.37x D=4): the JAX package's D=8 preference
-# at 128 lanes, a TPU measurement, is not carried over.
+# per-step launches. Its on-chip form in two buffers (where a strip fits,
+# up to about 418K cells) beat the depth kernel at D=4 at every lattice
+# measured. Its device-memory form, rounds of up to four steps on the
+# depth kernel's tiles, is 0.97-1.04x D=4 up to RESIDENT_AUTO_MAX_CELLS
+# and 1.07-1.12x above it in row mode (0.98x on the transposed 131072x128
+# and 16384x1024): faster by 2 % nowhere above the limit, which stays the
+# device form's. The on-chip form's single-buffer mode takes the lattices
+# whose two-buffer strips do not fit and whose one-buffer strips of at
+# least INPLACE_MIN_ROWS rows do, below the limit and above it
+# (resident_form): 0.77-0.84x D=4 at 1024x400, 400x1024, 3200x128,
+# 1024x512, 1024x640 and 768x768, 0.85x and 0.93x with strips of 2 and 3
+# rows (1600x264, 1200x396), where the device form takes 0.97-1.07x; but
+# 1.46x at 4096x64, whose strips are one row: every cell is an edge cell,
+# sent and received every step, and no interior row hides the
+# neighbours' wait. A pin never lifts the cell limit (resident_prefs).
+# D=4 is the depth kernel's best at 1024x1024 and 16384x1024, D=2 its
+# next, and so on the transposed 131072x128 too (D=8 about 1.37x D=4):
+# the JAX package's D=8 preference at 128 lanes, a TPU measurement, is
+# not carried over.
 RESIDENT_AUTO_MAX_CELLS = 792 * 528
+INPLACE_MIN_ROWS = 2
 AUTO_DEPTHS = (4, 2)
 # The wide-grid layout's size rule (transposed_layout), measured on the
 # H100 when the resident kernel's limit was 512x512 cells and left there
 # when that limit moved (PERF.md).
 TRANSPOSED_MIN_CELLS = 512 * 512
 
-# The resident kernel's two forms (ops/resident.py). The on-chip form
+# The resident kernel's forms (ops/resident.py). The on-chip form
 # (csrc/resident_onchip.cu) gives each of up to one block an SM a strip of
 # whole rows in shared memory for all G steps: two float32 buffers of nine
-# speeds and the mask bytes, 73 B a cell, beside a fixed scratch. Its halo
-# rows (three pre-forced speeds a cell) stay in L2 and take no shared
-# memory. The device-memory form (csrc/resident.cu) keeps the lattice in
-# device memory and takes any size.
-RESIDENT_FORMS = ("onchip", "device")
-ONCHIP_BYTES_PER_CELL = 73
+# speeds and the mask bytes, 73 B a cell, beside a fixed scratch; its
+# single-buffer mode ("inplace") one buffer, 37 B a cell, beside the
+# scratch and its carry (four floats and, for strips of two rows or more,
+# one or two rows of three speeds). Its halo rows (three speeds a cell)
+# stay in L2 and take no shared memory. The device-memory form
+# (csrc/resident.cu) keeps the lattice in device memory and takes any
+# size. LBM_RESIDENT_FORM pins one of FORM_PINS.
+RESIDENT_FORMS = ("onchip", "inplace", "device")
+FORM_PINS = ("onchip", "device")
+ONCHIP_BYTES_PER_CELL = {2: 73, 1: 37}
 ONCHIP_SCRATCH_BYTES = (2 * 32 + 4) * 4
 
 
@@ -94,23 +112,45 @@ def onchip_blocks(ny: int, nx: int, sms: int) -> int:
     return max(1, min(ny, sms))
 
 
-def onchip_smem_bytes(ny: int, nx: int, blocks: int) -> int:
+def onchip_smem_bytes(ny: int, nx: int, blocks: int,
+                      buffers: int = 2) -> int:
     """Dynamic shared memory of one block of the on-chip form over
-    ``blocks`` strips: the tallest strip's cells at 73 B, plus the
-    scratch (``csrc/resident_onchip.cu``'s ``smem_bytes``)."""
+    ``blocks`` strips in ``buffers`` buffers (2, or 1: the single-buffer
+    mode): the tallest strip's cells at 73 B (37 B), plus the scratch and,
+    in one buffer, the carry: 16 B and 12 B a column for each of
+    ``min(h - 1, 2)`` rows (``csrc/resident_onchip.cu``'s
+    ``smem_bytes``)."""
     h = -(-ny // blocks)
-    return ONCHIP_BYTES_PER_CELL * h * nx + ONCHIP_SCRATCH_BYTES
+    cells = ONCHIP_BYTES_PER_CELL[buffers] * h * nx + ONCHIP_SCRATCH_BYTES
+    if buffers == 2:
+        return cells
+    return cells + 16 + 12 * nx * min(h - 1, 2)
+
+
+def onchip_fits(ny: int, nx: int, sms: int, smem_per_block: int,
+                buffers: int) -> bool:
+    """Whether the on-chip form's strips of the ny x nx lattice over
+    :func:`onchip_blocks` blocks fit ``smem_per_block`` bytes of shared
+    memory (the card's opt-in limit) in ``buffers`` buffers."""
+    blocks = onchip_blocks(ny, nx, sms)
+    return onchip_smem_bytes(ny, nx, blocks, buffers) <= smem_per_block
 
 
 def resident_form(ny: int, nx: int, sms: int, smem_per_block: int) -> str:
-    """``"onchip"`` when a strip of the ny x nx lattice, over
-    :func:`onchip_blocks` blocks, fits ``smem_per_block`` bytes of shared
-    memory (the card's opt-in limit), else ``"device"``. A pure size rule:
-    the wrapper of a form that the card then refuses raises; it never
-    takes the other form."""
-    blocks = onchip_blocks(ny, nx, sms)
-    fits = onchip_smem_bytes(ny, nx, blocks) <= smem_per_block
-    return "onchip" if fits else "device"
+    """The resident kernel's form for the ny x nx lattice under
+    ``auto`` on a card of ``sms`` SMs and ``smem_per_block`` bytes of
+    shared memory a block, in the JAX package's order (``_inplace_mode``):
+    ``"onchip"`` where the two-buffer strips fit, else ``"inplace"`` (the
+    single-buffer mode) where the one-buffer strips fit and are at least
+    :data:`INPLACE_MIN_ROWS` rows tall (the measured exception above), else
+    ``"device"``. A pure size rule: the wrapper of a form that the card
+    then refuses raises; it never takes another form."""
+    if onchip_fits(ny, nx, sms, smem_per_block, 2):
+        return "onchip"
+    tall = -(-ny // onchip_blocks(ny, nx, sms)) >= INPLACE_MIN_ROWS
+    if tall and onchip_fits(ny, nx, sms, smem_per_block, 1):
+        return "inplace"
+    return "device"
 
 
 def pinned_form() -> str | None:
@@ -118,10 +158,45 @@ def pinned_form() -> str | None:
     pin = os.environ.get("LBM_RESIDENT_FORM")
     if not pin:
         return None
-    if pin not in RESIDENT_FORMS:
+    if pin not in FORM_PINS:
         raise ValueError(f"LBM_RESIDENT_FORM={pin!r}: expected one of "
-                         f"{RESIDENT_FORMS}")
+                         f"{FORM_PINS}")
     return pin
+
+
+def pinned_inplace() -> bool | None:
+    """The ``LBM_RESIDENT_INPLACE`` pin as the JAX package reads it
+    (``_inplace_override``): None unset, False for "0", "" or "false"
+    (two buffers), True for anything else (one buffer)."""
+    env = os.environ.get("LBM_RESIDENT_INPLACE")
+    if env is None:
+        return None
+    return env not in ("0", "", "false")
+
+
+def planned_form(ny: int, nx: int, limits) -> str | None:
+    """The resident kernel's form for an ny x nx lattice on a card of
+    ``limits`` = ``(SMs, shared memory a block may opt in to)``, or None
+    off the card (``limits`` None). The pins first: ``LBM_RESIDENT_FORM=
+    device`` the device-memory form (with ``LBM_RESIDENT_INPLACE=1`` a
+    ``ValueError``: that form has no single-buffer mode);
+    ``LBM_RESIDENT_INPLACE`` "1" the single-buffer mode, "0" the two
+    buffers, of the on-chip form; ``LBM_RESIDENT_FORM=onchip`` the on-chip
+    form's two buffers. Unpinned, :func:`resident_form`. A pinned mode
+    whose strips do not fit is returned all the same: the wrapper raises
+    where it would run."""
+    form, inplace = pinned_form(), pinned_inplace()
+    if form == "device":
+        if inplace:
+            raise ValueError("LBM_RESIDENT_INPLACE=1 with LBM_RESIDENT_FORM="
+                             "device: the device-memory form has no "
+                             "single-buffer mode")
+        return "device"
+    if limits is None:
+        return None
+    if inplace is not None:
+        return "inplace" if inplace else "onchip"
+    return form or resident_form(ny, nx, *limits)
 
 
 def layout(params) -> tuple[bool, int, int]:
@@ -142,8 +217,8 @@ class Segment:
     ``kernel`` is "step" (one step per launch), "depth" (D per launch),
     "resident" (G per launch), "ring" (G per launch on every shard) or
     "reference" (the plain path). ``form``: the resident kernel's form on
-    the card ("onchip" or "device", :func:`resident_form`), None where no
-    card was asked."""
+    the card ("onchip", "inplace" or "device", :func:`planned_form`), None
+    where no card was asked."""
 
     kernel: str
     steps_per_call: int
@@ -158,20 +233,24 @@ class Segment:
     def launch_key(self) -> str:
         """The kernel's name in ``ops.fused.LAUNCHES`` (without the
         column mode's "_cols")."""
-        return "resident_onchip" if self.form == "onchip" else self.kernel
+        return {"onchip": "resident_onchip",
+                "inplace": "resident_onchip_inplace"}.get(self.form,
+                                                          self.kernel)
 
     def describe(self) -> str:
         size = {"depth": f" D={self.steps_per_call}",
                 "resident": f" G={self.steps_per_call}",
                 "ring": f" G={self.steps_per_call}"}.get(self.kernel, "")
-        form = {"onchip": " on-chip", "device": " device-memory"}.get(
-            self.form, "")
+        form = {"onchip": " on-chip", "inplace": " on-chip 1-buf",
+                "device": " device-memory"}.get(self.form, "")
         return f"{self.kernel}{size}{form} x{self.launches}"
 
 
-def _pinned_steps() -> int | None:
-    """The ``LBM_RESIDENT_STEPS`` pin, or None; an invalid, non-positive
-    or odd value raises, as the JAX package's two-buffer mode does."""
+def _pinned_steps(even: bool) -> int | None:
+    """The ``LBM_RESIDENT_STEPS`` pin, or None; an invalid or
+    non-positive value raises, and so does an odd one where ``even`` (a
+    form that is not the single-buffer one), as the JAX package's
+    ``_pinned_steps``."""
     pin = os.environ.get("LBM_RESIDENT_STEPS")
     if not pin:
         return None
@@ -182,33 +261,35 @@ def _pinned_steps() -> int | None:
             from None
     if g < 1:
         raise ValueError(f"LBM_RESIDENT_STEPS={g} must be positive")
-    if g % 2:
+    if even and g % 2:
         raise ValueError(
-            f"LBM_RESIDENT_STEPS={g}: the two-buffer resident kernel steps "
-            "in pairs and needs an even count"
+            f"LBM_RESIDENT_STEPS={g}: this kernel steps in pairs and needs "
+            "an even count; only the on-chip resident form's single-buffer "
+            "mode (LBM_RESIDENT_INPLACE=1, or the planned form 'inplace') "
+            "takes an odd one"
         )
     return g
 
 
-def resident_prefs(ny: int, nx: int) -> tuple[int, ...] | None:
+def resident_prefs(ny: int, nx: int, form: str | None = None,
+                   limits=None) -> tuple[int, ...] | None:
     """G preferences, most preferred first, when the resident kernel
-    applies to an ny x nx lattice; else None. ``LBM_RESIDENT`` "0"
-    disables, "1" forces; unset, the measured size rule decides."""
+    applies to an ny x nx lattice whose planned form is ``form``
+    (:func:`planned_form`) on a card of ``limits`` (None off the card);
+    else None. ``LBM_RESIDENT`` "0" disables, "1" forces; unset, the
+    measured size rule decides: up to RESIDENT_AUTO_MAX_CELLS, and above
+    it where the form is the single-buffer one and :func:`resident_form`
+    takes that mode there itself (a pin never lifts the limit). An odd
+    ``LBM_RESIDENT_STEPS`` needs that form."""
     env = os.environ.get("LBM_RESIDENT")
     if env is not None and env in ("0", "", "false"):
         return None
-    if env is None and ny * nx > RESIDENT_AUTO_MAX_CELLS:
+    if env is None and ny * nx > RESIDENT_AUTO_MAX_CELLS and not (
+            form == "inplace" and limits is not None
+            and resident_form(ny, nx, *limits) == "inplace"):
         return None
-    pin = _pinned_steps()
+    pin = _pinned_steps(even=form != "inplace")
     return (pin,) if pin else G_PREF
-
-
-def resident_gsteps(ny: int, nx: int, n_iters: int | None) -> int | None:
-    """The first preferred G that divides ``n_iters``, or None."""
-    prefs = resident_prefs(ny, nx)
-    if not prefs or not n_iters:
-        return None
-    return next((g for g in prefs if n_iters % g == 0), None)
 
 
 def depth_preference(ny: int, nx: int) -> list[int]:
@@ -222,25 +303,20 @@ def depth_preference(ny: int, nx: int) -> list[int]:
     return list(AUTO_DEPTHS)
 
 
-def plan_iters(ny: int, nx: int, iters: int) -> tuple[int, int]:
+def split(iters: int, gprefs, depths) -> tuple[int, int]:
     """``(main, tail)``: split ``iters`` so the main part runs at the
-    preferred granularity. A count some preferred G divides is one
-    resident segment; otherwise a resident main at the first G. When
-    the resident kernel does not apply, or the count is shorter than
-    that G, a depth main at the first preferred D that the count
-    exceeds without dividing it, unless an earlier D divides it.
-    ``(iters, 0)`` when no split helps.
+    preferred granularity, for given G preferences (None: no G-step
+    kernel) and depths, most preferred first. A count some preferred G
+    divides is one G-step segment; otherwise a G-step main at the first
+    G. When no G-step kernel applies, or the count is shorter than that
+    G, a depth main at the first preferred D that the count exceeds
+    without dividing it, unless an earlier D divides it. ``(iters, 0)``
+    when no split helps.
 
     One difference from the JAX package's ``plan_split``, which tries
     only its first depth: a count shorter than the first D tries the
     next, so a tail never leaves more than one step to the one-step
     kernel (the smallest D is 2)."""
-    return split(iters, resident_prefs(ny, nx), depth_preference(ny, nx))
-
-
-def split(iters: int, gprefs, depths) -> tuple[int, int]:
-    """:func:`plan_iters` for given G preferences (None: no G-step
-    kernel) and depths, most preferred first."""
     if gprefs and iters > 0:
         if any(iters % g == 0 for g in gprefs):
             return iters, 0
@@ -255,17 +331,11 @@ def split(iters: int, gprefs, depths) -> tuple[int, int]:
     return iters, 0
 
 
-def select(ny: int, nx: int, n_iters: int) -> tuple[str, int]:
-    """``(kernel, steps_per_call)`` for a segment of ``n_iters`` steps:
-    the resident kernel at the first preferred G that divides it, else
-    the depth kernel at the first preferred D that divides it, else the
-    one-step kernel."""
-    return choose(n_iters, resident_prefs(ny, nx), depth_preference(ny, nx))
-
-
 def choose(n_iters: int, gprefs, depths, many: str = "resident"):
-    """:func:`select` for given G preferences and depths; ``many`` names
-    the G-step kernel ("resident", or "ring" on a sharded run)."""
+    """``(kernel, steps_per_call)`` for a segment of ``n_iters`` steps:
+    the G-step kernel (``many``: "resident", or "ring" on a sharded run)
+    at the first preferred G that divides it, else the depth kernel at
+    the first preferred D that divides it, else the one-step kernel."""
     g = next((g for g in gprefs or () if n_iters % g == 0), None)
     if g:
         return many, g
@@ -275,16 +345,17 @@ def choose(n_iters: int, gprefs, depths, many: str = "resident"):
     return "step", 1
 
 
-def segments(ny: int, nx: int, iters: int,
-             form: str | None = None) -> list[Segment]:
+def segments(ny: int, nx: int, iters: int, form: str | None = None,
+             limits=None) -> list[Segment]:
     """Plan a run of ``iters`` steps as segments that sum to ``iters``.
     One segment when a preferred granularity divides ``iters``;
     otherwise a main segment and the tail re-planned, so any count runs
     at full speed with at most one step on the one-step kernel (for
     example 1099 steps with the resident kernel: 1000 at G=100, 96 at
     G=32, then 2 at D=2 and 1 single step). ``form``: the resident
-    kernel's form, given to its segments."""
-    return plan_segments(iters, resident_prefs(ny, nx),
+    kernel's form, given to its segments; ``limits``: the card's
+    (:func:`resident_prefs`)."""
+    return plan_segments(iters, resident_prefs(ny, nx, form, limits),
                          depth_preference(ny, nx), form=form)
 
 

@@ -8,6 +8,10 @@ size (:func:`.plan.resident_form`):
 - ``"onchip"`` (``csrc/resident_onchip.cu``): each block holds its strip
   of rows in shared memory for all G steps and trades its edge rows with
   its two neighbours through L2, under a flag per (direction, slot);
+- ``"inplace"``: the same kernel's single-buffer mode (the JAX kernel's
+  in-place mode, ``LBM_RESIDENT_INPLACE``): one buffer a strip, updated in
+  place in waves, what a later wave pulls from an overwritten cell carried
+  beside it;
 - ``"device"`` (``csrc/resident.cu``): the lattice stays in device
   memory; the blocks step it in rounds of up to four steps on the depth
   kernel's shared-memory tiles (``csrc/lbm_depth.cuh``), one grid barrier
@@ -17,12 +21,13 @@ A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`, whatever the form; a CUDA tensor launches
 the kernel of its form or raises, also when the device refuses the
 cooperative launch or the strip's shared memory: a refused form never
-falls back to the other. Both ping-pong between the two buffers they are
-given, so the result is in the first after an even ``gsteps`` and in the
-second after an odd one; the CPU path keeps the same contract.
-:func:`resident_onchip_emulated` is the on-chip form's strips, halo slots
-and sums in plain PyTorch, :func:`resident_device_emulated` the device
-form's rounds, for the CPU tests.
+falls back to the other. The result is in the first of the two buffers
+they are given after an even ``gsteps`` and in the second after an odd
+one (the single-buffer mode copies out to whichever the contract names);
+the CPU path keeps the same contract. :func:`resident_onchip_emulated` is
+the on-chip form's strips, halo slots and sums in plain PyTorch, in both
+of its modes, :func:`resident_device_emulated` the device form's rounds,
+for the CPU tests.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ NORTH_SPEEDS = (2, 5, 6)
 SOUTH_SPEEDS = (4, 7, 8)
 # Tags restart from zero (flags zeroed) before they would pass 2**31.
 _TAG_LIMIT = 1 << 31
+# Threads of an on-chip block (csrc/resident_onchip.cu's kThreads): the
+# cells of a wave of the single-buffer mode.
+THREADS = 1024
 
 
 def device_rounds(gsteps: int) -> list[int]:
@@ -77,27 +85,41 @@ def device_limits(device) -> tuple[int, int]:
     return sms, smem
 
 
+def _limits(device):
+    """:func:`device_limits` of a CUDA ``device``, else None."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    return device_limits(device) if on_card else None
+
+
 def planned_form(ny: int, nx: int, device) -> str | None:
     """The resident kernel's form for an ny x nx lattice on ``device``:
-    the ``LBM_RESIDENT_FORM`` pin, else :func:`.plan.resident_form` with
-    the card's limits; None off the card."""
-    if device is None or torch.device(device).type != "cuda":
-        return None
-    return plan.pinned_form() or plan.resident_form(ny, nx,
-                                                    *device_limits(device))
+    :func:`.plan.planned_form` (the pins, else the size rule) with the
+    card's limits; None off the card."""
+    return plan.planned_form(ny, nx, _limits(device))
+
+
+def segments(ny: int, nx: int, iters: int, device) -> list:
+    """:func:`.plan.segments` of ``iters`` steps of an ny x nx lattice on
+    ``device``, with the resident kernel's planned form and the card's
+    limits (None off the card)."""
+    limits = _limits(device)
+    return plan.segments(ny, nx, iters, plan.planned_form(ny, nx, limits),
+                         limits)
 
 
 class Resident(LatticeKernel):
     """The resident kernel bound to one mask: ``run(a, b, out, t,
     scale)`` runs ``gsteps`` steps from ``a`` and returns ``(cells,
     spare)``: ``(a, b)`` for an even ``gsteps``, ``(b, a)`` for an odd
-    one. ``form``: "onchip" or "device"; None takes
-    :func:`planned_form`. ``blocks``: the block count (default: the
-    on-chip form's :func:`.plan.onchip_blocks`; the device form's as many
-    as can be co-resident, at most one a tile); a device-form launch of
-    more than can be co-resident raises. On a CUDA mask the launch
-    geometry is fixed at construction and the scratch (partials and tile
-    tickets; on chip halo slots, flags and the ticket) allocated once."""
+    one. ``form``: "onchip", "inplace" (the on-chip form's single-buffer
+    mode) or "device"; None takes :func:`planned_form`. ``blocks``: the
+    block count (default: the on-chip form's :func:`.plan.onchip_blocks`;
+    the device form's as many as can be co-resident, at most one a tile);
+    a device-form launch of more than can be co-resident raises. On a CUDA
+    mask the launch geometry is fixed at construction and the scratch
+    (partials and tile tickets; on chip halo slots, flags and the ticket)
+    allocated once; an on-chip mode whose strips do not fit the card's
+    shared memory raises there."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, gsteps: int,
                  axis: int = 0, form: str | None = None,
@@ -115,7 +137,7 @@ class Resident(LatticeKernel):
         ny, nx = mask.shape
         if self.form is None:
             self.form = planned_form(ny, nx, self.device)
-        if self.form == "onchip":
+        if self.form in ("onchip", "inplace"):
             self._init_onchip(ny, nx, blocks)
             return
         lib = self._lib
@@ -139,18 +161,23 @@ class Resident(LatticeKernel):
             else int(blocks)
         if not 1 <= self.blocks <= ny:
             raise ValueError(f"{self.blocks} strips of {ny} rows")
-        self.smem_bytes = plan.onchip_smem_bytes(ny, nx, self.blocks)
-        if lib.lbm_onchip_smem_bytes(ny, nx, self.blocks) != self.smem_bytes:
+        self.buffers = 1 if self.form == "inplace" else 2
+        self.smem_bytes = plan.onchip_smem_bytes(ny, nx, self.blocks,
+                                                 self.buffers)
+        if lib.lbm_onchip_smem_bytes(ny, nx, self.blocks,
+                                     self.buffers) != self.smem_bytes:
             raise RuntimeError("ops/plan.py and csrc/resident_onchip.cu "
                                "size a strip differently")
+        mode = "single-buffer" if self.buffers == 1 else "two-buffer"
         if self.smem_bytes > smem:
             raise ValueError(
-                f"the on-chip resident form needs {self.smem_bytes} B of "
-                f"shared memory a block for {ny}x{nx} over {self.blocks} "
-                f"strips; the card gives {smem}")
+                f"the on-chip resident form's {mode} mode needs "
+                f"{self.smem_bytes} B of shared memory a block for {ny}x{nx} "
+                f"over {self.blocks} strips; the card gives {smem}")
         _build.check(lib, lib.lbm_onchip_prepare(
-            self.axis, self.mode, self.smem_bytes, self.blocks, self._index,
-        ), f"on-chip resident form over {self.blocks} blocks")
+            self.axis, self.mode, self.buffers, self.smem_bytes, self.blocks,
+            self._index,
+        ), f"on-chip resident form ({mode}) over {self.blocks} blocks")
         dev = self.device
         self._halo = torch.zeros(self.blocks * 2 * 2 * 3 * nx,
                                  dtype=torch.float32, device=dev)
@@ -174,7 +201,7 @@ class Resident(LatticeKernel):
             out[t:t + g] = tots * self._scale(scale)
             return result
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
-        if self.form == "onchip":
+        if self.form in ("onchip", "inplace"):
             if self._step_base + g >= _TAG_LIMIT:
                 self._flags.zero_()
                 self._step_base = 0
@@ -184,11 +211,12 @@ class Resident(LatticeKernel):
                 self._partials.data_ptr(), self._ticket.data_ptr(),
                 out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1,
                 self.w2, self.omega, self.mode, g, self._scale(scale),
-                self._step_base, self.blocks, self.axis, self._index,
-                self._stream(),
+                self._step_base, self.blocks, self.axis, self.buffers,
+                self._index, self._stream(),
             ), f"on-chip resident G={g} cooperative launch")
             self._step_base += g
-            self._launched("resident_onchip")
+            self._launched("resident_onchip_inplace" if self.buffers == 1
+                           else "resident_onchip")
             return result
         rounds = self.rounds
         _build.check(lib, lib.lbm_resident(
@@ -261,21 +289,153 @@ def _sent_row(row, mrow, on: bool, w1, w2, axis: int, speeds):
     return forced[list(speeds)]
 
 
+def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
+    """One step of the single-buffer mode on one strip, in place: ``buf``
+    (9, h, nx), forced already; ``south`` the (3, nx) speeds 2, 5, 6 of
+    the row below, ``north`` the speeds 4, 7, 8 of the row above (halo
+    slots). The kernel's order: interior rows 1..h-2, then rows 0 and
+    h-1, in waves of ``wave`` cells; a wave gathers every pull, then
+    stores. A pull from a cell an earlier wave overwrote is served only
+    from the carry (R, T and four scalars, NaN until written), which each
+    overwriting cell fills with its pre-step values before its store.
+    Returns |u| as an (h, nx) plane."""
+    _, h, nx = buf.shape
+    flat = buf.view(D2Q9.Q, h * nx)
+    solid = mask.reshape(-1)
+    nan = torch.tensor(float("nan"), dtype=buf.dtype)
+    carry_r = torch.full((3, nx), float("nan"), dtype=buf.dtype)
+    carry_t = carry_r.clone()
+    spec = {k: nan for k in ("e1", "e5", "z3", "z6")}
+    umag = torch.zeros(h * nx, dtype=buf.dtype)
+    where = torch.where
+
+    def update(o, sp):
+        planes, um = ref_ops._bgk_update_planes(sp, solid[o], omega)
+        umag[o] = um
+        return torch.stack(planes)
+
+    def store(o, new, carries):
+        for dest, idx, speeds, sel in carries:
+            if sel.any():
+                dest[:, idx[sel]] = flat[list(speeds)][:, o[sel]]
+        flat[:, o] = new
+
+    n_inner = (h - 2) * nx
+    for lo in range(0, max(n_inner, 0), wave):
+        p = torch.arange(lo, min(lo + wave, n_inner))
+        wend = lo + len(p)
+        j = 1 + p // nx
+        i = p - (j - 1) * nx
+        o = j * nx + i
+        iw, ie = (i - 1) % nx, (i + 1) % nx
+
+        def below(k, q, c, q_pos):
+            return where((j == 1) | (q_pos >= lo), flat[k, (j - 1) * nx + c],
+                         carry_r[q, c])
+
+        z = (i == nx - 1) & (p - nx + 1 < lo)
+        sp = [
+            flat[0, o],
+            where((i > 0) & (p == lo), spec["e1"], flat[1, j * nx + iw]),
+            below(2, 0, i, p - nx),
+            where(z, spec["z3"], flat[3, j * nx + ie]),
+            flat[4, o + nx],
+            where((j > 1) & (i > 0) & (p == lo), spec["e5"],
+                  below(5, 1, iw, where(i > 0, p - nx - 1, p - 1))),
+            where((j > 1) & z, spec["z6"],
+                  below(6, 2, ie, where(i < nx - 1, p - nx + 1,
+                                        p - 2 * nx + 1))),
+            flat[7, (j + 1) * nx + ie],
+            flat[8, (j + 1) * nx + iw],
+        ]
+        new = update(o, sp)
+        last = (p == wend - 1) & (wend < n_inner)
+        wrap = (i == 0) & (p + nx - 1 >= wend)
+        e5, z6 = below(5, 1, i, p - nx), below(6, 2, 0 * i, p - nx)
+        if last.any():
+            spec["e1"], spec["e5"] = flat[1, o[last]][0], e5[last][0]
+        if wrap.any():
+            spec["z3"], spec["z6"] = flat[3, o[wrap]][0], z6[wrap][0]
+        store(o, new, [(carry_r, i, (2, 5, 6), p + nx >= wend),
+                       (carry_t, i, (4, 7, 8), j == 1)])
+
+    n_edge = (1 if h == 1 else 2) * nx
+    for lo in range(0, n_edge, wave):
+        e = torch.arange(lo, min(lo + wave, n_edge))
+        wend = lo + len(e)
+        top = e >= nx
+        i = where(top, e - nx, e)
+        j = where(top, h - 1, 0)
+        o = j * nx + i
+        iw, ie = (i - 1) % nx, (i + 1) % nx
+        # Row 0: the south slot below; above, the north slot (h = 1), the
+        # buffer (h = 2) or T. Row h-1: R (or, h = 2, the buffer where
+        # row 0 is not overwritten) below, the north slot above.
+        if h == 1:
+            up = [north[0, i], north[1, ie], north[2, iw]]
+        elif h == 2:
+            up = [flat[4, nx + i], flat[7, nx + ie], flat[8, nx + iw]]
+        else:
+            up = [carry_t[0, i], carry_t[1, ie], carry_t[2, iw]]
+
+        def row_below(k, q, c):
+            if h == 2:
+                return where(c >= lo, flat[k, c], carry_r[q, c])
+            return carry_r[q, c]
+
+        low0 = [south[0, i], south[1, iw], south[2, ie]]
+        lowh = [row_below(2, 0, i), row_below(5, 1, iw), row_below(6, 2, ie)]
+        low = [where(top, b, a) for a, b in zip(low0, lowh)]
+        up = [where(top, b, a) for a, b in
+              zip(up, [north[0, i], north[1, ie], north[2, iw]])]
+        sp = [
+            flat[0, o],
+            where((i > 0) & (e == lo), spec["e1"], flat[1, j * nx + iw]),
+            low[0],
+            where((i == nx - 1) & (e - nx + 1 < lo), spec["z3"],
+                  flat[3, j * nx + ie]),
+            up[0], low[1], low[2], up[1], up[2],
+        ]
+        new = update(o, sp)
+        last = (e == wend - 1) & (wend < n_edge)
+        wrap = (i == 0) & (e + nx - 1 >= wend)
+        if last.any():
+            spec["e1"] = flat[1, o[last]][0]
+        if wrap.any():
+            spec["z3"] = flat[3, o[wrap]][0]
+        store(o, new, [(carry_r, i, (2, 5, 6), ~top & (h == 2))])
+    return umag.view(h, nx)
+
+
 def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
-                             blocks: int, axis: int = 0):
+                             blocks: int, axis: int = 0, buffers: int = 2,
+                             wave: int = THREADS):
     """The on-chip form's schedule in plain PyTorch: ``blocks`` strips of
     whole rows (:func:`strips`), each stepped from its own rows and two
     halo slots by step parity. Every step each strip first sends: its top
     row's speeds 2, 5, 6 into the north neighbour's south slot, its bottom
-    row's 4, 7, 8 into the south neighbour's north slot, forced by the
-    sender where the row (column mode: the column) is forced and the
-    guard passes. Then each strip steps from ``[south slot, rows, north
-    slot]``, the six speeds no halo carries left NaN (a pull that read one
-    would show), with its own rows forced by the rule and the halo rows
-    not again. tot_u: per strip the sum over its fluid cells, then the
-    strips' partials in block order. Returns ``(new_cells, tots)``; cells
-    are bit-identical to :func:`.reference.multi_step`, tots differ from
-    its by summation order."""
+    row's 4, 7, 8 into the south neighbour's north slot.
+
+    ``buffers`` 2: the copies are forced by the sender where the row
+    (column mode: the column) is forced and the guard passes. Then each
+    strip steps from ``[south slot, rows, north slot]``, the six speeds no
+    halo carries left NaN (a pull that read one would show), with its own
+    rows forced by the rule and the halo rows not again.
+
+    ``buffers`` 1, the single-buffer mode: each strip forces its part of
+    the forced line in place first and sends the forced rows; then one
+    strip tensor is updated in place wave by wave
+    (:func:`_inplace_strip_step`, ``wave`` cells a wave, the kernel's
+    threads by default), pulls of overwritten cells served only from the
+    carried values.
+
+    tot_u: per strip the sum over its fluid cells, then the strips'
+    partials in block order (so both modes give the same tots). Returns
+    ``(new_cells, tots)``; cells are bit-identical to
+    :func:`.reference.multi_step`, tots differ from its by summation
+    order."""
+    if buffers not in (1, 2):
+        raise ValueError(f"buffers must be 1 or 2, got {buffers}")
     _, ny, nx = cells.shape
     d = ref_ops._np_type(cells.dtype)
     accel = (cells.shape[1 + axis] - 2) % cells.shape[1 + axis]
@@ -288,17 +448,33 @@ def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
     nan = torch.full((nx,), float("nan"), dtype=cells.dtype)
     for s in range(gsteps):
         slot = s % 2
+        if buffers == 1:
+            for b, (r0, h) in enumerate(parts):
+                if axis == 1:
+                    state[b] = ref_ops.accelerate_flow(state[b], masks[b],
+                                                       w1, w2, axis=1)
+                elif r0 <= accel < r0 + h:
+                    state[b] = ref_ops.accelerate_flow(
+                        state[b], masks[b], w1, w2, row=accel - r0)
         for b, (r0, h) in enumerate(parts):
             north, south = (b + 1) % blocks, (b - 1) % blocks
             top, bot = r0 + h - 1, r0
+            forced = buffers == 2
             slots[north][0][slot] = _sent_row(
-                state[b][:, h - 1], masks[b][h - 1], top == accel, d(w1),
-                d(w2), axis, NORTH_SPEEDS)
+                state[b][:, h - 1], masks[b][h - 1], forced and top == accel,
+                d(w1), d(w2), axis if forced else 0, NORTH_SPEEDS)
             slots[south][1][slot] = _sent_row(
-                state[b][:, 0], masks[b][0], bot == accel, d(w1), d(w2),
-                axis, SOUTH_SPEEDS)
+                state[b][:, 0], masks[b][0], forced and bot == accel, d(w1),
+                d(w2), axis if forced else 0, SOUTH_SPEEDS)
         partials, new_state = [], []
         for b, (r0, h) in enumerate(parts):
+            if buffers == 1:
+                umag = _inplace_strip_step(state[b], masks[b],
+                                           slots[b][0][slot],
+                                           slots[b][1][slot], omega, wave)
+                new_state.append(state[b])
+                partials.append(torch.sum(umag.masked_fill(masks[b], 0.0)))
+                continue
             south_row = torch.stack([nan] * D2Q9.Q)
             north_row = torch.stack([nan] * D2Q9.Q)
             south_row[list(NORTH_SPEEDS)] = slots[b][0][slot]

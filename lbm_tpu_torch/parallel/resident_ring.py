@@ -43,7 +43,7 @@ def ring_prefs(local_rows: int, lanes: int) -> tuple[int, ...] | None:
     apply: the shards stay in device memory."""
     if os.environ.get("LBM_SHARD_RESIDENT") != "1" or local_rows < 2:
         return None
-    pin = plan._pinned_steps()
+    pin = plan._pinned_steps(even=True)
     return (pin,) if pin else plan.G_PREF
 
 

@@ -181,12 +181,11 @@ def plan_run(params: Params, kernel: str, iters: int, transposed=None,
     layout's rows and lanes for ``cuda`` (:func:`plan_layout`), one plain
     segment for ``reference``. On a CUDA ``device`` the resident
     segments carry the kernel's form there (:func:`.ops.resident.
-    planned_form`)."""
+    segments`)."""
     if kernel == "cuda":
         t = plan_layout(params, kernel, transposed)
         rows, lanes = (params.nx, params.ny) if t else (params.ny, params.nx)
-        return plan.segments(rows, lanes, iters,
-                             resident.planned_form(rows, lanes, device))
+        return resident.segments(rows, lanes, iters, device)
     return [plan.Segment("reference", 1, iters)]
 
 

@@ -12,9 +12,10 @@ sleep) at
 - 1024x1024 (the scene's mask), physical, the form pinned to device;
 - 16384x1024 and 131072x128, transposed (column mode);
 - 512x512, physical, the form pinned (the lattice in L2);
-- 4096x64 and 1024x400 as ``--kernel auto`` plans them (a narrow channel
-  in row mode, a tall box transposed, in column mode): the script
-  asserts that the plan is ``resident G=100 device-memory``;
+- 4096x64 as ``--kernel auto`` plans it (a narrow channel in row mode):
+  the script asserts that the plan is ``resident G=100 device-memory``;
+- 1024x400 transposed (a tall box, column mode), the form pinned: auto
+  takes the on-chip form's single-buffer mode there;
 - the crossover grids of ``chip_smoke.py`` (640x512 to 1024x768,
   physical), the form pinned.
 
@@ -50,7 +51,7 @@ G, D = 100, 4
 # mode, the form pinned) or "auto" (the layout and form the planner takes).
 SHAPES = {"1024x1024": "device", "16384x1024": "transposed",
           "131072x128": "transposed", "512x512": "device",
-          "4096x64": "auto", "1024x400": "auto"}
+          "4096x64": "auto", "1024x400": "transposed"}
 
 
 def load_smoke():

@@ -727,6 +727,147 @@ def test_auto_runs_small_lattices_on_chip(cuda, monkeypatch):
                                rtol=TRAJ_RTOL)
 
 
+# The on-chip form's single-buffer mode (csrc/resident_onchip.cu, one
+# buffer a strip, updated in place in waves).
+
+
+def _inplace_case(cuda, nx, ny, axis, seed):
+    """A perturbed state and its mask, on the transposed lattice in
+    column mode."""
+    from lbm_tpu_torch.state import transpose_state
+
+    p, cells, mask = _case(nx, ny, True, seed=seed, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c).contiguous(), m.T.contiguous()
+    return p, c, m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsteps", [1, 2, 99, 100])
+@pytest.mark.parametrize("grid,axis", [
+    ((4096, 64), 0), ((1024, 400), 1), ((1024, 512), 1), ((768, 768), 0)],
+    ids=["4096x64", "1024x400-columns", "1024x512-columns", "768x768"])
+def test_inplace_form_matches_plain(cuda, grid, axis, gsteps):
+    """One launch of the single-buffer mode where two buffers do not fit:
+    every bit of the plain version's cells, tots within the bound, one
+    launch counted."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    nx, ny = grid
+    p, c, m = _inplace_case(cuda, nx, ny, axis, seed=nx + gsteps)
+    sms, smem = resident.device_limits(cuda)
+    assert not plan.onchip_fits(*m.shape, sms, smem, 2)
+    w = (m, p.accel_w1, p.accel_w2, p.omega)
+    kernel = resident.Resident(*w, gsteps, axis, form="inplace")
+    assert kernel.buffers == 1
+    key = "resident_onchip_inplace" + ("_cols" if axis else "")
+    before = fused.LAUNCHES[key]
+    got, tots = resident.resident(c, *w, gsteps, axis=axis, form="inplace")
+    want, want_tots = ref_ops.multi_step(c, *w, gsteps, axis)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(tots.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", [(512, 512), (792, 528)],
+                         ids=["512x512", "792x528"])
+def test_inplace_tots_are_the_two_buffer_bits(cuda, grid, monkeypatch):
+    """Where both modes fit, LBM_RESIDENT_INPLACE=1 against 0: the same
+    cells and each step's tot_u with the same bits (each thread updates
+    and sums the same cells in the same order)."""
+    nx, ny = grid
+    p, c, m = _inplace_case(cuda, nx, ny, 0, seed=3)
+    w = (m, p.accel_w1, p.accel_w2, p.omega, 100)
+    runs = {}
+    for pin, form in (("1", "inplace"), ("0", "onchip")):
+        monkeypatch.setenv("LBM_RESIDENT_INPLACE", pin)
+        assert resident.planned_form(ny, nx, cuda) == form
+        runs[form] = resident.resident(c, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(runs["inplace"][0], runs["onchip"][0])
+    assert torch.equal(runs["inplace"][1], runs["onchip"][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,axis,g", [((768, 768), 0, 100),
+                                         ((1024, 400), 1, 99)],
+                         ids=["768x768-G100", "1024x400-columns-G99"])
+def test_inplace_200_steps_keep_every_bit(cuda, grid, axis, g):
+    """Launches from one wrapper that go on from each other (the flags'
+    tags carried across them, an odd G too), 200 steps and more on a
+    perturbed state: the plain version's cells bit for bit."""
+    from lbm_tpu_torch.ops import reference as ref_ops
+
+    nx, ny = grid
+    p, c, m = _inplace_case(cuda, nx, ny, axis, seed=11)
+    w = (m, p.accel_w1, p.accel_w2, p.omega)
+    kernel = resident.Resident(*w, g, axis, form="inplace")
+    calls = -(-200 // g)
+    bufs, out = [c.clone(), torch.empty_like(c)], torch.zeros(calls * g,
+                                                             device=cuda)
+    for t in range(0, calls * g, g):
+        bufs[:] = kernel.run(bufs[0], bufs[1], out, t, 1.0)
+    want, _ = ref_ops.multi_step(c, *w, calls * g, axis)
+    torch.cuda.synchronize()
+    assert torch.equal(bufs[0], want)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_a_pinned_mode_that_does_not_fit_raises(cuda, monkeypatch):
+    """LBM_RESIDENT_INPLACE=1 at 1024x1024 (one buffer does not fit), =0
+    at 4096x64 (two do not), and =1 with LBM_RESIDENT_FORM=device raise;
+    none runs another form."""
+    monkeypatch.delenv("LBM_RESIDENT_FORM", raising=False)
+    cases = [("1", 1024, 1024, "single-buffer"), ("0", 64, 4096, "two-buffer")]
+    for pin, ny, nx, mode in cases:
+        monkeypatch.setenv("LBM_RESIDENT_INPLACE", pin)
+        m = torch.from_numpy(generate_obstacles(nx, ny)).to(cuda)
+        before = dict(fused.LAUNCHES)
+        with pytest.raises(ValueError, match=mode):
+            resident.Resident(m, 1e-4, 2.5e-5, 1.85, 100)
+        assert fused.LAUNCHES == before
+    monkeypatch.setenv("LBM_RESIDENT_INPLACE", "1")
+    monkeypatch.setenv("LBM_RESIDENT_FORM", "device")
+    with pytest.raises(ValueError, match="single-buffer"):
+        resident.planned_form(256, 256, cuda)
+
+
+@pytest.mark.cuda
+def test_auto_runs_narrow_and_tall_lattices_in_one_buffer(cuda, monkeypatch):
+    """Under auto 1024x400 (transposed) plans and launches the
+    single-buffer mode, 4096x64 (one-row strips) the device-memory form;
+    both give the plain version's cells."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import plan_run, simulate
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE"):
+        monkeypatch.delenv(k, raising=False)
+    for (nx, ny), word, key in [
+            ((1024, 400), "on-chip 1-buf", "resident_onchip_inplace_cols"),
+            ((4096, 64), "device-memory", "resident")]:
+        p, _, mask = _case(nx, ny, True)
+        m = torch.from_numpy(mask).to(cuda)
+        assert plan.describe(plan_run(p, "cuda", 200, device=cuda)) == \
+            f"resident G=100 {word} x2"
+        before = dict(fused.LAUNCHES)
+        got, _ = simulate(p, initial_state(p, cuda), m, kernel="cuda",
+                          n_iters=200)
+        assert fused.LAUNCHES[key] == before[key] + 2
+        monkeypatch.setenv("LBM_RESIDENT", "0")
+        want, _ = simulate(p, initial_state(p, cuda), m, kernel="cuda",
+                           n_iters=200)
+        monkeypatch.delenv("LBM_RESIDENT")
+        assert torch.equal(got, want)
+
+
 # The resident kernel's device-memory form (csrc/resident.cu): rounds of
 # up to four steps on the depth kernel's tiles, a grid barrier a round.
 

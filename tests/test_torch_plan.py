@@ -18,7 +18,7 @@ from lbm_tpu_torch.state import initial_state
 torch.set_num_threads(2)
 
 PINS = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-        "LBM_RESIDENT_FORM")
+        "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE")
 
 
 @pytest.fixture
@@ -78,20 +78,21 @@ def test_odd_length_plans_a_main_segment_and_a_short_tail(pins):
 
 def test_resident_pins(pins):
     """Off, forced, pinned; an odd or invalid pin raises (the JAX
-    package's _pinned_steps)."""
+    package's _pinned_steps; an odd one is taken by the single-buffer
+    form alone, test_odd_g_pin_needs_the_single_buffer_form)."""
     big = (1024, 1024)
     pins(LBM_RESIDENT="1")
     assert plan.resident_prefs(*big) == plan.G_PREF
-    assert plan.select(*big, 20) == ("resident", 20)
-    assert plan.plan_iters(*big, 20) == (20, 0)
-    assert plan.plan_iters(*big, 150) == (150, 0)  # G=50 divides
-    assert plan.plan_iters(*big, 101) == (100, 1)  # resident main + tail
+    assert _kinds(plan.segments(*big, 20)) == [("resident", 20, 20)]
+    assert _kinds(plan.segments(*big, 150)) == [("resident", 50, 150)]
+    assert _kinds(plan.segments(*big, 101)) == [  # resident main + tail
+        ("resident", 100, 100), ("step", 1, 1)]
     pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS="10")
     assert plan.resident_prefs(*big) == (10,)
-    assert plan.select(*big, 20) == ("resident", 10)
+    assert _kinds(plan.segments(*big, 20)) == [("resident", 10, 20)]
     pins(LBM_RESIDENT="0")
     assert plan.resident_prefs(64, 64) is None
-    assert plan.select(64, 64, 20)[0] != "resident"
+    assert plan.segments(64, 64, 20)[0].kernel != "resident"
     for bad, match in [("7", "even"), ("0", "positive"), ("-2", "positive"),
                        ("ten", "not an integer")]:
         pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS=bad)
@@ -181,8 +182,9 @@ def test_plan_run_for_each_kernel(pins):
     assert np.isclose(sum(s.steps for s in trunner.plan_run(p, "cuda", 7)), 7)
 
 
-# The resident kernel's form (csrc/resident_onchip.cu or csrc/resident.cu):
-# a pure size rule over the card's SM count and per-block shared memory.
+# The resident kernel's form (csrc/resident_onchip.cu in two buffers or
+# one, or csrc/resident.cu): a pure size rule over the card's SM count and
+# per-block shared memory.
 H100 = (132, 232448)
 
 
@@ -202,9 +204,10 @@ def test_onchip_blocks_and_bytes():
     (256, 1024, "onchip"), (512, 768, "onchip"), (384, 1024, "onchip"),
     (600, 600, "onchip"), (512, 640, "onchip"),
     # The largest: 4 rows a strip at 795 columns; 796 does not fit.
-    (528, 792, "onchip"), (528, 795, "onchip"), (528, 796, "device"),
-    # One more row makes strips of 5.
-    (529, 792, "device"), (512, 1024, "device"), (1024, 1024, "device"),
+    # 796 takes the single-buffer mode (strips of 4 rows at 37 B a cell).
+    (528, 792, "onchip"), (528, 795, "onchip"), (528, 796, "inplace"),
+    # One more row makes strips of 5, in one buffer.
+    (529, 792, "inplace"), (512, 1024, "inplace"), (1024, 1024, "device"),
     (128, 131072, "device"),
 ])
 def test_resident_form_on_the_h100(ny, nx, form):
@@ -217,8 +220,11 @@ def test_resident_form_at_the_capacity_boundary():
     need = plan.onchip_smem_bytes(528, 792, 132)
     assert need == 231536
     assert plan.resident_form(528, 792, 132, need) == "onchip"
-    assert plan.resident_form(528, 792, 132, need - 1) == "device"
-    assert plan.resident_form(529, 792, 132, H100[1]) == "device"
+    # Below the two buffers' bytes the single-buffer mode takes it.
+    assert plan.resident_form(528, 792, 132, need - 1) == "inplace"
+    one = plan.onchip_smem_bytes(528, 792, 132, 1)
+    assert plan.resident_form(528, 792, 132, one - 1) == "device"
+    assert plan.resident_form(529, 792, 132, H100[1]) == "inplace"
     assert plan.resident_form(529, 792, 133, H100[1]) == "onchip"
     # A wide 2048x128: a strip is one row. Nine-speed halo rows and their
     # mask rows in shared memory would not fit beside it; the three
@@ -226,33 +232,39 @@ def test_resident_form_at_the_capacity_boundary():
     nine_speed_halos = 2 * (9 * 4 + 1) * 2048
     assert plan.onchip_smem_bytes(128, 2048, 128) + nine_speed_halos > H100[1]
     assert plan.resident_form(128, 2048, *H100) == "onchip"
+    # 4096 wide: one-row strips fit one buffer, which auto does not take.
     assert plan.resident_form(128, 4096, *H100) == "device"
-    # Fewer SMs than rows: strips of two.
+    # Fewer SMs than rows: strips of two, in one buffer.
     assert plan.onchip_blocks(128, 2048, 64) == 64
-    assert plan.resident_form(128, 2048, 64, H100[1]) == "device"
+    assert plan.resident_form(128, 2048, 64, H100[1]) == "inplace"
 
 
 @pytest.mark.parametrize("nx,ny,transposed,form", [
     (4096, 64, False, "device"), (8192, 32, False, "device"),
-    (400, 1024, False, "device"), (1024, 400, True, "device"),
-    (3200, 128, True, "device"), (792, 528, False, "onchip")],
+    (400, 1024, False, "inplace"), (1024, 400, True, "inplace"),
+    (3200, 128, True, "inplace"), (792, 528, False, "onchip")],
     ids=["4096x64", "8192x32", "400x1024", "1024x400", "3200x128",
          "792x528"])
 def test_auto_plans_narrow_and_tall_lattices_on_the_device_form(
         pins, nx, ny, transposed, form):
     """Under auto, on the H100's 132 SMs and 232448 B, narrow channels
-    and tall boxes up to RESIDENT_AUTO_MAX_CELLS whose strips do not fit
-    on chip take the resident kernel's device-memory form (on their
-    transposed rows and lanes where the layout rule transposes them);
-    792x528 fits on chip."""
+    and tall boxes up to RESIDENT_AUTO_MAX_CELLS whose two-buffer strips do
+    not fit take the on-chip form's single-buffer mode where its strips
+    are at least two rows tall (400x1024, and 1024x400 and 3200x128 on
+    their transposed rows and lanes), else the device-memory form (the
+    one-row strips of 4096x64; 8192x32 fits neither on chip); 792x528
+    fits two buffers on chip. (The name is the test's from before the
+    single-buffer mode, when all five took the device form.)"""
     p = Params(nx=nx, ny=ny, max_iters=100, reynolds_dim=10, density=0.1,
                accel=0.005, omega=1.85)
     t, rows, lanes = plan.layout(p)
     assert t == transposed
     f = plan.resident_form(rows, lanes, *H100)
     assert f == form
+    word = {"device": "device-memory", "onchip": "on-chip",
+            "inplace": "on-chip 1-buf"}[form]
     assert plan.describe(plan.segments(rows, lanes, 100, f)) == \
-        f"resident G=100 {'device-memory' if form == 'device' else 'on-chip'} x1"
+        f"resident G=100 {word} x1"
 
 
 def test_describe_names_the_form(pins):
@@ -304,3 +316,155 @@ def test_layout_rule_keeps_its_own_limit(ny, nx, transposed):
     kernel on chip."""
     assert plan.TRANSPOSED_MIN_CELLS == 512 * 512
     assert plan.transposed_layout(ny, nx) == transposed
+
+
+# The on-chip form's single-buffer mode ("inplace"; LBM_RESIDENT_INPLACE).
+
+
+def test_onchip_bytes_in_one_buffer():
+    """37 B a cell of the tallest strip, the scratch, 16 B of carried
+    scalars and 12 B a column for each of min(h - 1, 2) carried rows."""
+    assert plan.ONCHIP_BYTES_PER_CELL == {2: 73, 1: 37}
+    assert plan.onchip_smem_bytes(64, 4096, 64, 1) == 37 * 4096 + 272 + 16
+    assert plan.onchip_smem_bytes(264, 1600, 132, 1) == \
+        37 * 2 * 1600 + 272 + 16 + 12 * 1600
+    assert plan.onchip_smem_bytes(768, 768, 132, 1) == \
+        37 * 6 * 768 + 272 + 16 + 24 * 768
+    # Two buffers: unchanged.
+    assert plan.onchip_smem_bytes(768, 768, 132, 2) == \
+        plan.onchip_smem_bytes(768, 768, 132) == 73 * 6 * 768 + 272
+
+
+def test_single_buffer_bytes_at_the_capacity_boundary():
+    """Strips of 6 rows (768 over 132 blocks): 943 columns fit one
+    buffer, 944 do not; a one-row strip fits up to 6274 columns, which
+    auto leaves to the device form (strips of one row)."""
+    assert plan.onchip_smem_bytes(768, 943, 132, 1) <= H100[1] \
+        < plan.onchip_smem_bytes(768, 944, 132, 1)
+    assert plan.resident_form(768, 943, *H100) == "inplace"
+    assert plan.resident_form(768, 944, *H100) == "device"
+    assert plan.onchip_fits(64, 6274, *H100, 1)
+    assert not plan.onchip_fits(64, 6275, *H100, 1)
+    assert plan.resident_form(64, 6274, *H100) == "device"
+    assert plan.INPLACE_MIN_ROWS == 2
+
+
+# The Motivation table of the single-buffer slice: execution rows x lanes,
+# whether two and one buffers fit on the H100, and auto's form.
+@pytest.mark.parametrize("rows,lanes,two,one,form", [
+    (64, 4096, False, True, "device"),      # 4096x64, one-row strips
+    (1024, 400, False, True, "inplace"),    # 1024x400 transposed
+    (3200, 128, False, True, "inplace"),    # 3200x128 transposed
+    (1024, 512, False, True, "inplace"),    # 1024x512 transposed
+    (768, 768, False, True, "inplace"),
+    (640, 1024, False, True, "inplace"),    # 1024x640
+    (768, 1024, False, False, "device"),    # 1024x768: the carry does not fit
+    (896, 896, False, False, "device"),
+    (32, 8192, False, False, "device"),
+    (1024, 1024, False, False, "device"),
+], ids=["4096x64", "1024x400", "3200x128", "1024x512", "768x768",
+        "1024x640", "1024x768", "896x896", "8192x32", "1024x1024"])
+def test_single_buffer_mode_on_the_h100(rows, lanes, two, one, form):
+    assert plan.onchip_fits(rows, lanes, *H100, 2) == two
+    assert plan.onchip_fits(rows, lanes, *H100, 1) == one
+    assert plan.resident_form(rows, lanes, *H100) == form
+
+
+def test_auto_takes_single_buffer_lattices_above_the_cell_limit(pins):
+    """Above RESIDENT_AUTO_MAX_CELLS the resident kernel runs where the
+    planned form is the single-buffer one and the size rule takes it there
+    on the card's limits (1024x512, 768x768, 1024x640); the limit stays
+    for the device form, for no limits (the CPU) and where only a pin
+    names the single-buffer mode (1024x1024)."""
+    for rows, lanes in [(1024, 512), (768, 768), (640, 1024)]:
+        assert rows * lanes > plan.RESIDENT_AUTO_MAX_CELLS
+        form = plan.resident_form(rows, lanes, *H100)
+        assert plan.resident_prefs(rows, lanes, form, H100) == plan.G_PREF
+        assert plan.describe(plan.segments(rows, lanes, 20000, form,
+                                           H100)) == \
+            "resident G=100 on-chip 1-buf x200"
+        assert plan.resident_prefs(rows, lanes, form) is None
+        assert plan.resident_prefs(rows, lanes, "device", H100) is None
+        assert plan.resident_prefs(rows, lanes) is None
+    assert plan.resident_prefs(1024, 1024, "inplace", H100) is None
+    pins(LBM_RESIDENT="0")
+    assert plan.resident_prefs(768, 768, "inplace", H100) is None
+
+
+def test_inplace_pins(pins):
+    """LBM_RESIDENT_INPLACE as the JAX package reads it: "1" the
+    single-buffer mode, "0", "" or "false" two buffers, where it fits or
+    not (the wrapper raises where it runs); with LBM_RESIDENT_FORM=device
+    "1" raises, "0" keeps the device form; LBM_RESIDENT_FORM=onchip pins
+    the two buffers, where they fit or not. Off the card no form."""
+    assert plan.pinned_inplace() is None
+    assert plan.planned_form(64, 4096, H100) == "device"
+    assert plan.planned_form(768, 768, H100) == "inplace"
+    for value, form in [("1", "inplace"), ("yes", "inplace"), ("0", "onchip"),
+                        ("", "onchip"), ("false", "onchip")]:
+        pins(LBM_RESIDENT_INPLACE=value)
+        assert plan.pinned_inplace() == (form == "inplace")
+        for rows, lanes in [(256, 256), (64, 4096), (768, 768),
+                            (1024, 1024)]:
+            assert plan.planned_form(rows, lanes, H100) == form
+        assert plan.planned_form(256, 256, None) is None
+    pins(LBM_RESIDENT_INPLACE="1", LBM_RESIDENT_FORM="device")
+    for limits in (H100, None):
+        with pytest.raises(ValueError, match="single-buffer"):
+            plan.planned_form(256, 256, limits)
+    pins(LBM_RESIDENT_INPLACE="0", LBM_RESIDENT_FORM="device")
+    assert plan.planned_form(256, 256, H100) == "device"
+    pins(LBM_RESIDENT_FORM="onchip")
+    for rows, lanes in [(256, 256), (64, 4096), (768, 768), (1024, 1024)]:
+        assert plan.planned_form(rows, lanes, H100) == "onchip"
+    pins(LBM_RESIDENT_FORM="onchip", LBM_RESIDENT_INPLACE="1")
+    assert plan.planned_form(256, 256, H100) == "inplace"
+
+
+def test_a_pinned_single_buffer_mode_keeps_the_cell_limit(pins):
+    """LBM_RESIDENT_INPLACE=1 picks the mode, not residency: at 1024x1024
+    (one buffer does not fit) the cell limit leaves the run to D=4, as the
+    JAX package's resident_prefs leaves it to the blocked kernel; with
+    LBM_RESIDENT=1 it plans the single-buffer mode all the same, so the
+    wrapper raises on the card and never runs another form. At 1024x512,
+    where the size rule takes one buffer, the pin plans what auto does."""
+    pins(LBM_RESIDENT_INPLACE="1")
+    form = plan.planned_form(1024, 1024, H100)
+    assert form == "inplace"
+    assert not plan.onchip_fits(1024, 1024, *H100, 1)
+    assert plan.describe(plan.segments(1024, 1024, 200, form, H100)) == \
+        "depth D=4 x50"
+    assert plan.describe(plan.segments(
+        1024, 512, 200, plan.planned_form(1024, 512, H100), H100)) == \
+        "resident G=100 on-chip 1-buf x2"
+    pins(LBM_RESIDENT_INPLACE="1", LBM_RESIDENT="1")
+    assert plan.describe(plan.segments(1024, 1024, 200, form, H100)) == \
+        "resident G=100 on-chip 1-buf x2"
+
+
+@pytest.mark.parametrize("form", ["inplace", "onchip", "device", None])
+def test_odd_g_pin_needs_the_single_buffer_form(pins, form):
+    """An odd LBM_RESIDENT_STEPS is taken where the planned form is the
+    single-buffer one (the JAX package's _pinned_steps(even=n_bufs == 2));
+    elsewhere it raises and names the exception."""
+    pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS="5")
+    if form == "inplace":
+        assert plan.resident_prefs(768, 768, form) == (5,)
+        assert plan.describe(plan.segments(768, 768, 20, form)) == \
+            "resident G=5 on-chip 1-buf x4"
+        return
+    with pytest.raises(ValueError, match="single-buffer"):
+        plan.resident_prefs(768, 768, form)
+    pins(LBM_RESIDENT="1", LBM_RESIDENT_STEPS="6")
+    assert plan.resident_prefs(768, 768, form) == (6,)
+
+
+def test_describe_names_the_single_buffer_mode(pins):
+    seg = plan.Segment("resident", 100, 100, "inplace")
+    assert seg.describe() == "resident G=100 on-chip 1-buf x1"
+    assert seg.launch_key == "resident_onchip_inplace"
+    assert plan.RESIDENT_FORMS == ("onchip", "inplace", "device")
+    assert plan.FORM_PINS == ("onchip", "device")
+    pins(LBM_RESIDENT_FORM="inplace")
+    with pytest.raises(ValueError, match="LBM_RESIDENT_FORM"):
+        plan.pinned_form()

@@ -367,10 +367,11 @@ def test_strips_split_rows_evenly():
     assert all(h == 1 for _, h in resident.strips(12, 12))
 
 
-@pytest.mark.parametrize("form", ["onchip", "device", None])
+@pytest.mark.parametrize("form", ["onchip", "inplace", "device", None])
 def test_cpu_wrapper_of_either_form_runs_the_plain_version(form):
-    """On the CPU both forms (and no form) run ``multi_step``; nothing
-    launches; a form that is not one raises."""
+    """On the CPU every form (the on-chip form's single-buffer mode too,
+    and no form) runs ``multi_step``; nothing launches; a form that is not
+    one raises."""
     mask = torch.from_numpy(generate_obstacles(16, 12))
     c0 = torch.from_numpy(initial_state_np(_params(12, 16, 4)))
     before = dict(fused.LAUNCHES)
