@@ -119,6 +119,14 @@ printing JSON lines (any failure raises and exits non-zero):
              shard edge).
              x-plan (column mode): 131072x128, 16384x1024 and a wall-less
              264x100 over 4, 64x16 over 8; max abs error 0;
+10b. ring_onchip_kernel - the on-chip ring (csrc/ring_onchip.cu) for one
+             call on every shard at G = 16 and 100 against the plain shard
+             steps, in each mode whose strips fit (two buffers; one buffer,
+             in place): 256x256, 512x512, 640x512, 768x768 (one buffer
+             only) over 4 shards (row plan), the x-plans of 1024x512 (one
+             buffer only) and 1024x384, strips of one row (128x128 over 4)
+             and the forced row on a shard edge (16x16 over 8): cells max
+             abs error 0, one buffer's tots the two buffers' bits;
 11. shard_scene - the 1024x1024 scene through run_simulation(mesh=) over
              4 shards on one card, once per plan (auto: seam depth D=4;
              ring: LBM_SHARD_RESIDENT=1; step: LBM_PALLAS_DEPTH=1), each
@@ -127,6 +135,16 @@ printing JSON lines (any failure raises and exits non-zero):
              (its clamp note on a one-card machine); then a cross_card
              line: the auto and ring runs across min(4, cards) cards, or
              ``"run": false`` on one card;
+11b. ring_onchip_scene - the on-chip ring's path: under auto with
+             LBM_SHARD_RESIDENT=1 over 4 shards through run_simulation(mesh=)
+             (the wide scenes' params, the generator's walls), 768x768 (row
+             mode, one buffer) and the 1024x512 x-plan (column mode, one
+             buffer) at 20000 steps, 512x512 (two buffers) at 20000 and the
+             1024x384 x-plan (two buffers) at 2000: the plan names the form
+             ("ring G=100 on-chip 1-buf x200"), launch counts equal the
+             plan's, cells bit-identical to the unsharded auto run, and 500
+             steps within the 0.3 % budget of the port's plain float64 run
+             on the card;
 12. wide_shard - 131072x128 over 4 shards on one card (the x-plan), 200
              steps under the same three plans, each bit-identical to the
              unsharded (transposed) auto run, with the plan's launch
@@ -143,6 +161,12 @@ printing JSON lines (any failure raises and exits non-zero):
              0, launches: the seam kernel's alone), loop and device ms a
              step (the forms each kernel replaced: scripts/ring_ab_torch.py
              and scripts/seam_step_ab_torch.py run on the parent commit);
+             then the on-chip ring at G=100 in each mode that fits beside
+             the device-memory ring and seam D=4, in turns, at 256x256,
+             512x512, 640x512, 768x768 and the x-plans of 1024x512 and
+             1024x384 over 4 shards, with the planned form, its ratios to
+             the other two and the plain shard step (the numbers the ring's
+             form rule is held to);
 14. wide_shard_timing - over 4 shards on one card, the x-plan against
              the row plan at 131072x128 and 16384x1024 (seam D=1, D=4,
              ring G=100), halo copies per call; the plain shard step of
@@ -207,7 +231,9 @@ printing JSON lines (any failure raises and exits non-zero):
 
 Then the kernels line (every kernel, row and column modes, the on-chip
 resident form in two buffers and in one (row mode: 400x1024 through the
-runner; column mode: the 1024x512 scene), the probe's three, with its
+runner; column mode: the 1024x512 scene), the on-chip ring in two buffers
+and in one (ring_onchip_scene's 512x512, 1024x384, 768x768 and 1024x512
+over 4 shards; times from shard_timing's rows), the probe's three, with its
 launches on its path,
 error against its plain version, time, plain time and bound; the
 ring's rows also its D, its loop time and a design ceiling of one pass
@@ -250,7 +276,7 @@ MODES = {
     "omega_absorbed": {"LBM_OMEGA_EQ": "1"},
 }
 PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-            "LBM_SHARD_RESIDENT", "LBM_RESIDENT_FORM")
+            "LBM_SHARD_RESIDENT", "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE")
 DEPTHS = (2, 4, 8)
 KERNEL_G = 16
 # Kernel-phase grids (NXxNY) and their masks: the scene's, the
@@ -1699,7 +1725,7 @@ def expected_shard_launches(parts, shards, cards=1, cols=False):
     suffix = "_cols" if cols else ""
     for seg in parts:
         if seg.kernel == "ring":
-            n["ring" + suffix] += seg.launches * cards
+            n[seg.launch_key + suffix] += seg.launches * cards
         else:
             # The seam kernels sum tot_u in the launch: no reduce.
             n[f"{seg.kernel}_seam{suffix}"] += seg.launches * shards
@@ -1864,8 +1890,9 @@ def _median_ms_shards(torch, ss, fn, spc, device_only, steps=200, batches=6):
 
 def phase_shard_timing(torch, timing):
     """Per-step time of each shard kernel configuration over 4 shards on
-    one card, beside the unsharded best; the halo copies alone; the plain
-    shard step at 1024x1024."""
+    one card, beside the unsharded best (where the timing phase ran); the
+    halo copies alone; the plain shard step at 1024x1024; the wrap path;
+    the on-chip ring's rows (:func:`shard_timing_onchip`)."""
     from lbm_tpu_torch.parallel import halo, resident_ring
 
     results = {}
@@ -1890,8 +1917,6 @@ def phase_shard_timing(torch, timing):
             copies[label] = _median_ms_shards(
                 torch, ss, lambda: ss.exchange(impl.sources, impl.halos,
                                                impl.k), 1, True)[0]
-        unsharded = timing[name]["device_ms_per_step"]
-        best = min(unsharded, key=lambda k: statistics.median(unsharded[k]))
         out = {"phase": "shard_timing", "grid": name, "shards": N_SHARDS,
                "devices": halo.describe_mesh(mesh),
                "loop_ms_per_step": loop, "device_ms_per_step": dev,
@@ -1902,12 +1927,16 @@ def phase_shard_timing(torch, timing):
                    for label in copies},
                "ring_depths": {k: v.depth for k, v in impls.items()
                                if k.startswith("ring")},
-               "unsharded_best": {best: statistics.median(unsharded[best])},
                "method": "CUDA events on the current stream, every shard "
                          "stream joined; median over 6 batches of ~200 "
                          "steps after one warm-up batch, configurations in "
                          "turns (forward, then reverse); device: queue "
                          "pre-filled behind a device sleep"}
+        if timing:
+            unsharded = timing[name]["device_ms_per_step"]
+            best = min(unsharded,
+                       key=lambda k: statistics.median(unsharded[k]))
+            out["unsharded_best"] = {best: statistics.median(unsharded[best])}
         if name == SCENE:
             plain = halo.ShardSet(p, cells, mask.cpu().numpy(), mesh, 100)
             ref = halo.ReferenceShardImpl(plain)
@@ -1919,6 +1948,7 @@ def phase_shard_timing(torch, timing):
         del ss, impls, cells
         torch.cuda.empty_cache()
     results[WRAP_GRID] = shard_timing_wrap(torch)
+    results["ring_onchip"] = shard_timing_onchip(torch)
     return results
 
 
@@ -2029,6 +2059,229 @@ def phase_wide_shard_timing(torch):
         emit(out)
         results[name] = out
         del sets, calls, cells
+        torch.cuda.empty_cache()
+    return results
+
+
+# The on-chip ring (csrc/ring_onchip.cu) over N_SHARDS on one card: the
+# shard shapes of its timing rows (256x256 and 512x512: both modes fit;
+# 640x512; 768x768: one buffer only; the x-plan of 1024x512: one buffer
+# only; and of 1024x384: both), strips of one row (128x128/4) and the
+# forced row on a shard edge (16x16 over 8: 2 rows a shard), each for one
+# call at G = 16 and 100 against the plain shard steps.
+RING_ONCHIP_GRIDS = ("256x256", "512x512", "640x512", "768x768",
+                     INPLACE_SCENE, WIDE_LIMIT)
+RING_ONCHIP_EDGES = (("128x128", 4), ("16x16", 8))
+RING_ONCHIP_GS = (16, 100)
+# The path's scenes under auto with LBM_SHARD_RESIDENT=1 (the wide scenes'
+# params, the generator's walls), all cells bit-identical to the
+# unsharded auto run: 768x768 (row mode, one buffer) and 1024x512 (the
+# x-plan, column mode, one buffer) at the scenes' 20000 steps, not cut;
+# 512x512 (two buffers), 20000 steps; 1024x384 (the x-plan in two
+# buffers), 2000 steps. Each also RING_GATE_ITERS steps against the plain
+# float64 run.
+RING_ONCHIP_SCENES = {"768x768": (20000, "on-chip 1-buf"),
+                      INPLACE_SCENE: (20000, "on-chip 1-buf"),
+                      "512x512": (20000, "on-chip"),
+                      WIDE_LIMIT: (2000, "on-chip")}
+RING_GATE_ITERS = 500
+
+
+def onchip_ring_forms(torch, h, lanes, shards):
+    """The on-chip ring's forms whose strips of ``h`` x ``lanes`` shards,
+    ``shards`` on this card, fit its shared memory."""
+    from lbm_tpu_torch.ops import plan, resident
+    from lbm_tpu_torch.parallel import resident_ring
+
+    sms, smem = resident.device_limits("cuda")
+    blocks = resident_ring.ring_blocks(h, shards, sms)
+    return [form for form, bufs in (("onchip", 2), ("inplace", 1))
+            if plan.onchip_smem_bytes(h, lanes, blocks, bufs) <= smem]
+
+
+def phase_ring_onchip_kernel(torch):
+    """The on-chip ring for one call on every shard against the plain
+    shard steps on the same inputs, in each mode whose strips fit, at G =
+    16 and 100: cells max abs error 0, tots within TOT_RTOL; one buffer's
+    tots the two buffers' bits where both fit."""
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    worst = {}
+    cases = [(name, N_SHARDS, int(name in (INPLACE_SCENE, WIDE_LIMIT)))
+             for name in RING_ONCHIP_GRIDS] + [(name, n, 0) for name, n
+                                                in RING_ONCHIP_EDGES]
+    for i, (name, n, axis) in enumerate(cases):
+        sp, cells, mesh = shard_case(torch, name, "walls", n, seed=60 + i,
+                                     axis=axis)
+        ss0 = halo.ShardSet(sp.params, cells, sp.obstacles, mesh, 1, axis)
+        h, lanes = ss0.h, ss0.nx
+        del ss0
+        forms = onchip_ring_forms(torch, h, lanes, n)
+        check(forms, f"{name} over {n}: no on-chip mode fits")
+        res, tots = {}, {}
+        for form in forms:
+            for g in RING_ONCHIP_GS:
+                ss, plain = (halo.ShardSet(sp.params, cells, sp.obstacles,
+                                           mesh, g, axis) for _ in range(2))
+                with env():
+                    impl = resident_ring.RingOnchipImpl(ss, g, form)
+                key = plan.Segment("ring", g, g, form).launch_key + (
+                    "_cols" if axis else "")
+                before = fused.LAUNCHES[key]
+                impl.run(0)
+                ss.synchronize()
+                launched = fused.LAUNCHES[key] - before
+                plain_shard_steps(plain, g)
+                torch.cuda.synchronize()
+                got, want = ss.gather(), plain.gather()
+                check(bool(torch.isfinite(got).all()), f"{key} not finite")
+                gt, wt = ss.av_vels(1.0), plain.av_vels(1.0)
+                r = {"max_abs_err": float((got - want).abs().max()),
+                     "tot_rel_err": float(((gt - wt).abs() / wt.abs()).max()),
+                     "strips_a_shard": impl._bps[ss.shards[0].device],
+                     "launches": launched}
+                check(r["max_abs_err"] == 0.0 and r["tot_rel_err"] <= TOT_RTOL
+                      and launched == 1,
+                      f"on-chip ring {form} G={g} at {name} over {n}: {r}")
+                if g == max(RING_ONCHIP_GS):
+                    tots[form] = [sh.tots.clone() for sh in ss.shards]
+                res[f"{form} G={g}"] = r
+                worst[key] = max(worst.get(key, 0.0), r["max_abs_err"])
+                del ss, plain, impl, got, want
+        out = {"phase": "ring_onchip_kernel", "grid": name, "shards": n,
+               "plan": "x-plan (column mode)" if axis else "row plan",
+               "rows_per_shard": h, "lanes": lanes, "modes_that_fit": forms,
+               **res}
+        if len(tots) == 2:
+            out["one_buffer_tots_are_two_buffer_bits"] = all(
+                torch.equal(a, b) for a, b in zip(tots["onchip"],
+                                                  tots["inplace"]))
+            check(out["one_buffer_tots_are_two_buffer_bits"],
+                  f"{name} over {n}: one buffer's tots differ from two's")
+        emit(out)
+        del cells, tots
+        torch.cuda.empty_cache()
+    return worst
+
+
+def phase_ring_onchip_scene(torch, np):
+    """The on-chip ring's path: RING_ONCHIP_SCENES through
+    run_simulation(mesh=) over N_SHARDS on one card under auto with
+    LBM_SHARD_RESIDENT=1: the plan names the form, launch counts equal
+    the plan's, cells bit-identical to the unsharded auto run, and
+    RING_GATE_ITERS steps within the drift budget of the port's plain
+    float64 run on the card. Returns each scene's launches and seconds."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.ops import fused, plan
+    from lbm_tpu_torch.parallel import halo
+    from lbm_tpu_torch.runner import run_simulation
+
+    results = {}
+    for name, (iters, form) in RING_ONCHIP_SCENES.items():
+        nx, ny = grid(name)
+        p, mask = scene_params(name, iters), generate_obstacles(nx, ny)
+        mesh = shard_mesh(torch, N_SHARDS)
+        with env():
+            base = run_simulation(p, mask)
+        with env(LBM_SHARD_RESIDENT="1"):
+            sp = halo.plan_run(p, mask, mesh, "auto", iters)
+            want = expected_shard_launches(sp.segments, mesh.size,
+                                           cols=sp.transposed)
+            fused.reset_launches()
+            res = run_simulation(p, mask, mesh=mesh)
+            launches = dict(fused.LAUNCHES)
+            gate = run_simulation(p, mask, n_iters=RING_GATE_ITERS, mesh=mesh)
+        describe = plan.describe(sp.segments)
+        with env():
+            ref = run_simulation(scene_params(name, RING_GATE_ITERS,
+                                              np.float64), mask,
+                                 kernel="reference")
+        gp = scene_params(name, RING_GATE_ITERS)
+        d, ok = drift(np, ref.av_vels,
+                      lio.final_state_fields(gp, ref.cells, mask)[3].ravel(),
+                      gate.av_vels,
+                      lio.final_state_fields(gp, gate.cells, mask)[3].ravel())
+        same = bool(np.array_equal(res.cells, base.cells))
+        out = {"phase": "ring_onchip_scene", "grid": name, "steps": iters,
+               "shards": mesh.size, "describe": halo.describe(sp, mesh),
+               "launches": {k: v for k, v in launches.items() if v},
+               "cells_bit_identical_to_unsharded_auto": same,
+               "av_vels_max_rel_err_vs_unsharded": float(np.max(
+                   np.abs(res.av_vels - base.av_vels) / np.abs(base.av_vels))),
+               "gate_steps": RING_GATE_ITERS, **d,
+               "reference": "plain float64 on the card",
+               "compute_s": res.timings["compute"],
+               "glups": nx * ny * iters / res.timings["compute"] / 1e9,
+               "unsharded_compute_s": base.timings["compute"]}
+        emit(out)
+        check(describe == f"ring G=100 {form} x{iters // 100}",
+              f"{name}: the sharded plan is {describe}")
+        check(launches == want,
+              f"{name}: launches {launches} differ from the plan's {want}")
+        check(same, f"{name}: sharded cells differ from the unsharded run")
+        check(ok, f"{name}: outside the drift budget")
+        results[name] = out
+        del base, res, gate, ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def shard_timing_onchip(torch):
+    """The on-chip ring beside the device-memory ring and seam D=4 over
+    N_SHARDS on one card, at RING_ONCHIP_GRIDS (the x-plan for the wide
+    ones), G=100: the planned mode and the other where it fits, loop and
+    device ms a step in turns, the planned form and its ratios (the
+    numbers the ring's form rule is held to); the plain shard step."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.parallel import halo, resident_ring
+
+    results = {}
+    for name in RING_ONCHIP_GRIDS:
+        nx, ny = grid(name)
+        axis = int(plan.transposed_layout(ny, nx))
+        p = scene_params(name)
+        cells, mask = random_case(torch, name, p, seed=95, state="perturbed")
+        mesh = shard_mesh(torch, N_SHARDS)
+        ss = halo.ShardSet(p, cells, mask.cpu().numpy(), mesh, 100, axis)
+        with env(LBM_SHARD_RESIDENT="1"):
+            planned = resident_ring.planned_ring_form(ss.h, ss.nx, mesh)
+        with env():
+            impls = {f"ring G=100 {form}": resident_ring.RingOnchipImpl(
+                         ss, 100, form)
+                     for form in onchip_ring_forms(torch, ss.h, ss.nx,
+                                                   N_SHARDS)}
+            impls["ring G=100 device"] = resident_ring.RingShardImpl(ss, 100)
+            impls["seam D=4"] = halo.SeamShardImpl(ss, 4)
+        loop, dev = time_turns(torch, {
+            label: (lambda impl=impl: impl.run(0), impl.steps_per_call, ss)
+            for label, impl in impls.items()})
+        plain = halo.ShardSet(p, cells, mask.cpu().numpy(), mesh, 100, axis)
+        ref = halo.ReferenceShardImpl(plain)
+        plain_ms = _median_ms(torch, lambda: ref.run(0), 1, True, steps=4,
+                              batches=3)[0]
+        med = {k: statistics.median(v) for k, v in dev.items()}
+        key = f"ring G=100 {planned}"
+        out = {"phase": "shard_timing", "grid": name, "shards": N_SHARDS,
+               "plan": "x-plan (column mode)" if axis else "row plan",
+               "local_shape": [ss.h, ss.nx], "planned_form": planned,
+               "strips_a_shard": {k: v._bps[ss.shards[0].device]
+                                  for k, v in impls.items()
+                                  if isinstance(v,
+                                                resident_ring.RingOnchipImpl)},
+               "loop_ms_per_step": loop, "device_ms_per_step": dev,
+               "planned_over_device_ring": med[key] / med["ring G=100 device"],
+               "planned_over_seam_d4": med[key] / med["seam D=4"],
+               "plain_device_ms_per_step": plain_ms,
+               "method": "CUDA events on the current stream, every shard "
+                         "stream joined; median over 6 batches of ~200 "
+                         "steps after one warm-up batch, configurations in "
+                         "turns (forward, then reverse); device: queue "
+                         "pre-filled behind a device sleep"}
+        emit(out)
+        results[name] = out
+        del ss, plain, ref, impls, cells
         torch.cuda.empty_cache()
     return results
 
@@ -2471,13 +2724,6 @@ def phase_debug(torch, np):
 
 
 TRACE_ITERS = 2000
-# fused.LAUNCHES' names to the kernels' names in a trace.
-TRACE_NAMES = {"step": "fused_step_kernel", "depth": "fused_depth_kernel",
-               "resident": "resident_kernel",
-               "resident_onchip": "resident_onchip_kernel",
-               "reduce": "reduce_tot_kernel",
-               "step_seam": "fused_step_seam_kernel",
-               "depth_seam": "fused_depth_kernel", "ring": "ring_kernel"}
 
 
 def phase_trace(torch, np):
@@ -2528,7 +2774,7 @@ def phase_trace(torch, np):
         expect = {}
         for key, n in want.items():
             if n:
-                name = TRACE_NAMES[key]
+                name = profiling.KERNEL_NAMES[key]
                 expect[name] = expect.get(name, 0) + n
         print(profiling.format_summary(summary), flush=True)
         emit({"phase": "trace", "path": label, "grid": SCENE, "steps": iters,
@@ -2728,10 +2974,11 @@ def main() -> int:
     wide_timing = run("wide_timing", phase_wide_timing, torch)
     onchip_timing = run("onchip_timing", phase_onchip_timing, torch)
     shard_worst = run("shard_kernel", phase_shard_kernel, torch)
+    ring_worst = run("ring_onchip_kernel", phase_ring_onchip_kernel, torch)
     shard_launches = run("shard_scene", phase_shard_scene, torch, np)
+    ring_scenes = run("ring_onchip_scene", phase_ring_onchip_scene, torch, np)
     wide_shard_launches = run("wide_shard", phase_wide_shard, torch, np)
-    shard_timing = timing and run("shard_timing", phase_shard_timing, torch,
-                                  timing)
+    shard_timing = run("shard_timing", phase_shard_timing, torch, timing)
     wide_shard_timing = run("wide_shard_timing", phase_wide_shard_timing, torch)
     probe_worst = run("probe_kernel", phase_probe_kernel, torch)
     probe_launches = run("probe_path", phase_probe_path, torch)
@@ -2776,7 +3023,16 @@ def main() -> int:
             "fused_step_seam_cols": wide_shard_launches["step"]["step_seam_cols"],
             "fused_depth_seam_cols":
                 wide_shard_launches["auto"]["depth_seam_cols"],
-            "ring_cols": wide_shard_launches["ring"]["ring_cols"]}
+            "ring_cols": wide_shard_launches["ring"]["ring_cols"],
+            # The on-chip ring's scenes under auto (LBM_SHARD_RESIDENT=1).
+            "ring_onchip": ring_scenes["512x512"]["launches"].get(
+                "ring_onchip", 0),
+            "ring_onchip_cols": ring_scenes[WIDE_LIMIT]["launches"].get(
+                "ring_onchip_cols", 0),
+            "ring_onchip_inplace": ring_scenes["768x768"]["launches"].get(
+                "ring_onchip_inplace", 0),
+            "ring_onchip_inplace_cols": ring_scenes[INPLACE_SCENE][
+                "launches"].get("ring_onchip_inplace_cols", 0)}
     for kname, n in runs.items():
         check(n > 0, f"{kname} was not launched on its path")
     t = timing[SCENE]
@@ -2828,6 +3084,29 @@ def main() -> int:
     per_pass = 100 / len(g_rounds)
     rounds = "+".join(f"{g_rounds.count(d)}x{d}" for d in (4, 2, 1)
                       if d in g_rounds)
+    # The on-chip ring: its scenes' launches, its timing rows' times (the
+    # planned form at each scene's grid) and plain shard steps; its strips
+    # never leave the chip, so its ceiling is its bound.
+    ro = shard_timing["ring_onchip"]
+
+    def ring_onchip_entry(name, key, replaces, grid_name, form):
+        row = ro[grid_name]
+        label = f"ring G=100 {form}"
+        gx, gy = grid(grid_name)
+        sc = ring_scenes[grid_name]
+        return kernel_entry(
+            name, "lbm_tpu_torch/csrc/ring_onchip.cu", replaces, runs[key],
+            f"{grid_name} over {N_SHARDS} shards on one card, "
+            f"LBM_SHARD_RESIDENT=1 ({sc['describe']}), {sc['steps']} steps",
+            ring_worst[key], statistics.median(row["device_ms_per_step"][label]),
+            row["plain_device_ms_per_step"], bound(gx * gy, 100),
+            ceiling=design_ceiling(gx * gy, 100, on_chip=True),
+            loop_ms=statistics.median(row["loop_ms_per_step"][label]),
+            device_ring_ms=statistics.median(
+                row["device_ms_per_step"]["ring G=100 device"]),
+            seam_d4_ms=statistics.median(
+                row["device_ms_per_step"]["seam D=4"]))
+
     pt = probe_timing[SCENE]
     pdev = {k: statistics.median(v) for k, v in pt["device_ms_per_step"].items()}
     # Every mode's window loads the mask (73 B a cell); the stream mode
@@ -2869,9 +3148,9 @@ def main() -> int:
                          ot["device_ms_per_step"]["resident G=100 on-chip"]),
                      statistics.median(ot["plain_device_ms_per_step"]),
                      bound(ocells, 100),
-                     ceiling=design_ceiling(ocells, 100)),
+                     ceiling=design_ceiling(ocells, 100, on_chip=True)),
         # The on-chip form's single-buffer mode; its strips never leave
-        # the chip either, so its ceiling is its bound.
+        # the chip either.
         kernel_entry("resident_onchip_inplace",
                      "lbm_tpu_torch/csrc/resident_onchip.cu",
                      "lbm_tpu/ops/pallas_resident.py:217",
@@ -2884,7 +3163,7 @@ def main() -> int:
                          irow["device_ms_per_step"]["on-chip 1-buf"]),
                      irow["plain_device_ms_per_step"],
                      bound(inx * iny, 100),
-                     ceiling=design_ceiling(inx * iny, 100)),
+                     ceiling=design_ceiling(inx * iny, 100, on_chip=True)),
         kernel_entry("resident_onchip_inplace_cols",
                      "lbm_tpu_torch/csrc/resident_onchip.cu",
                      "lbm_tpu/ops/pallas_resident.py:217",
@@ -2895,7 +3174,7 @@ def main() -> int:
                          wide_worst["resident_onchip_inplace"]),
                      inplace["device_ms"], inplace["plain_ms"],
                      bound(snx * sny, 100),
-                     ceiling=design_ceiling(snx * sny, 100)),
+                     ceiling=design_ceiling(snx * sny, 100, on_chip=True)),
         kernel_entry("fused_step_seam", "lbm_tpu_torch/csrc/fused_step.cu",
                      "lbm_tpu/ops/pallas_fused.py:205", runs["fused_step_seam"],
                      f"{sharded}, one-step plan", shard_worst["step_seam"],
@@ -2961,6 +3240,19 @@ def main() -> int:
                      wsplain, bound(wcells, 100),
                      ceiling=design_ceiling(wcells, 100, steps_per_pass=wsr),
                      depth=wsr, loop_ms=wsloop["x-plan ring G=100"]),
+        ring_onchip_entry("ring_onchip", "ring_onchip",
+                          "lbm_tpu/parallel/resident_ring.py:241", "512x512",
+                          "onchip"),
+        ring_onchip_entry("ring_onchip_cols", "ring_onchip_cols",
+                          "lbm_tpu/parallel/resident_ring.py:280", WIDE_LIMIT,
+                          "onchip"),
+        ring_onchip_entry("ring_onchip_inplace", "ring_onchip_inplace",
+                          "lbm_tpu/parallel/resident_ring.py:404", "768x768",
+                          "inplace"),
+        ring_onchip_entry("ring_onchip_inplace_cols",
+                          "ring_onchip_inplace_cols",
+                          "lbm_tpu/parallel/resident_ring.py:404",
+                          INPLACE_SCENE, "inplace"),
         # The probe: its launches are the probe script's run; a launch
         # moves the lattice once for its G steps. It runs the device-memory
         # resident form's rounds, so one pass over the lattice a round is

@@ -216,8 +216,9 @@ class Segment:
     """``steps`` steps of one kernel, ``steps_per_call`` per launch:
     ``kernel`` is "step" (one step per launch), "depth" (D per launch),
     "resident" (G per launch), "ring" (G per launch on every shard) or
-    "reference" (the plain path). ``form``: the resident kernel's form on
-    the card ("onchip", "inplace" or "device", :func:`planned_form`), None
+    "reference" (the plain path). ``form``: the resident kernel's or the
+    ring's form on the card ("onchip", "inplace" or "device",
+    :func:`planned_form`, ``parallel.resident_ring.ring_form``), None
     where no card was asked."""
 
     kernel: str
@@ -233,9 +234,11 @@ class Segment:
     def launch_key(self) -> str:
         """The kernel's name in ``ops.fused.LAUNCHES`` (without the
         column mode's "_cols")."""
-        return {"onchip": "resident_onchip",
-                "inplace": "resident_onchip_inplace"}.get(self.form,
-                                                          self.kernel)
+        if self.kernel not in ("resident", "ring"):
+            return self.kernel
+        return {"onchip": f"{self.kernel}_onchip",
+                "inplace": f"{self.kernel}_onchip_inplace"}.get(self.form,
+                                                                self.kernel)
 
     def describe(self) -> str:
         size = {"depth": f" D={self.steps_per_call}",
@@ -361,11 +364,12 @@ def segments(ny: int, nx: int, iters: int, form: str | None = None,
 
 def plan_segments(iters: int, gprefs, depths, many: str = "resident",
                   form: str | None = None) -> list[Segment]:
-    """:func:`segments` for given G preferences and depths."""
+    """:func:`segments` for given G preferences and depths; ``form``
+    rides on the G-step (``many``) segments."""
 
     def seg(n):
         kernel, spc = choose(n, gprefs, depths, many)
-        return Segment(kernel, spc, n, form if kernel == "resident" else None)
+        return Segment(kernel, spc, n, form if kernel == many else None)
 
     if iters < 1:
         raise ValueError(f"iteration count must be positive, got {iters}")

@@ -45,9 +45,12 @@ NORTH_SPEEDS = (2, 5, 6)
 SOUTH_SPEEDS = (4, 7, 8)
 # Tags restart from zero (flags zeroed) before they would pass 2**31.
 _TAG_LIMIT = 1 << 31
-# Threads of an on-chip block (csrc/resident_onchip.cu's kThreads): the
+# Threads of an on-chip block (csrc/lbm_onchip.cuh's kThreads): the
 # cells of a wave of the single-buffer mode.
 THREADS = 1024
+# The rows of three speeds that a cell of the single-buffer mode carries
+# for later waves before its store (the kernel's R and T).
+_CARRIED = ("R", "T")
 
 
 def device_rounds(gsteps: int) -> list[int]:
@@ -303,8 +306,9 @@ def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
     flat = buf.view(D2Q9.Q, h * nx)
     solid = mask.reshape(-1)
     nan = torch.tensor(float("nan"), dtype=buf.dtype)
-    carry_r = torch.full((3, nx), float("nan"), dtype=buf.dtype)
-    carry_t = carry_r.clone()
+    carry = {"R": torch.full((3, nx), float("nan"), dtype=buf.dtype),
+             "T": torch.full((3, nx), float("nan"), dtype=buf.dtype)}
+    carry_r, carry_t = carry["R"], carry["T"]
     spec = {k: nan for k in ("e1", "e5", "z3", "z6")}
     umag = torch.zeros(h * nx, dtype=buf.dtype)
     where = torch.where
@@ -315,9 +319,9 @@ def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
         return torch.stack(planes)
 
     def store(o, new, carries):
-        for dest, idx, speeds, sel in carries:
-            if sel.any():
-                dest[:, idx[sel]] = flat[list(speeds)][:, o[sel]]
+        for name, idx, speeds, sel in carries:
+            if name in _CARRIED and sel.any():
+                carry[name][:, idx[sel]] = flat[list(speeds)][:, o[sel]]
         flat[:, o] = new
 
     n_inner = (h - 2) * nx
@@ -356,8 +360,8 @@ def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
             spec["e1"], spec["e5"] = flat[1, o[last]][0], e5[last][0]
         if wrap.any():
             spec["z3"], spec["z6"] = flat[3, o[wrap]][0], z6[wrap][0]
-        store(o, new, [(carry_r, i, (2, 5, 6), p + nx >= wend),
-                       (carry_t, i, (4, 7, 8), j == 1)])
+        store(o, new, [("R", i, (2, 5, 6), p + nx >= wend),
+                       ("T", i, (4, 7, 8), j == 1)])
 
     n_edge = (1 if h == 1 else 2) * nx
     for lo in range(0, n_edge, wave):
@@ -403,18 +407,26 @@ def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
             spec["e1"] = flat[1, o[last]][0]
         if wrap.any():
             spec["z3"] = flat[3, o[wrap]][0]
-        store(o, new, [(carry_r, i, (2, 5, 6), ~top & (h == 2))])
+        store(o, new, [("R", i, (2, 5, 6), ~top & (h == 2))])
     return umag.view(h, nx)
 
 
-def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
-                             blocks: int, axis: int = 0, buffers: int = 2,
-                             wave: int = THREADS):
-    """The on-chip form's schedule in plain PyTorch: ``blocks`` strips of
-    whole rows (:func:`strips`), each stepped from its own rows and two
-    halo slots by step parity. Every step each strip first sends: its top
-    row's speeds 2, 5, 6 into the north neighbour's south slot, its bottom
-    row's 4, 7, 8 into the south neighbour's north slot.
+def _halo_slot(step: int) -> int:
+    """The slot a strip reads at ``step``: the one its neighbours filled
+    in that step."""
+    return step % 2
+
+
+def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
+                    axis: int = 0, buffers: int = 2, wave: int = THREADS):
+    """The on-chip form's strip step in plain PyTorch over the strips
+    ``parts`` (``(r0, h)`` pairs that tile the rows of ``cells`` in order,
+    each stepped from its own rows and two halo slots by step parity, its
+    north neighbour the next strip, wrapping). Every step each strip first
+    sends: its top row's speeds 2, 5, 6 into the north neighbour's south
+    slot, its bottom row's 4, 7, 8 into the south neighbour's north slot;
+    then it steps from the slot of that step (:func:`_halo_slot`; both
+    slots NaN before their first rows land).
 
     ``buffers`` 2: the copies are forced by the sender where the row
     (column mode: the column) is forced and the guard passes. Then each
@@ -429,22 +441,20 @@ def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
     threads by default), pulls of overwritten cells served only from the
     carried values.
 
-    tot_u: per strip the sum over its fluid cells, then the strips'
-    partials in block order (so both modes give the same tots). Returns
-    ``(new_cells, tots)``; cells are bit-identical to
-    :func:`.reference.multi_step`, tots differ from its by summation
-    order."""
+    Returns ``(new_cells, partials)``: ``partials[s, b]`` is strip b's sum
+    of |u| over its fluid cells in step s."""
     if buffers not in (1, 2):
         raise ValueError(f"buffers must be 1 or 2, got {buffers}")
     _, ny, nx = cells.shape
     d = ref_ops._np_type(cells.dtype)
     accel = (cells.shape[1 + axis] - 2) % cells.shape[1 + axis]
-    parts = strips(ny, blocks)
+    blocks = len(parts)
     state = [cells[:, r0:r0 + h].clone() for r0, h in parts]
     masks = [obstacles[r0:r0 + h] for r0, h in parts]
     # slots[b][0 south / 1 north][slot]: (3, nx) rows.
-    slots = [[[None, None], [None, None]] for _ in parts]
-    tots = torch.zeros(gsteps, dtype=cells.dtype)
+    unset = torch.full((3, nx), float("nan"), dtype=cells.dtype)
+    slots = [[[unset, unset], [unset, unset]] for _ in parts]
+    partials = torch.zeros((gsteps, blocks), dtype=cells.dtype)
     nan = torch.full((nx,), float("nan"), dtype=cells.dtype)
     for s in range(gsteps):
         slot = s % 2
@@ -466,19 +476,20 @@ def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
             slots[south][1][slot] = _sent_row(
                 state[b][:, 0], masks[b][0], forced and bot == accel, d(w1),
                 d(w2), axis if forced else 0, SOUTH_SPEEDS)
-        partials, new_state = [], []
+        read = _halo_slot(s)
+        new_state = []
         for b, (r0, h) in enumerate(parts):
             if buffers == 1:
                 umag = _inplace_strip_step(state[b], masks[b],
-                                           slots[b][0][slot],
-                                           slots[b][1][slot], omega, wave)
+                                           slots[b][0][read],
+                                           slots[b][1][read], omega, wave)
                 new_state.append(state[b])
-                partials.append(torch.sum(umag.masked_fill(masks[b], 0.0)))
+                partials[s, b] = torch.sum(umag.masked_fill(masks[b], 0.0))
                 continue
             south_row = torch.stack([nan] * D2Q9.Q)
             north_row = torch.stack([nan] * D2Q9.Q)
-            south_row[list(NORTH_SPEEDS)] = slots[b][0][slot]
-            north_row[list(SOUTH_SPEEDS)] = slots[b][1][slot]
+            south_row[list(NORTH_SPEEDS)] = slots[b][0][read]
+            north_row[list(SOUTH_SPEEDS)] = slots[b][1][read]
             own = state[b]
             if axis == 1:
                 own = ref_ops.accelerate_flow(own, masks[b], w1, w2, axis=1)
@@ -489,10 +500,35 @@ def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
             planes, umag = ref_ops._bgk_update_planes(
                 ref_ops._pull_halo(ext, h), masks[b], omega)
             new_state.append(torch.stack(planes))
-            partials.append(torch.sum(umag.masked_fill(masks[b], 0.0)))
+            partials[s, b] = torch.sum(umag.masked_fill(masks[b], 0.0))
         state = new_state
-        tot = torch.zeros((), dtype=cells.dtype)
-        for p in partials:
+    return torch.cat(state, dim=1), partials
+
+
+def sum_in_order(partials):
+    """Each row of ``partials`` summed from zero in its order, one addition
+    at a time (a strip's partials in block order, as the on-chip kernels'
+    last block sums them)."""
+    tots = torch.zeros(partials.shape[0], dtype=partials.dtype)
+    for s, row in enumerate(partials):
+        tot = torch.zeros((), dtype=partials.dtype)
+        for p in row:
             tot = tot + p
         tots[s] = tot
-    return torch.cat(state, dim=1), tots
+    return tots
+
+
+def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
+                             blocks: int, axis: int = 0, buffers: int = 2,
+                             wave: int = THREADS):
+    """The on-chip form's schedule in plain PyTorch: ``blocks`` strips of
+    whole rows (:func:`strips`) stepped by :func:`onchip_schedule` in
+    ``buffers`` buffers. tot_u: per strip the sum over its fluid cells,
+    then the strips' partials in block order (so both modes give the same
+    tots). Returns ``(new_cells, tots)``; cells are bit-identical to
+    :func:`.reference.multi_step`, tots differ from its by summation
+    order."""
+    new, partials = onchip_schedule(cells, obstacles, w1, w2, omega, gsteps,
+                                    strips(cells.shape[1], blocks), axis,
+                                    buffers, wave)
+    return new, sum_in_order(partials)

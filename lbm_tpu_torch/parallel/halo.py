@@ -208,8 +208,8 @@ def plan_sharding(params: Params, mesh: Mesh, kernel: str):
 
 
 def shard_segments(params: Params, decomp: RowDecomposition, kernel: str,
-                   iters: int, wrap_pad: int = 0,
-                   transposed: bool = False) -> list[plan.Segment]:
+                   iters: int, wrap_pad: int = 0, transposed: bool = False,
+                   mesh: Mesh | None = None) -> list[plan.Segment]:
     """The run as segments, the twin of ``_shard_segments``: the ring at
     the first preferred G (``LBM_SHARD_RESIDENT=1``), else the depth
     kernel at a preferred D that every shard can hold (D <= local rows),
@@ -218,15 +218,21 @@ def shard_segments(params: Params, decomp: RowDecomposition, kernel: str,
     shard's rows and lanes (``transposed``: the x-plan's, lanes = ny).
     The wrap discipline runs the one-step kernel only (its pad-row
     refresh lands between steps); ``reference`` runs the plain shard
-    step. The single-device resident kernel never runs under a mesh."""
+    step. The single-device resident kernel never runs under a mesh.
+    With a ``mesh`` of cards the ring's segments carry its form
+    (:func:`.resident_ring.planned_ring_form`: on chip in two buffers or
+    one, or in device memory; a pinned mode that does not fit raises
+    here)."""
     if kernel == "reference":
         return [plan.Segment("reference", 1, iters)]
     if wrap_pad:
         return [plan.Segment("step", 1, iters)]
     h, lanes = decomp.local_ny, params.ny if transposed else params.nx
     depths = [d for d in plan.depth_preference(h, lanes) if d <= h]
-    return plan.plan_segments(iters, resident_ring.ring_prefs(h, lanes),
-                              depths, many="ring")
+    prefs = resident_ring.ring_prefs(h, lanes)
+    form = resident_ring.planned_ring_form(h, lanes, mesh) \
+        if prefs and mesh is not None else None
+    return plan.plan_segments(iters, prefs, depths, many="ring", form=form)
 
 
 def _check_wrap_kernel(wrap_pad: int, kernel: str,
@@ -276,7 +282,8 @@ def plan_run(params: Params, obstacles, mesh: Mesh, kernel: str,
         kernel = "reference"
     transposed, decomp = plan_sharding(params, mesh, kernel)
     _check_wrap_kernel(wrap_pad, kernel, transposed)
-    segs = shard_segments(params, decomp, kernel, iters, wrap_pad, transposed)
+    segs = shard_segments(params, decomp, kernel, iters, wrap_pad, transposed,
+                          mesh)
     return ShardPlan(params, obstacles, kernel, mode, pad, wrap_pad,
                      transposed, decomp, segs)
 
@@ -653,7 +660,7 @@ def make_impl(seg: plan.Segment, ss: ShardSet, wrap_pad: int = 0):
     if seg.kernel == "reference":
         return ReferenceShardImpl(ss, wrap_pad)
     if seg.kernel == "ring":
-        return resident_ring.RingShardImpl(ss, seg.steps_per_call)
+        return resident_ring.make_ring(ss, seg.steps_per_call, seg.form)
     return SeamShardImpl(ss, seg.steps_per_call, wrap_pad)
 
 
@@ -700,7 +707,7 @@ class ShardedSimulation:
 
     def _segments(self, n: int):
         return shard_segments(self.params, self.ss.decomp, self.kernel, n,
-                              self.wrap_pad, self.transposed)
+                              self.wrap_pad, self.transposed, self.ss.mesh)
 
     def _plan(self, n: int):
         """The implementations of an ``n``-step chunk, ``[(impl, steps),
@@ -708,7 +715,7 @@ class ShardedSimulation:
         if n not in self._plans:
             parts = []
             for seg in self._segments(n):
-                key = (seg.kernel, seg.steps_per_call)
+                key = (seg.kernel, seg.steps_per_call, seg.form)
                 if key not in self._made:
                     self._made[key] = make_impl(seg, self.ss, self.wrap_pad)
                 parts.append((self._made[key], seg.steps))

@@ -1,29 +1,44 @@
-"""The ring kernel's planner and wrapper: G steps per launch on every
-shard, in rounds of D steps between exchanges of D-row halos inside the
-kernel (``csrc/ring.cu``, the port of
-``lbm_tpu/parallel/resident_ring.py::_kernel_ring``, in row mode and in
-the column mode of ``TransposedRingShardImpl``: the shards of a wide
-grid's transposed lattice, the column ny-2 forced in every shard).
+"""The ring kernel's planner and wrappers: G steps per launch on every
+shard, the shards' seam rows exchanged inside the kernel, the port of
+``lbm_tpu/parallel/resident_ring.py::_kernel_ring`` in row mode and in the
+column mode of ``TransposedRingShardImpl`` (the shards of a wide grid's
+transposed lattice, the column ny-2 forced in every shard). Two forms of
+the one TPU kernel, chosen by the shard's size (:func:`ring_form`):
 
-One cooperative launch per card hosts every shard on that card. Its
-blocks run the depth kernel's tiles (``csrc/lbm_depth.cuh``) D steps at a
-time; the shards' halo slots and flags are plain device memory, peer
-pointers for a neighbour on another card, so P shards on one card run the
-protocol of P cards. As in the JAX package the ring is an opt-in
+- on chip (``csrc/ring_onchip.cu``, :class:`RingOnchipImpl`), the TPU
+  design: each shard's rows split into strips, one block an SM holding
+  its strip in shared memory for all G steps, in two buffers
+  (``"onchip"``) or in one updated in place (``"inplace"``, the JAX
+  kernel's in-place mode, ``LBM_RESIDENT_INPLACE``); seam rows go through
+  the ring's slots as the strips' rows do (the single-device on-chip
+  form's strip step, ``csrc/lbm_onchip.cuh``);
+- in device memory (``csrc/ring.cu``, :class:`RingShardImpl`,
+  ``"device"``): rounds of D steps between exchanges of D-row halos, its
+  blocks running the depth kernel's tiles (``csrc/lbm_depth.cuh``), for
+  shards whose strips do not fit.
+
+One cooperative launch per card hosts every shard on that card; the
+shards' halo slots and flags are plain device memory, peer pointers for
+a neighbour on another card, so P shards on one card run the protocol of
+P cards. As in the JAX package the ring is an opt-in
 (``LBM_SHARD_RESIDENT=1``), with G from the port's preferences
-(:data:`.ops.plan.G_PREF`) or the ``LBM_RESIDENT_STEPS`` pin (even), and D
-the first of :data:`.ops.plan.AUTO_DEPTHS` that divides G and fits the
-shard's rows (:func:`ring_depth`).
+(:data:`.ops.plan.G_PREF`) or the ``LBM_RESIDENT_STEPS`` pin (even, in
+both forms and modes), and the device form's D the first of
+:data:`.ops.plan.AUTO_DEPTHS` that divides G and fits the shard's rows
+(:func:`ring_depth`).
 
-On CPU tensors the wrapper runs the plain version: G steps of the halo
+On CPU tensors either wrapper runs the plain version: G steps of the halo
 exchange and :func:`.ops.reference.halo_multi_step`, the same update the
-kernel makes. On CUDA tensors it launches or raises, also when the
-device refuses the cooperative launch. :func:`ring_emulated` is the
-kernel's round schedule in plain PyTorch, for the tests.
+kernels make. On CUDA tensors it launches or raises, also when the device
+refuses the cooperative launch or the strips' shared memory: a form never
+gives way to another. :func:`ring_emulated` (the device form's rounds)
+and :func:`ring_onchip_emulated` (the on-chip form's strips, in both
+modes) are the kernels' schedules in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 import os
@@ -31,7 +46,7 @@ import os
 import numpy as np
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_depth, plan
+from lbm_tpu_torch.ops import _build, fused_depth, plan, resident
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.ops.fused import LAUNCHES
 from lbm_tpu_torch.state import D2Q9
@@ -45,6 +60,57 @@ def ring_prefs(local_rows: int, lanes: int) -> tuple[int, ...] | None:
         return None
     pin = plan._pinned_steps(even=True)
     return (pin,) if pin else plan.G_PREF
+
+
+def ring_blocks(local_rows: int, shards_on_card: int, sms: int) -> int:
+    """Strips a shard of the on-chip ring: the card's SMs split evenly
+    among the shards it hosts, at most one a row
+    (:func:`.ops.plan.onchip_blocks`)."""
+    return plan.onchip_blocks(local_rows, 0, max(1, sms // shards_on_card))
+
+
+def ring_form(local_rows: int, lanes: int, shards_on_card: int, sms: int,
+              smem_per_block: int) -> str:
+    """The ring's form for shards of ``local_rows`` x ``lanes`` cells,
+    ``shards_on_card`` of them on each card of ``sms`` SMs and
+    ``smem_per_block`` bytes of shared memory a block: "onchip" (the
+    on-chip ring in two buffers), "inplace" (in one) or "device" (the
+    device-memory ring).
+
+    The single-device planner's rule and pins (:func:`.ops.plan.
+    planned_form`) over the card's share of SMs a shard, so that its
+    strips are :func:`ring_blocks`'; a pinned mode whose strips do not fit
+    raises here, before anything runs.
+
+    The on-chip forms are planned wherever their strips fit because they
+    were faster than the device ring by more than 2 % at every shape
+    measured (over 4 shards on an NVIDIA H100 80GB HBM3 at 700 W,
+    ``chip_smoke.py``'s shard_timing, PERF.md): 0.54-0.69x it in two
+    buffers at 256x256, 512x512, 640x512 and the x-plan of 1024x384,
+    0.71-0.78x in one buffer at 768x768 and the x-plan of 1024x512."""
+    share = max(1, sms // shards_on_card)
+    form = plan.planned_form(local_rows, lanes, (share, smem_per_block))
+    buffers = {"onchip": 2, "inplace": 1}.get(form)
+    if buffers and not plan.onchip_fits(local_rows, lanes, share,
+                                        smem_per_block, buffers):
+        blocks = ring_blocks(local_rows, shards_on_card, sms)
+        need = plan.onchip_smem_bytes(local_rows, lanes, blocks, buffers)
+        mode = "single-buffer" if buffers == 1 else "two-buffer"
+        raise ValueError(
+            f"the on-chip ring's {mode} mode (pinned) needs {need} B of "
+            f"shared memory a block for shards of {local_rows}x{lanes} over "
+            f"{blocks} strips; the card gives {smem_per_block}")
+    return form
+
+
+def planned_ring_form(local_rows: int, lanes: int, mesh) -> str | None:
+    """:func:`ring_form` for the shards of ``mesh`` with its cards'
+    limits (the card that hosts the most shards), or None off the card."""
+    if mesh.device_type != "cuda":
+        return None
+    device, hosted = collections.Counter(mesh.devices).most_common(1)[0]
+    sms, smem = resident.device_limits(device)
+    return ring_form(local_rows, lanes, hosted, sms, smem)
 
 
 def ring_gsteps(local_rows: int, lanes: int, n_iters: int) -> int | None:
@@ -88,24 +154,20 @@ class _RingShardC(ctypes.Structure):
         "partials", "tots")] + [("row0", ctypes.c_longlong)]
 
 
-class RingShardImpl:
-    """The ring over every shard of a :class:`.halo.ShardSet`:
-    ``run(t)`` advances each shard ``gsteps`` steps and writes each
-    step's tot_u into ``shard.tots[t:t + gsteps]``; each shard's result
-    is in its ``cells`` buffer. The forcing axis is the shard set's (1:
-    column mode), its D :func:`ring_depth`'s. ``blocks``: blocks a shard
-    (default: as many as can be co-resident, split among a card's
-    shards); a launch of more than fit raises."""
+class _Ring:
+    """What both forms share: the even G, the forcing constants, the
+    steps run so far (the flags' tags go on from them), the plain version
+    on CPU tensors and, on the card, the shards grouped by card with peer
+    access between the cards."""
 
     kernel = "ring"
 
-    def __init__(self, ss, gsteps: int, blocks: int | None = None):
+    def __init__(self, ss, gsteps: int):
         if gsteps < 2 or gsteps % 2:
             raise ValueError(f"the ring takes an even G >= 2, got {gsteps}")
         if ss.h < 2:
             raise ValueError(f"the ring needs 2 rows a shard, got {ss.h}")
-        depth = ring_depth(gsteps, ss.h)
-        self.ss, self.gsteps, self.depth = ss, int(gsteps), depth
+        self.ss, self.gsteps = ss, int(gsteps)
         self.steps_per_call = self.gsteps
         p = ss.params
         self.w1, self.w2, self.omega = (np.float32(p.accel_w1),
@@ -113,11 +175,11 @@ class RingShardImpl:
                                         np.float32(p.omega))
         self.mode = ref_ops.association_mode(torch.float32)
         self.axis = ss.axis
-        self._step = 0  # steps run so far: the rounds' tags go on from it
-        nx, n = ss.nx, len(ss.shards)
+        self._step = 0  # steps run so far: the tags go on from it
         if ss.device_type == "cpu":
             from lbm_tpu_torch.parallel.halo import halo_sources
 
+            n = len(ss.shards)
             self.hmasks = [ss.halo_masks(r, 1) for r in range(n)]
             self.sources = halo_sources(ss, 1)
             self.halos = ss.halo_buffers(self.sources, 1)
@@ -134,15 +196,72 @@ class RingShardImpl:
                 if other != d:
                     _build.check(lib, lib.lbm_enable_peer_access(
                         index[d], index[other]), "peer access")
+        n = len(ss.shards)
         self._cross = any(ss.shards[(i + s) % n].device != sh.device
                           for i, sh in enumerate(ss.shards) for s in (-1, 1))
+
+    def _on_card(self, dev):
+        """Work on the stream that ``dev``'s launches run on. Scratch
+        allocated there goes back to the allocator, when its wrapper is
+        freed, only behind those launches: a launch still spinning on its
+        flags keeps them whether or not its wrapper lives."""
+        return self.ss.on(self.ss.shards[self._groups[dev][0]])
+
+    def _launch_all(self, launch) -> None:
+        """``launch(dev, idxs, stream)`` for each card's shards, on the
+        stream of its first shard, after every shard of that card's last
+        work and before its next."""
+        ss = self.ss
+        for dev, idxs in self._groups.items():
+            lead = ss.shards[idxs[0]]
+            with ss.on(lead):
+                for i in idxs[1:]:
+                    lead.stream.wait_event(ss.record(ss.shards[i]))
+                launch(dev, idxs, lead.stream.cuda_stream)
+                done = ss.record(lead)
+            for i in idxs[1:]:
+                ss.shards[i].stream.wait_event(done)
+
+    def _run_plain(self, t: int) -> None:
+        ss = self.ss
+        for s in range(self.gsteps):
+            views = ss.halo_views(self.sources, self.halos, 1)
+            ss.exchange(self.sources, self.halos, 1)
+            for sh, (hs, hn), (ms, mn) in zip(ss.shards, views, self.hmasks):
+                new, tots = ref_ops.halo_multi_step(
+                    sh.cells, hs, hn, sh.mask, ms, mn, sh.row0, ss.ny,
+                    self.w1, self.w2, self.omega, 1, self.axis)
+                sh.spare.copy_(new)
+                sh.cells, sh.spare = sh.spare, sh.cells
+                sh.tots[t + s] = tots[0]
+        self._step += self.gsteps
+
+
+class RingShardImpl(_Ring):
+    """The device-memory ring over every shard of a :class:`.halo.ShardSet`
+    (``csrc/ring.cu``): ``run(t)`` advances each shard ``gsteps`` steps
+    and writes each step's tot_u into ``shard.tots[t:t + gsteps]``; each
+    shard's result is in its ``cells`` buffer. The forcing axis is the
+    shard set's (1: column mode), its D :func:`ring_depth`'s. ``blocks``:
+    blocks a shard (default: as many as can be co-resident, split among a
+    card's shards); a launch of more than fit raises."""
+
+    form = "device"
+
+    def __init__(self, ss, gsteps: int, blocks: int | None = None):
+        super().__init__(ss, gsteps)
+        depth = ring_depth(gsteps, ss.h)
+        self.depth = depth
+        if ss.device_type == "cpu":
+            return
+        lib, nx = self._lib, ss.nx
         tiles = lib.lbm_depth_num_partials(depth, ss.h, nx)
         self._bps = {}
         for d, idxs in self._groups.items():
             if blocks is not None:
                 self._bps[d] = int(blocks)
                 continue
-            fit = lib.lbm_ring_blocks(depth, self.axis, index[d])
+            fit = lib.lbm_ring_blocks(depth, self.axis, self._index[d])
             if fit < 0:
                 _build.check(lib, -fit, "ring launch geometry")
             if fit < len(idxs):
@@ -157,18 +276,19 @@ class RingShardImpl:
                     bps -= 1
             self._bps[d] = bps
         self._bufs = []
+        slots = (2, D2Q9.Q, depth, nx)
         for sh in ss.shards:
             dev = sh.device
-            slots = (2, D2Q9.Q, depth, nx)
-            self._bufs.append({
-                "halo_s": torch.zeros(slots, device=dev),
-                "halo_n": torch.zeros(slots, device=dev),
-                "hmask": [m.to(torch.uint8).contiguous()
-                          for m in ss.halo_masks(sh.index, depth)],
-                "mask": sh.mask.to(torch.uint8).contiguous(),
-                "sync": torch.zeros(7, dtype=torch.int32, device=dev),
-                "partials": torch.empty(self.gsteps * tiles, device=dev),
-            })
+            with self._on_card(dev):
+                self._bufs.append({
+                    "halo_s": torch.zeros(slots, device=dev),
+                    "halo_n": torch.zeros(slots, device=dev),
+                    "hmask": [m.to(torch.uint8).contiguous()
+                              for m in ss.halo_masks(sh.index, depth)],
+                    "mask": sh.mask.to(torch.uint8).contiguous(),
+                    "sync": torch.zeros(7, dtype=torch.int32, device=dev),
+                    "partials": torch.empty(self.gsteps * tiles, device=dev),
+                })
         self._structs = {}
 
     def _struct(self, dev, idxs):
@@ -207,41 +327,148 @@ class RingShardImpl:
             self._run_plain(t)
             return
         lib = self._lib
-        for dev, idxs in self._groups.items():
-            lead = ss.shards[idxs[0]]
-            with ss.on(lead):
-                for i in idxs[1:]:
-                    lead.stream.wait_event(ss.record(ss.shards[i]))
-                struct, vec = self._struct(dev, idxs)
-                _build.check(lib, lib.lbm_ring(
-                    struct.data_ptr(), len(idxs), self._bps[dev], ss.h, ss.nx,
-                    ss.ny, self.w1, self.w2, self.omega, self.mode, self.axis,
-                    d, g, self._step // d, t, int(vec), int(self._cross),
-                    self._index[dev], lead.stream.cuda_stream,
-                ), f"ring G={g} D={d} cooperative launch")
-                LAUNCHES["ring_cols" if self.axis else "ring"] += 1
-                done = ss.record(lead)
-            for i in idxs[1:]:
-                ss.shards[i].stream.wait_event(done)
+
+        def launch(dev, idxs, stream):
+            struct, vec = self._struct(dev, idxs)
+            _build.check(lib, lib.lbm_ring(
+                struct.data_ptr(), len(idxs), self._bps[dev], ss.h, ss.nx,
+                ss.ny, self.w1, self.w2, self.omega, self.mode, self.axis,
+                d, g, self._step // d, t, int(vec), int(self._cross),
+                self._index[dev], stream,
+            ), f"ring G={g} D={d} cooperative launch")
+            LAUNCHES["ring_cols" if self.axis else "ring"] += 1
+
+        self._launch_all(launch)
         if (g // d) % 2:
             # An odd number of rounds ends in each shard's other buffer.
             for sh in ss.shards:
                 sh.cells, sh.spare = sh.spare, sh.cells
         self._step += g
 
-    def _run_plain(self, t: int) -> None:
-        ss = self.ss
-        for s in range(self.gsteps):
-            views = ss.halo_views(self.sources, self.halos, 1)
-            ss.exchange(self.sources, self.halos, 1)
-            for sh, (hs, hn), (ms, mn) in zip(ss.shards, views, self.hmasks):
-                new, tots = ref_ops.halo_multi_step(
-                    sh.cells, hs, hn, sh.mask, ms, mn, sh.row0, ss.ny,
-                    self.w1, self.w2, self.omega, 1, self.axis)
-                sh.spare.copy_(new)
-                sh.cells, sh.spare = sh.spare, sh.cells
-                sh.tots[t + s] = tots[0]
-        self._step += self.gsteps
+
+class _RingStripShardC(ctypes.Structure):
+    """csrc/ring_onchip.cu's RingStripShard."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "cells", "mask", "halo", "flags", "partials", "ticket", "tots",
+        "north_slots", "north_flags", "south_slots", "south_flags")] + [
+        ("row0", ctypes.c_longlong)]
+
+
+class RingOnchipImpl(_Ring):
+    """The on-chip ring over every shard of a :class:`.halo.ShardSet`
+    (``csrc/ring_onchip.cu``): ``run(t)`` advances each shard ``gsteps``
+    steps, its strips in shared memory for the whole call, in place in
+    its ``cells`` buffer, and writes each step's tot_u into
+    ``shard.tots[t:t + gsteps]``. ``form``: "onchip" (two buffers) or
+    "inplace" (one). On a card the geometry (:func:`ring_blocks` strips a
+    shard) is fixed and the scratch (each strip's slots and flags, each
+    shard's partials and ticket) allocated at construction; a mode whose
+    strips do not fit the card's shared memory, or more blocks than can be
+    co-resident, raises there."""
+
+    def __init__(self, ss, gsteps: int, form: str):
+        if form not in ("onchip", "inplace"):
+            raise ValueError(f"the on-chip ring's forms are 'onchip' and "
+                             f"'inplace', got {form!r}")
+        super().__init__(ss, gsteps)
+        self.form = form
+        self.buffers = 1 if form == "inplace" else 2
+        if ss.device_type == "cpu":
+            return
+        lib, h, nx = self._lib, ss.h, ss.nx
+        mode = "single-buffer" if self.buffers == 1 else "two-buffer"
+        bps = {}
+        for d, idxs in self._groups.items():
+            sms, smem = resident.device_limits(d)
+            b = ring_blocks(h, len(idxs), sms)
+            need = plan.onchip_smem_bytes(h, nx, b, self.buffers)
+            if lib.lbm_onchip_smem_bytes(h, nx, b, self.buffers) != need:
+                raise RuntimeError("ops/plan.py and csrc/lbm_onchip.cuh "
+                                   "size a strip differently")
+            if need > smem:
+                raise ValueError(
+                    f"the on-chip ring's {mode} mode needs {need} B of "
+                    f"shared memory a block for shards of {h}x{nx} over {b} "
+                    f"strips; the card gives {smem}")
+            _build.check(lib, lib.lbm_ring_onchip_prepare(
+                self.axis, self.mode, self.buffers, need, len(idxs) * b,
+                self._index[d],
+            ), f"on-chip ring ({mode}) cooperative launch of "
+               f"{len(idxs) * b} blocks")
+            bps[d] = b
+        self._bps = bps
+        bufs = {}
+        for dev, idxs in self._groups.items():
+            with self._on_card(dev):
+                for i in idxs:
+                    b = bps[dev]
+                    bufs[i] = {
+                        "bps": b,
+                        "halo": torch.zeros(b * 2 * 2 * 3 * nx, device=dev),
+                        # Flags and ticket as int32 words the kernel reads
+                        # as unsigned.
+                        "flags": torch.zeros(b * 4, dtype=torch.int32,
+                                             device=dev),
+                        "ticket": torch.zeros(1, dtype=torch.int32,
+                                              device=dev),
+                        "partials": torch.empty(self.gsteps * b, device=dev),
+                        "mask": ss.shards[i].mask.to(torch.uint8).contiguous(),
+                    }
+        self._bufs = [bufs[i] for i in range(len(ss.shards))]
+        self._structs = {}
+
+    def _struct(self, dev, idxs):
+        """The device array of RingStripShard for the shards on ``dev``,
+        built for their current ``cells`` (and kept while those stay)."""
+        shards, bufs, n = self.ss.shards, self._bufs, len(self.ss.shards)
+        key = (dev, tuple(shards[i].cells.data_ptr() for i in idxs))
+        if key not in self._structs:
+            pair = 2 * 3 * self.ss.nx * 4  # bytes of a strip's (dir) slots
+            arr = (_RingStripShardC * len(idxs))()
+            for slot, i in enumerate(idxs):
+                sh, b = shards[i], bufs[i]
+                north, south = bufs[(i + 1) % n], bufs[(i - 1) % n]
+                last = south["bps"] - 1
+                arr[slot] = _RingStripShardC(
+                    sh.cells.data_ptr(), b["mask"].data_ptr(),
+                    b["halo"].data_ptr(), b["flags"].data_ptr(),
+                    b["partials"].data_ptr(), b["ticket"].data_ptr(),
+                    sh.tots.data_ptr(), north["halo"].data_ptr(),
+                    north["flags"].data_ptr(),
+                    south["halo"].data_ptr() + (last * 2 + 1) * pair,
+                    south["flags"].data_ptr() + (last * 4 + 2) * 4, sh.row0)
+            raw = torch.frombuffer(bytearray(bytes(arr)), dtype=torch.uint8)
+            self._structs[key] = raw.to(dev)
+        return self._structs[key]
+
+    def run(self, t: int) -> None:
+        ss, g = self.ss, self.gsteps
+        if ss.device_type == "cpu":
+            self._run_plain(t)
+            return
+        lib = self._lib
+        key = "ring_onchip_inplace" if self.buffers == 1 else "ring_onchip"
+
+        def launch(dev, idxs, stream):
+            _build.check(lib, lib.lbm_ring_onchip(
+                self._struct(dev, idxs).data_ptr(), len(idxs),
+                self._bps[dev], ss.h, ss.nx, ss.ny, self.w1, self.w2,
+                self.omega, self.mode, self.axis, self.buffers, g,
+                self._step, t, int(self._cross), self._index[dev], stream,
+            ), f"on-chip ring G={g} cooperative launch")
+            LAUNCHES[key + ("_cols" if self.axis else "")] += 1
+
+        self._launch_all(launch)
+        self._step += g
+
+
+def make_ring(ss, gsteps: int, form: str | None = None):
+    """The ring of ``form`` (:func:`ring_form`; None or "device": the
+    device-memory ring) over the shard set ``ss``."""
+    if form in ("onchip", "inplace"):
+        return RingOnchipImpl(ss, gsteps, form)
+    return RingShardImpl(ss, gsteps)
 
 
 # --------------------------------------------------------------------------
@@ -354,3 +581,44 @@ def ring_emulated(ss, gsteps: int, depth: int, t: int = 0) -> None:
                 for v in parts[r][s]:
                     tot = tot + v
                 sh.tots[t + k * depth + s] = tot
+
+
+# --------------------------------------------------------------------------
+# The on-chip ring's strips in plain PyTorch.
+# --------------------------------------------------------------------------
+
+
+def ring_onchip_emulated(ss, gsteps: int, buffers: int, blocks: int,
+                         wave: int = resident.THREADS, t: int = 0) -> None:
+    """``gsteps`` steps of every shard of the CPU shard set ``ss`` by the
+    on-chip ring's schedule, the results into each shard's ``cells`` and
+    the per-step tot_u into ``shard.tots[t:...]``.
+
+    Each shard's rows split into ``blocks`` strips (:func:`.ops.resident.
+    strips`); the strips of all shards, shard by shard, form one ring, the
+    top strip of a shard sending north into the north shard's strip 0 and
+    its strip 0 south into the south shard's top strip: the strip step of
+    :func:`.ops.resident.onchip_schedule` (sends, then interior rows and
+    edge rows from the slot of the step; in ``buffers`` 1 the line forced
+    in place first and the strip updated in place in waves of ``wave``
+    cells through :func:`.ops.resident._inplace_strip_step`), forced by
+    global row (column mode: column nx-2 of every shard). tot_u: each
+    shard's strip partials summed in strip order. Cells are bit-identical
+    to the plain shard steps; tots differ from theirs by summation
+    order."""
+    n, h = len(ss.shards), ss.h
+    if gsteps < 2 or gsteps % 2 or not 1 <= blocks <= h:
+        raise ValueError(f"the on-chip ring takes an even G >= 2 and 1 to "
+                         f"{h} strips a shard, got G={gsteps}, {blocks}")
+    p = ss.params
+    local = resident.strips(h, blocks)
+    parts = [(r * h + r0, rows) for r in range(n) for r0, rows in local]
+    cells = torch.cat([sh.cells for sh in ss.shards], 1)
+    mask = torch.cat([sh.mask for sh in ss.shards], 0)
+    new, partials = resident.onchip_schedule(
+        cells, mask, p.accel_w1, p.accel_w2, p.omega, gsteps, parts, ss.axis,
+        buffers, wave)
+    for r, sh in enumerate(ss.shards):
+        sh.cells = new[:, r * h:(r + 1) * h].clone()
+        sh.tots[t:t + gsteps] = resident.sum_in_order(
+            partials[:, r * blocks:(r + 1) * blocks])

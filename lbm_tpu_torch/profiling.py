@@ -10,11 +10,12 @@
 - the port's cost model (:data:`BYTES_PER_CELL_PASS`,
   :data:`OPS_PER_CELL_STEP`), :func:`bound` (the least time a card could
   take for a kernel's work), :func:`design_ceiling` (the least a kernel
-  that streams the lattice every step could take) and
-  :func:`roofline_report` (a measured run against the card's data-sheet
-  peaks).
+  that streams the lattice every step could take; an on-chip form's is
+  its bound) and :func:`roofline_report` (a measured run against the
+  card's data-sheet peaks).
 - :func:`summarise`: per kernel name the launches and device time of a
-  trace, the card's busy share and its longest idle gaps.
+  trace, the card's busy share and its longest idle gaps;
+  :data:`KERNEL_NAMES`, each launch count's kernel name in a trace.
 """
 
 from __future__ import annotations
@@ -128,22 +129,25 @@ def bound(cells: int, steps_per_launch: int = 1, extra_bytes: int = 0,
 def design_ceiling(cells: int, steps_per_launch: int = 1, chip: str = "h100",
                    bytes_per_cell: int = BYTES_PER_CELL_PASS,
                    ops_per_cell: int = OPS_PER_CELL_STEP,
-                   steps_per_pass: int = 1):
+                   steps_per_pass: int = 1, on_chip: bool = False):
     """``(ms per step, "bytes" or "operations")``: the least time per step
     of a kernel that keeps the lattice in device memory between the passes
     of a launch, a pass covering ``steps_per_pass`` steps (1: the probe;
-    D: the ring and the resident kernel's device-memory form, which step D
-    at a time in shared memory, as ``roofline_report``'s
-    ``steps_per_pass``).
+    D: the device-memory ring and the resident kernel's device-memory
+    form, which step D at a time in shared memory, as
+    ``roofline_report``'s ``steps_per_pass``).
     Such a kernel passes over device memory once per pass whenever its
     working set, ``bytes_per_cell * cells`` (both buffers and the mask),
     exceeds the card's L2 cache; while it fits, the launch's bytes move
-    once and this is :func:`bound`. Not a bound of the function: the depth
+    once and this is :func:`bound`. ``on_chip``: a kernel that holds the
+    lattice in shared memory for the whole launch (the on-chip forms of
+    the resident kernel and of the ring), whose bytes move once a launch
+    at any size: :func:`bound`. Not a bound of the function: the depth
     kernel, which holds its steps in shared memory, runs below it. It says
     how much of a kernel's distance from :func:`bound` its design accounts
     for."""
     peaks = _peaks(chip)
-    if bytes_per_cell * cells > peaks["l2_bytes"]:
+    if not on_chip and bytes_per_cell * cells > peaks["l2_bytes"]:
         steps_per_launch = min(steps_per_launch, steps_per_pass)
     return bound(cells, steps_per_launch, chip=chip,
                  bytes_per_cell=bytes_per_cell, ops_per_cell=ops_per_cell)
@@ -186,6 +190,20 @@ def roofline_report(nx: int, ny: int, iters: int, seconds: float,
 
 # Chrome-trace categories torch.profiler gives to work on the card.
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# The kernels' names in a trace (:func:`short_kernel_name`) by their
+# launch counts' names in ``ops.fused.LAUNCHES`` (without the column
+# modes' "_cols", which run the same kernel functions).
+KERNEL_NAMES = {"step": "fused_step_kernel", "reduce": "reduce_tot_kernel",
+                "depth": "fused_depth_kernel", "resident": "resident_kernel",
+                "resident_onchip": "resident_onchip_kernel",
+                "resident_onchip_inplace": "resident_onchip_kernel",
+                "step_seam": "fused_step_seam_kernel",
+                "depth_seam": "fused_depth_kernel", "ring": "ring_kernel",
+                "ring_onchip": "ring_onchip_kernel",
+                "ring_onchip_inplace": "ring_onchip_kernel",
+                **{f"probe_{m}": "probe_kernel"
+                   for m in ("full", "collide", "stream")}}
 
 
 def short_kernel_name(name: str) -> str:

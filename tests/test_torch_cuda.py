@@ -1218,3 +1218,240 @@ def test_entry_step_on_the_card_matches_the_cpu_step(cuda, monkeypatch):
     cnew, ctot = cstep(ccells, cobstacles)
     np.testing.assert_array_equal(new.cpu().numpy(), cnew.numpy())
     assert np.isclose(float(tot), float(ctot), rtol=1e-6)
+
+
+# The on-chip ring (csrc/ring_onchip.cu): each shard's strips in shared
+# memory for G steps, seam rows through the ring's slots, in two buffers
+# and in one, row mode (the row plan) and column mode (the x-plan).
+
+
+def _onchip_ring_sets(cuda, nx, ny, n, axis, steps, copies=2):
+    """``copies`` shard sets of one perturbed state (the forced line
+    failing the guard in places, obstacles on it) over ``n`` shards on the
+    card, for ``steps`` steps: the row plan (ny divides n here) or the
+    x-plan (``axis`` 1)."""
+    from lbm_tpu_torch.parallel import decomp, halo
+
+    p, cells, mask = _case(nx, ny, True, seed=nx + ny + n, perturbed=True)
+    rng = np.random.default_rng(nx * ny)
+    mask[ny - 2, :] |= rng.random(nx) < 0.2
+    mesh = decomp.make_mesh(n, devices=[cuda] * n)
+    c = torch.from_numpy(cells).to(cuda)
+    return [halo.ShardSet(p, c, mask, mesh, steps, axis) for _ in range(copies)]
+
+
+# (physical nx, ny, shards, axis): strips of 1 row (128x128/4 and the
+# forced row on a shard edge at 16x16/8: two rows a shard), 2 rows
+# (256x256/4), 4 rows (512x512/4, 512x128/4 x-plan), 6 rows (768x768/4:
+# one buffer only) and 8 rows (1024x512/4 x-plan: one buffer only).
+ONCHIP_RING_CASES = {
+    "128x128/4": (128, 128, 4, 0), "16x16/8-forced-row-on-a-shard-edge":
+    (16, 16, 8, 0), "256x256/4": (256, 256, 4, 0),
+    "512x512/4": (512, 512, 4, 0), "512x128/4-x-plan": (512, 128, 4, 1),
+    "768x768/4": (768, 768, 4, 0), "1024x512/4-x-plan": (1024, 512, 4, 1)}
+
+
+def _onchip_ring_fits(ss, form):
+    from lbm_tpu_torch.ops import plan, resident
+    from lbm_tpu_torch.parallel import resident_ring
+
+    sms, smem = resident.device_limits(ss.shards[0].device)
+    blocks = resident_ring.ring_blocks(ss.h, len(ss.shards), sms)
+    buffers = 1 if form == "inplace" else 2
+    return plan.onchip_smem_bytes(ss.h, ss.nx, blocks, buffers) <= smem
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [16, 100], ids=["G16", "G100"])
+@pytest.mark.parametrize("form", ["onchip", "inplace"])
+@pytest.mark.parametrize("case", list(ONCHIP_RING_CASES))
+def test_ring_onchip_matches_the_plain_steps(cuda, case, form, g):
+    """One call of G steps against G plain shard steps: cells max abs
+    error 0, tots within TOT_RTOL (another order of summation), one
+    launch a card."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    nx, ny, n, axis = ONCHIP_RING_CASES[case]
+    ss, plain = _onchip_ring_sets(cuda, nx, ny, n, axis, g)
+    if not _onchip_ring_fits(ss, form):
+        with pytest.raises(ValueError, match="shared memory"):
+            resident_ring.RingOnchipImpl(ss, g, form)
+        return
+    ring = resident_ring.RingOnchipImpl(ss, g, form)
+    key = ("ring_onchip_inplace" if form == "inplace" else "ring_onchip") \
+        + ("_cols" if axis else "")
+    before = fused.LAUNCHES[key]
+    ring.run(0)
+    ss.synchronize()
+    assert fused.LAUNCHES[key] == before + 1
+    _plain_steps(plain, g)
+    assert float((ss.gather() - plain.gather()).abs().max()) == 0.0
+    np.testing.assert_allclose(ss.av_vels(1.0).cpu().numpy(),
+                               plain.av_vels(1.0).cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["128x128/4", "256x256/4", "512x512/4",
+                                  "512x128/4-x-plan"])
+def test_ring_onchip_one_buffer_tots_are_the_two_buffer_bits(cuda, case):
+    """Where both modes fit, one buffer updates the same cells in the same
+    thread map and sums each strip in the same order: cells and every
+    shard's tots, bit for bit."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    nx, ny, n, axis = ONCHIP_RING_CASES[case]
+    one, two = _onchip_ring_sets(cuda, nx, ny, n, axis, 100)
+    resident_ring.RingOnchipImpl(one, 100, "inplace").run(0)
+    resident_ring.RingOnchipImpl(two, 100, "onchip").run(0)
+    one.synchronize()
+    two.synchronize()
+    assert torch.equal(one.gather(), two.gather())
+    for a, b in zip(one.shards, two.shards):
+        assert torch.equal(a.tots, b.tots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,form", [
+    ("256x256/4", "onchip"), ("256x256/4", "inplace"),
+    ("512x128/4-x-plan", "onchip"), ("768x768/4", "inplace"),
+    ("1024x512/4-x-plan", "inplace")])
+def test_ring_onchip_200_steps_keep_every_bit(cuda, case, form):
+    """Two calls of G=100 on a perturbed state (the tags go on across the
+    calls; a non-coherent load of a slot written by another block would
+    show) against 200 plain shard steps, bit for bit."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    nx, ny, n, axis = ONCHIP_RING_CASES[case]
+    ss, plain = _onchip_ring_sets(cuda, nx, ny, n, axis, 200)
+    ring = resident_ring.RingOnchipImpl(ss, 100, form)
+    ring.run(0)
+    ring.run(100)
+    ss.synchronize()
+    _plain_steps(plain, 200)
+    assert torch.equal(ss.gather(), plain.gather())
+    np.testing.assert_allclose(ss.av_vels(1.0).cpu().numpy(),
+                               plain.av_vels(1.0).cpu().numpy(),
+                               rtol=TOT_RTOL)
+
+
+@pytest.mark.cuda
+def test_ring_onchip_pinned_mode_that_does_not_fit_raises(cuda, monkeypatch):
+    """LBM_RESIDENT_INPLACE=1 at 1024x1024 over 4 (one buffer does not
+    fit), =0 at 768x768 over 4 (two do not), and =1 with
+    LBM_RESIDENT_FORM=device raise in the planner, and the wrapper of a
+    mode that does not fit raises; nothing runs another form."""
+    from lbm_tpu_torch.parallel import decomp, halo, resident_ring
+
+    for k in ("LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE",
+              "LBM_RESIDENT_STEPS"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("LBM_SHARD_RESIDENT", "1")
+    mesh = decomp.make_mesh(4, devices=[cuda] * 4)
+    for pin, n, mode in (("1", 1024, "single-buffer"),
+                         ("0", 768, "two-buffer")):
+        p, _, mask = _case(n, n, True)
+        monkeypatch.setenv("LBM_RESIDENT_INPLACE", pin)
+        with pytest.raises(ValueError, match=mode):
+            halo.plan_run(p, mask, mesh, "cuda", 200)
+    monkeypatch.setenv("LBM_RESIDENT_INPLACE", "1")
+    monkeypatch.setenv("LBM_RESIDENT_FORM", "device")
+    p, _, mask = _case(256, 256, True)
+    with pytest.raises(ValueError, match="single-buffer"):
+        halo.plan_run(p, mask, mesh, "cuda", 200)
+    monkeypatch.delenv("LBM_RESIDENT_INPLACE")
+    monkeypatch.delenv("LBM_RESIDENT_FORM")
+    ss = _onchip_ring_sets(cuda, 1024, 1024, 4, 0, 100, copies=1)[0]
+    before = dict(fused.LAUNCHES)
+    with pytest.raises(ValueError, match="single-buffer"):
+        resident_ring.RingOnchipImpl(ss, 100, "inplace")
+    assert fused.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env,grid,form", [
+    ({}, (256, 256), "onchip"),
+    ({"LBM_RESIDENT_INPLACE": "1"}, (256, 256), "inplace"),
+    ({}, (768, 768), "inplace"),
+    ({}, (1024, 1024), "device")], ids=["256-auto", "256-pinned-1-buf",
+                                        "768-auto", "1024-auto"])
+def test_sharded_ring_runs_the_planned_form(cuda, env, grid, form,
+                                            monkeypatch):
+    """Under LBM_SHARD_RESIDENT=1 over 4 shards: the planned form's
+    launches (the plan line names it) and cells bit-identical to the
+    unsharded run."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.parallel import decomp, halo
+    from lbm_tpu_torch.runner import run_simulation
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_SHARD_RESIDENT", "LBM_RESIDENT_INPLACE",
+              "LBM_RESIDENT_FORM"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(*grid, True)
+    base = run_simulation(p, mask, n_iters=200)
+    monkeypatch.setenv("LBM_SHARD_RESIDENT", "1")
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    mesh = decomp.make_mesh(4, devices=[cuda] * 4)
+    sp = halo.plan_run(p, mask, mesh, "cuda", 200)
+    assert [s.form for s in sp.segments] == [form]
+    fused.reset_launches()
+    got = run_simulation(p, mask, n_iters=200, mesh=mesh)
+    assert fused.LAUNCHES[sp.segments[0].launch_key] == 2
+    np.testing.assert_array_equal(got.cells, base.cells)
+    np.testing.assert_allclose(got.av_vels, base.av_vels, rtol=TRAJ_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["256x256/4", "512x128/4-x-plan"])
+def test_ring_onchip_resumes_across_modes(cuda, case):
+    """A call in two buffers, then a new wrapper in one buffer on the same
+    shards (its own slots and flags, tags from zero, as after a resume or
+    a change of pin between chunks), then the device ring: 300 plain
+    steps, bit for bit."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    nx, ny, n, axis = ONCHIP_RING_CASES[case]
+    ss, plain = _onchip_ring_sets(cuda, nx, ny, n, axis, 300)
+    rings = [resident_ring.RingOnchipImpl(ss, 100, "onchip"),
+             resident_ring.RingOnchipImpl(ss, 100, "inplace"),
+             resident_ring.RingShardImpl(ss, 100)]
+    for t, ring in zip((0, 100, 200), rings):
+        ring.run(t)
+    ss.synchronize()
+    _plain_steps(plain, 300)
+    assert torch.equal(ss.gather(), plain.gather())
+
+
+def _ring_scratch(ring):
+    """The addresses of a ring wrapper's slots, flags and tickets."""
+    return {v.data_ptr() for b in ring._bufs for k, v in b.items()
+            if k in ("halo", "flags", "ticket", "halo_s", "halo_n", "sync")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["onchip", "inplace", "device"])
+def test_ring_freed_while_its_launch_runs_leaves_the_next_ring_whole(
+        cuda, form):
+    """A ring dropped right after a long launch (G=2000, milliseconds),
+    with nothing synchronized, then a new wrapper on the same shards: the
+    allocator hands the new wrapper the old one's scratch while the old
+    launch may still spin on its flags, so the new scratch's zeroing must
+    wait behind that launch. At 128x128 over 4 (32 strips a shard) SMs are
+    left free, where a zeroing on another stream would run beside the
+    launch. Both calls end, and the cells are 2100 plain steps' bit for
+    bit."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    ss, plain = _onchip_ring_sets(cuda, 128, 128, 4, 0, 2100)
+    first = resident_ring.make_ring(ss, 2000, form)
+    first.run(0)
+    freed = _ring_scratch(first)
+    del first
+    second = resident_ring.make_ring(ss, 100, form)
+    assert _ring_scratch(second) & freed, "no scratch was reused"
+    second.run(2000)
+    ss.synchronize()
+    _plain_steps(plain, 2100)
+    assert torch.equal(ss.gather(), plain.gather())

@@ -157,6 +157,7 @@ def test_nvcc_command_targets_sm90a_and_lists_every_source(tmp_path):
     # The shared headers are part of the library's hash.
     assert [h.name for h in _build.headers()] == ["lbm_cell.cuh",
                                                   "lbm_depth.cuh",
+                                                  "lbm_onchip.cuh",
                                                   "lbm_reduce.cuh",
                                                   "lbm_rounds.cuh",
                                                   "lbm_seam.cuh"]

@@ -111,6 +111,27 @@ def test_design_ceiling_of_the_ring_counts_one_pass_per_round(d):
         profiling.design_ceiling(big, 100)
 
 
+@pytest.mark.parametrize("cells", [768 * 768, 1024 * 1024])
+def test_design_ceiling_of_an_on_chip_form_is_its_bound(cells):
+    """The on-chip forms (the resident kernel's and the ring's) hold the
+    lattice in shared memory for the whole launch: the bytes move once a
+    launch at any size, so the ceiling is the bound."""
+    assert profiling.design_ceiling(cells, 100, on_chip=True) == \
+        profiling.bound(cells, 100)
+    assert profiling.design_ceiling(cells, 100, steps_per_pass=4,
+                                    on_chip=True) == profiling.bound(cells, 100)
+
+
+def test_kernel_names_cover_every_launch_count():
+    """Each launch count (without the column modes' "_cols") has its
+    kernel's name in a trace."""
+    from lbm_tpu_torch.ops import fused
+
+    names = {k.removesuffix("_cols") for k in fused.LAUNCHES}
+    assert set(profiling.KERNEL_NAMES) == names
+    assert profiling.KERNEL_NAMES["ring_onchip_inplace"] == "ring_onchip_kernel"
+
+
 def test_roofline_report_of_a_resident_run():
     """The report holds a run against the function's bound whichever
     kernel ran it."""
