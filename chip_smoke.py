@@ -21,7 +21,9 @@ printing JSON lines (any failure raises and exits non-zero):
              abs error 0; a step's tot_u the same bits at the first and at
              the last stage of a launch, and under D = 2 and D = 4) and the
              resident kernel for one call at G = 16 in both forms (the
-             on-chip form wherever a strip fits; cells max abs error 0),
+             on-chip form wherever a strip fits; cells max abs error 0) and
+             the device form's shift mode (cells max abs error 0, each
+             step's tot the device form's bits),
              against n steps of the plain version, at 1024x1024 (scene
              mask), 128x128 (and an odd G = 5 there), a ragged 100x130
              wall-less mask, 16384x1024, 131072x128, 128x131072, 512x512
@@ -44,6 +46,16 @@ printing JSON lines (any failure raises and exits non-zero):
              device, in turns: launch counts equal the plan's, drift
              within 0.3 % of goldens/256x256.final_state.f64.npz, the two
              forms' final states the same bytes, Compute seconds;
+4b2. shift_scene - the device form's shift mode (LBM_RESIDENT_SHIFT):
+             the 256x256 scene, 80000 steps, through the CLI under the pin
+             ("resident G=100 device-memory shift x800") and with
+             LBM_RESIDENT_FORM=device, in turns: drift within 0.3 % of its
+             golden, final states and av_vels files the same bytes, cells
+             and av_vels through the runner the same bits; then 4096x64
+             (the wide scenes' params, the generator's walls), 20000 steps
+             under auto (the shift mode) and LBM_RESIDENT_SHIFT=0, in
+             turns, the same checks, and 500 steps under auto within 0.3 %
+             of the port's plain float64 run on the card;
 4c. inplace_scene - the single-buffer mode's path: 1024x512 with the
              wide scenes' parameters (accel 0.01, omega 1.85) and the
              generator's walls, 20000 steps through the CLI under auto
@@ -97,14 +109,15 @@ printing JSON lines (any failure raises and exits non-zero):
              two-buffer strips fit), 1024x512, 768x768 and 1024x768 (the
              numbers RESIDENT_AUTO_MAX_CELLS is set from), and at 1600x264
              and 1200x396 (one-buffer strips of 2 and 3 rows), with the
-             single-buffer mode wherever its strips fit; then 4096x64 and
+             single-buffer mode wherever its strips fit, and the device
+             form's shift mode everywhere; then 4096x64, 8192x32 and
              400x1024 (narrow channels, row mode), 1024x400 and 3200x128
              (tall boxes, transposed, column mode) as auto plans them, the
-             plan asserted to be the form plan.resident_form gives (the
-             single-buffer mode; the device-memory form for 4096x64's
-             one-row strips): 200 steps through the runner with the plan's
-             launches, and the single-buffer mode, the device-memory form
-             and D=4 timed in turns;
+             plan asserted to be the form resident.planned_form gives (the
+             single-buffer mode; the shift mode for the one-row strips of
+             4096x64 and 8192x32): 200 steps through the runner with the
+             plan's launches, and the single-buffer mode, the device-memory
+             form, its shift mode (row mode) and D=4 timed in turns;
 10. shard_kernel - the sharded path's kernels, one call on every shard
              against the plain shard step (halo.ReferenceShardImpl) on
              the same inputs: the one-step kernel's seam mode, the depth
@@ -229,9 +242,10 @@ printing JSON lines (any failure raises and exits non-zero):
              dryrun_multichip(4) as four shards on the card; one cell of
              scripts/ab_kernel_torch.py. Any row that is not ok fails.
 
-Then the kernels line (every kernel, row and column modes, the on-chip
-resident form in two buffers and in one (row mode: 400x1024 through the
-runner; column mode: the 1024x512 scene), the on-chip ring in two buffers
+Then the kernels line (every kernel, row and column modes, the
+device-memory form's shift mode (4096x64's scene under auto; times from
+onchip_timing's row), the on-chip resident form in two buffers and in one
+(row mode: 400x1024 through the runner; column mode: the 1024x512 scene), the on-chip ring in two buffers
 and in one (ring_onchip_scene's 512x512, 1024x384, 768x768 and 1024x512
 over 4 shards; times from shard_timing's rows), the probe's three, with its
 launches on its path,
@@ -276,7 +290,8 @@ MODES = {
     "omega_absorbed": {"LBM_OMEGA_EQ": "1"},
 }
 PLAN_ENV = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-            "LBM_SHARD_RESIDENT", "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE")
+            "LBM_SHARD_RESIDENT", "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE",
+            "LBM_RESIDENT_SHIFT")
 DEPTHS = (2, 4, 8)
 KERNEL_G = 16
 # Kernel-phase grids (NXxNY) and their masks: the scene's, the
@@ -329,11 +344,11 @@ CROSSOVER_GRIDS = ("640x512", "768x512", "1024x384", "600x600", "792x528",
 # grids' 4 to 6 rows, the numbers plan.INPLACE_MIN_ROWS is set from.
 STRIP_GRIDS = ("1600x264", "1200x396")
 # Lattices under RESIDENT_AUTO_MAX_CELLS whose two-buffer strips do not fit
-# on chip, as auto runs them: narrow channels in row mode (4096x64, strips
-# of one row, on the device-memory form; 400x1024) and tall boxes
-# transposed, in column mode (1024x400, 3200x128), on the single-buffer
-# mode.
-AUTO_GRIDS = ("4096x64", "1024x400", "400x1024", "3200x128")
+# on chip, as auto runs them: narrow channels in row mode (4096x64 and
+# 8192x32, strips of one row, on the device-memory form's shift mode;
+# 400x1024) and tall boxes transposed, in column mode (1024x400,
+# 3200x128), on the single-buffer mode.
+AUTO_GRIDS = ("4096x64", "8192x32", "1024x400", "400x1024", "3200x128")
 # The single-buffer mode's path: 1024x512 with the parameters of the
 # scenes 1024 and more wide (scripts/sweep.py: accel 0.01, omega 1.85) and
 # the generator's walls; auto runs it transposed, on the single-buffer
@@ -347,6 +362,15 @@ INPLACE_KERNEL_CASES = [("4096x64", 0), ("768x768", 0), ("1024x400", 1),
 INPLACE_GS = (1, 2, 99, 100)
 # The row-mode path of the kernels line: AUTO_GRIDS' 400x1024.
 INPLACE_ROW_GRID = "400x1024"
+# The device-memory form's shift mode (LBM_RESIDENT_SHIFT): the 256x256
+# reference scene under the pin beside the device form's default mode, and
+# its path under auto, a narrow channel with the wide scenes' parameters
+# and the generator's walls (the kernels line's path), beside
+# LBM_RESIDENT_SHIFT=0.
+SHIFT_SCENE_PLANS = {"shift": {"LBM_RESIDENT_SHIFT": "1"},
+                     "device": {"LBM_RESIDENT_FORM": "device"}}
+SHIFT_AUTO_SCENE, SHIFT_AUTO_ITERS, SHIFT_GATE_ITERS = "4096x64", 20000, 500
+SHIFT_AUTO_PLANS = {"auto": {}, "off": {"LBM_RESIDENT_SHIFT": "0"}}
 
 
 def grid(name: str) -> tuple[int, int]:
@@ -447,9 +471,12 @@ def check_depth(r, name, where):
     too are the plain version's bit for bit."""
     if name.startswith("resident"):
         check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
-        # One buffer updates and sums each cell as two do.
+        # One buffer updates and sums each cell as two do; the shift mode
+        # each cell as the device form's rounds (the depth plan's bits).
         check(r.get("tots_equal_two_buffer", True),
               f"{name}: tots differ from the two-buffer mode's at {where}")
+        check(r.get("tots_equal_device_form", True),
+              f"{name}: tots differ from the device form's at {where}")
     if not name.startswith("depth"):
         return
     check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
@@ -514,8 +541,15 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     onchip = onchip_fits(cells.shape[1], cells.shape[2])
     inplace = onchip_fits(cells.shape[1], cells.shape[2], buffers=1)
     for g in sorted(keep - set(DEPTHS) - before):
-        got, t = resident.resident(cells, *args, g, axis=axis, form="device")
-        res[f"resident G={g}"] = compare(torch, got, t, plain[g], tots[:g])
+        got, dev = resident.resident(cells, *args, g, axis=axis,
+                                     form="device")
+        res[f"resident G={g}"] = compare(torch, got, dev, plain[g], tots[:g])
+        if not axis:
+            # The shift mode (row mode only): the device form's tot bits.
+            got, t = resident.resident(cells, *args, g, form="shift")
+            r = res[f"resident_shift G={g}"] = compare(torch, got, t,
+                                                       plain[g], tots[:g])
+            r["tots_equal_device_form"] = bool(torch.equal(t, dev))
         if onchip:
             got, two = resident.resident(cells, *args, g, axis=axis,
                                          form="onchip")
@@ -1319,7 +1353,9 @@ def phase_onchip_timing(torch):
                 impls["on-chip 1-buf"] = resident.Resident(*w, 100,
                                                            form="inplace")
             impls["device"] = resident.Resident(*w, 100, form="device")
+            impls["device shift"] = resident.Resident(*w, 100, form="shift")
             impls["depth D=4"] = fused_depth.FusedDepth(*w, 4)
+            planned = resident.planned_form(ny, nx, "cuda")
         calls = {label: (runner_call(impl, bufs, av), impl.steps_per_call,
                          None) for label, impl in impls.items()}
         loop, dev = time_turns(torch, calls)
@@ -1328,6 +1364,8 @@ def phase_onchip_timing(torch):
         best = min(onchip, key=onchip.get) if onchip else None
         out = {"phase": "onchip_timing", "grid": name, "cells": nx * ny,
                "form": plan.resident_form(ny, nx, sms, smem),
+               "planned": planned,
+               "shift_over_device": med["device shift"] / med["device"],
                "planned_blocks": plan.onchip_blocks(ny, nx, sms),
                "strip_rows": -(-ny // plan.onchip_blocks(ny, nx, sms)),
                "fastest_blocks": best,
@@ -1353,11 +1391,13 @@ def phase_onchip_timing(torch):
 
 def auto_timing(torch, name):
     """A lattice whose two-buffer strips do not fit on chip, as auto runs
-    it: its plan (the form plan.resident_form gives, asserted), 200 steps
+    it: its plan (the form resident.planned_form gives, asserted: the size
+    rule's, or the shift mode where plan.shift_auto takes it), 200 steps
     through the runner with the plan's launches (counted from zero just
     before) and the plain version's cells, then the single-buffer mode
-    (where its strips fit), the device-memory form and D=4 timed in the
-    run's layout, in turns, and the plain version's step."""
+    (where its strips fit), the device-memory form, its shift mode (row
+    layout) and D=4 timed in the run's layout, in turns, and the plain
+    version's step."""
     from lbm_tpu_torch import runner
     from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
     from lbm_tpu_torch.ops import reference as ref_ops
@@ -1370,8 +1410,7 @@ def auto_timing(torch, name):
         parts = runner.plan_run(p, "cuda", n, device="cuda")
         axis = int(runner.plan_layout(p, "cuda"))
         rows, lanes = (p.nx, p.ny) if axis else (p.ny, p.nx)
-        form = plan.resident_form(rows, lanes,
-                                  *resident.device_limits("cuda"))
+        form = resident.planned_form(rows, lanes, "cuda", axis)
         check(form != "onchip" and plan.describe(parts) == plan.describe(
             [plan.Segment("resident", 100, n, form)]),
             f"{name} under auto plans {plan.describe(parts)}")
@@ -1400,6 +1439,8 @@ def auto_timing(torch, name):
             impls["on-chip 1-buf"] = resident.Resident(*w, 100, axis,
                                                        form="inplace")
         impls["device"] = resident.Resident(*w, 100, axis, form="device")
+        if not axis:
+            impls["device shift"] = resident.Resident(*w, 100, form="shift")
         impls["depth D=4"] = fused_depth.FusedDepth(*w, 4, axis)
     bufs = [cells, torch.empty_like(cells)]
     av = torch.zeros(100, device="cuda")
@@ -1412,7 +1453,8 @@ def auto_timing(torch, name):
         new, tot = ref_ops.fused_step(bufs[0], *w, axis=axis)
         av[0] = tot
 
-    planned = "on-chip 1-buf" if form == "inplace" else "device"
+    planned = {"inplace": "on-chip 1-buf", "shift": "device shift"}.get(
+        form, "device")
     out = {"phase": "onchip_timing", "grid": name, "plan":
            plan.describe(parts), "layout": "transposed" if axis else
            "physical", "execution": [rows, lanes],
@@ -1420,6 +1462,7 @@ def auto_timing(torch, name):
            "max_abs_err_vs_plain": err, "loop_ms_per_step": loop,
            "device_ms_per_step": dev, "planned": planned,
            "over_depth4": {k: v / med["depth D=4"] for k, v in med.items()},
+           "over_device": {k: v / med["device"] for k, v in med.items()},
            "plain_device_ms_per_step": _median_ms(torch, plain_step, 1, True,
                                                   steps=4, batches=3)[0]}
     emit(out)
@@ -1558,6 +1601,152 @@ def phase_inplace_scene(torch, np):
           f"{INPLACE_SCENE} gate: no single-buffer launch")
     return {"launches": runs, "device_ms": med["planned"],
             "plain_ms": plain_ms}
+
+
+def _scene_turns(phase, name, params, obs, iters, plans, want_plan, labels):
+    """CLI runs of the scene ``name`` (physical layout) under each plan of
+    ``plans``, in the order of ``labels``: each plan line equal to
+    ``want_plan``'s and to the planner's, launch counts equal to the
+    plan's, Compute seconds. Returns, by plan, the first run's launches,
+    final state bytes, av_vels bytes, (final state, av_vels) files and
+    stdout lines (every run of a plan writes the same files)."""
+    from lbm_tpu_torch.ops import plan, resident
+
+    nx, ny = grid(name)
+    runs, finals, avs, files, outs = {}, {}, {}, {}, {}
+    for i, label in enumerate(labels):
+        with env(**plans[label]):
+            parts = resident.segments(ny, nx, iters, "cuda")
+        lines, plan_line, launches, av_f, fs_f = _cli_run(
+            params, obs, params.parent, f"{phase}_{label}", plans[label])
+        check(plan.describe(parts) == want_plan[label],
+              f"{name} {label} plans {plan.describe(parts)}")
+        check(plan_line == "kernel: cuda on cuda (float32): "
+              + want_plan[label], f"{name} {label} plan line: {plan_line}")
+        check(launches == expected_launches(parts),
+              f"{name} {label}: launches {launches} differ from the plan's")
+        check(lines[0] == "==done==", "stdout contract")
+        compute = float(lines[3].split()[-2])
+        emit({"phase": phase, "grid": name, "turn": i, "plan": label,
+              "env": plans[label], "plan_line": plan_line, "steps": iters,
+              "launches": {k: v for k, v in launches.items() if v},
+              "compute_s": compute,
+              "glups": nx * ny * iters / compute / 1e9})
+        runs.setdefault(label, launches)
+        finals.setdefault(label, fs_f.read_bytes())
+        avs.setdefault(label, av_f.read_bytes())
+        files.setdefault(label, (fs_f, av_f))
+        outs.setdefault(label, lines)
+    return runs, finals, avs, files, outs
+
+
+def phase_shift_scene(torch, np):
+    """The device-memory form's shift mode (LBM_RESIDENT_SHIFT). The
+    256x256 reference scene, all 80000 steps, through the CLI under the
+    pin (``resident G=100 device-memory shift x800``) and with the device
+    form's default mode pinned (LBM_RESIDENT_FORM=device), in turns: plan
+    lines, launch counts, drift against goldens/256x256.final_state.f64.npz
+    within the 0.3 % budget, the final states and av_vels files the same
+    bytes, and through the runner the cells and av_vels the same bits. Then
+    the mode's path under auto: the narrow channel SHIFT_AUTO_SCENE (the
+    wide scenes' params, the generator's walls), SHIFT_AUTO_ITERS steps
+    through the CLI under auto (the shift mode) and LBM_RESIDENT_SHIFT=0
+    (the default mode), in turns, the same checks of bytes and bits, and
+    500 steps under auto within the budget of the port's plain float64 run
+    on the card. Returns each run's launches."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.params import Params
+    from lbm_tpu_torch.state import initial_state
+
+    # The reference scene under the pin.
+    golden = np.load(ONCHIP_GOLDEN)
+    nx, ny = grid(ONCHIP_SCENE)
+    params, obs = walls_scene_files(ONCHIP_SCENE, ONCHIP_ITERS, ONCHIP_ACCEL)
+    calls = ONCHIP_ITERS // 100
+    want = {"shift": f"resident G=100 device-memory shift x{calls}",
+            "device": f"resident G=100 device-memory x{calls}"}
+    runs, finals, avs, files, outs = _scene_turns(
+        "shift_scene", ONCHIP_SCENE, params, obs, ONCHIP_ITERS,
+        SHIFT_SCENE_PLANS, want, ("shift", "device", "device", "shift"))
+    out = {"phase": "shift_scene", "grid": ONCHIP_SCENE}
+    for label in ("shift", "device"):
+        fs_f, av_f = files[label]
+        d, ok = drift(np, golden["av_vels"], golden["pressure"],
+                      lio.load_av_vels(av_f),
+                      lio.load_final_state(fs_f)[:, 2])
+        out[label] = {**d, "reynolds": float(outs[label][1].split()[-1])}
+        check(ok, f"{ONCHIP_SCENE} {label}: outside the drift budget")
+    out["final_states_same_bytes"] = finals["shift"] == finals["device"]
+    out["av_vels_same_bytes"] = avs["shift"] == avs["device"]
+    p = Params(nx=nx, ny=ny, max_iters=ONCHIP_ITERS, reynolds_dim=10,
+               density=0.1, accel=ONCHIP_ACCEL, omega=1.85)
+    mask = torch.from_numpy(generate_obstacles(nx, ny)).cuda()
+    bits = {}
+    for label, plan_env in SHIFT_SCENE_PLANS.items():
+        with env(**plan_env):
+            bits[label] = runner.simulate(p, initial_state(p, "cuda"), mask,
+                                          kernel="cuda")
+    out["cells_bit_identical"] = bool(torch.equal(bits["shift"][0],
+                                                  bits["device"][0]))
+    out["av_vels_bit_identical"] = bool(torch.equal(bits["shift"][1],
+                                                    bits["device"][1]))
+    out["reference"] = str(ONCHIP_GOLDEN.relative_to(REPO))
+    emit(out)
+    for key in ("final_states_same_bytes", "av_vels_same_bytes",
+                "cells_bit_identical", "av_vels_bit_identical"):
+        check(out[key], f"{ONCHIP_SCENE}: the shift mode and the device "
+              f"form differ ({key})")
+    del bits
+
+    # The mode's path under auto.
+    name, iters = SHIFT_AUTO_SCENE, SHIFT_AUTO_ITERS
+    nx, ny = grid(name)
+    p = scene_params(name, iters)
+    with env():
+        check(not runner.plan_layout(p, "cuda"), f"{name} is transposed")
+    params, obs = walls_scene_files(name, iters, INPLACE_ACCEL)
+    want = {"auto": f"resident G=100 device-memory shift x{iters // 100}",
+            "off": f"resident G=100 device-memory x{iters // 100}"}
+    a_runs, a_finals, a_avs, _, _ = _scene_turns(
+        "shift_scene", name, params, obs, iters, SHIFT_AUTO_PLANS,
+        want, ("auto", "off", "off", "auto"))
+    mask = torch.from_numpy(generate_obstacles(nx, ny)).cuda()
+    bits = {}
+    for label, plan_env in SHIFT_AUTO_PLANS.items():
+        with env(**plan_env):
+            bits[label] = runner.simulate(p, initial_state(p, "cuda"), mask,
+                                          kernel="cuda")
+    mask_np = mask.cpu().numpy()
+    gate = scene_params(name, SHIFT_GATE_ITERS)
+    with env():
+        ref = runner.run_simulation(
+            scene_params(name, SHIFT_GATE_ITERS, np.float64), mask_np,
+            kernel="reference")
+    ref_p = lio.final_state_fields(gate, ref.cells, mask_np)[3].ravel()
+    g_params, _ = walls_scene_files(name, SHIFT_GATE_ITERS, INPLACE_ACCEL)
+    _, g_line, g_launches, g_av, g_fs = _cli_run(g_params, obs,
+                                                 params.parent, "gate", {})
+    d, ok = drift(np, ref.av_vels, ref_p, lio.load_av_vels(g_av),
+                  lio.load_final_state(g_fs)[:, 2])
+    a_out = {"phase": "shift_scene", "grid": name,
+             "final_states_same_bytes": a_finals["auto"] == a_finals["off"],
+             "av_vels_same_bytes": a_avs["auto"] == a_avs["off"],
+             "cells_bit_identical": bool(torch.equal(bits["auto"][0],
+                                                     bits["off"][0])),
+             "av_vels_bit_identical": bool(torch.equal(bits["auto"][1],
+                                                       bits["off"][1])),
+             "gate_steps": SHIFT_GATE_ITERS, "gate_plan_line": g_line, **d,
+             "reference": "plain float64 on the card"}
+    emit(a_out)
+    for key in ("final_states_same_bytes", "av_vels_same_bytes",
+                "cells_bit_identical", "av_vels_bit_identical"):
+        check(a_out[key], f"{name}: auto (the shift mode) and "
+              f"LBM_RESIDENT_SHIFT=0 differ ({key})")
+    check(ok, f"{name}: outside the drift budget")
+    check(g_launches["resident_shift"] > 0, f"{name} gate: no shift launch")
+    return {"pin": runs, "auto": a_runs}
 
 
 # The sharded path: P shards on one card (a mesh that repeats the device),
@@ -2967,6 +3156,7 @@ def main() -> int:
     wide_worst = run("wide_kernel", phase_wide_kernel, torch)
     launches = run("scene", phase_scene, torch, np)
     onchip_runs = run("onchip_scene", phase_onchip_scene, torch, np)
+    shift_runs = run("shift_scene", phase_shift_scene, torch, np)
     inplace = run("inplace_scene", phase_inplace_scene, torch, np)
     wide_runs = run("wide_gate", phase_wide_gate, torch, np)
     run("stress", phase_stress, torch)
@@ -3007,6 +3197,8 @@ def main() -> int:
             "reduce_tot": launches["step"]["reduce"],
             "fused_depth": launches["auto"]["depth"],
             "resident": launches["resident"]["resident"],
+            # The shift mode's path under auto: the narrow channel's scene.
+            "resident_shift": shift_runs["auto"]["auto"]["resident_shift"],
             "resident_onchip": onchip_runs["auto"]["resident_onchip"],
             # 200 steps of 400x1024 through the runner under auto (row
             # mode), and the 1024x512 scene (transposed, column mode).
@@ -3043,6 +3235,11 @@ def main() -> int:
     onx, ony = grid(ONCHIP_SCENE)
     ocells = onx * ony
     oworst = max(worst["resident_onchip"], wide_worst["resident_onchip"])
+    # The shift mode: its timing as auto runs its scene's lattice.
+    sh = onchip_timing[SHIFT_AUTO_SCENE]
+    shx, shy = grid(SHIFT_AUTO_SCENE)
+    shmed = {k: statistics.median(v)
+             for k, v in sh["device_ms_per_step"].items()}
     # The single-buffer mode: its row and column paths.
     irow = onchip_timing[INPLACE_ROW_GRID]
     inx, iny = grid(INPLACE_ROW_GRID)
@@ -3139,6 +3336,19 @@ def main() -> int:
                      bound(cells, 100),
                      ceiling=design_ceiling(cells, 100,
                                             steps_per_pass=per_pass)),
+        # The device form's shift mode: a pass over the lattice a step, in
+        # L2 at this size (its ceiling, one pass a step, is its bound).
+        kernel_entry("resident_shift", "lbm_tpu_torch/csrc/resident.cu",
+                     "lbm_tpu/ops/pallas_resident.py:142",
+                     runs["resident_shift"],
+                     f"{SHIFT_AUTO_SCENE} scene, auto (G=100 device-memory "
+                     f"shift), {SHIFT_AUTO_ITERS} steps",
+                     max(worst["resident_shift"], sh["max_abs_err_vs_plain"]),
+                     shmed["device shift"], sh["plain_device_ms_per_step"],
+                     bound(shx * shy, 100),
+                     ceiling=design_ceiling(shx * shy, 100, steps_per_pass=1),
+                     device_form_ms=shmed["device"],
+                     depth4_ms=shmed["depth D=4"]),
         kernel_entry("resident_onchip", "lbm_tpu_torch/csrc/resident_onchip.cu",
                      "lbm_tpu/ops/pallas_resident.py:74",
                      runs["resident_onchip"],

@@ -58,6 +58,29 @@
 // The round loop is lbm_rounds.cuh's, which the stream-cost probe
 // (probe.cu) runs around its own stage bodies.
 //
+// The shift mode (the JAX kernel's LBM_RESIDENT_SHIFT, _streamed_shifted,
+// row mode and two buffers only, as there): on the TPU the whole previous
+// state sits in one VMEM buffer, so a block's cy = +-1 windows are loads at
+// row offsets instead of staged edge rows and a roll. Here both buffers
+// sit in device memory, which every block can address, so the mode is
+// rounds of one step whose tile loads each cell's nine speeds straight
+// from the source buffer at offset rows and columns (lbm_rounds.cuh's
+// shift_block), one grid barrier a step, nothing staged. It moves the
+// lattice once a step, so it pays where the lattice sits in L2 and the
+// depth tile's recomputed halos are dear: at the narrow channels 4096x64
+// and 8192x32 0.80-0.92x the rounds above (PERF.md), 1.48x at 1024x1024.
+// Each cell's partial keeps the depth tile's map (the 32 x 24 tile, the
+// two cells of a quad in order, its warp and lane, the warps in order), so
+// each step's tot_u has the depth plan's bits. Measured against the other
+// choices at those two lattices (PERF.md): the forcing guard's forced-row
+// reads loaded at once, where the guard's && read them in four dependent
+// round trips to L2 (with the vector path a template parameter, 1.44-1.49x
+// faster); tiles by block stride, not by ticket (1.05-1.18x); a thread for
+// each owned quad, the partials staged in shared memory at the depth map's
+// lanes, against the map's own 480 threads, a fifth of them the halo's
+// (0.99-1.09x); warps as the unit of work, better balanced, gained
+// nothing.
+//
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/resident.py.
 
 #include <cuda_runtime.h>
@@ -77,6 +100,17 @@ resident_kernel(const __grid_constant__ Resident r) {
     resident_block<kCols, kMode>(r, reinterpret_cast<float*>(smem));
 }
 
+// The shift mode's kernel, a kernel for each association as above. Two
+// blocks an SM: 80 registers (4 / 8 B spilled); launch bounds of three
+// (56 registers, 132 / 160 B spilled) ran 1.36x the time at 8192x32, 1.09x
+// at 256x256 and 0.89x at 512x512, where auto does not take the mode
+// (PERF.md).
+template <int kMode>
+__global__ void __launch_bounds__(kShiftThreads, 2)
+resident_shift_kernel(const __grid_constant__ Resident r) {
+    shift_block<kMode>(r);
+}
+
 template <bool kCols>
 const void* kernel_of_mode(int mode) {
     return mode == 1   ? (const void*)resident_kernel<kCols, 1>
@@ -84,11 +118,17 @@ const void* kernel_of_mode(int mode) {
                        : (const void*)resident_kernel<kCols, 0>;
 }
 
-// The kernel of an axis and association, its threads and its dynamic
-// shared memory.
-void resident_kernel_of(int axis, int mode, const void** fn, int* threads,
-                        size_t* bytes) {
-    if (axis) {
+// The kernel of an axis, association and mode (shift: the shift mode, row
+// mode only), its threads and its dynamic shared memory.
+void resident_kernel_of(int axis, int mode, int shift, const void** fn,
+                        int* threads, size_t* bytes) {
+    if (shift) {
+        *fn = mode == 1   ? (const void*)resident_shift_kernel<1>
+              : mode == 2 ? (const void*)resident_shift_kernel<2>
+                          : (const void*)resident_shift_kernel<0>;
+        *threads = kShiftThreads;
+        *bytes = 0;
+    } else if (axis) {
         *fn = kernel_of_mode<true>(mode);
         *threads = Block<true>::kThreads;
         *bytes = Block<true>::kBytes;
@@ -104,15 +144,17 @@ void resident_kernel_of(int axis, int mode, const void** fn, int* threads,
 extern "C" {
 
 // Blocks of the cooperative launch on this device for an ny x nx lattice
-// in forcing mode axis (0 rows, 1 columns): as many as can be co-resident
-// with their shared memory, at most one a tile. Negative: a CUDA error
-// code, negated (no cooperative launch on this device is
-// cudaErrorNotSupported).
-int lbm_resident_blocks(int ny, int nx, int axis, int device) {
+// in forcing mode axis (0 rows, 1 columns) and, shift 1, in the shift mode
+// (row mode only): as many as can be co-resident with their shared memory,
+// at most one a tile. Negative: a CUDA error code, negated (no cooperative
+// launch on this device is cudaErrorNotSupported; the shift mode in
+// column mode cudaErrorInvalidValue).
+int lbm_resident_blocks(int ny, int nx, int axis, int shift, int device) {
+    if (shift && axis) return -(int)cudaErrorInvalidValue;
     const void* fn;
     int threads;
     size_t bytes;
-    resident_kernel_of(axis, 0, &fn, &threads, &bytes);
+    resident_kernel_of(axis, 0, shift, &fn, &threads, &bytes);
     return rounds_blocks(fn, threads, bytes, ny, nx, device);
 }
 
@@ -123,14 +165,19 @@ int lbm_resident_blocks(int ny, int nx, int axis, int device) {
 // lbm_depth_num_partials(4, ny, nx); tickets two 32-bit words, zero before
 // the first launch (every launch leaves them so); out gets
 // gsteps values, out[s] = scale * step s's sum of fluid |u|. axis 0 forces
-// row accel, axis 1 (a transposed lattice) column accel; blocks comes from
-// lbm_resident_blocks for the same axis. A launch of more blocks than can
-// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
+// row accel, axis 1 (a transposed lattice) column accel; shift 1 runs the
+// shift mode, whose rounds are all of one step (rounds1 = gsteps; row
+// mode only); blocks comes from lbm_resident_blocks for the same axis and
+// mode. A launch of more blocks than can be co-resident is refused
+// (cudaErrorCooperativeLaunchTooLarge).
 int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
                  unsigned* tickets, float* out, int ny, int nx, int accel,
                  float w1, float w2, float omega, int mode, int gsteps,
                  int rounds4, int rounds2, int rounds1, float scale,
-                 int blocks, int axis, int device, void* stream) {
+                 int blocks, int axis, int shift, int device, void* stream) {
+    if (shift && (axis || rounds4 || rounds2)) {
+        return (int)cudaErrorInvalidValue;
+    }
     Resident r;
     const cudaError_t err = resident_args(
         &r, a, b, mask, partials, tickets, out, ny, nx, accel, w1, w2, omega,
@@ -139,7 +186,7 @@ int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
     const void* fn;
     int threads;
     size_t bytes;
-    resident_kernel_of(axis, mode, &fn, &threads, &bytes);
+    resident_kernel_of(axis, mode, shift, &fn, &threads, &bytes);
     return (int)launch_rounds(fn, threads, bytes, r, blocks, device, stream);
 }
 

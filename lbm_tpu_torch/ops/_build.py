@@ -71,10 +71,11 @@ _SIGNATURES = {
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_int, _c_int, _c_int, _c_float, _c_float, _c_float, _c_int,
          _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
-         _c_void_p],
+         _c_int, _c_void_p],
         _c_int,
     ),
-    "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),
+    "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int, _c_int],
+                            _c_int),
     "lbm_sm_count": ([_c_int], _c_int),
     "lbm_smem_optin": ([_c_int], _c_int),
     "lbm_onchip_smem_bytes": (

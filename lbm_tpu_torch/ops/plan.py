@@ -14,17 +14,22 @@ it), ``LBM_RESIDENT_STEPS`` (pins G; a positive integer, even unless the
 planned form is the single-buffer one, as the JAX package's
 ``_pinned_steps``), ``LBM_RESIDENT_INPLACE`` ("1" pins the on-chip form's
 single-buffer mode, "0", "" or "false" its two buffers; the JAX
-package's knob for ``_kernel_resident``'s in-place mode) and
-``LBM_PALLAS_DEPTH`` (caps the depth kernel's D and prefers the cap; 1
-leaves the one-step kernel); the port's own ``LBM_RESIDENT_FORM``
-("onchip", its two buffers, or "device") pins the resident kernel's
-form, which is otherwise :func:`resident_form`'s size rule.
+package's knob for ``_kernel_resident``'s in-place mode),
+``LBM_RESIDENT_SHIFT`` (anything but "0", "" or "false" pins the
+device-memory form's shift mode in row layout, "0", "" or "false" keeps
+it off; the JAX package's knob for ``_kernel_resident``'s offset-load
+mode) and ``LBM_PALLAS_DEPTH`` (caps
+the depth kernel's D and prefers the cap; 1 leaves the one-step kernel);
+the port's own ``LBM_RESIDENT_FORM`` ("onchip", its two buffers, or
+"device") pins the resident kernel's form, which is otherwise
+:func:`resident_form`'s size rule.
 
 What the automatic choice prefers is measured on the H100, not carried
 over from the TPU's VMEM gates (PERF.md, "Where the time goes"). The
 single-buffer mode has the JAX package's place in the order (two buffers
 where they fit, else one); where it runs under ``auto`` was measured
-again on the H100. ``LBM_RESIDENT_SHIFT`` is not ported yet (ROADMAP).
+again on the H100. The shift mode, opt-in in JAX, is taken by ``auto``
+where it was measured faster (:func:`shift_auto`).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import dataclasses
 import os
 
 from lbm_tpu_torch.ops.fused_depth import DEPTHS
+from lbm_tpu_torch.profiling import BYTES_PER_CELL_PASS, CHIP_PEAKS
 
 # G per resident launch, most preferred first: the JAX package's list.
 # Large G amortises the launch; the list stays divisor-rich so official
@@ -80,11 +86,22 @@ TRANSPOSED_MIN_CELLS = 512 * 512
 # one or two rows of three speeds). Its halo rows (three speeds a cell)
 # stay in L2 and take no shared memory. The device-memory form
 # (csrc/resident.cu) keeps the lattice in device memory and takes any
-# size. LBM_RESIDENT_FORM pins one of FORM_PINS.
-RESIDENT_FORMS = ("onchip", "inplace", "device")
+# size; its shift mode ("shift", row mode only) steps one step a round,
+# each cell's speeds loaded straight from the source buffer.
+# LBM_RESIDENT_FORM pins one of FORM_PINS, LBM_RESIDENT_SHIFT the shift
+# mode.
+RESIDENT_FORMS = ("onchip", "inplace", "device", "shift")
 FORM_PINS = ("onchip", "device")
 ONCHIP_BYTES_PER_CELL = {2: 73, 1: 37}
 ONCHIP_SCRATCH_BYTES = (2 * 32 + 4) * 4
+# The shift mode under auto (shift_auto), measured on an NVIDIA H100 80GB
+# HBM3 at 700 W (chip_smoke.py's onchip_timing, PERF.md): the narrow
+# channels 4096x64 and 8192x32, whose on-chip strips would be one row and
+# whose two buffers and mask fit the L2, at 0.80-0.92x the device form's
+# rounds and 0.79-0.92x D=4. Where the lattice does not fit the L2 a pass
+# a step costs (1024x1024: 1.48x the device form), and at 512x512 and the
+# physical 1024x400 it was 0.99x and 1.09x: neither is taken.
+L2_BYTES = CHIP_PEAKS["h100"]["l2_bytes"]
 
 
 def transposed_layout(ny: int, nx: int) -> bool:
@@ -174,18 +191,57 @@ def pinned_inplace() -> bool | None:
     return env not in ("0", "", "false")
 
 
-def planned_form(ny: int, nx: int, limits) -> str | None:
+def pinned_shift() -> bool | None:
+    """The ``LBM_RESIDENT_SHIFT`` pin as the JAX package reads it
+    (``_pallas_resident``): None unset, False for "0", "" or "false", True
+    for anything else."""
+    env = os.environ.get("LBM_RESIDENT_SHIFT")
+    if env is None:
+        return None
+    return env not in ("0", "", "false")
+
+
+def shift_auto(ny: int, nx: int, sms: int) -> bool:
+    """Whether ``auto`` takes the device-memory form's shift mode for a
+    row-layout ny x nx lattice that :func:`resident_form` sends to the
+    device form, on a card of ``sms`` SMs: where its on-chip strips would
+    be one row (``ny <= sms``: the narrow channels) and both buffers and
+    the mask fit the L2, the measured rule above :data:`L2_BYTES`."""
+    return ny <= sms and BYTES_PER_CELL_PASS * ny * nx <= L2_BYTES
+
+
+def planned_form(ny: int, nx: int, limits,
+                 shift_mode: bool = False) -> str | None:
     """The resident kernel's form for an ny x nx lattice on a card of
     ``limits`` = ``(SMs, shared memory a block may opt in to)``, or None
-    off the card (``limits`` None). The pins first: ``LBM_RESIDENT_FORM=
-    device`` the device-memory form (with ``LBM_RESIDENT_INPLACE=1`` a
-    ``ValueError``: that form has no single-buffer mode);
-    ``LBM_RESIDENT_INPLACE`` "1" the single-buffer mode, "0" the two
-    buffers, of the on-chip form; ``LBM_RESIDENT_FORM=onchip`` the on-chip
-    form's two buffers. Unpinned, :func:`resident_form`. A pinned mode
-    whose strips do not fit is returned all the same: the wrapper raises
-    where it would run."""
-    form, inplace = pinned_form(), pinned_inplace()
+    off the card (``limits`` None). ``shift_mode``: the kernel that runs
+    has the shift mode (the single-device resident kernel in row layout;
+    not the ring, not column mode, as in JAX).
+
+    The pins first: ``LBM_RESIDENT_SHIFT`` where ``shift_mode``, the
+    device-memory form's shift mode, on the card or off it (a pin that
+    cannot hold beside it raises a ``ValueError``: ``LBM_RESIDENT_FORM=
+    onchip`` or a set ``LBM_RESIDENT_INPLACE``, which pin the on-chip
+    form); ``LBM_RESIDENT_FORM=device`` the device-memory form (with
+    ``LBM_RESIDENT_INPLACE=1`` a ``ValueError``: that form has no
+    single-buffer mode); ``LBM_RESIDENT_INPLACE`` "1" the single-buffer
+    mode, "0" the two buffers, of the on-chip form;
+    ``LBM_RESIDENT_FORM=onchip`` the on-chip form's two buffers. Unpinned,
+    :func:`resident_form`, and where that is the device form and
+    ``shift_mode``, its shift mode where :func:`shift_auto` takes it
+    (``LBM_RESIDENT_SHIFT=0`` keeps the default mode). A pinned mode whose
+    strips do not fit is returned all the same: the wrapper raises where
+    it would run."""
+    form, inplace, shift = pinned_form(), pinned_inplace(), pinned_shift()
+    if shift_mode and shift:
+        if form == "onchip" or inplace is not None:
+            pin = ("LBM_RESIDENT_FORM=onchip" if form == "onchip" else
+                   "LBM_RESIDENT_INPLACE="
+                   + os.environ["LBM_RESIDENT_INPLACE"])
+            raise ValueError(f"LBM_RESIDENT_SHIFT with {pin}: the shift mode "
+                             "is the device-memory form's, and the other "
+                             "pin is the on-chip form's")
+        return "shift"
     if form == "device":
         if inplace:
             raise ValueError("LBM_RESIDENT_INPLACE=1 with LBM_RESIDENT_FORM="
@@ -196,7 +252,13 @@ def planned_form(ny: int, nx: int, limits) -> str | None:
         return None
     if inplace is not None:
         return "inplace" if inplace else "onchip"
-    return form or resident_form(ny, nx, *limits)
+    if form:
+        return form
+    auto = resident_form(ny, nx, *limits)
+    if (auto == "device" and shift_mode and shift is None
+            and shift_auto(ny, nx, limits[0])):
+        return "shift"
+    return auto
 
 
 def layout(params) -> tuple[bool, int, int]:
@@ -217,7 +279,7 @@ class Segment:
     ``kernel`` is "step" (one step per launch), "depth" (D per launch),
     "resident" (G per launch), "ring" (G per launch on every shard) or
     "reference" (the plain path). ``form``: the resident kernel's or the
-    ring's form on the card ("onchip", "inplace" or "device",
+    ring's form on the card ("onchip", "inplace", "device" or "shift",
     :func:`planned_form`, ``parallel.resident_ring.ring_form``), None
     where no card was asked."""
 
@@ -237,15 +299,16 @@ class Segment:
         if self.kernel not in ("resident", "ring"):
             return self.kernel
         return {"onchip": f"{self.kernel}_onchip",
-                "inplace": f"{self.kernel}_onchip_inplace"}.get(self.form,
-                                                                self.kernel)
+                "inplace": f"{self.kernel}_onchip_inplace",
+                "shift": f"{self.kernel}_shift"}.get(self.form, self.kernel)
 
     def describe(self) -> str:
         size = {"depth": f" D={self.steps_per_call}",
                 "resident": f" G={self.steps_per_call}",
                 "ring": f" G={self.steps_per_call}"}.get(self.kernel, "")
         form = {"onchip": " on-chip", "inplace": " on-chip 1-buf",
-                "device": " device-memory"}.get(self.form, "")
+                "device": " device-memory",
+                "shift": " device-memory shift"}.get(self.form, "")
         return f"{self.kernel}{size}{form} x{self.launches}"
 
 

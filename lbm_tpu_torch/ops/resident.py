@@ -15,7 +15,11 @@ size (:func:`.plan.resident_form`):
 - ``"device"`` (``csrc/resident.cu``): the lattice stays in device
   memory; the blocks step it in rounds of up to four steps on the depth
   kernel's shared-memory tiles (``csrc/lbm_depth.cuh``), one grid barrier
-  a round (:func:`device_rounds`).
+  a round (:func:`device_rounds`);
+- ``"shift"``: the same form's shift mode (the JAX kernel's offset-load
+  mode, ``LBM_RESIDENT_SHIFT``, row mode only): rounds of one step on the
+  same tiles, each cell's nine speeds loaded straight from the source
+  buffer at offset rows and columns, nothing staged.
 
 A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`, whatever the form; a CUDA tensor launches
@@ -26,8 +30,8 @@ they are given after an even ``gsteps`` and in the second after an odd
 one (the single-buffer mode copies out to whichever the contract names);
 the CPU path keeps the same contract. :func:`resident_onchip_emulated` is
 the on-chip form's strips, halo slots and sums in plain PyTorch, in both
-of its modes, :func:`resident_device_emulated` the device form's rounds,
-for the CPU tests.
+of its modes, :func:`resident_device_emulated` the device form's rounds
+and :func:`resident_shift_emulated` its shift mode's, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -94,20 +98,21 @@ def _limits(device):
     return device_limits(device) if on_card else None
 
 
-def planned_form(ny: int, nx: int, device) -> str | None:
-    """The resident kernel's form for an ny x nx lattice on ``device``:
-    :func:`.plan.planned_form` (the pins, else the size rule) with the
-    card's limits; None off the card."""
-    return plan.planned_form(ny, nx, _limits(device))
+def planned_form(ny: int, nx: int, device, axis: int = 0) -> str | None:
+    """The resident kernel's form for an ny x nx lattice on ``device`` in
+    forcing mode ``axis`` (1: a transposed lattice, which has no shift
+    mode): :func:`.plan.planned_form` (the pins, else the size rule) with
+    the card's limits; None off the card."""
+    return plan.planned_form(ny, nx, _limits(device), shift_mode=axis == 0)
 
 
-def segments(ny: int, nx: int, iters: int, device) -> list:
+def segments(ny: int, nx: int, iters: int, device, axis: int = 0) -> list:
     """:func:`.plan.segments` of ``iters`` steps of an ny x nx lattice on
-    ``device``, with the resident kernel's planned form and the card's
-    limits (None off the card)."""
+    ``device`` in forcing mode ``axis``, with the resident kernel's planned
+    form and the card's limits (None off the card)."""
     limits = _limits(device)
-    return plan.segments(ny, nx, iters, plan.planned_form(ny, nx, limits),
-                         limits)
+    return plan.segments(ny, nx, iters, plan.planned_form(
+        ny, nx, limits, shift_mode=axis == 0), limits)
 
 
 class Resident(LatticeKernel):
@@ -115,10 +120,11 @@ class Resident(LatticeKernel):
     scale)`` runs ``gsteps`` steps from ``a`` and returns ``(cells,
     spare)``: ``(a, b)`` for an even ``gsteps``, ``(b, a)`` for an odd
     one. ``form``: "onchip", "inplace" (the on-chip form's single-buffer
-    mode) or "device"; None takes :func:`planned_form`. ``blocks``: the
-    block count (default: the on-chip form's :func:`.plan.onchip_blocks`;
-    the device form's as many as can be co-resident, at most one a tile);
-    a device-form launch of more than can be co-resident raises. On a CUDA
+    mode), "device" or "shift" (the device form's shift mode, row mode
+    only); None takes :func:`planned_form`. ``blocks``: the block count
+    (default: the on-chip form's :func:`.plan.onchip_blocks`; the device
+    form's as many as can be co-resident, at most one a tile); a
+    device-form launch of more than can be co-resident raises. On a CUDA
     mask the launch geometry is fixed at construction and the scratch
     (partials and tile tickets; on chip halo slots, flags and the ticket)
     allocated once; an on-chip mode whose strips do not fit the card's
@@ -132,6 +138,9 @@ class Resident(LatticeKernel):
         if form is not None and form not in plan.RESIDENT_FORMS:
             raise ValueError(f"unknown resident form {form!r}; known: "
                              f"{plan.RESIDENT_FORMS}")
+        if form == "shift" and axis:
+            raise ValueError("the shift mode runs in row mode only (axis 0), "
+                             "as the JAX kernel's")
         super().__init__(mask, w1, w2, omega, axis)
         self.gsteps = self.steps_per_call = int(gsteps)
         self.form = form
@@ -139,18 +148,20 @@ class Resident(LatticeKernel):
             return
         ny, nx = mask.shape
         if self.form is None:
-            self.form = planned_form(ny, nx, self.device)
+            self.form = planned_form(ny, nx, self.device, axis)
         if self.form in ("onchip", "inplace"):
             self._init_onchip(ny, nx, blocks)
             return
         lib = self._lib
-        n = lib.lbm_resident_blocks(ny, nx, axis, self._index)
+        self._shift = int(self.form == "shift")
+        n = lib.lbm_resident_blocks(ny, nx, axis, self._shift, self._index)
         if n < 0:
             _build.check(lib, -n, "resident launch geometry")
         self.blocks = n if blocks is None else int(blocks)
         if self.blocks < 1:
             raise ValueError(f"{self.blocks} blocks")
-        self.rounds = device_rounds(self.gsteps)
+        self.rounds = ([1] * self.gsteps if self._shift
+                       else device_rounds(self.gsteps))
         self._partials = torch.empty(
             self.gsteps * lib.lbm_depth_num_partials(4, ny, nx),
             dtype=torch.float32, device=self.device)
@@ -228,9 +239,9 @@ class Resident(LatticeKernel):
             out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1, self.w2,
             self.omega, self.mode, g, rounds.count(4), rounds.count(2),
             rounds.count(1), self._scale(scale), self.blocks, self.axis,
-            self._index, self._stream(),
+            self._shift, self._index, self._stream(),
         ), f"resident G={g} cooperative launch")
-        self._launched("resident")
+        self._launched("resident_shift" if self._shift else "resident")
         return result
 
 
@@ -254,22 +265,41 @@ def resident_plain(cells, obstacles, w1, w2, omega, gsteps: int,
     return ref_ops.multi_step(cells, obstacles, w1, w2, omega, gsteps, axis)
 
 
-def resident_device_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
-                             axis: int = 0):
-    """The device form's rounds in plain PyTorch: each round of
-    :func:`device_rounds` is :func:`.fused_depth.fused_depth_emulated` at
-    that depth on the depth kernel's 32 x 24 tile and 40-wide window (the
-    kernel's tile at every depth, 1 included), its tots summed by tile in
-    tile order, as the kernel sums them. Returns ``(new_cells, tots)``;
-    cells are bit-identical to :func:`.reference.multi_step`, tots differ
-    from its by summation order."""
+def _rounds_emulated(cells, obstacles, w1, w2, omega, rounds, axis):
+    """Each round of ``rounds`` (its steps) as
+    :func:`.fused_depth.fused_depth_emulated` at that depth on the depth
+    kernel's 32 x 24 tile and 40-wide window (the kernel's tile at every
+    depth, 1 included), its tots summed by tile in tile order."""
     tots, c = [], cells
-    for d in device_rounds(gsteps):
+    for d in rounds:
         c, t = fused_depth.fused_depth_emulated(
             c, obstacles, w1, w2, omega, d, tile=fused_depth.TILES[4],
             axis=axis, halo_x=fused_depth.HALO_X[4])
         tots.append(t)
     return c, torch.cat(tots)
+
+
+def resident_device_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
+                             axis: int = 0):
+    """The device form's rounds in plain PyTorch: the rounds of
+    :func:`device_rounds` on the depth kernel's tile, each step's tots
+    summed by tile in tile order, as the kernel sums them. Returns
+    ``(new_cells, tots)``; cells are bit-identical to
+    :func:`.reference.multi_step`, tots differ from its by summation
+    order."""
+    return _rounds_emulated(cells, obstacles, w1, w2, omega,
+                            device_rounds(gsteps), axis)
+
+
+def resident_shift_emulated(cells, obstacles, w1, w2, omega, gsteps: int):
+    """The shift mode in plain PyTorch (row mode): ``gsteps`` rounds of
+    one step, each :func:`.fused_depth.fused_depth_emulated` at D = 1 on
+    the depth kernel's tile, its tots summed by tile in tile order. The
+    kernel loads each cell's speeds from the source buffer where the
+    emulation gathers a one-row window; a cell, its thread and its tile
+    are the same, so the cells and tots are those of the device form's
+    rounds and of the depth plan's. Returns ``(new_cells, tots)``."""
+    return _rounds_emulated(cells, obstacles, w1, w2, omega, [1] * gsteps, 0)
 
 
 def strips(ny: int, blocks: int) -> list[tuple[int, int]]:

@@ -196,6 +196,7 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # modes' "_cols", which run the same kernel functions).
 KERNEL_NAMES = {"step": "fused_step_kernel", "reduce": "reduce_tot_kernel",
                 "depth": "fused_depth_kernel", "resident": "resident_kernel",
+                "resident_shift": "resident_shift_kernel",
                 "resident_onchip": "resident_onchip_kernel",
                 "resident_onchip_inplace": "resident_onchip_kernel",
                 "step_seam": "fused_step_seam_kernel",

@@ -185,7 +185,7 @@ def plan_run(params: Params, kernel: str, iters: int, transposed=None,
     if kernel == "cuda":
         t = plan_layout(params, kernel, transposed)
         rows, lanes = (params.nx, params.ny) if t else (params.ny, params.nx)
-        return resident.segments(rows, lanes, iters, device)
+        return resident.segments(rows, lanes, iters, device, axis=int(t))
     return [plan.Segment("reference", 1, iters)]
 
 

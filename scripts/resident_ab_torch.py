@@ -13,15 +13,20 @@ sleep) at
 - 16384x1024 and 131072x128, transposed (column mode);
 - 512x512, physical, the form pinned (the lattice in L2);
 - 4096x64 as ``--kernel auto`` plans it (a narrow channel in row mode):
-  the script asserts that the plan is ``resident G=100 device-memory``;
+  the script asserts that the plan is the device-memory form, in its
+  shift mode where the checkout has one (``resident G=100 device-memory
+  shift``);
 - 1024x400 transposed (a tall box, column mode), the form pinned: auto
   takes the on-chip form's single-buffer mode there;
 - the crossover grids of ``chip_smoke.py`` (640x512 to 1024x768,
   physical), the form pinned.
 
-At each shape one call of each configuration is also held against the
-plain version (``ops.reference.multi_step``): the cells' max abs error,
-and whether the form's per-step tots are the bits of 25 D = 4 calls'.
+In row mode the device form's shift mode (``LBM_RESIDENT_SHIFT``) is timed
+beside them where the checkout has it. At each shape one call of each
+configuration is also held against the plain version
+(``ops.reference.multi_step``): the cells' max abs error, and whether the
+form's (and the shift mode's) per-step tots are the bits of 25 D = 4
+calls'.
 
 To compare two checkouts on one card, run this script once per checkout
 in one job, in turns (parent, change, change, parent): ``--repo DIR``
@@ -78,7 +83,8 @@ def setup(torch, cs, name, how):
             axis = int(runner.plan_layout(p, "cuda"))
             planned = plan.describe(runner.plan_run(p, "cuda", G, None,
                                                     "cuda"))
-        cs.check(planned == f"resident G={G} device-memory x1",
+        cs.check(planned in (f"resident G={G} device-memory x1",
+                             f"resident G={G} device-memory shift x1"),
                  f"{name} under auto plans {planned}")
     else:
         axis = int(how == "transposed")
@@ -95,23 +101,27 @@ def check_shape(torch, p, cells, mask, axis, impls):
 
     want, _ = ref_ops.multi_step(cells, mask, p.accel_w1, p.accel_w2,
                                  p.omega, G, axis)
-    res = impls["device G=100"]
-    bufs = [cells.clone(), torch.empty_like(cells)]
-    tots = torch.zeros(G, device="cuda")
-    got, _ = res.run(bufs[0], bufs[1], tots)
     dep = impls[f"depth D={D}"]
     c, spare = cells.clone(), torch.empty_like(cells)
     dtots = torch.zeros(G, device="cuda")
     for t in range(0, G, D):
         c, spare = dep.run(c, spare, dtots, t)
-    torch.cuda.synchronize()
-    return {"device_max_abs_err": float((got - want).abs().max()),
-            "depth_max_abs_err": float((c - want).abs().max()),
-            "device_tots_equal_depth": bool(torch.equal(tots, dtots))}
+    out = {"depth_max_abs_err": float((c - want).abs().max())}
+    for label in ("device", "shift"):
+        res = impls.get(f"{label} G=100")
+        if res is None:
+            continue
+        bufs = [cells.clone(), torch.empty_like(cells)]
+        tots = torch.zeros(G, device="cuda")
+        got, _ = res.run(bufs[0], bufs[1], tots)
+        torch.cuda.synchronize()
+        out[f"{label}_max_abs_err"] = float((got - want).abs().max())
+        out[f"{label}_tots_equal_depth"] = bool(torch.equal(tots, dtots))
+    return out
 
 
 def time_shapes(torch, cs, shapes) -> dict:
-    from lbm_tpu_torch.ops import fused_depth, resident
+    from lbm_tpu_torch.ops import fused_depth, plan, resident
 
     out = {}
     for name, how in shapes.items():
@@ -121,9 +131,11 @@ def time_shapes(torch, cs, shapes) -> dict:
             impls = {"device G=100": resident.Resident(*w, G, axis,
                                                        form="device"),
                      f"depth D={D}": fused_depth.FusedDepth(*w, D, axis)}
+            if not axis and "shift" in plan.RESIDENT_FORMS:
+                impls["shift G=100"] = resident.Resident(*w, G, form="shift")
         res = check_shape(torch, p, cells, mask, axis, impls)
-        cs.check(res["device_max_abs_err"] == 0.0
-                 and res["depth_max_abs_err"] == 0.0,
+        cs.check(all(v == 0.0 for k, v in res.items()
+                     if k.endswith("max_abs_err")),
                  f"{name}: cells != plain {res}")
         bufs = [cells, torch.empty_like(cells)]
         av = torch.zeros(G, device="cuda")
@@ -136,6 +148,9 @@ def time_shapes(torch, cs, shapes) -> dict:
                      "loop_ms_per_step": loop, "device_ms_per_step": dev,
                      "device_over_depth4": med["device G=100"]
                      / med[f"depth D={D}"]}
+        if "shift G=100" in med:
+            out[name]["shift_over_device"] = (med["shift G=100"]
+                                              / med["device G=100"])
         print(json.dumps({name: out[name]}), file=sys.stderr, flush=True)
         del cells, mask, bufs, impls
         torch.cuda.empty_cache()

@@ -842,17 +842,18 @@ def test_a_pinned_mode_that_does_not_fit_raises(cuda, monkeypatch):
 @pytest.mark.cuda
 def test_auto_runs_narrow_and_tall_lattices_in_one_buffer(cuda, monkeypatch):
     """Under auto 1024x400 (transposed) plans and launches the
-    single-buffer mode, 4096x64 (one-row strips) the device-memory form;
-    both give the plain version's cells."""
+    single-buffer mode, 4096x64 (one-row strips) the device-memory form's
+    shift mode; both give the plain version's cells."""
     from lbm_tpu_torch.ops import plan
     from lbm_tpu_torch.runner import plan_run, simulate
 
     for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-              "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE"):
+              "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE",
+              "LBM_RESIDENT_SHIFT"):
         monkeypatch.delenv(k, raising=False)
     for (nx, ny), word, key in [
             ((1024, 400), "on-chip 1-buf", "resident_onchip_inplace_cols"),
-            ((4096, 64), "device-memory", "resident")]:
+            ((4096, 64), "device-memory shift", "resident_shift")]:
         p, _, mask = _case(nx, ny, True)
         m = torch.from_numpy(mask).to(cuda)
         assert plan.describe(plan_run(p, "cuda", 200, device=cuda)) == \
@@ -888,18 +889,21 @@ def _device_form_case(cuda, axis, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(MODES))
-@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+@pytest.mark.parametrize("axis,form", [(0, "device"), (1, "device"),
+                                       (0, "shift")],
+                         ids=["rows", "columns", "rows-shift"])
 @pytest.mark.parametrize("g,depth", [(16, 4), (100, 4), (50, 2)],
                          ids=["G16-D4", "G100-D4", "G50-D2"])
 def test_device_form_tots_are_the_depth_plans_bits(cuda, g, depth, axis,
-                                                   mode, monkeypatch):
-    """Where D divides G, one launch of the device form gives each step's
-    tot_u the bits of G / D depth launches (the same tile, thread and
-    warp map, the same sum), and their cells."""
+                                                   form, mode, monkeypatch):
+    """Where D divides G, one launch of the device form, or of its shift
+    mode (G rounds of one step), gives each step's tot_u the bits of
+    G / D depth launches (the same tile, thread and warp map, the same
+    sum), and their cells."""
     _set_mode(monkeypatch, mode)
     p, c, m = _device_form_case(cuda, axis, seed=g + axis)
     w = (m, p.accel_w1, p.accel_w2, p.omega)
-    got, tots = resident.resident(c, *w, g, axis, form="device")
+    got, tots = resident.resident(c, *w, g, axis, form=form)
     dep = fused_depth.FusedDepth(*w, depth, axis)
     want, spare = c.clone(), torch.empty_like(c)
     want_tots = torch.zeros(g, device=cuda)
@@ -911,44 +915,125 @@ def test_device_form_tots_are_the_depth_plans_bits(cuda, g, depth, axis,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid,blocks", [(256, None), (256, 7), (1024, None)],
-                         ids=["256x256", "256x256-7-blocks", "1024x1024"])
-def test_device_form_200_rounds_keep_every_bit(cuda, grid, blocks):
-    """200 rounds of 4 steps in one launch on a perturbed state, every
-    round reading what other blocks wrote in the round before: the plain
-    version's cells bit for bit (a stale or non-coherent load of a
-    neighbour's rows would show), tots within the bound; with 7 blocks
-    each takes many tiles a round."""
+@pytest.mark.parametrize("grid,blocks,form", [
+    (256, None, "device"), (256, 7, "device"), (1024, None, "device"),
+    (256, None, "shift"), (256, 7, "shift"), (1024, None, "shift")],
+    ids=["256x256", "256x256-7-blocks", "1024x1024", "256x256-shift",
+         "256x256-7-blocks-shift", "1024x1024-shift"])
+def test_device_form_200_rounds_keep_every_bit(cuda, grid, blocks, form):
+    """200 rounds of 4 steps (the shift mode: 800 rounds of one step) in
+    one launch on a perturbed state, every round reading what other blocks
+    wrote in the round before: the plain version's cells bit for bit (a
+    stale or non-coherent load of a neighbour's rows would show), tots
+    within the bound; with 7 blocks each takes many tiles a round."""
     p, cells, mask = _case(grid, grid, True, seed=3, perturbed=True)
     c = torch.from_numpy(cells).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     args = (m, p.accel_w1, p.accel_w2, p.omega, 800)
-    kernel = resident.Resident(*args, form="device", blocks=blocks)
-    assert kernel.rounds == [4] * 200
+    kernel = resident.Resident(*args, form=form, blocks=blocks)
+    assert kernel.rounds == ([4] * 200 if form == "device" else [1] * 800)
+    key = "resident" if form == "device" else "resident_shift"
     bufs, out = [c.clone(), torch.empty_like(c)], torch.zeros(800, device=cuda)
-    before = fused.LAUNCHES["resident"]
+    before = fused.LAUNCHES[key]
     bufs[:] = kernel.run(bufs[0], bufs[1], out)
     want, want_tots = fused_depth.fused_depth_plain(c, *args)
     torch.cuda.synchronize()
-    assert fused.LAUNCHES["resident"] == before + 1
+    assert fused.LAUNCHES[key] == before + 1
     assert torch.equal(bufs[0], want)
     np.testing.assert_allclose(out.cpu().numpy(), want_tots.cpu().numpy(),
                                rtol=TOT_RTOL)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
-def test_device_form_blocks_that_cannot_be_co_resident_raise(cuda, axis):
+@pytest.mark.parametrize("axis,form", [(0, "device"), (1, "device"),
+                                       (0, "shift")],
+                         ids=["rows", "columns", "rows-shift"])
+def test_device_form_blocks_that_cannot_be_co_resident_raise(cuda, axis,
+                                                             form):
     """A cooperative launch of more blocks than the card holds at once is
-    refused; the wrapper raises and falls back to nothing."""
+    refused; the wrapper raises and falls back to nothing, and leaves no
+    error behind: the next launch runs and gives the plain version's
+    cells."""
     p, c, m = _device_form_case(cuda, axis, seed=1)
-    kernel = resident.Resident(m, p.accel_w1, p.accel_w2, p.omega, 16, axis,
-                               form="device", blocks=4096)
-    key = "resident" + ("_cols" if axis else "")
+    w = (m, p.accel_w1, p.accel_w2, p.omega, 16, axis)
+    kernel = resident.Resident(*w, form=form, blocks=4096)
+    key = ("resident" if form == "device" else "resident_shift") + (
+        "_cols" if axis else "")
     before = fused.LAUNCHES[key]
     with pytest.raises(RuntimeError, match="cooperative launch"):
         kernel.run(c.clone(), torch.empty_like(c), torch.zeros(16, device=cuda))
     assert fused.LAUNCHES[key] == before
+    got, _ = resident.resident(c, *w, form=form)
+    want, _ = resident.resident_plain(c, *w)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES[key] == before + 1
+    assert torch.equal(got, want)
+
+
+# The device form's shift mode (LBM_RESIDENT_SHIFT; csrc/resident.cu's
+# resident_shift_kernel): rounds of one step, each cell's speeds loaded
+# straight from the source buffer.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("g", [2, 16, 100], ids=["G2", "G16", "G100"])
+@pytest.mark.parametrize("nx,ny,walls", [
+    (100, 36, True), (99, 37, False), (256, 256, True), (4096, 64, True),
+    (8192, 32, True)],
+    ids=["100x36", "99x37-wall-less", "256x256", "4096x64", "8192x32"])
+def test_shift_mode_matches_plain(cuda, nx, ny, walls, g, mode, monkeypatch):
+    """One launch of G steps from a perturbed state: the plain version's
+    cells bit for bit (99x37: no vector loads, columns wrap mid-quad), its
+    tots within the bound, and each step's tot the bits of the device
+    form's."""
+    _set_mode(monkeypatch, mode)
+    p, cells, mask = _case(nx, ny, walls, seed=nx + g, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    w = (m, p.accel_w1, p.accel_w2, p.omega, g)
+    before = fused.LAUNCHES["resident_shift"]
+    got, tots = resident.resident(c, *w, form="shift")
+    want, want_tots = resident.resident_plain(c, *w)
+    _, dev_tots = resident.resident(c, *w, form="device")
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["resident_shift"] == before + 1
+    assert float((got - want).abs().max()) == 0.0
+    np.testing.assert_allclose(tots.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=TOT_RTOL)
+    assert torch.equal(tots, dev_tots)
+
+
+@pytest.mark.cuda
+def test_shift_pin_runs_the_mode_through_the_runner(cuda, monkeypatch):
+    """Under LBM_RESIDENT_SHIFT=1 the runner plans and launches the mode
+    (256x256, 200 steps: two launches), and its cells and av_vels have the
+    bits of the device form's run (LBM_RESIDENT_FORM=device)."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import plan_run, simulate
+
+    for k in ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
+              "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE",
+              "LBM_RESIDENT_SHIFT"):
+        monkeypatch.delenv(k, raising=False)
+    p, _, mask = _case(256, 256, True)
+    m = torch.from_numpy(mask).to(cuda)
+    runs = {}
+    for pin, value, key in [("LBM_RESIDENT_SHIFT", "1", "resident_shift"),
+                            ("LBM_RESIDENT_FORM", "device", "resident")]:
+        monkeypatch.setenv(pin, value)
+        word = "device-memory shift" if key == "resident_shift" \
+            else "device-memory"
+        assert plan.describe(plan_run(p, "cuda", 200, device=cuda)) == \
+            f"resident G=100 {word} x2"
+        before = fused.LAUNCHES[key]
+        runs[key] = simulate(p, initial_state(p, cuda), m, kernel="cuda",
+                             n_iters=200)
+        assert fused.LAUNCHES[key] == before + 2
+        monkeypatch.delenv(pin)
+    (cs, avs), (cd, avd) = runs["resident_shift"], runs["resident"]
+    assert torch.equal(cs, cd)
+    assert torch.equal(avs, avd)
 
 
 # The stream-cost probe (csrc/probe.cu): the device-memory form's rounds

@@ -18,7 +18,7 @@ from lbm_tpu_torch.state import initial_state
 torch.set_num_threads(2)
 
 PINS = ("LBM_RESIDENT", "LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH",
-        "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE")
+        "LBM_RESIDENT_FORM", "LBM_RESIDENT_INPLACE", "LBM_RESIDENT_SHIFT")
 
 
 @pytest.fixture
@@ -463,8 +463,159 @@ def test_describe_names_the_single_buffer_mode(pins):
     seg = plan.Segment("resident", 100, 100, "inplace")
     assert seg.describe() == "resident G=100 on-chip 1-buf x1"
     assert seg.launch_key == "resident_onchip_inplace"
-    assert plan.RESIDENT_FORMS == ("onchip", "inplace", "device")
+    assert plan.RESIDENT_FORMS == ("onchip", "inplace", "device", "shift")
     assert plan.FORM_PINS == ("onchip", "device")
     pins(LBM_RESIDENT_FORM="inplace")
     with pytest.raises(ValueError, match="LBM_RESIDENT_FORM"):
         plan.pinned_form()
+
+
+# The device-memory form's shift mode ("shift"; LBM_RESIDENT_SHIFT).
+
+
+def test_shift_pin_as_the_jax_package_reads_it(pins):
+    """None unset, False for "0", "" or "false", True for anything else
+    (``_pallas_resident``, where unset is off)."""
+    assert plan.pinned_shift() is None
+    for value, on in [("1", True), ("yes", True), ("0", False), ("", False),
+                      ("false", False)]:
+        pins(LBM_RESIDENT_SHIFT=value)
+        assert plan.pinned_shift() is on
+
+
+def test_shift_pin_plans_the_mode_in_row_layout_only(pins):
+    """In row layout the pin plans the shift mode wherever the resident
+    kernel runs, on chip-sized lattices too, on the card or off it; where
+    the kernel has no shift mode (column layout, the ring) it does
+    nothing, as in JAX."""
+    pins(LBM_RESIDENT_SHIFT="1")
+    for rows, lanes in [(256, 256), (64, 4096), (768, 768), (1024, 1024)]:
+        for limits in (H100, None):
+            assert plan.planned_form(rows, lanes, limits,
+                                     shift_mode=True) == "shift"
+        pins()
+        unpinned = plan.planned_form(rows, lanes, H100)
+        pins(LBM_RESIDENT_SHIFT="1")
+        assert plan.planned_form(rows, lanes, H100) == unpinned
+    assert plan.planned_form(256, 256, None) is None
+    pins(LBM_RESIDENT_SHIFT="0")
+    assert plan.planned_form(256, 256, H100, shift_mode=True) == "onchip"
+    assert plan.planned_form(64, 4096, H100, shift_mode=True) == "device"
+    assert plan.planned_form(64, 4096, None, shift_mode=True) is None
+
+
+# Execution rows x lanes: auto's form in row layout on the H100 (the size
+# rule's form where the shift rule does not apply).
+@pytest.mark.parametrize("rows,lanes,form", [
+    (64, 4096, "shift"),     # 4096x64: one-row strips, 19.1 MB
+    (32, 8192, "shift"),     # 8192x32
+    (100, 4100, "shift"),    # one-row strips, 29.9 MB, physical (4100 % 8)
+    (132, 5000, "shift"),    # 48.2 MB, within the 50 MB L2
+    (132, 5200, "device"),   # 50.1 MB: above it
+    (140, 2800, "device"),   # strips of 2 rows that fit no buffer
+    (1024, 1024, "device"),  # above the L2 (LBM_RESIDENT=1 runs it)
+    (256, 256, "onchip"), (768, 768, "inplace")])
+def test_auto_takes_the_shift_mode_for_narrow_channels_in_l2(pins, rows,
+                                                              lanes, form):
+    """Where the size rule sends a row-layout lattice to the device form
+    because its strips would be one row, and both buffers and the mask fit
+    the L2, auto takes the shift mode (measured 0.80-0.92x the device form
+    at 4096x64 and 8192x32); nowhere else. Column layout and the ring never
+    take it; off the card (no limits) nothing changes; LBM_RESIDENT_SHIFT=0
+    and LBM_RESIDENT_FORM=device keep the default mode."""
+    size_rule = plan.resident_form(rows, lanes, *H100)
+    assert size_rule == ("device" if form == "shift" else form)
+    assert plan.shift_auto(rows, lanes, H100[0]) == (
+        rows <= H100[0] and 73 * rows * lanes <= 50e6)
+    assert plan.planned_form(rows, lanes, H100, shift_mode=True) == form
+    assert plan.planned_form(rows, lanes, H100) == size_rule
+    assert plan.planned_form(rows, lanes, None, shift_mode=True) is None
+    for pin in ({"LBM_RESIDENT_SHIFT": "0"},
+                {"LBM_RESIDENT_FORM": "device"}):
+        pins(**pin)
+        want = "device" if form == "shift" else plan.planned_form(
+            rows, lanes, H100)
+        assert plan.planned_form(rows, lanes, H100, shift_mode=True) == want
+
+
+def test_shift_pin_conflicts_raise(pins):
+    """The shift mode is the device-memory form's: beside a pin of the
+    on-chip form (LBM_RESIDENT_FORM=onchip, LBM_RESIDENT_INPLACE=1 or 0)
+    it raises, on the card or off it, and under LBM_RESIDENT=0 as well;
+    beside LBM_RESIDENT_FORM=device it plans the mode. In column layout the
+    pin does nothing, so the other pin holds."""
+    for other, resident in [({"LBM_RESIDENT_FORM": "onchip"}, {}),
+                            ({"LBM_RESIDENT_INPLACE": "1"}, {}),
+                            ({"LBM_RESIDENT_INPLACE": "0"}, {}),
+                            ({"LBM_RESIDENT_INPLACE": "1"},
+                             {"LBM_RESIDENT": "0"}),
+                            ({"LBM_RESIDENT_FORM": "onchip"},
+                             {"LBM_RESIDENT": "1"})]:
+        pins(LBM_RESIDENT_SHIFT="1", **other, **resident)
+        for limits in (H100, None):
+            with pytest.raises(ValueError, match="LBM_RESIDENT_SHIFT"):
+                plan.planned_form(256, 256, limits, shift_mode=True)
+        assert plan.planned_form(256, 256, H100) == \
+            ("onchip" if other.get("LBM_RESIDENT_INPLACE") != "1"
+             else "inplace")
+    pins(LBM_RESIDENT_SHIFT="1", LBM_RESIDENT_FORM="device")
+    assert plan.planned_form(256, 256, H100, shift_mode=True) == "shift"
+    assert plan.planned_form(256, 256, H100) == "device"
+
+
+def test_shift_pin_never_lifts_the_cell_limit(pins):
+    """The pin picks the mode, not residency: above RESIDENT_AUTO_MAX_CELLS
+    the run stays on D=4 unless LBM_RESIDENT=1; LBM_RESIDENT=0 leaves no
+    resident segment; the mode steps in pairs, so an odd
+    LBM_RESIDENT_STEPS raises."""
+    pins(LBM_RESIDENT_SHIFT="1")
+    form = plan.planned_form(1024, 1024, H100, shift_mode=True)
+    assert plan.describe(plan.segments(1024, 1024, 200, form, H100)) == \
+        "depth D=4 x50"
+    assert plan.describe(plan.segments(256, 256, 200, "shift", H100)) == \
+        "resident G=100 device-memory shift x2"
+    pins(LBM_RESIDENT_SHIFT="1", LBM_RESIDENT="1")
+    assert plan.describe(plan.segments(1024, 1024, 200, form, H100)) == \
+        "resident G=100 device-memory shift x2"
+    pins(LBM_RESIDENT_SHIFT="1", LBM_RESIDENT="0")
+    assert plan.describe(plan.segments(256, 256, 200, "shift", H100)) == \
+        "depth D=4 x50"
+    pins(LBM_RESIDENT_SHIFT="1", LBM_RESIDENT="1", LBM_RESIDENT_STEPS="5")
+    with pytest.raises(ValueError, match="even"):
+        plan.resident_prefs(256, 256, "shift")
+
+
+def test_shift_pin_through_the_runner_follows_the_layout(pins):
+    """Through ``runner.plan_run``: a physical lattice plans the mode, the
+    transposed 1024x400 (column mode) does not; the plan line names it."""
+    pins(LBM_RESIDENT_SHIFT="1")
+    p, _ = _scene(200)
+    parts = trunner.plan_run(p, "cuda", 200)
+    assert [s.form for s in parts] == ["shift"]
+    assert plan.describe(parts) == "resident G=100 device-memory shift x2"
+    assert parts[0].launch_key == "resident_shift"
+    wide = Params(nx=1024, ny=400, max_iters=200, reynolds_dim=10,
+                  density=0.1, accel=0.005, omega=1.85)
+    assert plan.layout(wide)[0]
+    assert plan.describe(trunner.plan_run(wide, "cuda", 200)) == \
+        "resident G=100 x2"
+    assert plan.describe(trunner.plan_run(p, "cuda", 200, transposed=True)) \
+        == "resident G=100 x2"
+
+
+def test_shift_pin_leaves_the_ring_alone(pins):
+    """JAX's ring has no shift mode: under the pin the ring's form is what
+    it is without it."""
+    from lbm_tpu_torch.parallel import resident_ring
+
+    want = {shape: resident_ring.ring_form(*shape, 4, *H100)
+            for shape in [(64, 256), (192, 768), (256, 1024)]}
+    pins(LBM_RESIDENT_SHIFT="1")
+    for shape, form in want.items():
+        assert resident_ring.ring_form(*shape, 4, *H100) == form
+
+
+def test_describe_names_the_shift_mode(pins):
+    seg = plan.Segment("resident", 100, 20000, "shift")
+    assert seg.describe() == "resident G=100 device-memory shift x200"
+    assert seg.launch_key == "resident_shift"
