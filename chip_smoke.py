@@ -354,11 +354,13 @@ AUTO_GRIDS = ("4096x64", "8192x32", "1024x400", "400x1024", "3200x128")
 # the generator's walls; auto runs it transposed, on the single-buffer
 # mode, above RESIDENT_AUTO_MAX_CELLS. And the mode against the plain
 # version at its shapes (4096x64 pinned: auto leaves its one-row strips
-# to the device form).
+# to the device form; 1024x640, rows of 1024 lanes, a wave each, whose
+# stores wait one wave; 2001x200, rows wider than a wave, three).
 INPLACE_SCENE, INPLACE_ITERS, INPLACE_GATE_ITERS = "1024x512", 20000, 500
 INPLACE_ACCEL = 0.01
 INPLACE_KERNEL_CASES = [("4096x64", 0), ("768x768", 0), ("1024x400", 1),
-                        (INPLACE_SCENE, 1)]
+                        (INPLACE_SCENE, 1), ("1024x640", 0),
+                        ("2001x200", 0)]
 INPLACE_GS = (1, 2, 99, 100)
 # The row-mode path of the kernels line: AUTO_GRIDS' 400x1024.
 INPLACE_ROW_GRID = "400x1024"

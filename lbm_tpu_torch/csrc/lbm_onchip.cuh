@@ -35,9 +35,9 @@ __host__ __device__ inline long long strip_floats(int ny, int nx,
     return hmax * nx;
 }
 
-// Floats the single-buffer mode carries across its waves: four scalars,
-// then R and T (three speeds of a row each) as far as the tallest strip
-// needs them.
+// Floats the single-buffer mode carries across its waves: four scalars
+// (the x wrap's slots), then R and T (three speeds of a row each) as far as
+// the tallest strip needs them.
 __host__ __device__ inline long long carry_floats(int ny, int nx,
                                                   int blocks) {
     const long long hmax = (ny + blocks - 1) / blocks;
@@ -54,8 +54,59 @@ inline long long smem_bytes(int ny, int nx, int blocks, int bufs) {
            strip_floats(ny, nx, blocks);
 }
 
-// The scalars of the carry (see the single-buffer mode).
-enum { kE1, kE5, kZ3, kZ6 };
+// The scalars of the carry (see the single-buffer mode): two slots, by
+// row parity, of a row's column-0 speed 3 (kZ3) and of the row below's
+// column-0 speed 6 (kZ6), which column nx-1 pulls across the x wrap.
+enum { kZ3 = 0, kZ6 = 2 };
+
+// Waves by which the single-buffer mode defers the stores of a wave's
+// speeds 2, 5, 6 in a strip of h rows of nx cells (ops/resident.py's
+// inplace_delay; its other speeds wait one): the row above pulls them up
+// to nx + 1 positions later, so where a strip has two rows or more and a
+// row is wider than a wave, three waves (rows up to 3 kThreads - 1 wide;
+// smem_bytes allows no wider two-row strip on an H100); else one.
+__host__ __device__ inline int inplace_delay(int h, int nx) {
+    return (h >= 2 && nx > kThreads) ? 3 : 1;
+}
+
+// A compile-time delay for a generic lambda.
+template <int D>
+struct Delay {
+    static constexpr int value = D;
+};
+
+// A block-wide barrier in shared memory split into arrive and wait: every
+// thread arrives once a phase and waits on the phase's parity. A thread
+// arrives for phase k + 1 only after its wait on phase k returned, so one
+// barrier serves every wave.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(a),
+                 "r"(count)
+                 : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+    asm volatile(
+        "{\n\t.reg .b64 st;\n\t"
+        "mbarrier.arrive.shared::cta.b64 st, [%0];\n\t}" ::"r"(a)
+        : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+    const unsigned a = (unsigned)__cvta_generic_to_shared(bar);
+    unsigned done = 0;
+    do {
+        asm volatile(
+            "{\n\t.reg .pred p;\n\t"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+            "selp.u32 %0, 1, 0, p;\n\t}"
+            : "=r"(done)
+            : "r"(a), "r"(parity)
+            : "memory");
+    } while (!done);
+}
 
 // Slot of speed k in a halo row: north-going rows carry 2, 5, 6 and
 // south-going rows 4, 7, 8, in that order. Other speeds are never read
@@ -171,6 +222,98 @@ __device__ __forceinline__ void send_cell(const float* src,
     __stcg(to + 2 * nx + c, q2);
 }
 
+// What a deferred store of the single-buffer mode writes: a cell's nine
+// speeds, the six the row above does not pull, or that row's three (2, 5,
+// 6, given in that order).
+enum { kAll, kEarly, kLate };
+
+__device__ __forceinline__ void store_cell(float* buf, int plane, int o,
+                                           const float* v, int part) {
+    if (part == kLate) {
+        buf[2 * plane + o] = v[0];
+        buf[5 * plane + o] = v[1];
+        buf[6 * plane + o] = v[2];
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+        if (part == kAll || (k != 2 && k != 5 && k != 6)) {
+            buf[k * plane + o] = v[k];
+        }
+    }
+}
+
+// One phase of the single-buffer mode: n positions in waves of kThreads,
+// thread t at positions t, t + kThreads, ... in that order. Wave k:
+// gather(k, p, sp, solid) pulls position p's nine speeds and returns its
+// offset in the strip; the thread arrives, computes the cell into
+// registers, waits until every thread has gathered wave k, then stores
+// wave k - 1 (put(o, v, part)). The row above pulls a cell's speeds 2, 5
+// and 6 up to nx + 1 positions later, the others come from at most a
+// position away (but for column 0's speed 3, which column nx-1 pulls nx - 1
+// back), so with kD > 1 (rows wider than a wave) wave k - 1 stores its
+// other six and speeds 2, 5, 6 wait in registers until wave k - 1 + kD.
+// So at wave k's gather no speed 2, 5 or 6 of a position at or above
+// (k - kD) kThreads, and no other speed of one at or above (k - 1)
+// kThreads, has landed. The last waves are stored after the last wait;
+// the caller's next __syncthreads orders them.
+template <bool kCols, int kMode, int kD, class Gather, class Put>
+__device__ __forceinline__ void inplace_waves(int n, uint64_t* bar,
+                                              unsigned& phase, float w1,
+                                              float w2, float omega,
+                                              float& acc, Gather gather,
+                                              Put put) {
+    constexpr int kL = kD > 1 ? kD - 1 : 1;
+    const int tid = threadIdx.x;
+    const int waves = (n + kThreads - 1) / kThreads;
+    // Wave k - 1's cell, and speeds 2, 5, 6 of waves k - 2 .. k - kD.
+    float held[9], late[kL][3];
+    int held_o = -1, late_o[kL];
+    for (int k = 0; k < waves; ++k) {
+        const int p = k * kThreads + tid;
+        float sp[9], cell[9];
+        bool solid = false;
+        const int o = p < n ? gather(k, p, sp, solid) : -1;
+        mbar_arrive(bar);
+        if (o >= 0) {
+            acc += update_pulled<kCols>(sp, solid, w1, w2, omega, kMode,
+                                        cell);
+        }
+        mbar_wait(bar, phase & 1u);
+        ++phase;
+        if constexpr (kD == 1) {
+            if (k >= 1) put(held_o, held, kAll);
+        } else {
+            if (k >= kD) put(late_o[kD - 2], late[kD - 2], kLate);
+#pragma unroll
+            for (int s = kD - 2; s > 0; --s) {
+                late_o[s] = late_o[s - 1];
+#pragma unroll
+                for (int v = 0; v < 3; ++v) late[s][v] = late[s - 1][v];
+            }
+            if (k >= 1) {
+                late_o[0] = held_o;
+                late[0][0] = held[2];
+                late[0][1] = held[5];
+                late[0][2] = held[6];
+                put(held_o, held, kEarly);
+            }
+        }
+        held_o = o;
+        if (o >= 0) {
+#pragma unroll
+            for (int v = 0; v < 9; ++v) held[v] = cell[v];
+        }
+    }
+    if (waves >= 1) put(held_o, held, kAll);
+    if constexpr (kD > 1) {
+#pragma unroll
+        for (int s = 0; s < kD - 1; ++s) {
+            if (waves - 2 - s >= 0) put(late_o[s], late[s], kLate);
+        }
+    }
+}
+
 // One strip and its links. Each slot pointer is a direction's slot 0, its
 // slot 1 kHalo * nx floats on; each flag pointer a direction's flag of
 // slot 0, slot 1's the next word.
@@ -235,11 +378,20 @@ __device__ __forceinline__ void strip_steps(
     float* buf0 = smem;
     float* buf1 = smem + 9 * hmax_nx;  // kBufs 2 only
     float* red = smem + 9 * kBufs * hmax_nx;
-    // kBufs 1 only: the carry (the scalars, R, T), then the mask.
-    float* spec = red + kScratch;
-    float* carry_r = spec + 4;
+    // kBufs 1 only: the carry (the wrap's slots, R, T), then the mask; its
+    // barrier in the scratch's last three floats (red[64] is the ticket's
+    // answer), where they hold 8-aligned bytes.
+    float* wrap_slot = red + kScratch;
+    float* carry_r = wrap_slot + 4;
     float* carry_t = carry_r + 3 * nx;
-    uint8_t* m = reinterpret_cast<uint8_t*>(spec + (kBufs == 1 ? carry : 0));
+    uint8_t* m =
+        reinterpret_cast<uint8_t*>(wrap_slot + (kBufs == 1 ? carry : 0));
+    uint64_t* bar = reinterpret_cast<uint64_t*>(
+        red + 2 * kWarps + ((hmax_nx & 1) ? 1 : 2));
+    unsigned phase = 0;
+    if constexpr (kBufs == 1) {
+        if (tid == 0) mbar_init(bar, kThreads);
+    }
 
     for (int idx = tid; idx < 9 * plane; idx += kThreads) {
         const int k = idx / plane, o = idx - k * plane;
@@ -259,23 +411,27 @@ __device__ __forceinline__ void strip_steps(
 
         if constexpr (kBufs == 1) {
             // Force the line in place; the sends and pulls below read it.
+            // Column mode: the forced column, a cell a row, then a barrier.
+            // Row mode: an interior row here (the send barrier orders it
+            // before the interior's pulls), an edge row by the threads
+            // that send it, each its column just before its send.
             if constexpr (kCols) {
                 for (int j = tid; j < h; j += kThreads) {
                     const int o = j * nx + accel;
                     force_in_place<true>(dst, plane, o, m[o] != 0, w1, w2);
                 }
-            } else if (r0 <= accel && accel < r0 + h) {
+                __syncthreads();
+            } else if (r0 < accel && accel < r0 + h - 1) {
                 const int rj = (accel - r0) * nx;
                 for (int c = tid; c < nx; c += kThreads) {
                     force_in_place<false>(dst, plane, rj + c, m[rj + c] != 0,
                                           w1, w2);
                 }
             }
-            __syncthreads();
         }
 
         // Send: the top row north, the bottom row south, then the flags.
-        // (One buffer: the strip is forced already, so the copies are not.)
+        // (One buffer: the strip is forced in place, so the copies are not.)
         {
             float* to_n = st.to_n + slot * hrow;
             float* to_s = st.to_s + slot * hrow;
@@ -283,6 +439,16 @@ __device__ __forceinline__ void strip_steps(
             const bool bot_on = kBufs == 2 && r0 == accel;
             const int send_accel = kBufs == 2 ? accel : -1;
             for (int c = tid; c < nx; c += kThreads) {
+                if constexpr (kBufs == 1 && !kCols) {
+                    const int last = (h - 1) * nx;
+                    if (r0 == accel) {
+                        force_in_place<false>(dst, plane, c, m[c] != 0, w1,
+                                              w2);
+                    } else if (r0 + h - 1 == accel) {
+                        force_in_place<false>(dst, plane, last + c,
+                                              m[last + c] != 0, w1, w2);
+                    }
+                }
                 send_cell<kCols, true>(src, m, plane, h - 1, c, nx, top_on,
                                        send_accel, w1, w2, to_n);
                 send_cell<kCols, false>(src, m, plane, 0, c, nx, bot_on,
@@ -320,82 +486,78 @@ __device__ __forceinline__ void strip_steps(
                 for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = cell[k];
             }
         } else {
-            // In waves: interior position p = (j - 1) nx + i, wave
-            // [L, wend). A cell at a position below L is overwritten.
+            // In place, in waves over interior position p = r nx + i (row
+            // j = 1 + r). Every pull reads the buffer: no position that a
+            // wave pulls has been stored yet (inplace_waves), but for the
+            // x wrap's speed 6, which column nx-1 pulls from column 0 of
+            // the row below, 2 nx - 1 positions back, from its slot where
+            // that cell's store may have landed; column nx-1 of the row
+            // below fills the slot at its own gather, a wave or more
+            // before; where a row is wider than a wave, its speed 3 from
+            // its column 0 likewise (z3). Row 1 copies its old speeds 4,
+            // 7, 8 into T and row
+            // h-2 its old 2, 5, 6 into R just before their stores land:
+            // the edge rows pull them there.
             float* buf = dst;
-            for (int L = 0; L < n_inner; L += kThreads) {
-                const int p = L + tid;
-                const int wend = min(L + kThreads, n_inner);
-                const bool act = p < n_inner;
-                const int j = act ? 1 + p / nx : 1;
-                const int i = act ? p - (j - 1) * nx : 0;
-                const int o = j * nx + i;
-                float e5 = 0.0f, z6 = 0.0f;
-                if (act) {
+            float* z3 = wrap_slot + kZ3;
+            float* z6 = wrap_slot + kZ6;
+            auto interior = [&](auto delay) {
+                constexpr int kD = decltype(delay)::value;
+                auto gather = [&](int k, int p, float* sp, bool& solid) {
+                    const int r = p / nx, i = p - r * nx;
+                    const int rj = (1 + r) * nx, o = rj + i;
+                    const int rm = rj - nx, rp = rj + nx;
                     const int iw = (i == 0) ? nx - 1 : i - 1;
                     const int ie = (i == nx - 1) ? 0 : i + 1;
-                    const int rm = o - nx - i, rp = o + nx - i;
-                    // Speed k (2, 5 or 6; q its slot in R) of the cell
-                    // below at column c, q_pos its position: row 0 is not
-                    // overwritten in this phase.
-                    auto below = [&](int k, int q, int c, int q_pos) {
-                        return (j == 1 || q_pos >= L) ? buf[k * plane + rm + c]
-                                                      : carry_r[q * nx + c];
-                    };
-                    // The row's column 0 is in an earlier wave.
-                    const bool z = i == nx - 1 && p - nx + 1 < L;
-                    float sp[9];
+                    const int lo = (k - kD) * kThreads;
                     sp[0] = buf[o];
-                    sp[1] = (i == 0) ? buf[plane + o + nx - 1]
-                            : (p == L ? spec[kE1] : buf[plane + o - 1]);
-                    sp[2] = below(2, 0, i, p - nx);
-                    sp[3] = (i == nx - 1)
-                                ? (z ? spec[kZ3] : buf[3 * plane + o - nx + 1])
-                                : buf[3 * plane + o + 1];
-                    sp[4] = buf[4 * plane + o + nx];
-                    sp[5] = (j > 1 && i > 0 && p == L)
-                                ? spec[kE5]
-                                : below(5, 1, iw, i ? p - nx - 1 : p - 1);
-                    sp[6] = (j > 1 && z)
-                                ? spec[kZ6]
-                                : below(6, 2, ie,
-                                        i < nx - 1 ? p - nx + 1
-                                                   : p - 2 * nx + 1);
+                    sp[1] = buf[plane + rj + iw];
+                    sp[2] = buf[2 * plane + rm + i];
+                    sp[3] = (kD > 1 && i == nx - 1 &&
+                             p - nx + 1 < (k - 1) * kThreads)
+                                ? z3[r & 1]
+                                : buf[3 * plane + rj + ie];
+                    sp[4] = buf[4 * plane + rp + i];
+                    sp[5] = buf[5 * plane + rm + iw];
+                    sp[6] = (r > 0 && i == nx - 1 && p - 2 * nx + 1 < lo)
+                                ? z6[(r - 1) & 1]
+                                : buf[6 * plane + rm + ie];
                     sp[7] = buf[7 * plane + rp + ie];
                     sp[8] = buf[8 * plane + rp + iw];
-                    acc += update_pulled<kCols>(sp, m[o] != 0, w1, w2, omega,
-                                                kMode, cell);
-                    // What the next wave's first cell and this row's last
-                    // column pull from below after this wave's stores.
-                    if (p == wend - 1 && wend < n_inner) {
-                        e5 = below(5, 1, i, p - nx);
+                    if (i == nx - 1 && r + 1 < h - 2 &&
+                        p - nx + 1 < ((p + nx) / kThreads - kD) * kThreads) {
+                        z6[r & 1] = buf[6 * plane + rj];
                     }
-                    if (i == 0 && p + nx - 1 >= wend) z6 = below(6, 2, 0, p - nx);
-                }
-                __syncthreads();
-                if (act) {
-                    if (p + nx >= wend) {  // the top of its column here
-                        carry_r[i] = buf[2 * plane + o];
-                        carry_r[nx + i] = buf[5 * plane + o];
-                        carry_r[2 * nx + i] = buf[6 * plane + o];
+                    if (kD > 1 && i == 0 &&
+                        p < ((p + nx - 1) / kThreads - 1) * kThreads) {
+                        z3[r & 1] = buf[3 * plane + rj];
                     }
-                    if (j == 1) {
+                    solid = m[o] != 0;
+                    return o;
+                };
+                auto put = [&](int o, const float* v, int part) {
+                    if (o < 0) return;
+                    if (part != kLate && o < 2 * nx) {
+                        const int i = o - nx;
                         carry_t[i] = buf[4 * plane + o];
                         carry_t[nx + i] = buf[7 * plane + o];
                         carry_t[2 * nx + i] = buf[8 * plane + o];
                     }
-                    if (p == wend - 1 && wend < n_inner) {
-                        spec[kE1] = buf[plane + o];
-                        spec[kE5] = e5;
+                    if (part != kEarly && o >= (h - 2) * nx) {
+                        const int i = o - (h - 2) * nx;
+                        carry_r[i] = buf[2 * plane + o];
+                        carry_r[nx + i] = buf[5 * plane + o];
+                        carry_r[2 * nx + i] = buf[6 * plane + o];
                     }
-                    if (i == 0 && p + nx - 1 >= wend) {
-                        spec[kZ3] = buf[3 * plane + o];
-                        spec[kZ6] = z6;
-                    }
-#pragma unroll
-                    for (int k = 0; k < 9; ++k) buf[k * plane + o] = cell[k];
-                }
-                __syncthreads();
+                    store_cell(buf, plane, o, v, part);
+                };
+                inplace_waves<kCols, kMode, kD>(n_inner, bar, phase, w1, w2,
+                                                omega, acc, gather, put);
+            };
+            if (inplace_delay(h, nx) == 1) {
+                interior(Delay<1>{});
+            } else {
+                interior(Delay<3>{});
             }
         }
 
@@ -441,30 +603,31 @@ __device__ __forceinline__ void strip_steps(
                 for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = cell[k];
             }
         } else {
-            // In waves over edge position e: row 0 at e = i, row h-1 at
-            // e = nx + i. Row 0 pulls row 1 from T (h > 2), the buffer
-            // (h = 2: row 1 comes after it) or the north slot (h = 1); row
-            // h-1 pulls row h-2 from R (h > 2: complete since the
-            // interior) or, with h = 2, from R where row 0 is overwritten.
+            // In place, in waves over edge position e: row 0 at e = i, row
+            // h-1 at e = nx + i. Row 0 pulls row 1 from T (h > 2), the
+            // buffer (h = 2: row 1 is stored after it) or the north slot
+            // (h = 1); row h-1 pulls row h-2 from R (h > 2) or, h = 2, row
+            // 0 from the buffer as the interior pulls its row below, the
+            // x wrap's speed 6 from its slot. A one-row strip's column nx-1
+            // pulls speed 3 from its own column 0, nx - 1 back: from the
+            // z3 slot where that cell's store may have landed.
             float* buf = dst;
-            for (int L = 0; L < n_edge; L += kThreads) {
-                const int e = L + tid;
-                const int wend = min(L + kThreads, n_edge);
-                const bool act = e < n_edge;
-                const bool top = e >= nx;
-                const int i = top ? e - nx : e;
-                const int o = (top ? h - 1 : 0) * nx + i;
-                if (act) {
+            float* z3 = wrap_slot + kZ3;
+            float* z6 = wrap_slot + kZ6;
+            auto edge = [&](auto delay) {
+                constexpr int kD = decltype(delay)::value;
+                auto gather = [&](int k, int e, float* sp, bool& solid) {
+                    const bool top = e >= nx;
+                    const int r = top ? 1 : 0, i = top ? e - nx : e;
+                    const int rj = top ? (h - 1) * nx : 0, o = rj + i;
                     const int iw = (i == 0) ? nx - 1 : i - 1;
                     const int ie = (i == nx - 1) ? 0 : i + 1;
-                    float sp[9];
+                    const int lo = (k - kD) * kThreads;
                     sp[0] = buf[o];
-                    sp[1] = (i == 0) ? buf[plane + o + nx - 1]
-                            : (e == L ? spec[kE1] : buf[plane + o - 1]);
-                    sp[3] = (i == nx - 1)
-                                ? (e - nx + 1 < L ? spec[kZ3]
-                                                  : buf[3 * plane + o - nx + 1])
-                                : buf[3 * plane + o + 1];
+                    sp[1] = buf[plane + rj + iw];
+                    sp[3] = (i == nx - 1 && e - nx + 1 < (k - 1) * kThreads)
+                                ? z3[r]
+                                : buf[3 * plane + rj + ie];
                     if (!top) {
                         sp[2] = __ldcg(hs + i);
                         sp[5] = __ldcg(hs + nx + iw);
@@ -483,37 +646,42 @@ __device__ __forceinline__ void strip_steps(
                             sp[8] = carry_t[2 * nx + iw];
                         }
                     } else {
-                        auto below = [&](int k, int q, int c) {
-                            return (h == 2 && c >= L) ? buf[k * plane + c]
-                                                      : carry_r[q * nx + c];
-                        };
-                        sp[2] = below(2, 0, i);
-                        sp[5] = below(5, 1, iw);
-                        sp[6] = below(6, 2, ie);
+                        if (h == 2) {
+                            sp[2] = buf[2 * plane + i];
+                            sp[5] = buf[5 * plane + iw];
+                            sp[6] = (i == nx - 1 && e - 2 * nx + 1 < lo)
+                                        ? z6[0]
+                                        : buf[6 * plane + ie];
+                        } else {
+                            sp[2] = carry_r[i];
+                            sp[5] = carry_r[nx + iw];
+                            sp[6] = carry_r[2 * nx + ie];
+                        }
                         sp[4] = __ldcg(hn + i);
                         sp[7] = __ldcg(hn + nx + ie);
                         sp[8] = __ldcg(hn + 2 * nx + iw);
                     }
-                    acc += update_pulled<kCols>(sp, m[o] != 0, w1, w2, omega,
-                                                kMode, cell);
-                }
-                __syncthreads();
-                if (act) {
-                    if (h == 2 && !top) {
-                        carry_r[i] = buf[2 * plane + o];
-                        carry_r[nx + i] = buf[5 * plane + o];
-                        carry_r[2 * nx + i] = buf[6 * plane + o];
+                    if (i == 0 &&
+                        e < ((e + nx - 1) / kThreads - 1) * kThreads) {
+                        z3[r] = buf[3 * plane + rj];
                     }
-                    if (e == wend - 1 && wend < n_edge) {
-                        spec[kE1] = buf[plane + o];
+                    if (h == 2 && i == nx - 1 && !top &&
+                        e - nx + 1 < ((e + nx) / kThreads - kD) * kThreads) {
+                        z6[0] = buf[6 * plane];
                     }
-                    if (i == 0 && e + nx - 1 >= wend) {
-                        spec[kZ3] = buf[3 * plane + o];
-                    }
-#pragma unroll
-                    for (int k = 0; k < 9; ++k) buf[k * plane + o] = cell[k];
-                }
-                __syncthreads();
+                    solid = m[o] != 0;
+                    return o;
+                };
+                auto put = [&](int o, const float* v, int part) {
+                    if (o >= 0) store_cell(buf, plane, o, v, part);
+                };
+                inplace_waves<kCols, kMode, kD>(n_edge, bar, phase, w1, w2,
+                                                omega, acc, gather, put);
+            };
+            if (inplace_delay(h, nx) == 1) {
+                edge(Delay<1>{});
+            } else {
+                edge(Delay<3>{});
             }
         }
 

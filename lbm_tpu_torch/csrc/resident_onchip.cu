@@ -74,25 +74,33 @@
 //   copy would get), so every pull, send and carried value below is
 //   already forced and no update forces again;
 // - the rows are updated in waves of kThreads cells in the two-buffer
-//   mode's order (interior rows 1..h-2, then row 0 and row h-1): a wave
-//   reads every input and computes into registers, passes a barrier, then
-//   stores, so no thread reads a cell that its own wave overwrote;
-// - a cell that an earlier wave overwrote is read from the carry, which
-//   the overwriting thread filled with its cell's pre-step value just
-//   before its store: R, speeds 2, 5, 6 of the highest overwritten cell of
-//   each column (the row below of the next interior row; after the
-//   interior, row h-2's, which row h-1 reads; with h = 2, row 0's); T,
-//   speeds 4, 7, 8 of row 1 (row 0 reads them after the interior); and
-//   four scalars: speed 1 of a wave's last cell and speed 5 of the cell
-//   below it (the next wave's first cell pulls them, its west neighbours),
-//   and speed 3 of a row's column 0 and speed 6 of the cell below it (the
-//   row's last column pulls them across the x wrap) where the row's ends
-//   fall in different waves. 12 nx floats a carried row: none for
-//   one-row strips, R alone for two-row strips, R and T above
+//   mode's order (interior rows 1..h-2, then row 0 and row h-1), one
+//   barrier phase a wave, split: a thread gathers its cell's pulls,
+//   arrives at an mbarrier in shared memory, computes into registers,
+//   waits for the phase (every thread has gathered), then stores the
+//   wave before. So no wave pulls a cell whose store has landed: the row
+//   above pulls a cell's speeds 2, 5, 6 at most nx + 1 positions later,
+//   its other speeds come from a position away, and a wave of 1024
+//   deferred once covers rows up to 1024 wide (where a row is wider,
+//   speeds 2, 5, 6 wait in registers for three waves: rows up to 3071),
+//   with no per-pull choice of source. The exceptions are two far pulls
+//   across the x wrap, column nx-1's speed 6 from column 0 of the row
+//   below (2 nx - 1 back) and, where a row is wider than a wave, its speed
+//   3 from its own column 0 (nx - 1 back): where the cell's store may have
+//   landed they come from a slot (two a pull, by row parity, the four
+//   scalars of the carry), filled a wave or more before by a thread that
+//   still reads the old value;
+// - the edge rows pull what the interior overwrote from the carry: T,
+//   row 1's old speeds 4, 7, 8, and R, row h-2's old 2, 5, 6, each copied
+//   by its cell just before its store (with h = 2 row h-1 pulls row 0
+//   from the buffer, as the interior pulls its row below). 12 nx floats a
+//   carried row: none for one-row strips, R alone for two-row strips
+//   (which pull no carried row, the footprint keeps it), R and T above
 //   (ops/plan.py's onchip_smem_bytes mirrors smem_bytes).
 // The TPU kernel carries the old rows in registers across its row blocks
-// (prev_a, saved0); a block here is 1024 threads over a strip, so what
-// crosses a wave boundary goes through shared memory.
+// (prev_a, saved0); a block here is 1024 threads over a strip, so a wave's
+// results wait in registers for the next wave's gather instead, and only
+// what crosses more than a wave goes through shared memory.
 //
 // The strip step (both modes, the sends, flags and partials) lives in
 // lbm_onchip.cuh, which the on-chip ring (ring_onchip.cu) runs too; this
@@ -221,6 +229,10 @@ int lbm_resident_onchip(const float* a, float* res, const uint8_t* mask,
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     if (gsteps < 1 || blocks < 1 || blocks > ny || (bufs != 1 && bufs != 2)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    // One buffer defers stores by at most three waves (inplace_delay).
+    if (bufs == 1 && (ny + blocks - 1) / blocks >= 2 && nx + 1 > 3 * kThreads) {
         return (int)cudaErrorInvalidValue;
     }
     void* args[] = {&a,  &res, &mask,  &halo,   &flags, &partials,

@@ -168,6 +168,10 @@ int lbm_ring_onchip(const void* shards, int n_shards, int bps, int h, int nx,
         (bufs != 1 && bufs != 2)) {
         return (int)cudaErrorInvalidValue;
     }
+    // One buffer defers stores by at most three waves (inplace_delay).
+    if (bufs == 1 && (h + bps - 1) / bps >= 2 && nx + 1 > 3 * kThreads) {
+        return (int)cudaErrorInvalidValue;
+    }
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     RingStrips r{(const RingStripShard*)shards, bps, h, nx, ny_global,

@@ -55,6 +55,9 @@ THREADS = 1024
 # The rows of three speeds that a cell of the single-buffer mode carries
 # for later waves before its store (the kernel's R and T).
 _CARRIED = ("R", "T")
+# The speeds of a cell that the row above pulls (up to nx + 1 positions
+# later): the single-buffer mode stores them last.
+_LATE = (2, 5, 6)
 
 
 def device_rounds(gsteps: int) -> list[int]:
@@ -322,123 +325,202 @@ def _sent_row(row, mrow, on: bool, w1, w2, axis: int, speeds):
     return forced[list(speeds)]
 
 
-def _inplace_strip_step(buf, mask, south, north, omega, wave: int):
+def inplace_delay(h: int, nx: int, wave: int = THREADS) -> int:
+    """Waves by which the single-buffer mode defers the stores of a wave's
+    speeds 2, 5 and 6 in a strip of ``h`` rows of ``nx`` cells
+    (``csrc/lbm_onchip.cuh``'s kD; the other six wait one): the row above
+    pulls them up to nx + 1 positions later, so where a strip has two rows
+    or more and a row is wider than a wave they wait three waves (rows up
+    to 3 wave - 1 wide: every two-row strip that fits an H100's shared
+    memory); else one.
+    A row of exactly ``wave`` cells keeps one: its waves start at column
+    0, where speed 5 comes from the cell just before."""
+    if h < 2 or nx <= wave:
+        return 1
+    if nx + 1 > 3 * wave:
+        raise ValueError(f"strips of {h} rows of {nx} cells: the single-"
+                         f"buffer mode defers stores by at most 3 waves of "
+                         f"{wave} cells, which covers rows up to "
+                         f"{3 * wave - 1} wide")
+    return 3
+
+
+class InplaceHazard(AssertionError):
+    """A pull of the single-buffer emulation's poisoned mode that read a
+    cell whose deferred store had landed, or a carried value that was not
+    the one it stands for."""
+
+
+def _inplace_strip_step(buf, mask, south, north, omega, wave: int,
+                        poison: bool = False):
     """One step of the single-buffer mode on one strip, in place: ``buf``
     (9, h, nx), forced already; ``south`` the (3, nx) speeds 2, 5, 6 of
     the row below, ``north`` the speeds 4, 7, 8 of the row above (halo
-    slots). The kernel's order: interior rows 1..h-2, then rows 0 and
-    h-1, in waves of ``wave`` cells; a wave gathers every pull, then
-    stores. A pull from a cell an earlier wave overwrote is served only
-    from the carry (R, T and four scalars, NaN until written), which each
-    overwriting cell fills with its pre-step values before its store.
-    Returns |u| as an (h, nx) plane."""
+    slots). The kernel's schedule (``csrc/lbm_onchip.cuh``): two phases,
+    the interior rows 1..h-2 and then the edge rows 0 and h-1, each over
+    positions p = r nx + i of its rows, in waves of ``wave`` cells and one
+    phase a wave. Wave k gathers every pull and computes; its speeds 2, 5
+    and 6 land only after every thread has gathered wave k + D
+    (:func:`inplace_delay`), the other six after wave k + 1 (the cells that
+    pull those sit at most a position away, but for column 0's speed 3).
+    So at wave k's gather the six of waves k - 2 and before and the three
+    of waves k - D - 1 and before may have landed, and this emulation lands
+    them there, the earliest they may. A pull reads the buffer, except:
+
+    - row 0 pulls row 1's old speeds 4, 7, 8 from T and row h-1 (h > 2) row
+      h-2's old 2, 5, 6 from R, which those cells copy from themselves just
+      before their stores land (NaN until then);
+    - column nx-1 pulls the x wrap's speed 6 from the row below's column 0
+      (2 nx - 1 positions back) and, where a row is wider than a wave,
+      speed 3 from its own row's column 0 (nx - 1 back), through a slot of
+      two by row parity where the buffer's copy may have landed: column
+      nx-1 of the row below (z6) or column 0 (z3) fills it at its own
+      gather, a wave or more before.
+
+    ``poison``: fail (:class:`InplaceHazard`) on any buffer pull of a cell
+    whose store has landed, and on any slot read that another row's value
+    or the same wave filled. Returns |u| as an (h, nx) plane."""
     _, h, nx = buf.shape
     flat = buf.view(D2Q9.Q, h * nx)
     solid = mask.reshape(-1)
-    nan = torch.tensor(float("nan"), dtype=buf.dtype)
+    delay = inplace_delay(h, nx, wave)
     carry = {"R": torch.full((3, nx), float("nan"), dtype=buf.dtype),
              "T": torch.full((3, nx), float("nan"), dtype=buf.dtype)}
-    carry_r, carry_t = carry["R"], carry["T"]
-    spec = {k: nan for k in ("e1", "e5", "z3", "z6")}
+    # landed[late][cell]: the cell's speeds 2, 5, 6 (late) or its other
+    # six have been stored.
+    landed = torch.zeros((2, h * nx), dtype=torch.bool)
     umag = torch.zeros(h * nx, dtype=buf.dtype)
-    where = torch.where
+    nan = float("nan")
 
-    def update(o, sp):
-        planes, um = ref_ops._bgk_update_planes(sp, solid[o], omega)
-        umag[o] = um
-        return torch.stack(planes)
+    def pull(k, idx):
+        if poison and bool(landed[int(k in _LATE), idx].any()):
+            raise InplaceHazard(f"wave pulls speed {k} of a cell already "
+                                "stored")
+        return flat[k, idx]
 
-    def store(o, new, carries):
-        for name, idx, speeds, sel in carries:
-            if name in _CARRIED and sel.any():
-                carry[name][:, idx[sel]] = flat[list(speeds)][:, o[sel]]
-        flat[:, o] = new
-
-    n_inner = (h - 2) * nx
-    for lo in range(0, max(n_inner, 0), wave):
-        p = torch.arange(lo, min(lo + wave, n_inner))
-        wend = lo + len(p)
-        j = 1 + p // nx
-        i = p - (j - 1) * nx
+    def land(phase_rows, p, new, late):
+        """Store the late speeds (2, 5, 6) or the other six of positions p
+        of the phase, each cell's carried row copied first."""
+        j = torch.tensor(phase_rows)[p // nx]
+        i = p % nx
         o = j * nx + i
-        iw, ie = (i - 1) % nx, (i + 1) % nx
+        speeds = list(_LATE) if late else [k for k in range(D2Q9.Q)
+                                            if k not in _LATE]
+        if phase_rows[0] == 1:  # the interior: T and R before the store
+            name, row, carried = (("R", h - 2, _LATE) if late
+                                  else ("T", 1, (4, 7, 8)))
+            sel = j == row
+            if name in _CARRIED and bool(sel.any()):
+                carry[name][:, i[sel]] = flat[list(carried)][:, o[sel]]
+        flat[torch.tensor(speeds)[:, None], o] = new[speeds]
+        landed[int(late), o] = True
 
-        def below(k, q, c, q_pos):
-            return where((j == 1) | (q_pos >= lo), flat[k, (j - 1) * nx + c],
-                         carry_r[q, c])
+    def phase(rows, below, above):
+        """``rows``: the strip rows in the phase's order; ``below[r]`` /
+        ``above[r]``: ("buf", strip row), ("slot", (3, nx) speeds)."""
+        n = len(rows) * nx
+        slots = {"z3": [None, None], "z6": [None, None]}
+        pending = {}
+        for k in range(-(-n // wave)):
+            for m in sorted(pending):
+                if m <= k - 2 and not pending[m][2]:
+                    land(rows, *pending[m][:2], late=False)
+                    pending[m][2] = True
+                if m <= k - delay - 1:
+                    land(rows, *pending.pop(m)[:2], late=True)
+            # Below lo a late speed may have landed, below lo3 another.
+            lo, lo3 = (k - delay) * wave, (k - 1) * wave
+            p = torch.arange(k * wave, min((k + 1) * wave, n))
+            read, written = set(), {}
+            sp = [torch.empty(len(p), dtype=buf.dtype) for _ in range(9)]
+            for r in sorted(set((p // nx).tolist())):
+                sel = (p // nx) == r
+                pr = p[sel]
+                i = pr % nx
+                iw, ie = (i - 1) % nx, (i + 1) % nx
+                j = rows[r]
+                rj = j * nx
+                sp[0][sel] = pull(0, rj + i)
+                sp[1][sel] = pull(1, rj + iw)
+                z3 = (i == nx - 1) & (pr - nx + 1 < lo3)
+                v3 = torch.full((len(pr),), nan, dtype=buf.dtype)
+                v3[~z3] = pull(3, rj + ie[~z3])
+                if bool(z3.any()):
+                    v3[z3] = _slot_read(slots, "z3", r, r, k, poison, read)
+                sp[3][sel] = v3
+                kind, src = below[r]
+                inphase = kind == "buf" and r > 0 and rows[r - 1] == src
+                z6 = (inphase & (i == nx - 1) & (pr - 2 * nx + 1 < lo)
+                      if inphase else torch.zeros_like(i, dtype=torch.bool))
+                for q, (spd, c) in enumerate(((2, i), (5, iw), (6, ie))):
+                    if kind == "buf":
+                        v = torch.full((len(pr),), nan, dtype=buf.dtype)
+                        ok = ~z6 if spd == 6 else torch.ones_like(z6)
+                        v[ok] = pull(spd, src * nx + c[ok])
+                        if spd == 6 and bool(z6.any()):
+                            v[z6] = _slot_read(slots, "z6", r - 1, r, k,
+                                               poison, read)
+                    else:
+                        v = src[q, c]
+                    sp[spd][sel] = v
+                kind, src = above[r]
+                for q, (spd, c) in enumerate(((4, i), (7, ie), (8, iw))):
+                    sp[spd][sel] = (pull(spd, src * nx + c) if kind == "buf"
+                                    else src[q, c])
+                # The slots this wave fills for later waves.
+                w3 = (i == 0) & (pr < ((pr + nx - 1) // wave - 1) * wave)
+                if bool(w3.any()):
+                    written[("z3", r % 2)] = (pull(3, rj).clone()[None], r,
+                                              k)
+                nxt = r + 1 < len(rows) and below[r + 1] == ("buf", j)
+                w6 = ((i == nx - 1) & (pr - nx + 1 < (
+                    (pr + nx) // wave - delay) * wave)) if nxt else None
+                if w6 is not None and bool(w6.any()):
+                    written[("z6", r % 2)] = (pull(6, rj).clone()[None], r,
+                                              k)
+            if poison and read & set(written):
+                raise InplaceHazard(f"wave {k} reads a slot it fills")
+            for (name, s), v in written.items():
+                slots[name][s] = v
+            j = torch.tensor(rows)[p // nx]
+            o = j * nx + p % nx
+            planes, um = ref_ops._bgk_update_planes(sp, solid[o], omega)
+            umag[o] = um
+            pending[k] = [p, torch.stack(planes), False]
+        for m in sorted(pending):
+            p, new, early_landed = pending.pop(m)
+            if not early_landed:
+                land(rows, p, new, late=False)
+            land(rows, p, new, late=True)
 
-        z = (i == nx - 1) & (p - nx + 1 < lo)
-        sp = [
-            flat[0, o],
-            where((i > 0) & (p == lo), spec["e1"], flat[1, j * nx + iw]),
-            below(2, 0, i, p - nx),
-            where(z, spec["z3"], flat[3, j * nx + ie]),
-            flat[4, o + nx],
-            where((j > 1) & (i > 0) & (p == lo), spec["e5"],
-                  below(5, 1, iw, where(i > 0, p - nx - 1, p - 1))),
-            where((j > 1) & z, spec["z6"],
-                  below(6, 2, ie, where(i < nx - 1, p - nx + 1,
-                                        p - 2 * nx + 1))),
-            flat[7, (j + 1) * nx + ie],
-            flat[8, (j + 1) * nx + iw],
-        ]
-        new = update(o, sp)
-        last = (p == wend - 1) & (wend < n_inner)
-        wrap = (i == 0) & (p + nx - 1 >= wend)
-        e5, z6 = below(5, 1, i, p - nx), below(6, 2, 0 * i, p - nx)
-        if last.any():
-            spec["e1"], spec["e5"] = flat[1, o[last]][0], e5[last][0]
-        if wrap.any():
-            spec["z3"], spec["z6"] = flat[3, o[wrap]][0], z6[wrap][0]
-        store(o, new, [("R", i, (2, 5, 6), p + nx >= wend),
-                       ("T", i, (4, 7, 8), j == 1)])
-
-    n_edge = (1 if h == 1 else 2) * nx
-    for lo in range(0, n_edge, wave):
-        e = torch.arange(lo, min(lo + wave, n_edge))
-        wend = lo + len(e)
-        top = e >= nx
-        i = where(top, e - nx, e)
-        j = where(top, h - 1, 0)
-        o = j * nx + i
-        iw, ie = (i - 1) % nx, (i + 1) % nx
-        # Row 0: the south slot below; above, the north slot (h = 1), the
-        # buffer (h = 2) or T. Row h-1: R (or, h = 2, the buffer where
-        # row 0 is not overwritten) below, the north slot above.
-        if h == 1:
-            up = [north[0, i], north[1, ie], north[2, iw]]
-        elif h == 2:
-            up = [flat[4, nx + i], flat[7, nx + ie], flat[8, nx + iw]]
-        else:
-            up = [carry_t[0, i], carry_t[1, ie], carry_t[2, iw]]
-
-        def row_below(k, q, c):
-            if h == 2:
-                return where(c >= lo, flat[k, c], carry_r[q, c])
-            return carry_r[q, c]
-
-        low0 = [south[0, i], south[1, iw], south[2, ie]]
-        lowh = [row_below(2, 0, i), row_below(5, 1, iw), row_below(6, 2, ie)]
-        low = [where(top, b, a) for a, b in zip(low0, lowh)]
-        up = [where(top, b, a) for a, b in
-              zip(up, [north[0, i], north[1, ie], north[2, iw]])]
-        sp = [
-            flat[0, o],
-            where((i > 0) & (e == lo), spec["e1"], flat[1, j * nx + iw]),
-            low[0],
-            where((i == nx - 1) & (e - nx + 1 < lo), spec["z3"],
-                  flat[3, j * nx + ie]),
-            up[0], low[1], low[2], up[1], up[2],
-        ]
-        new = update(o, sp)
-        last = (e == wend - 1) & (wend < n_edge)
-        wrap = (i == 0) & (e + nx - 1 >= wend)
-        if last.any():
-            spec["e1"] = flat[1, o[last]][0]
-        if wrap.any():
-            spec["z3"] = flat[3, o[wrap]][0]
-        store(o, new, [("R", i, (2, 5, 6), ~top & (h == 2))])
+    if h > 2:
+        phase(list(range(1, h - 1)),
+              [("buf", j - 1) for j in range(1, h - 1)],
+              [("buf", j + 1) for j in range(1, h - 1)])
+    if h == 1:
+        phase([0], [("slot", south)], [("slot", north)])
+    elif h == 2:
+        phase([0, 1], [("slot", south), ("buf", 0)],
+              [("buf", 1), ("slot", north)])
+    else:
+        phase([0, h - 1], [("slot", south), ("slot", carry["R"])],
+              [("slot", carry["T"]), ("slot", north)])
     return umag.view(h, nx)
+
+
+def _slot_read(slots, name, row, reader_row, k, poison, read):
+    """The value a wrap slot holds for ``row``, read at wave ``k``."""
+    held = slots[name][row % 2]
+    if held is None:
+        if poison:
+            raise InplaceHazard(f"row {reader_row} reads an empty {name}")
+        return float("nan")
+    value, filled_row, filled_wave = held
+    if poison and (filled_row != row or filled_wave >= k):
+        raise InplaceHazard(f"row {reader_row} reads {name} of row "
+                            f"{filled_row} (wave {filled_wave}) at wave {k}")
+    read.add((name, row % 2))
+    return value
 
 
 def _halo_slot(step: int) -> int:
@@ -448,7 +530,8 @@ def _halo_slot(step: int) -> int:
 
 
 def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
-                    axis: int = 0, buffers: int = 2, wave: int = THREADS):
+                    axis: int = 0, buffers: int = 2, wave: int = THREADS,
+                    poison: bool = False):
     """The on-chip form's strip step in plain PyTorch over the strips
     ``parts`` (``(r0, h)`` pairs that tile the rows of ``cells`` in order,
     each stepped from its own rows and two halo slots by step parity, its
@@ -468,8 +551,10 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
     the forced line in place first and sends the forced rows; then one
     strip tensor is updated in place wave by wave
     (:func:`_inplace_strip_step`, ``wave`` cells a wave, the kernel's
-    threads by default), pulls of overwritten cells served only from the
-    carried values.
+    threads by default), each wave's stores deferred until the waves that
+    pull its cells have gathered, the x wrap's far pulls and the edge rows'
+    pulls of overwritten rows served from carried values; ``poison``: fail
+    on any pull of a cell whose store has landed.
 
     Returns ``(new_cells, partials)``: ``partials[s, b]`` is strip b's sum
     of |u| over its fluid cells in step s."""
@@ -512,7 +597,8 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
             if buffers == 1:
                 umag = _inplace_strip_step(state[b], masks[b],
                                            slots[b][0][read],
-                                           slots[b][1][read], omega, wave)
+                                           slots[b][1][read], omega, wave,
+                                           poison)
                 new_state.append(state[b])
                 partials[s, b] = torch.sum(umag.masked_fill(masks[b], 0.0))
                 continue
@@ -550,7 +636,7 @@ def sum_in_order(partials):
 
 def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
                              blocks: int, axis: int = 0, buffers: int = 2,
-                             wave: int = THREADS):
+                             wave: int = THREADS, poison: bool = False):
     """The on-chip form's schedule in plain PyTorch: ``blocks`` strips of
     whole rows (:func:`strips`) stepped by :func:`onchip_schedule` in
     ``buffers`` buffers. tot_u: per strip the sum over its fluid cells,
@@ -560,5 +646,5 @@ def resident_onchip_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
     order."""
     new, partials = onchip_schedule(cells, obstacles, w1, w2, omega, gsteps,
                                     strips(cells.shape[1], blocks), axis,
-                                    buffers, wave)
+                                    buffers, wave, poison)
     return new, sum_in_order(partials)

@@ -1,0 +1,85 @@
+#!/usr/bin/env python3
+"""Hold the card test of coherent lattice loads to a mutant that it must
+catch: ``tests/test_torch_cuda.py::
+test_cross_block_kernels_load_the_lattice_coherently`` on this checkout
+(it must pass) and on a copy whose device form's shift mode loads the six
+neighbour speeds of its quad through the non-coherent read-only path
+(``__ldg``; ``lbm_tpu_torch/csrc/lbm_rounds.cuh``'s ``shift_block``), where
+it must fail. Across the grid barrier between two steps those values are
+what other blocks wrote, and a read-only cache line may hold the step
+before's; the 200-round bit tests of the card suite do not see it.
+
+The copy (the package, the card tests, ``scripts/`` and the pinned
+artifacts) goes to ``build/coherence_mutant/`` (a directory ``.gitignore``
+lists), builds its own library and runs the test from there. Prints one
+JSON line: each run's pytest exit code and last line, and ``ok``: the
+checkout passed and the mutant failed. Exit code 0 when ``ok``.
+
+Usage: python scripts/coherence_mutant_torch.py [-o artifact.json]
+       (A CUDA device and cuobjdump are required.)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+COPY = REPO / "build" / "coherence_mutant"
+TEST = ("tests/test_torch_cuda.py::"
+        "test_cross_block_kernels_load_the_lattice_coherently")
+# (text in lbm_rounds.cuh, mutant text): each must occur exactly once.
+MUTATIONS = tuple(
+    (f"    const float e{k} = src[{k} * plane + {row} + {col}];\n",
+     f"    const float e{k} = __ldg(src + {k} * plane + {row} + {col});\n")
+    for k, row, col in ((1, "rc", "xw"), (5, "rm", "xw"), (8, "rp", "xw"),
+                        (3, "rc", "xe"), (6, "rm", "xe"), (7, "rp", "xe")))
+
+
+def mutant_copy() -> Path:
+    shutil.rmtree(COPY, ignore_errors=True)
+    for part in ("lbm_tpu_torch", "tests", "scripts", "docs/artifacts"):
+        shutil.copytree(REPO / part, COPY / part,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    src = COPY / "lbm_tpu_torch" / "csrc" / "lbm_rounds.cuh"
+    text = src.read_text()
+    for old, new in MUTATIONS:
+        if text.count(old) != 1:
+            raise SystemExit(f"coherence_mutant_torch: lbm_rounds.cuh no "
+                             f"longer holds exactly one {old!r}")
+        text = text.replace(old, new)
+    src.write_text(text)
+    return COPY
+
+
+def run_test(root: Path) -> dict:
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "-m", "cuda", TEST],
+        cwd=root, capture_output=True, text=True)
+    lines = (proc.stdout.strip() or proc.stderr.strip()).splitlines()
+    return {"rc": proc.returncode, "last_line": lines[-1] if lines else ""}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("-o", "--output")
+    args = ap.parse_args(argv)
+    result = {"checkout": run_test(REPO), "mutant": run_test(mutant_copy())}
+    result["ok"] = (result["checkout"]["rc"] == 0
+                    and result["mutant"]["rc"] != 0
+                    and "failed" in result["mutant"]["last_line"])
+    text = json.dumps(result)
+    print(text, flush=True)
+    if args.output:
+        Path(args.output).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.output).write_text(text + "\n")
+    return 0 if result["ok"] else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -140,11 +140,28 @@ SASS_KERNELS = {"fused_depth_kernel<4,0,0>": "fused_depth_kernelILi4ELb0ELb0",
                 "probe stream": "probe_kernelILi2ELi0E"}
 
 
-def sass_opcodes(library: Path) -> dict:
-    """``{kernel: {opcode: count}}`` of each of :data:`SASS_KERNELS` in
-    the built library (a kernel the library lacks: none), most frequent
+def kernel_name(mangled: str) -> str:
+    """A kernel's short name with its template arguments
+    (``resident_onchip_kernel<1,0,2>``), as chip_smoke.py's ptxas table
+    names it."""
+    import re
+
+    k = re.search(r"\d+([a-z_]+_(?:kernel|tile))(?:I((?:L[ib]\d+E)+)E)?",
+                  mangled)
+    if k is None:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+    return k.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def sass_opcodes(library: Path, kernels=SASS_KERNELS,
+                 modifiers: bool = False) -> dict:
+    """``{kernel: {opcode: count}}`` of each of ``kernels`` (label: a part
+    of its mangled name; None: every function, under :func:`kernel_name`)
+    in the built library (a kernel the library lacks: none), most frequent
     first; memory opcodes keep their width (``LDS.64``), the others only
-    their name."""
+    their name, or, ``modifiers``, every opcode all its modifiers
+    (``LDG.E.CONSTANT``: a load through the non-coherent path)."""
     import collections
     import re
 
@@ -154,14 +171,17 @@ def sass_opcodes(library: Path) -> dict:
     for ln in out.splitlines():
         m = re.search(r"Function : (\S+)", ln)
         if m:
-            inside = next((k for k, part in SASS_KERNELS.items()
-                           if part in m.group(1)), None)
+            inside = (kernel_name(m.group(1)) if kernels is None else
+                      next((k for k, part in kernels.items()
+                            if part in m.group(1)), None))
             continue
         m = re.match(r"\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\d+\s+)?([A-Z0-9_.]+)", ln)
         if m and inside:
             parts = m.group(1).split(".")
             memory = parts[0] in ("LDS", "STS", "LDG", "STG", "LDL", "STL")
-            counts[inside][".".join(parts[:2]) if memory else parts[0]] += 1
+            op = (m.group(1) if modifiers else
+                  ".".join(parts[:2]) if memory else parts[0])
+            counts[inside][op] += 1
     return {k: dict(c.most_common()) for k, c in counts.items()}
 
 

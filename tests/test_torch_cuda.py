@@ -747,8 +747,10 @@ def _inplace_case(cuda, nx, ny, axis, seed):
 @pytest.mark.cuda
 @pytest.mark.parametrize("gsteps", [1, 2, 99, 100])
 @pytest.mark.parametrize("grid,axis", [
-    ((4096, 64), 0), ((1024, 400), 1), ((1024, 512), 1), ((768, 768), 0)],
-    ids=["4096x64", "1024x400-columns", "1024x512-columns", "768x768"])
+    ((4096, 64), 0), ((1024, 400), 1), ((1024, 512), 1), ((768, 768), 0),
+    ((1024, 640), 0), ((2001, 200), 0)],
+    ids=["4096x64", "1024x400-columns", "1024x512-columns", "768x768",
+         "1024x640-rows-of-a-wave", "2001x200-rows-wider-than-a-wave"])
 def test_inplace_form_matches_plain(cuda, grid, axis, gsteps):
     """One launch of the single-buffer mode where two buffers do not fit:
     every bit of the plain version's cells, tots within the bound, one
@@ -1540,3 +1542,78 @@ def test_ring_freed_while_its_launch_runs_leaves_the_next_ring_whole(
     ss.synchronize()
     _plain_steps(plain, 2100)
     assert torch.equal(ss.gather(), plain.gather())
+
+
+# The built library's SASS (cuobjdump, scripts/depth_ab_torch.py's
+# sass_opcodes with every modifier).
+
+_SASS = {}
+
+
+def _sass_opcodes():
+    """``{kernel<args>: {opcode: count}}`` of every kernel of the built
+    library, built once for the whole test run."""
+    import importlib.util
+    from pathlib import Path
+
+    from lbm_tpu_torch.ops import _build
+
+    if not _SASS:
+        root = Path(__file__).resolve().parent.parent
+        spec = importlib.util.spec_from_file_location(
+            "depth_ab_torch", root / "scripts" / "depth_ab_torch.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        path, _ = _build.build()
+        _SASS.update(mod.sass_opcodes(path, None, modifiers=True))
+    return _SASS
+
+
+# The kernels that read, within one launch, what other blocks of it wrote
+# in an earlier round or step (the device-memory form and its shift mode,
+# the ring, the probe's rounds, the on-chip kernels' halo slots), and the
+# loads of each that may take the non-coherent read-only path
+# (LDG...CONSTANT, what __ldg or a const __restrict__ pointer compiles to):
+# the on-chip kernels' mask bytes, loaded once into shared memory, and no
+# other. A lattice value loaded that way may come from a stale cache line.
+COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 3,
+                    "ring_kernel<": 4, "probe_kernel<": 7,
+                    "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 12}
+NONCOHERENT_LOADS = {"resident_onchip_kernel<": {"LDG.E.U8.CONSTANT": 29}}
+
+
+@pytest.mark.cuda
+def test_cross_block_kernels_load_the_lattice_coherently(cuda):
+    """No load of the lattice in a kernel that reads what other blocks of
+    its launch wrote takes the non-coherent path; the on-chip kernels'
+    mask loads are pinned at their count."""
+    seen = dict.fromkeys(COHERENT_KERNELS, 0)
+    for name, counts in _sass_opcodes().items():
+        prefix = next((k for k in COHERENT_KERNELS if name.startswith(k)),
+                      None)
+        if prefix is None:
+            continue
+        seen[prefix] += 1
+        noncoherent = {op: n for op, n in counts.items()
+                       if op.startswith("LDG") and "CONSTANT" in op}
+        assert noncoherent == NONCOHERENT_LOADS.get(prefix, {}), name
+    assert seen == COHERENT_KERNELS
+
+
+@pytest.mark.cuda
+def test_two_buffer_onchip_kernels_keep_their_pinned_sass(cuda):
+    """The on-chip kernels in two buffers: every opcode count (every
+    modifier) of the copy pinned from the build before the single-buffer
+    mode's deferred stores, which share their source file."""
+    import json
+    from pathlib import Path
+
+    pinned = json.loads((Path(__file__).resolve().parent.parent / "docs" /
+                         "artifacts" / "onchip_two_buffer_sass.json")
+                        .read_text())["kernels"]
+    got = {k: v for k, v in _sass_opcodes().items()
+           if "onchip_kernel<" in k and k.endswith(",2>")}
+    assert sorted(got) == sorted(pinned)
+    for name in pinned:
+        assert got[name] == pinned[name], name
+

@@ -4,6 +4,7 @@ the JAX package's scripts, and the fail-closed rule of the two drift
 gates: a row whose drift metric is missing fails the script."""
 
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -235,3 +236,32 @@ def test_u_is_held_by_its_largest_difference_over_its_peak():
     assert full_scenes_torch.pct_of_peak(ref, sim) == pytest.approx(0.05)
     assert full_scenes_torch.pct_of_peak(np.zeros(3), np.zeros(3)) is None
     assert full_scenes_torch.pct_of_peak(ref, sim[:2]) is None
+
+
+def test_onchip_clocks_patches_hold_on_the_strip_step():
+    """scripts/onchip_clocks_torch.py instruments the strip step that
+    lbm_onchip.cuh holds: it names one schedule, and every patch of it
+    (the shared ones and the schedule's) occurs there exactly once, so a
+    change to the strip step breaks this test and not the instrument."""
+    import onchip_clocks_torch as clocks
+
+    text = (REPO / "lbm_tpu_torch" / "csrc" / "lbm_onchip.cuh").read_text()
+    name = clocks.schedule_of(text)
+    assert name == "one split barrier a wave"
+    for old, _ in clocks._HEAD + clocks.SCHEDULES[name]["patches"]:
+        assert text.count(old) == 1, old
+    _, patched = clocks.instrument(text)
+    marks = {int(q) for q in re.findall(r"CKW?\((\d+)\)", patched)}
+    assert marks == set(range(10))
+    assert len(clocks.SCHEDULES[name]["categories"]) == 11
+
+
+def test_coherence_mutant_applies_to_the_shift_mode():
+    """scripts/coherence_mutant_torch.py's mutations each occur exactly
+    once in lbm_rounds.cuh (the shift mode's neighbour loads)."""
+    import coherence_mutant_torch as mutant
+
+    text = (REPO / "lbm_tpu_torch" / "csrc" / "lbm_rounds.cuh").read_text()
+    for old, new in mutant.MUTATIONS:
+        assert text.count(old) == 1, old
+        assert "__ldg" in new
