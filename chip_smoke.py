@@ -52,10 +52,11 @@ printing JSON lines (any failure raises and exits non-zero):
              LBM_RESIDENT_FORM=device, in turns: drift within 0.3 % of its
              golden, final states and av_vels files the same bytes, cells
              and av_vels through the runner the same bits; then 4096x64
-             (the wide scenes' params, the generator's walls), 20000 steps
-             under auto (the shift mode) and LBM_RESIDENT_SHIFT=0, in
-             turns, the same checks, and 500 steps under auto within 0.3 %
-             of the port's plain float64 run on the card;
+             and 8192x32 (the wide scenes' params, the generator's walls),
+             20000 steps each under auto (the shift mode) and
+             LBM_RESIDENT_SHIFT=0, in turns, the same checks, and 500 steps
+             under auto within 0.3 % of the port's plain float64 run on
+             the card;
 4c. inplace_scene - the single-buffer mode's path: 1024x512 with the
              wide scenes' parameters (accel 0.01, omega 1.85) and the
              generator's walls, 20000 steps through the CLI under auto
@@ -372,6 +373,9 @@ INPLACE_ROW_GRID = "400x1024"
 SHIFT_SCENE_PLANS = {"shift": {"LBM_RESIDENT_SHIFT": "1"},
                      "device": {"LBM_RESIDENT_FORM": "device"}}
 SHIFT_AUTO_SCENE, SHIFT_AUTO_ITERS, SHIFT_GATE_ITERS = "4096x64", 20000, 500
+# Both narrow channels auto runs in the shift mode; the first is the
+# kernels line's path.
+SHIFT_AUTO_SCENES = (SHIFT_AUTO_SCENE, "8192x32")
 SHIFT_AUTO_PLANS = {"auto": {}, "off": {"LBM_RESIDENT_SHIFT": "0"}}
 
 
@@ -1467,6 +1471,8 @@ def auto_timing(torch, name):
            "over_device": {k: v / med["device"] for k, v in med.items()},
            "plain_device_ms_per_step": _median_ms(torch, plain_step, 1, True,
                                                   steps=4, batches=3)[0]}
+    if "device shift" in impls:
+        out["shift_residence"] = impls["device shift"].residence
     emit(out)
     return out
 
@@ -1650,12 +1656,9 @@ def phase_shift_scene(torch, np):
     lines, launch counts, drift against goldens/256x256.final_state.f64.npz
     within the 0.3 % budget, the final states and av_vels files the same
     bytes, and through the runner the cells and av_vels the same bits. Then
-    the mode's path under auto: the narrow channel SHIFT_AUTO_SCENE (the
-    wide scenes' params, the generator's walls), SHIFT_AUTO_ITERS steps
-    through the CLI under auto (the shift mode) and LBM_RESIDENT_SHIFT=0
-    (the default mode), in turns, the same checks of bytes and bits, and
-    500 steps under auto within the budget of the port's plain float64 run
-    on the card. Returns each run's launches."""
+    the mode's path under auto at each of SHIFT_AUTO_SCENES
+    (_shift_auto_scene). Returns each run's launches (``auto``: the first
+    narrow channel's, the kernels line's path)."""
     from lbm_tpu_torch import io as lio
     from lbm_tpu_torch import runner
     from lbm_tpu_torch.obstacles import generate_obstacles
@@ -1702,8 +1705,27 @@ def phase_shift_scene(torch, np):
               f"form differ ({key})")
     del bits
 
-    # The mode's path under auto.
-    name, iters = SHIFT_AUTO_SCENE, SHIFT_AUTO_ITERS
+    # The mode's path under auto: each narrow channel.
+    auto_runs = {}
+    for name in SHIFT_AUTO_SCENES:
+        auto_runs[name] = _shift_auto_scene(torch, np, name)
+    return {"pin": runs, "auto": auto_runs[SHIFT_AUTO_SCENE],
+            "auto_scenes": auto_runs}
+
+
+def _shift_auto_scene(torch, np, name):
+    """A narrow channel ``name`` (the wide scenes' params, the generator's
+    walls) SHIFT_AUTO_ITERS steps through the CLI under auto (the shift
+    mode) and LBM_RESIDENT_SHIFT=0 (the default mode), in turns: the final
+    states and av_vels the same bytes, through the runner the same bits,
+    and 500 steps under auto within the budget of the port's plain float64
+    run on the card. Returns each plan's launches."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch import runner
+    from lbm_tpu_torch.obstacles import generate_obstacles
+    from lbm_tpu_torch.state import initial_state
+
+    iters = SHIFT_AUTO_ITERS
     nx, ny = grid(name)
     p = scene_params(name, iters)
     with env():
@@ -1748,7 +1770,7 @@ def phase_shift_scene(torch, np):
               f"LBM_RESIDENT_SHIFT=0 differ ({key})")
     check(ok, f"{name}: outside the drift budget")
     check(g_launches["resident_shift"] > 0, f"{name} gate: no shift launch")
-    return {"pin": runs, "auto": a_runs}
+    return a_runs
 
 
 # The sharded path: P shards on one card (a mesh that repeats the device),
@@ -3338,8 +3360,9 @@ def main() -> int:
                      bound(cells, 100),
                      ceiling=design_ceiling(cells, 100,
                                             steps_per_pass=per_pass)),
-        # The device form's shift mode: a pass over the lattice a step, in
-        # L2 at this size (its ceiling, one pass a step, is its bound).
+        # The device form's shift mode: its cells in shared memory at this
+        # size (its ceiling is its bound); in device memory a pass over
+        # the lattice a step.
         kernel_entry("resident_shift", "lbm_tpu_torch/csrc/resident.cu",
                      "lbm_tpu/ops/pallas_resident.py:142",
                      runs["resident_shift"],
@@ -3348,7 +3371,10 @@ def main() -> int:
                      max(worst["resident_shift"], sh["max_abs_err_vs_plain"]),
                      shmed["device shift"], sh["plain_device_ms_per_step"],
                      bound(shx * shy, 100),
-                     ceiling=design_ceiling(shx * shy, 100, steps_per_pass=1),
+                     ceiling=design_ceiling(
+                         shx * shy, 100, steps_per_pass=1,
+                         on_chip=sh["shift_residence"] == "shared"),
+                     residence=sh["shift_residence"],
                      device_form_ms=shmed["device"],
                      depth4_ms=shmed["depth D=4"]),
         kernel_entry("resident_onchip", "lbm_tpu_torch/csrc/resident_onchip.cu",

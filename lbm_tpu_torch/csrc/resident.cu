@@ -61,25 +61,25 @@
 // The shift mode (the JAX kernel's LBM_RESIDENT_SHIFT, _streamed_shifted,
 // row mode and two buffers only, as there): on the TPU the whole previous
 // state sits in one VMEM buffer, so a block's cy = +-1 windows are loads at
-// row offsets instead of staged edge rows and a roll. Here both buffers
-// sit in device memory, which every block can address, so the mode is
-// rounds of one step whose tile loads each cell's nine speeds straight
-// from the source buffer at offset rows and columns (lbm_rounds.cuh's
-// shift_block), one grid barrier a step, nothing staged. It moves the
-// lattice once a step, so it pays where the lattice sits in L2 and the
-// depth tile's recomputed halos are dear: at the narrow channels 4096x64
-// and 8192x32 0.80-0.92x the rounds above (PERF.md), 1.48x at 1024x1024.
-// Each cell's partial keeps the depth tile's map (the 32 x 24 tile, the
-// two cells of a quad in order, its warp and lane, the warps in order), so
-// each step's tot_u has the depth plan's bits. Measured against the other
-// choices at those two lattices (PERF.md): the forcing guard's forced-row
-// reads loaded at once, where the guard's && read them in four dependent
-// round trips to L2 (with the vector path a template parameter, 1.44-1.49x
-// faster); tiles by block stride, not by ticket (1.05-1.18x); a thread for
-// each owned quad, the partials staged in shared memory at the depth map's
-// lanes, against the map's own 480 threads, a fifth of them the halo's
-// (0.99-1.09x); warps as the unit of work, better balanced, gained
-// nothing.
+// row offsets instead of staged edge rows and a roll. Here it is a step at
+// a time over blocks that each own a rectangle of whole depth tiles for
+// the launch (lbm_rounds.cuh's shift_block, whose comment gives the
+// schedule): where a block's cells fit its shared memory (the narrow
+// channels 4096x64 and 8192x32, whose blocks are slabs of whole tile
+// columns at full height, and 256x256) they stay there for the launch and
+// only what a neighbour pulls crosses L2; else they stay in the two
+// lattice buffers and each cell's nine speeds are loaded from the source
+// buffer at offset rows and columns. No grid barrier a step: a block waits
+// only on the step counters of the blocks whose cells its ring pulls. Each
+// cell's partial keeps the depth tile's map (the 32 x 24 tile, the two
+// cells of a quad in order, its warp and lane, the warps in order), so
+// each step's tot_u has the depth plan's bits. Measured (PERF.md): the
+// design it replaces, tiles dealt by block stride and a grid barrier a
+// step, spent 42 % of a step at 4096x64 in the barrier and 29 % in its
+// loads' L2 round trips; within that design the forcing guard's forced-row
+// reads were loaded at once (1.44-1.49x faster than the guard's four
+// dependent round trips), as the device residence's tile body still loads
+// them.
 //
 // Plain C interface, bound with ctypes by lbm_tpu_torch/ops/resident.py.
 
@@ -100,15 +100,24 @@ resident_kernel(const __grid_constant__ Resident r) {
     resident_block<kCols, kMode>(r, reinterpret_cast<float*>(smem));
 }
 
-// The shift mode's kernel, a kernel for each association as above. Two
-// blocks an SM: 80 registers (4 / 8 B spilled); launch bounds of three
-// (56 registers, 132 / 160 B spilled) ran 1.36x the time at 8192x32, 1.09x
-// at 256x256 and 0.89x at 512x512, where auto does not take the mode
-// (PERF.md).
-template <int kMode>
-__global__ void __launch_bounds__(kShiftThreads, 2)
-resident_shift_kernel(const __grid_constant__ Resident r) {
-    shift_block<kMode>(r);
+// The shift mode's kernel, a kernel for each association as above and for
+// each residence: the device residence two blocks an SM (80 registers in
+// the parent's tile body; launch bounds of three, 56 registers and 132 /
+// 160 B spilled, ran 1.36x the time at 8192x32, 1.09x at 256x256), the
+// shared residence one, its cells in the dynamic shared memory.
+template <int kMode, bool kShared>
+__global__ void __launch_bounds__(kShared ? kSlabThreads : kShiftThreads,
+                                  kShared ? 1 : 2)
+resident_shift_kernel(const __grid_constant__ Shift s) {
+    extern __shared__ float4 smem[];
+    shift_block<kMode, kShared>(s, reinterpret_cast<float*>(smem));
+}
+
+template <bool kShared>
+const void* shift_kernel_of(int mode) {
+    return mode == 1   ? (const void*)resident_shift_kernel<1, kShared>
+           : mode == 2 ? (const void*)resident_shift_kernel<2, kShared>
+                       : (const void*)resident_shift_kernel<0, kShared>;
 }
 
 template <bool kCols>
@@ -118,17 +127,11 @@ const void* kernel_of_mode(int mode) {
                        : (const void*)resident_kernel<kCols, 0>;
 }
 
-// The kernel of an axis, association and mode (shift: the shift mode, row
-// mode only), its threads and its dynamic shared memory.
-void resident_kernel_of(int axis, int mode, int shift, const void** fn,
-                        int* threads, size_t* bytes) {
-    if (shift) {
-        *fn = mode == 1   ? (const void*)resident_shift_kernel<1>
-              : mode == 2 ? (const void*)resident_shift_kernel<2>
-                          : (const void*)resident_shift_kernel<0>;
-        *threads = kShiftThreads;
-        *bytes = 0;
-    } else if (axis) {
+// The kernel of an axis and association, its threads and its dynamic
+// shared memory.
+void resident_kernel_of(int axis, int mode, const void** fn, int* threads,
+                        size_t* bytes) {
+    if (axis) {
         *fn = kernel_of_mode<true>(mode);
         *threads = Block<true>::kThreads;
         *bytes = Block<true>::kBytes;
@@ -139,22 +142,62 @@ void resident_kernel_of(int axis, int mode, int shift, const void** fn,
     }
 }
 
+// The shift mode's ownership of an ny x nx lattice over at most `blocks`
+// blocks: its groups and the largest block's width, height and tiles.
+struct ShiftShape {
+    int tiles_x, tiles_y, ncg, nrg, w, h, tiles;
+};
+bool shift_shape(int ny, int nx, int blocks, ShiftShape* sh) {
+    int n;
+    depth_tiles(4, ny, nx, &sh->tiles_x, &n);
+    if (n < 1 || blocks < 1) return false;
+    sh->tiles_y = n / sh->tiles_x;
+    shift_groups(sh->tiles_x, sh->tiles_y, blocks, &sh->ncg, &sh->nrg);
+    int tc = 0, tr = 0;
+    sh->w = sh->h = 0;
+    for (int g = 0; g < sh->ncg; ++g) {
+        const int t0 = group_start(g, sh->ncg, sh->tiles_x);
+        const int t1 = group_start(g + 1, sh->ncg, sh->tiles_x);
+        tc = t1 - t0 > tc ? t1 - t0 : tc;
+        const int w = (t1 * ShiftGeo::TX < nx ? t1 * ShiftGeo::TX : nx) -
+                      t0 * ShiftGeo::TX;
+        sh->w = w > sh->w ? w : sh->w;
+    }
+    for (int g = 0; g < sh->nrg; ++g) {
+        const int t0 = group_start(g, sh->nrg, sh->tiles_y);
+        const int t1 = group_start(g + 1, sh->nrg, sh->tiles_y);
+        tr = t1 - t0 > tr ? t1 - t0 : tr;
+        const int h = (t1 * ShiftGeo::TY < ny ? t1 * ShiftGeo::TY : ny) -
+                      t0 * ShiftGeo::TY;
+        sh->h = h > sh->h ? h : sh->h;
+    }
+    sh->tiles = tc * tr;
+    return true;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Blocks of the cooperative launch on this device for an ny x nx lattice
-// in forcing mode axis (0 rows, 1 columns) and, shift 1, in the shift mode
-// (row mode only): as many as can be co-resident with their shared memory,
-// at most one a tile. Negative: a CUDA error code, negated (no cooperative
-// launch on this device is cudaErrorNotSupported; the shift mode in
-// column mode cudaErrorInvalidValue).
+// in forcing mode axis (0 rows, 1 columns) and, shift 1, of the shift
+// mode's device residence (row mode only): as many as can be co-resident
+// with their shared memory, at most one a tile. Negative: a CUDA error
+// code, negated (no cooperative launch on this device is
+// cudaErrorNotSupported; the shift mode in column mode
+// cudaErrorInvalidValue).
 int lbm_resident_blocks(int ny, int nx, int axis, int shift, int device) {
     if (shift && axis) return -(int)cudaErrorInvalidValue;
     const void* fn;
     int threads;
     size_t bytes;
-    resident_kernel_of(axis, 0, shift, &fn, &threads, &bytes);
+    if (shift) {
+        fn = shift_kernel_of<false>(0);
+        threads = kShiftThreads;
+        bytes = 0;
+    } else {
+        resident_kernel_of(axis, 0, &fn, &threads, &bytes);
+    }
     return rounds_blocks(fn, threads, bytes, ny, nx, device);
 }
 
@@ -165,19 +208,14 @@ int lbm_resident_blocks(int ny, int nx, int axis, int shift, int device) {
 // lbm_depth_num_partials(4, ny, nx); tickets two 32-bit words, zero before
 // the first launch (every launch leaves them so); out gets
 // gsteps values, out[s] = scale * step s's sum of fluid |u|. axis 0 forces
-// row accel, axis 1 (a transposed lattice) column accel; shift 1 runs the
-// shift mode, whose rounds are all of one step (rounds1 = gsteps; row
-// mode only); blocks comes from lbm_resident_blocks for the same axis and
-// mode. A launch of more blocks than can be co-resident is refused
-// (cudaErrorCooperativeLaunchTooLarge).
+// row accel, axis 1 (a transposed lattice) column accel; blocks comes from
+// lbm_resident_blocks for the same axis. A launch of more blocks than can
+// be co-resident is refused (cudaErrorCooperativeLaunchTooLarge).
 int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
                  unsigned* tickets, float* out, int ny, int nx, int accel,
                  float w1, float w2, float omega, int mode, int gsteps,
                  int rounds4, int rounds2, int rounds1, float scale,
-                 int blocks, int axis, int shift, int device, void* stream) {
-    if (shift && (axis || rounds4 || rounds2)) {
-        return (int)cudaErrorInvalidValue;
-    }
+                 int blocks, int axis, int device, void* stream) {
     Resident r;
     const cudaError_t err = resident_args(
         &r, a, b, mask, partials, tickets, out, ny, nx, accel, w1, w2, omega,
@@ -186,8 +224,78 @@ int lbm_resident(float* a, float* b, const uint8_t* mask, float* partials,
     const void* fn;
     int threads;
     size_t bytes;
-    resident_kernel_of(axis, mode, shift, &fn, &threads, &bytes);
+    resident_kernel_of(axis, mode, &fn, &threads, &bytes);
     return (int)launch_rounds(fn, threads, bytes, r, blocks, device, stream);
+}
+
+// The shift mode (row mode only). Its ownership of an ny x nx lattice
+// over at most `owners` blocks (ops/plan.py's shift_groups): the blocks
+// that own tiles, the dynamic shared memory of a block in the shared
+// residence (ops/plan.py's shift_smem_bytes) and the floats of its edge
+// buffer; -1 where the lattice or the count has no ownership.
+int lbm_shift_owners(int ny, int nx, int owners) {
+    ShiftShape sh;
+    return shift_shape(ny, nx, owners, &sh) ? sh.ncg * sh.nrg : -1;
+}
+long long lbm_shift_smem_bytes(int ny, int nx, int owners) {
+    ShiftShape sh;
+    return shift_shape(ny, nx, owners, &sh) ? slab_bytes(sh.w, sh.h, sh.tiles)
+                                            : -1;
+}
+long long lbm_shift_edge_floats(int ny, int nx, int owners) {
+    ShiftShape sh;
+    return shift_shape(ny, nx, owners, &sh)
+               ? 2 * edge_slot_floats(ny, nx, sh.ncg, sh.nrg)
+               : -1;
+}
+
+// gsteps steps of the shift mode from a, the result in a when gsteps is
+// even and in b when odd; partials, out and scale as lbm_resident's. The
+// ownership is over `owners` blocks; `blocks` (at least the owning ones)
+// are launched. done: one 32-bit counter a launched block, zero before the
+// first launch (every launch leaves them so); shared 1 runs the shared
+// residence, whose edges hold lbm_shift_edge_floats floats (shared 0: not
+// read). A launch of more blocks than can be co-resident, or a block too
+// large for the shared memory, is refused.
+int lbm_resident_shift(float* a, float* b, const uint8_t* mask,
+                       float* partials, unsigned* done, float* edges,
+                       float* out, int ny, int nx, int accel, float w1,
+                       float w2, float omega, int mode, int gsteps,
+                       float scale, int blocks, int owners, int shared,
+                       int device, void* stream) {
+    ShiftShape sh;
+    if (!shift_shape(ny, nx, owners, &sh) || blocks < sh.ncg * sh.nrg) {
+        return (int)cudaErrorInvalidValue;
+    }
+    Shift s{};
+    cudaError_t err = resident_args(&s.r, a, b, mask, partials, nullptr, out,
+                                    ny, nx, accel, w1, w2, omega, mode,
+                                    gsteps, 0, 0, gsteps, scale);
+    if (err != cudaSuccess) return (int)err;
+    s.done = done;
+    s.edges = edges;
+    s.ncg = sh.ncg;
+    s.nrg = sh.nrg;
+    s.w2 = slab_w2(sh.w);
+    s.h2 = sh.h + 2;
+    s.tiles_cap = sh.tiles;
+    const void* fn = shared ? shift_kernel_of<true>(mode)
+                            : shift_kernel_of<false>(mode);
+    const int threads = shared ? kSlabThreads : kShiftThreads;
+    const size_t bytes = shared ? (size_t)slab_bytes(sh.w, sh.h, sh.tiles) : 0;
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    err = depth_opt_in(fn, device);
+    if (err != cudaSuccess) return (int)err;
+    void* args[] = {&s};
+    err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args,
+                                      bytes, (cudaStream_t)stream);
+    if (err != cudaSuccess) {
+        // A refused launch never ran; its error must not stay behind.
+        cudaGetLastError();
+        return (int)err;
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -71,9 +71,19 @@ _SIGNATURES = {
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
          _c_int, _c_int, _c_int, _c_float, _c_float, _c_float, _c_int,
          _c_int, _c_int, _c_int, _c_int, _c_float, _c_int, _c_int, _c_int,
-         _c_int, _c_void_p],
+         _c_void_p],
         _c_int,
     ),
+    "lbm_resident_shift": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+         _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_float, _c_float,
+         _c_int, _c_int, _c_float, _c_int, _c_int, _c_int, _c_int,
+         _c_void_p],
+        _c_int,
+    ),
+    "lbm_shift_owners": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_shift_smem_bytes": ([_c_int, _c_int, _c_int], ctypes.c_longlong),
+    "lbm_shift_edge_floats": ([_c_int, _c_int, _c_int], ctypes.c_longlong),
     "lbm_resident_blocks": ([_c_int, _c_int, _c_int, _c_int, _c_int],
                             _c_int),
     "lbm_sm_count": ([_c_int], _c_int),

@@ -86,8 +86,9 @@ TRANSPOSED_MIN_CELLS = 512 * 512
 # one or two rows of three speeds). Its halo rows (three speeds a cell)
 # stay in L2 and take no shared memory. The device-memory form
 # (csrc/resident.cu) keeps the lattice in device memory and takes any
-# size; its shift mode ("shift", row mode only) steps one step a round,
-# each cell's speeds loaded straight from the source buffer.
+# size; its shift mode ("shift", row mode only) steps a step at a time
+# over blocks that own their tiles for the launch, the cells in shared
+# memory where a block's fit (shift_residence).
 # LBM_RESIDENT_FORM pins one of FORM_PINS, LBM_RESIDENT_SHIFT the shift
 # mode.
 RESIDENT_FORMS = ("onchip", "inplace", "device", "shift")
@@ -98,7 +99,8 @@ ONCHIP_SCRATCH_BYTES = (2 * 32 + 4) * 4
 # HBM3 at 700 W (chip_smoke.py's onchip_timing, PERF.md): the narrow
 # channels 4096x64 and 8192x32, whose on-chip strips would be one row and
 # whose two buffers and mask fit the L2, at 0.80-0.92x the device form's
-# rounds and 0.79-0.92x D=4. Where the lattice does not fit the L2 a pass
+# rounds and 0.79-0.92x D=4 (0.49-0.54x the device form since its
+# redesign, PERF.md). Where the lattice does not fit the L2 a pass
 # a step costs (1024x1024: 1.48x the device form), and at 512x512 and the
 # physical 1024x400 it was 0.99x and 1.09x: neither is taken.
 L2_BYTES = CHIP_PEAKS["h100"]["l2_bytes"]
@@ -208,6 +210,95 @@ def shift_auto(ny: int, nx: int, sms: int) -> bool:
     be one row (``ny <= sms``: the narrow channels) and both buffers and
     the mask fit the L2, the measured rule above :data:`L2_BYTES`."""
     return ny <= sms and BYTES_PER_CELL_PASS * ny * nx <= L2_BYTES
+
+
+# The shift mode's ownership and residence (csrc/lbm_rounds.cuh's
+# shift_groups, slab_bytes; csrc/resident.cu's shift_shape): each block owns
+# a rectangle of whole depth tiles (SHIFT_TILE rows x columns) for the
+# launch, and holds its cells in shared memory (two buffers of nine speeds
+# with a one-cell ring, the mask, the partials' lanes of its tiles by step
+# parity) where that fits the card's opt-in limit less
+# SHIFT_STATIC_BYTES, at one block an SM; else the cells stay in device
+# memory, at as many blocks as the device residence's kernel keeps on the
+# card.
+SHIFT_TILE = (24, 32)
+SHIFT_TILE_WARPS = 15
+SHIFT_STATIC_BYTES = 1024
+SHIFT_RESIDENCES = ("shared", "device")
+
+
+def _group_start(g: int, n: int, t: int) -> int:
+    """The first tile of group g of n groups over t tiles: the first
+    ``n - t % n`` groups take ``t // n`` tiles, the rest one more (so the
+    ragged last tile falls in a larger group)."""
+    q, small = divmod(t, n)[0], n - t % n
+    return g * q if g <= small else small * q + (g - small) * (q + 1)
+
+
+def shift_groups(ny: int, nx: int, blocks: int) -> tuple[int, int]:
+    """``(column groups, row groups)`` of the shift mode's ownership of an
+    ny x nx lattice over at most ``blocks`` blocks: a group of whole tile
+    columns a block where there are as many tile columns as blocks
+    (full-height slabs), else each tile column cut into as many groups of
+    whole tile rows as the blocks allow. Block ``rg * ncg + cg`` owns
+    column group cg of row group rg."""
+    if blocks < 1:
+        raise ValueError(f"{blocks} blocks")
+    ty, tx = SHIFT_TILE
+    tiles_x, tiles_y = -(-nx // tx), -(-ny // ty)
+    if tiles_x >= blocks:
+        return blocks, 1
+    return tiles_x, min(tiles_y, blocks // tiles_x)
+
+
+def shift_rects(ny: int, nx: int, blocks: int) -> list[tuple[int, ...]]:
+    """Each owning block's ``(y0, y1, x0, x1)`` (rows ``[y0, y1)``, columns
+    ``[x0, x1)``), in block order, over at most ``blocks`` blocks."""
+    ty, tx = SHIFT_TILE
+    tiles_x, tiles_y = -(-nx // tx), -(-ny // ty)
+    ncg, nrg = shift_groups(ny, nx, blocks)
+    cols = [(_group_start(g, ncg, tiles_x) * tx,
+             min(nx, _group_start(g + 1, ncg, tiles_x) * tx))
+            for g in range(ncg)]
+    rows = [(_group_start(g, nrg, tiles_y) * ty,
+             min(ny, _group_start(g + 1, nrg, tiles_y) * ty))
+            for g in range(nrg)]
+    return [(y0, y1, x0, x1) for y0, y1 in rows for x0, x1 in cols]
+
+
+def shift_smem_bytes(ny: int, nx: int, blocks: int) -> int:
+    """Dynamic shared memory of a block of the shift mode's shared
+    residence over at most ``blocks`` blocks: two (h + 2) x (w + 2) planes
+    of nine float32 speeds (the cells and a one-cell ring) and one of mask
+    bytes for the widest and tallest block, and a |u| a cell and
+    SHIFT_TILE_WARPS warp sums (float32) a tile of its most tiles, by step
+    parity."""
+    rects = shift_rects(ny, nx, blocks)
+    ty, tx = SHIFT_TILE
+    w = max(x1 - x0 for _, _, x0, x1 in rects)
+    h = max(y1 - y0 for y0, y1, _, _ in rects)
+    tiles = max(-(-(x1 - x0) // tx) for _, _, x0, x1 in rects) * \
+        max(-(-(y1 - y0) // ty) for y0, y1, _, _ in rects)
+    plane = (h + 2) * (w + 2)
+    return (2 * 9 * plane * 4
+            + 2 * tiles * (ty * tx + SHIFT_TILE_WARPS) * 4 + plane)
+
+
+def shift_residence(ny: int, nx: int, blocks: int, smem_per_block: int) -> str:
+    """Where the shift mode keeps its cells over at most ``blocks`` blocks
+    (one an SM: the card's SM count) on a card of ``smem_per_block`` opt-in
+    shared memory: "shared" where a block fits (:func:`shift_fits`), else
+    "device". Measured on an H100 (PERF.md): shared 0.64x the device
+    residence's time at 4096x64, 0.92x at 256x256, 0.66x at 512x512."""
+    return "shared" if shift_fits(ny, nx, blocks, smem_per_block) else "device"
+
+
+def shift_fits(ny: int, nx: int, blocks: int, smem_per_block: int) -> bool:
+    """Whether a block of the shift mode's shared residence over at most
+    ``blocks`` blocks fits ``smem_per_block`` bytes of opt-in shared
+    memory beside the kernel's static shared memory."""
+    need = shift_smem_bytes(ny, nx, blocks) + SHIFT_STATIC_BYTES
+    return need <= smem_per_block
 
 
 def planned_form(ny: int, nx: int, limits,

@@ -17,9 +17,13 @@ size (:func:`.plan.resident_form`):
   kernel's shared-memory tiles (``csrc/lbm_depth.cuh``), one grid barrier
   a round (:func:`device_rounds`);
 - ``"shift"``: the same form's shift mode (the JAX kernel's offset-load
-  mode, ``LBM_RESIDENT_SHIFT``, row mode only): rounds of one step on the
-  same tiles, each cell's nine speeds loaded straight from the source
-  buffer at offset rows and columns, nothing staged.
+  mode, ``LBM_RESIDENT_SHIFT``, row mode only): a step at a time over
+  blocks that each own a rectangle of whole depth tiles for the launch
+  (:func:`.plan.shift_rects`) and wait only on their neighbours' step
+  counters; the cells in shared memory where a block's fit
+  (:func:`.plan.shift_residence`), else in the two lattice buffers, each
+  cell's nine speeds loaded from the source buffer at offset rows and
+  columns.
 
 A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`, whatever the form; a CUDA tensor launches
@@ -30,8 +34,10 @@ they are given after an even ``gsteps`` and in the second after an odd
 one (the single-buffer mode copies out to whichever the contract names);
 the CPU path keeps the same contract. :func:`resident_onchip_emulated` is
 the on-chip form's strips, halo slots and sums in plain PyTorch, in both
-of its modes, :func:`resident_device_emulated` the device form's rounds
-and :func:`resident_shift_emulated` its shift mode's, for the CPU tests.
+of its modes, :func:`resident_device_emulated` the device form's rounds,
+:func:`resident_shift_emulated` its shift mode's steps and
+:func:`shift_schedule_emulated` the shift mode's blocks, rings, edge
+buffer and step counters, for the CPU tests.
 """
 
 from __future__ import annotations
@@ -126,16 +132,20 @@ class Resident(LatticeKernel):
     mode), "device" or "shift" (the device form's shift mode, row mode
     only); None takes :func:`planned_form`. ``blocks``: the block count
     (default: the on-chip form's :func:`.plan.onchip_blocks`; the device
-    form's as many as can be co-resident, at most one a tile); a
-    device-form launch of more than can be co-resident raises. On a CUDA
-    mask the launch geometry is fixed at construction and the scratch
-    (partials and tile tickets; on chip halo slots, flags and the ticket)
-    allocated once; an on-chip mode whose strips do not fit the card's
-    shared memory raises there."""
+    form's as many as can be co-resident, at most one a tile; the shift
+    mode's the blocks that own tiles over one an SM, or, in device memory,
+    over as many as can be co-resident); a device-form launch of more than
+    can be co-resident raises. ``residence`` ("shared" or "device"): the
+    shift mode's, by default :func:`.plan.shift_residence`'s (a shared
+    residence that does not fit raises). On a CUDA mask the launch
+    geometry is fixed at construction and the scratch (partials and tile
+    tickets; the shift mode's step counters and edge buffer; on chip halo
+    slots, flags and the ticket) allocated once; an on-chip mode whose
+    strips do not fit the card's shared memory raises there."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, gsteps: int,
                  axis: int = 0, form: str | None = None,
-                 blocks: int | None = None):
+                 blocks: int | None = None, residence: str | None = None):
         if gsteps < 1:
             raise ValueError(f"gsteps must be positive, got {gsteps}")
         if form is not None and form not in plan.RESIDENT_FORMS:
@@ -144,6 +154,10 @@ class Resident(LatticeKernel):
         if form == "shift" and axis:
             raise ValueError("the shift mode runs in row mode only (axis 0), "
                              "as the JAX kernel's")
+        if residence is not None and (
+                form != "shift" or residence not in plan.SHIFT_RESIDENCES):
+            raise ValueError(f"residence {residence!r}: the shift mode's "
+                             f"are {plan.SHIFT_RESIDENCES}")
         super().__init__(mask, w1, w2, omega, axis)
         self.gsteps = self.steps_per_call = int(gsteps)
         self.form = form
@@ -156,20 +170,66 @@ class Resident(LatticeKernel):
             self._init_onchip(ny, nx, blocks)
             return
         lib = self._lib
-        self._shift = int(self.form == "shift")
-        n = lib.lbm_resident_blocks(ny, nx, axis, self._shift, self._index)
+        if self.form == "shift":
+            self._init_shift(ny, nx, blocks, residence)
+            return
+        n = lib.lbm_resident_blocks(ny, nx, axis, 0, self._index)
         if n < 0:
             _build.check(lib, -n, "resident launch geometry")
         self.blocks = n if blocks is None else int(blocks)
         if self.blocks < 1:
             raise ValueError(f"{self.blocks} blocks")
-        self.rounds = ([1] * self.gsteps if self._shift
-                       else device_rounds(self.gsteps))
+        self.rounds = device_rounds(self.gsteps)
         self._partials = torch.empty(
             self.gsteps * lib.lbm_depth_num_partials(4, ny, nx),
             dtype=torch.float32, device=self.device)
         # The tile tickets of even and odd rounds, zero between launches.
         self._tickets = torch.zeros(2, dtype=torch.int32, device=self.device)
+
+    def _init_shift(self, ny: int, nx: int, blocks: int | None,
+                    residence: str | None) -> None:
+        """The shift mode's geometry: the residence by the block's bytes
+        (:func:`.plan.shift_residence` over one block an SM), unless
+        ``residence`` names one; the ownership over ``blocks`` blocks, or
+        over the SMs (shared) or the device residence's co-resident blocks,
+        of which the owning ones launch."""
+        lib = self._lib
+        sms, smem = device_limits(self.device)
+        own = sms if blocks is None else int(blocks)
+        if own < 1:
+            raise ValueError(f"{own} blocks")
+        self.residence = residence or plan.shift_residence(ny, nx, own, smem)
+        if self.residence == "shared" and not plan.shift_fits(ny, nx, own,
+                                                              smem):
+            raise ValueError(
+                f"the shift mode's shared residence needs "
+                f"{plan.shift_smem_bytes(ny, nx, own)} B of shared memory a "
+                f"block for {ny}x{nx} over {own} blocks; the card gives "
+                f"{smem}")
+        if self.residence == "device" and blocks is None:
+            own = lib.lbm_resident_blocks(ny, nx, 0, 1, self._index)
+            if own < 0:
+                _build.check(lib, -own, "shift-mode launch geometry")
+        self._owners = own
+        owning = len(plan.shift_rects(ny, nx, own))
+        if lib.lbm_shift_owners(ny, nx, own) != owning or (
+                self.residence == "shared" and
+                lib.lbm_shift_smem_bytes(ny, nx, own)
+                != plan.shift_smem_bytes(ny, nx, own)):
+            raise RuntimeError("ops/plan.py and csrc/resident.cu own the "
+                               "shift mode's tiles differently")
+        self.blocks = owning if blocks is None else int(blocks)
+        self.rounds = [1] * self.gsteps
+        dev = self.device
+        self._partials = torch.empty(
+            self.gsteps * lib.lbm_depth_num_partials(4, ny, nx),
+            dtype=torch.float32, device=dev)
+        # Step counters as int32 words the kernel reads as unsigned, zero
+        # between launches; the edge buffer by step parity (shared only).
+        self._done = torch.zeros(self.blocks, dtype=torch.int32, device=dev)
+        edges = (lib.lbm_shift_edge_floats(ny, nx, own)
+                 if self.residence == "shared" else 1)
+        self._edges = torch.empty(edges, dtype=torch.float32, device=dev)
 
     def _init_onchip(self, ny: int, nx: int, blocks: int | None) -> None:
         lib = self._lib
@@ -235,6 +295,17 @@ class Resident(LatticeKernel):
             self._launched("resident_onchip_inplace" if self.buffers == 1
                            else "resident_onchip")
             return result
+        if self.form == "shift":
+            _build.check(lib, lib.lbm_resident_shift(
+                a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+                self._partials.data_ptr(), self._done.data_ptr(),
+                self._edges.data_ptr(), out.data_ptr() + 4 * t, ny, nx,
+                self.accel, self.w1, self.w2, self.omega, self.mode, g,
+                self._scale(scale), self.blocks, self._owners,
+                int(self.residence == "shared"), self._index, self._stream(),
+            ), f"resident shift G={g} cooperative launch")
+            self._launched("resident_shift")
+            return result
         rounds = self.rounds
         _build.check(lib, lib.lbm_resident(
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
@@ -242,9 +313,9 @@ class Resident(LatticeKernel):
             out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1, self.w2,
             self.omega, self.mode, g, rounds.count(4), rounds.count(2),
             rounds.count(1), self._scale(scale), self.blocks, self.axis,
-            self._shift, self._index, self._stream(),
+            self._index, self._stream(),
         ), f"resident G={g} cooperative launch")
-        self._launched("resident_shift" if self._shift else "resident")
+        self._launched("resident")
         return result
 
 
@@ -303,6 +374,255 @@ def resident_shift_emulated(cells, obstacles, w1, w2, omega, gsteps: int):
     are the same, so the cells and tots are those of the device form's
     rounds and of the depth plan's. Returns ``(new_cells, tots)``."""
     return _rounds_emulated(cells, obstacles, w1, w2, omega, [1] * gsteps, 0)
+
+
+# The edge buffer's sides (csrc/lbm_rounds.cuh's EdgeSide) and the speeds
+# each carries: a column group's first column (what its west neighbour
+# pulls), its last column, a row group's bottom row, its top row, and the
+# forced row (the guard's reads across a side).
+EDGE_SPEEDS = {"colW": (3, 6, 7), "colE": (1, 5, 8), "rowS": (4, 7, 8),
+               "rowN": (2, 5, 6), "forced": (3, 6, 7)}
+
+
+class ShiftHazard(AssertionError):
+    """The shift schedule's emulation let a block run more than one step
+    ahead of a neighbour whose cells it pulls."""
+
+
+def _shift_segments(h: int, w: int, ncg: int, nrg: int):
+    """The ring's segments of an h x w block, as the kernel's warps fill
+    them: ``(cells, kind)`` with cells the local ``(r, c)`` of the ring and
+    kind "W", "E" (a column side), "S", "N" (a row side) or a corner "SW",
+    "SE", "NW", "NE". Where the rows wrap inside the block (``nrg`` 1) the
+    columns take the corners, else where the columns do (``ncg`` 1) the
+    rows; a corner is a segment of its own only where both are cut."""
+    cols, rows = (range(-1, h + 1) if nrg == 1 else range(h),
+                  range(-1, w + 1) if nrg > 1 and ncg == 1 else range(w))
+    segs = [([(r, -1) for r in cols], "W"), ([(r, w) for r in cols], "E"),
+            ([(-1, c) for c in rows], "S"), ([(h, c) for c in rows], "N")]
+    if nrg > 1 and ncg > 1:
+        segs += [([(-1, -1)], "SW"), ([(-1, w)], "SE"),
+                 ([(h, -1)], "NW"), ([(h, w)], "NE")]
+    return segs
+
+
+def _rim(h: int, w: int) -> torch.Tensor:
+    """The (h, w) block's rim cells: rows 0 and h-1 and columns 0 and w-1,
+    the cells that pull from the ring; the others pull nothing from it."""
+    rim = torch.zeros((h, w), dtype=torch.bool)
+    rim[0] = rim[h - 1] = True
+    rim[:, 0] = rim[:, w - 1] = True
+    return rim
+
+
+def shift_schedule_emulated(cells, obstacles, w1, w2, omega, gsteps: int,
+                            blocks: int, seed: int = 0,
+                            ring_before_wait: bool = False,
+                            check_drift: bool = True):
+    """The shift mode's schedule in plain PyTorch (row mode): each block of
+    :func:`.plan.shift_rects` over ``blocks`` blocks holds its cells in two
+    padded buffers with a one-cell ring, and steps them as the kernel's
+    shared residence does: the interior cells beside, in any order, the
+    ring's segments and then the rim cells, those on a side or on the
+    forced row publishing what a neighbour pulls into the edge buffer's
+    slot of the next step's parity, then its step counter; the next step
+    once both are done. The blocks advance in a seeded adversarial order
+    (the block furthest ahead first, every other turn a random one) that
+    only the counters constrain: a segment that another block owns is
+    filled at step k > 0 only once that block's counter reads k, from the
+    lattice at step 0.
+
+    Poisoned: at each step the buffer being written and the ring are NaN
+    until filled, and an edge entry read at step k that does not hold step
+    k (a stale parity, or one not written yet) reads NaN; so a fill of the
+    wrong speeds, too early or from the wrong slot shows in the cells.
+    ``ring_before_wait``: the mutant that fills its ring before its wait.
+    Raises :class:`ShiftHazard` if a block finishes a step more than one
+    ahead of a neighbour (``check_drift``). Returns ``(new_cells, tots)``, tots summed by
+    tile in tile order as :func:`.fused_depth.fused_depth_emulated` sums
+    them."""
+    import numpy as np
+
+    _, ny, nx = cells.shape
+    dt = cells.dtype
+    nan = float("nan")
+    d = ref_ops._np_type(dt)
+    deltas, guards = ref_ops.forcing(d(w1), d(w2), 0)
+    accel = (ny - 2) % ny
+    rects = plan.shift_rects(ny, nx, blocks)
+    ncg, nrg = plan.shift_groups(ny, nx, blocks)
+    owner = torch.empty((ny, nx), dtype=torch.long)
+    for b, (y0, y1, x0, x1) in enumerate(rects):
+        owner[y0:y1, x0:x1] = b
+    col_of = [b % ncg for b in range(len(rects))]
+    row_of = [b // ncg for b in range(len(rects))]
+    # The edge buffer by slot: values and the step each entry holds.
+    sizes = {"colW": (ncg, ny), "colE": (ncg, ny), "rowS": (nrg, nx),
+             "rowN": (nrg, nx), "forced": (1, nx)}
+    edges = [{k: (torch.full((g, 3, n), nan, dtype=dt),
+                  torch.full((g, n), -1, dtype=torch.long))
+              for k, (g, n) in sizes.items()} for _ in range(2)]
+
+    def edge_read(slot, side, group, at, step):
+        vals, tags = edges[slot][side]
+        if int(tags[group, at]) != step:
+            return torch.full((3,), nan, dtype=dt)
+        return vals[group, :, at]
+
+    blk = []
+    for y0, y1, x0, x1 in rects:
+        h, w = y1 - y0, x1 - x0
+        rows = torch.arange(y0 - 1, y1 + 1) % ny
+        cols = torch.arange(x0 - 1, x1 + 1) % nx
+        cur = torch.full((9, h + 2, w + 2), nan, dtype=dt)
+        cur[:, 1:-1, 1:-1] = cells[:, y0:y1, x0:x1]
+        blk.append({"rect": (y0, y1, x0, x1), "h": h, "w": w,
+                    "rows": rows, "cols": cols, "cur": cur,
+                    "mask": obstacles[rows][:, cols],
+                    "forced": (rows == accel)[:, None].expand(h + 2, w + 2),
+                    "rim": _rim(h, w),
+                    "segs": _shift_segments(h, w, ncg, nrg),
+                    "nbrs": {int(owner[int(rows[r]), int(cols[c])])
+                             for r in (0, h // 2 + 1, h + 1)
+                             for c in (0, w // 2 + 1, w + 1)}})
+    done = [0] * len(rects)
+    umag = [torch.zeros((ny, nx), dtype=dt) for _ in range(gsteps)]
+
+    def lanes(b, k):
+        # A block's step k: the interior ("I") beside the rim group's ring
+        # segments ("F", each) and rim ("R"), in any order between them.
+        return [[("I", k)],
+                [("F", k, s) for s in range(len(blk[b]["segs"]))]
+                + [("R", k)]]
+
+    def seg_owner(b, s):
+        o = blk[b]
+        cells_ = o["segs"][s][0]
+        r, c = cells_[len(cells_) // 2]
+        return int(owner[int(o["rows"][r + 1]), int(o["cols"][c + 1])])
+
+    def ready(b, ph):
+        if ph[0] != "F" or ph[1] == 0 or ring_before_wait:
+            return True
+        n = seg_owner(b, ph[2])
+        return n == b or done[n] >= ph[1]
+
+    def run(b, ph):
+        o = blk[b]
+        h, w, k = o["h"], o["w"], ph[1]
+        y0, _, x0, _ = o["rect"]
+        if ph[0] == "I":
+            inner, um, _, _ = fused_depth._stage(
+                o["cur"], o["mask"], o["forced"], deltas, guards, omega)
+            keep = ~o["rim"]
+            o["nxt"][:, 1:-1, 1:-1][:, keep] = inner[:, keep]
+            umag[k][y0:y0 + h, x0:x0 + w][keep] = um[keep]
+        elif ph[0] == "F":
+            cells_, kind = o["segs"][ph[2]]
+            n = seg_owner(b, ph[2])
+            col = kind in ("W", "E") or (len(kind) == 2 and ncg > 1)
+            side = (("colE" if kind.endswith("W") else "colW") if col else
+                    ("rowN" if kind.startswith("S") else "rowS"))
+            for r, c in cells_:
+                gy, gx = int(o["rows"][r + 1]), int(o["cols"][c + 1])
+                to = o["cur"][:, r + 1, c + 1]
+                if n == b:
+                    to[:] = o["cur"][:, gy - y0 + 1, gx - x0 + 1]
+                elif k == 0:
+                    to[:] = cells[:, gy, gx]
+                else:
+                    slot, at = k % 2, gy if col else gx
+                    group = col_of[n] if col else row_of[n]
+                    to[list(EDGE_SPEEDS[side])] = edge_read(slot, side, group,
+                                                            at, k)
+                    if gy == accel and side != "colW":
+                        to[list(EDGE_SPEEDS["forced"])] = edge_read(
+                            slot, "forced", 0, gx, k)
+        else:
+            inner, um, _, _ = fused_depth._stage(
+                o["cur"], o["mask"], o["forced"], deltas, guards, omega)
+            rim = o["rim"]
+            o["nxt"][:, 1:-1, 1:-1][:, rim] = inner[:, rim]
+            umag[k][y0:y0 + h, x0:x0 + w][rim] = um[rim]
+            if k + 1 < gsteps:
+                slot = (k + 1) % 2
+
+                def put(side, group, at, vals):
+                    edges[slot][side][0][group, :, at] = vals[
+                        list(EDGE_SPEEDS[side])]
+                    edges[slot][side][1][group, at] = k + 1
+
+                for r, c in rim.nonzero().tolist():
+                    gy, gx = y0 + r, x0 + c
+                    vals = inner[:, r, c]
+                    if ncg > 1 and c == 0:
+                        put("colW", col_of[b], gy, vals)
+                    if ncg > 1 and c == w - 1:
+                        put("colE", col_of[b], gy, vals)
+                    if nrg > 1 and r == 0:
+                        put("rowS", row_of[b], gx, vals)
+                    if nrg > 1 and r == h - 1:
+                        put("rowN", row_of[b], gx, vals)
+                    if gy == accel:
+                        put("forced", 0, gx, vals)
+            done[b] = k + 1
+            for n in o["nbrs"] - {b}:
+                if check_drift and done[b] - done[n] > 1:
+                    raise ShiftHazard(f"block {b} finished step {k} while "
+                                      f"its neighbour {n} has {done[n]}")
+
+    def start(b, k):
+        # Poison the buffer step k writes and the ring it reads.
+        o = blk[b]
+        o["nxt"] = torch.full_like(o["cur"], nan)
+        ring = torch.ones(o["cur"].shape[1:], dtype=torch.bool)
+        ring[1:-1, 1:-1] = False
+        o["cur"][:, ring] = nan
+        o["step"], o["lanes"] = k, lanes(b, k)
+
+    rng = np.random.default_rng(seed)
+    for b in range(len(rects)):
+        start(b, 0)
+    live = set(range(len(rects)))
+    turn = 0
+    while live:
+        cands = [(b, i) for b in sorted(live)
+                 for i, lane in enumerate(blk[b]["lanes"])
+                 if lane and ready(b, lane[0])]
+        if not cands:
+            raise ShiftHazard("no block can move: the counters deadlock")
+        if turn % 2 == 0:
+            b, i = max(cands, key=lambda bi: (
+                blk[bi[0]]["step"], len(blk[bi[0]]["lanes"][bi[1]][0]),
+                blk[bi[0]]["lanes"][bi[1]][0][-1]))
+        else:
+            b, i = cands[int(rng.integers(len(cands)))]
+        turn += 1
+        run(b, blk[b]["lanes"][i].pop(0))
+        o = blk[b]
+        if not any(o["lanes"]):
+            # Both lanes done: the step's buffer becomes the next's source.
+            o["cur"], o["nxt"] = o["nxt"], None
+            if o["step"] + 1 < gsteps:
+                start(b, o["step"] + 1)
+            else:
+                live.discard(b)
+    new = torch.empty_like(cells)
+    for o in blk:
+        y0, y1, x0, x1 = o["rect"]
+        new[:, y0:y1, x0:x1] = o["cur"][:, 1:-1, 1:-1]
+    ty, tx = plan.SHIFT_TILE
+    tots = torch.zeros(gsteps, dtype=dt)
+    for k in range(gsteps):
+        for by in range(-(-ny // ty)):
+            for bx in range(-(-nx // tx)):
+                hy, wx = min(ty, ny - by * ty), min(tx, nx - bx * tx)
+                u = torch.zeros((ty, tx), dtype=dt)
+                sl = (slice(by * ty, by * ty + hy), slice(bx * tx, bx * tx + wx))
+                u[:hy, :wx] = torch.where(obstacles[sl], torch.zeros((), dtype=dt),
+                                          umag[k][sl])
+                tots[k] += u.sum()
+    return new, tots
 
 
 def strips(ny: int, blocks: int) -> list[tuple[int, int]]:

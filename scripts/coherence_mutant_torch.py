@@ -2,12 +2,13 @@
 """Hold the card test of coherent lattice loads to a mutant that it must
 catch: ``tests/test_torch_cuda.py::
 test_cross_block_kernels_load_the_lattice_coherently`` on this checkout
-(it must pass) and on a copy whose device form's shift mode loads the six
-neighbour speeds of its quad through the non-coherent read-only path
-(``__ldg``; ``lbm_tpu_torch/csrc/lbm_rounds.cuh``'s ``shift_block``), where
-it must fail. Across the grid barrier between two steps those values are
-what other blocks wrote, and a read-only cache line may hold the step
-before's; the 200-round bit tests of the card suite do not see it.
+(it must pass) and on a copy, where it must fail, whose device form's
+shift mode loads the six neighbour speeds of its quad through the
+non-coherent read-only path (``__ldg``; ``lbm_tpu_torch/csrc/
+lbm_rounds.cuh``'s ``shift_quad``, the shift mode's device residence).
+Behind the step counters those values are what other blocks wrote, and a
+read-only cache line may hold the step before's; the 200-round bit tests
+of the card suite do not see it.
 
 The copy (the package, the card tests, ``scripts/`` and the pinned
 artifacts) goes to ``build/coherence_mutant/`` (a directory ``.gitignore``

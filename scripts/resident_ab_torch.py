@@ -12,8 +12,9 @@ sleep) at
 - 1024x1024 (the scene's mask), physical, the form pinned to device;
 - 16384x1024 and 131072x128, transposed (column mode);
 - 512x512, physical, the form pinned (the lattice in L2);
-- 4096x64 as ``--kernel auto`` plans it (a narrow channel in row mode):
-  the script asserts that the plan is the device-memory form, in its
+- 4096x64 and 8192x32 as ``--kernel auto`` plans them (narrow channels
+  in row mode):
+  the script asserts that each plan is the device-memory form, in its
   shift mode where the checkout has one (``resident G=100 device-memory
   shift``);
 - 1024x400 transposed (a tall box, column mode), the form pinned: auto
@@ -22,7 +23,9 @@ sleep) at
   physical), the form pinned.
 
 In row mode the device form's shift mode (``LBM_RESIDENT_SHIFT``) is timed
-beside them where the checkout has it. At each shape one call of each
+beside them where the checkout has it, and, where the checkout's shift mode
+has two residences, also in the one its rule does not pick, where that
+one's block fits. At each shape one call of each
 configuration is also held against the plain version
 (``ops.reference.multi_step``): the cells' max abs error, and whether the
 form's (and the shift mode's) per-step tots are the bits of 25 D = 4
@@ -36,7 +39,7 @@ of from this checkout; the timing helpers come from this checkout's
 ``chip_smoke.py``.
 
 Usage: python scripts/resident_ab_torch.py [--repo DIR] [--shapes A,B]
-       [-o artifact.json]
+       [-o artifact.json [--append LABEL]]
        (A CUDA device is required.)
 """
 
@@ -56,7 +59,7 @@ G, D = 100, 4
 # mode, the form pinned) or "auto" (the layout and form the planner takes).
 SHAPES = {"1024x1024": "device", "16384x1024": "transposed",
           "131072x128": "transposed", "512x512": "device",
-          "4096x64": "auto", "1024x400": "transposed"}
+          "4096x64": "auto", "8192x32": "auto", "1024x400": "transposed"}
 
 
 def load_smoke():
@@ -107,8 +110,12 @@ def check_shape(torch, p, cells, mask, axis, impls):
     for t in range(0, G, D):
         c, spare = dep.run(c, spare, dtots, t)
     out = {"depth_max_abs_err": float((c - want).abs().max())}
-    for label in ("device", "shift"):
-        res = impls.get(f"{label} G=100")
+    for label, key in (("device", "device G=100"), ("shift", "shift G=100"),
+                       ("shift_device_residence",
+                        "shift G=100 device residence"),
+                       ("shift_shared_residence",
+                        "shift G=100 shared residence")):
+        res = impls.get(key)
         if res is None:
             continue
         bufs = [cells.clone(), torch.empty_like(cells)]
@@ -133,6 +140,16 @@ def time_shapes(torch, cs, shapes) -> dict:
                      f"depth D={D}": fused_depth.FusedDepth(*w, D, axis)}
             if not axis and "shift" in plan.RESIDENT_FORMS:
                 impls["shift G=100"] = resident.Resident(*w, G, form="shift")
+                # The other residence where the checkout has two and the
+                # other's block fits.
+                mine = getattr(impls["shift G=100"], "residence", None)
+                other = {"shared": "device", "device": "shared"}.get(mine)
+                sms, smem = resident.device_limits("cuda")
+                if other == "device" or (other == "shared" and plan.shift_fits(
+                        *mask.shape, sms, smem)):
+                    impls[f"shift G=100 {other} residence"] = \
+                        resident.Resident(*w, G, form="shift",
+                                          residence=other)
         res = check_shape(torch, p, cells, mask, axis, impls)
         cs.check(all(v == 0.0 for k, v in res.items()
                      if k.endswith("max_abs_err")),
@@ -164,6 +181,9 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", help="comma-separated grids (default: the "
                     "six shapes and the crossover grids)")
     ap.add_argument("-o", "--output")
+    ap.add_argument("--append", metavar="LABEL",
+                    help="add this run, labelled, to the runs the output "
+                    "file holds (parent, change, change, parent in turns)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.repo).resolve()))
     import torch
@@ -190,8 +210,14 @@ def main(argv=None) -> int:
     text = json.dumps(result)
     print(text, flush=True)
     if args.output:
-        Path(args.output).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.output).write_text(text + "\n")
+        out = Path(args.output)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        if args.append:
+            runs = (json.loads(out.read_text())["runs"] if out.exists()
+                    else [])
+            text = json.dumps({"runs": runs + [{"label": args.append,
+                                                **result}]})
+        out.write_text(text + "\n")
     return 0
 
 

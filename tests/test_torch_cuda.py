@@ -917,22 +917,35 @@ def test_device_form_tots_are_the_depth_plans_bits(cuda, g, depth, axis,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("grid,blocks,form", [
-    (256, None, "device"), (256, 7, "device"), (1024, None, "device"),
-    (256, None, "shift"), (256, 7, "shift"), (1024, None, "shift")],
+@pytest.mark.parametrize("grid,blocks,form,residence", [
+    ((256, 256), None, "device", None), ((256, 256), 7, "device", None),
+    ((1024, 1024), None, "device", None), ((256, 256), None, "shift", None),
+    ((256, 256), 7, "shift", None), ((1024, 1024), None, "shift", None),
+    ((4096, 64), None, "shift", None), ((8192, 32), None, "shift", None),
+    ((4096, 64), 7, "shift", None), ((4096, 64), None, "shift", "device"),
+    ((8192, 32), None, "shift", "device"), ((256, 256), None, "shift",
+                                            "device")],
     ids=["256x256", "256x256-7-blocks", "1024x1024", "256x256-shift",
-         "256x256-7-blocks-shift", "1024x1024-shift"])
-def test_device_form_200_rounds_keep_every_bit(cuda, grid, blocks, form):
-    """200 rounds of 4 steps (the shift mode: 800 rounds of one step) in
-    one launch on a perturbed state, every round reading what other blocks
-    wrote in the round before: the plain version's cells bit for bit (a
-    stale or non-coherent load of a neighbour's rows would show), tots
-    within the bound; with 7 blocks each takes many tiles a round."""
-    p, cells, mask = _case(grid, grid, True, seed=3, perturbed=True)
+         "256x256-7-blocks-shift", "1024x1024-shift", "4096x64-shift",
+         "8192x32-shift", "4096x64-7-blocks-shift",
+         "4096x64-shift-device-residence", "8192x32-shift-device-residence",
+         "256x256-shift-device-residence"])
+def test_device_form_200_rounds_keep_every_bit(cuda, grid, blocks, form,
+                                               residence):
+    """200 rounds of 4 steps (the shift mode: 800 steps, each block waiting
+    only on its neighbours' step counters) in one launch on a perturbed
+    state, every round reading what other blocks wrote in the round before:
+    the plain version's cells bit for bit (a stale or non-coherent load of
+    a neighbour's rows would show), tots within the bound; with 7 blocks
+    each takes many tiles; the shift mode at the narrow channels' slabs in
+    both residences."""
+    nx, ny = grid
+    p, cells, mask = _case(nx, ny, True, seed=3, perturbed=True)
     c = torch.from_numpy(cells).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     args = (m, p.accel_w1, p.accel_w2, p.omega, 800)
-    kernel = resident.Resident(*args, form=form, blocks=blocks)
+    kernel = resident.Resident(*args, form=form, blocks=blocks,
+                               residence=residence)
     assert kernel.rounds == ([4] * 200 if form == "device" else [1] * 800)
     key = "resident" if form == "device" else "resident_shift"
     bufs, out = [c.clone(), torch.empty_like(c)], torch.zeros(800, device=cuda)
@@ -980,22 +993,26 @@ def test_device_form_blocks_that_cannot_be_co_resident_raise(cuda, axis,
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", list(MODES))
 @pytest.mark.parametrize("g", [2, 16, 100], ids=["G2", "G16", "G100"])
+@pytest.mark.parametrize("blocks", [None, 7], ids=["planned", "7-blocks"])
 @pytest.mark.parametrize("nx,ny,walls", [
-    (100, 36, True), (99, 37, False), (256, 256, True), (4096, 64, True),
-    (8192, 32, True)],
-    ids=["100x36", "99x37-wall-less", "256x256", "4096x64", "8192x32"])
-def test_shift_mode_matches_plain(cuda, nx, ny, walls, g, mode, monkeypatch):
-    """One launch of G steps from a perturbed state: the plain version's
-    cells bit for bit (99x37: no vector loads, columns wrap mid-quad), its
-    tots within the bound, and each step's tot the bits of the device
-    form's."""
+    (100, 36, True), (99, 37, False), (30, 100, False), (256, 256, True),
+    (4096, 64, True), (8192, 32, True), (1024, 1024, True)],
+    ids=["100x36", "99x37-wall-less", "30x100-wall-less", "256x256",
+         "4096x64", "8192x32", "1024x1024"])
+def test_shift_mode_matches_plain(cuda, nx, ny, walls, blocks, g, mode,
+                                  monkeypatch):
+    """One launch of G steps from a perturbed state, over the planned
+    blocks (the narrow channels' slabs) and over 7: the plain version's
+    cells bit for bit (99x37: columns wrap mid-quad, a block of 3 lanes;
+    30x100: one tile column cut into row groups), its tots within the
+    bound, and each step's tot the bits of the device form's."""
     _set_mode(monkeypatch, mode)
     p, cells, mask = _case(nx, ny, walls, seed=nx + g, perturbed=True)
     c = torch.from_numpy(cells).to(cuda)
     m = torch.from_numpy(mask).to(cuda)
     w = (m, p.accel_w1, p.accel_w2, p.omega, g)
     before = fused.LAUNCHES["resident_shift"]
-    got, tots = resident.resident(c, *w, form="shift")
+    got, tots = resident.resident(c, *w, form="shift", blocks=blocks)
     want, want_tots = resident.resident_plain(c, *w)
     _, dev_tots = resident.resident(c, *w, form="device")
     torch.cuda.synchronize()
@@ -1004,6 +1021,62 @@ def test_shift_mode_matches_plain(cuda, nx, ny, walls, g, mode, monkeypatch):
     np.testing.assert_allclose(tots.cpu().numpy(), want_tots.cpu().numpy(),
                                rtol=TOT_RTOL)
     assert torch.equal(tots, dev_tots)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("g", [2, 17], ids=["G2", "G17"])
+@pytest.mark.parametrize("nx,ny,walls,blocks", [
+    (100, 36, True, None), (99, 37, False, 7), (30, 100, False, None),
+    (256, 256, True, None), (70, 100, True, 7)],
+    ids=["100x36", "99x37-7-blocks", "30x100", "256x256",
+         "70x100-7-blocks"])
+def test_shift_shared_residence_off_the_slabs_matches_plain(
+        cuda, nx, ny, walls, blocks, g, mode, monkeypatch):
+    """The shared residence off the narrow channels' slabs (blocks with
+    row groups: rows, columns and corners from up to eight neighbours; one
+    tile column cut into row groups; 3 x 2 blocks over 7): the plain
+    version's cells bit for bit and each step's tot the bits of the device
+    form's."""
+    _set_mode(monkeypatch, mode)
+    p, cells, mask = _case(nx, ny, walls, seed=ny + g, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    w = (m, p.accel_w1, p.accel_w2, p.omega, g)
+    kernel = resident.Resident(*w, form="shift", blocks=blocks,
+                               residence="shared")
+    assert kernel.residence == "shared"
+    bufs, tots = [c.clone(), torch.empty_like(c)], torch.zeros(g, device=cuda)
+    got, _ = kernel.run(bufs[0], bufs[1], tots)
+    want, _ = resident.resident_plain(c, *w)
+    _, dev_tots = resident.resident(c, *w, form="device")
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) == 0.0
+    assert torch.equal(tots, dev_tots)
+
+
+@pytest.mark.cuda
+def test_shift_mode_picks_its_residence_by_the_blocks_bytes(cuda):
+    """The narrow channels (one block an SM, slabs of whole tile columns)
+    and 256x256 (one-tile blocks) keep their cells in shared memory,
+    1024x1024 (too large) in device memory; the planner's rule and the
+    card agree."""
+    from lbm_tpu_torch.ops import plan
+
+    sms, smem = resident.device_limits(cuda)
+    for (nx, ny), want in [((4096, 64), "shared"), ((8192, 32), "shared"),
+                           ((256, 256), "shared"), ((1024, 1024), "device")]:
+        m = torch.zeros((ny, nx), dtype=torch.bool, device=cuda)
+        k = resident.Resident(m, 1e-4, 1e-5, 1.85, 4, form="shift")
+        assert k.residence == want == plan.shift_residence(ny, nx, sms, smem)
+        if want == "shared":
+            assert k.blocks == len(plan.shift_rects(ny, nx, sms))
+    assert resident.Resident(m, 1e-4, 1e-5, 1.85, 4, form="shift",
+                             residence="device").residence == "device"
+    big = torch.zeros((1024, 1024), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="shared residence"):
+        resident.Resident(big, 1e-4, 1e-5, 1.85, 4, form="shift",
+                          residence="shared")
 
 
 @pytest.mark.cuda
@@ -1571,12 +1644,13 @@ def _sass_opcodes():
 
 # The kernels that read, within one launch, what other blocks of it wrote
 # in an earlier round or step (the device-memory form and its shift mode,
-# the ring, the probe's rounds, the on-chip kernels' halo slots), and the
-# loads of each that may take the non-coherent read-only path
-# (LDG...CONSTANT, what __ldg or a const __restrict__ pointer compiles to):
+# whose two residences read the neighbours' cells, edge buffer and step
+# counters, the ring, the probe's rounds, the on-chip kernels' halo
+# slots), and the loads of each that may take the non-coherent read-only
+# path (LDG...CONSTANT, what __ldg or a const __restrict__ pointer compiles to):
 # the on-chip kernels' mask bytes, loaded once into shared memory, and no
 # other. A lattice value loaded that way may come from a stale cache line.
-COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 3,
+COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 6,
                     "ring_kernel<": 4, "probe_kernel<": 7,
                     "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 12}
 NONCOHERENT_LOADS = {"resident_onchip_kernel<": {"LDG.E.U8.CONSTANT": 29}}

@@ -256,6 +256,27 @@ def test_onchip_clocks_patches_hold_on_the_strip_step():
     assert len(clocks.SCHEDULES[name]["categories"]) == 11
 
 
+def test_shift_clocks_patches_hold_on_the_shift_step():
+    """scripts/shift_clocks_torch.py instruments the shift mode's step that
+    lbm_rounds.cuh holds: it names one schedule, every patch of it occurs
+    there exactly once, and its marks cover every category of the clocked
+    thread's step."""
+    import shift_clocks_torch as clocks
+
+    text = (REPO / "lbm_tpu_torch" / "csrc" / "lbm_rounds.cuh").read_text()
+    name = clocks.schedule_of(text)
+    assert name == ("owned tiles, neighbour counters, a rim group (shared "
+                    "residence)")
+    for old, _ in clocks._HEAD + clocks.SCHEDULES[name]["patches"]:
+        assert text.count(old) == 1, old
+    _, patched = clocks.instrument(text)
+    marks = {int(q) for q in re.findall(r"CK\((\d+)\)", patched)}
+    categories = clocks.SCHEDULES[name]["categories"]
+    assert marks == {i for i, c in enumerate(categories)
+                     if c != "step" and not c.startswith("thread 0")
+                     and not c.endswith("(ns)")}
+
+
 def test_coherence_mutant_applies_to_the_shift_mode():
     """scripts/coherence_mutant_torch.py's mutations each occur exactly
     once in lbm_rounds.cuh (the shift mode's neighbour loads)."""
