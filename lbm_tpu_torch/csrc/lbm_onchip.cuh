@@ -2,17 +2,16 @@
 // single-device kernel and the on-chip ring (ring_onchip.cu): one block of
 // kThreads threads holds a strip of whole rows in dynamic shared memory
 // for all G steps and trades its edge rows with the strips above and below
-// through two halo slots and a flag per (direction, slot), in either of
-// the two modes (two buffers, or one buffer updated in place in waves with
-// a carry). resident_onchip.cu's header comment describes the design;
-// what differs between the two kernels is where a strip's neighbours are:
-// the Strip a kernel hands to strip_steps names the slots and flags it
-// sends into and reads from, the global row of its row 0 (forcing) and
-// the memory scope of its flags (Scope).
+// through two halo slots per direction, each halo value a 64-bit word that
+// carries its step's tag, in either of the two modes (two buffers, or one
+// buffer updated in place in waves with a carry). resident_onchip.cu's
+// header comment describes the design; what differs between the two
+// kernels is where a strip's neighbours are: the Strip a kernel hands to
+// strip_steps names the slots it sends into and reads from and the global
+// row of its row 0 (forcing), and Scope the memory scope of its words.
 
 #pragma once
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -108,27 +107,132 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
     } while (!done);
 }
 
-// Slot of speed k in a halo row: north-going rows carry 2, 5, 6 and
-// south-going rows 4, 7, 8, in that order. Other speeds are never read
-// from a halo (its sites are solid to the guard); they map to 0 so that
-// any address the compiler forms stays in the row.
-__device__ __forceinline__ int halo_q(int k) {
-    return (k == 5 || k == 7) ? 1 : ((k == 6 || k == 8) ? 2 : 0);
+// A halo value as one 64-bit word: the float's bits in the low half, the
+// tag of the step it is for (step + 1) in the high half. A word is stored
+// and loaded with one 64-bit access, which the PTX memory model makes
+// single-copy atomic, so a reader that sees its step's tag sees that
+// step's value: the word is its own flag.
+using Word = unsigned long long;
+
+__device__ __forceinline__ Word halo_word(float v, unsigned tag) {
+    Word w;
+    asm("mov.b64 %0, {%1, %2};" : "=l"(w) : "r"(__float_as_uint(v)), "r"(tag));
+    return w;
 }
 
-// The guard of a forced site (lbm_cell.cuh): fluid, and its guarded
-// speeds each strictly above their weight after the subtraction.
-template <bool kCols>
-__device__ __forceinline__ bool guard(const float* src, int plane, int o,
-                                      bool solid, float w1, float w2) {
-    if constexpr (kCols) {
-        return !solid && (src[4 * plane + o] - w1 > 0.0f) &&
-               (src[8 * plane + o] - w2 > 0.0f) &&
-               (src[7 * plane + o] - w2 > 0.0f);
+// Relaxed strong accesses at device scope, or at system scope (sys) where
+// a neighbour may be on another card. Strong: a load is never served from
+// a stale L1 line, so a poll sees the store once it lands in L2. Volatile:
+// each poll is issued as often as the loop asks. No memory clobber: what a
+// reader needs is in the word itself, so nothing else is ordered by them
+// (a send's order after its thread's reads is a data dependency, and the
+// block barrier orders one buffer's sends and the first step's).
+__device__ __forceinline__ void put_word(Word* p, Word w, bool sys) {
+    if (sys) {
+        asm volatile("st.relaxed.sys.global.b64 [%0], %1;" ::"l"(p), "l"(w));
     } else {
-        return !solid && (src[3 * plane + o] - w1 > 0.0f) &&
-               (src[6 * plane + o] - w2 > 0.0f) &&
-               (src[7 * plane + o] - w2 > 0.0f);
+        asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(w));
+    }
+}
+
+__device__ __forceinline__ Word get_word(const Word* p, bool sys) {
+    Word w;
+    if (sys) {
+        asm volatile("ld.relaxed.sys.global.b64 %0, [%1];" : "=l"(w) : "l"(p));
+    } else {
+        asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(w) : "l"(p));
+    }
+    return w;
+}
+
+// The halo values an edge cell at column i pulls, each once its word holds
+// tag: south (row 0) speeds 2, 5, 6 from the south slot hs at i, iw, ie
+// into v[0..2]; north (row h-1) speeds 4, 7, 8 from the north slot hn at
+// i, ie, iw into v[3..5]; the other entries of v are left alone. Every
+// load issues before the first test, and one loop reloads every word whose
+// tag is not there yet at once: a loop a word would split a warp's lanes
+// over up to six spin loops, which the warp runs one after another.
+__device__ __forceinline__ void pull_halo(const Word* hs, const Word* hn,
+                                          bool south, bool north, int nx,
+                                          int i, int iw, int ie,
+                                          unsigned tag, bool sys,
+                                          float v[6]) {
+    const Word* p[6] = {hs + i,  hs + nx + iw, hs + 2 * nx + ie,
+                        hn + i,  hn + nx + ie, hn + 2 * nx + iw};
+    Word w[6];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        if (q < 3 ? south : north) w[q] = get_word(p[q], sys);
+    }
+    for (;;) {
+        bool late = false;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+            late |= (q < 3 ? south : north) && (unsigned)(w[q] >> 32) != tag;
+        }
+        if (!late) break;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+            if ((q < 3 ? south : north) && (unsigned)(w[q] >> 32) != tag) {
+                w[q] = get_word(p[q], sys);
+            }
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < 6; ++q) {
+        v[q] = (q < 3 ? south : north) ? __uint_as_float((unsigned)w[q])
+                                       : v[q];
+    }
+}
+
+// The three halo words an edge cell pulls from one slot (row, kHalo rows
+// of nx words): speed slot q's word at column c[q] (row 0 pulls speeds 2,
+// 5, 6 from the south slot at i, iw, ie; row h-1 speeds 4, 7, 8 from the
+// north slot at i, ie, iw). fetch issues their loads; settle reloads, in
+// one loop, every word whose tag is not there yet, until all hold it. The
+// single-buffer gathers read shared memory between the two, while the
+// words travel.
+struct HaloWords {
+    const Word* row;
+    int nx, c0, c1, c2;
+    Word w[3];
+
+    __device__ __forceinline__ const Word* at(int q) const {
+        return row + q * nx + (q == 0 ? c0 : (q == 1 ? c1 : c2));
+    }
+    __device__ __forceinline__ void fetch(bool sys) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) w[q] = get_word(at(q), sys);
+    }
+    __device__ __forceinline__ void settle(unsigned tag, bool sys) {
+        for (;;) {
+            bool late = false;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) late |= (unsigned)(w[q] >> 32) != tag;
+            if (!late) break;
+#pragma unroll
+            for (int q = 0; q < 3; ++q) {
+                if ((unsigned)(w[q] >> 32) != tag) w[q] = get_word(at(q), sys);
+            }
+        }
+    }
+    __device__ __forceinline__ float value(int q) const {
+        return __uint_as_float((unsigned)w[q]);
+    }
+};
+
+// The guard of a forced site (lbm_cell.cuh) whose speed k is at(k):
+// fluid, and its guarded speeds each strictly above their weight after
+// the subtraction.
+template <bool kCols, class At>
+__device__ __forceinline__ bool guard(const At& at, bool solid, float w1,
+                                      float w2) {
+    if constexpr (kCols) {
+        return !solid && (at(4) - w1 > 0.0f) && (at(8) - w2 > 0.0f) &&
+               (at(7) - w2 > 0.0f);
+    } else {
+        return !solid && (at(3) - w1 > 0.0f) && (at(6) - w2 > 0.0f) &&
+               (at(7) - w2 > 0.0f);
     }
 }
 
@@ -140,8 +244,9 @@ template <bool kCols>
 __device__ __forceinline__ void force_in_place(float* buf, int plane, int o,
                                                bool solid, float w1,
                                                float w2) {
-    if (!guard<kCols>(buf, plane, o, solid, w1, w2)) return;
     float* f = buf + o;
+    auto at = [&](int k) { return f[k * plane]; };
+    if (!guard<kCols>(at, solid, w1, w2)) return;
     if constexpr (kCols) {
         f[2 * plane] = f[2 * plane] + w1;
         f[4 * plane] = f[4 * plane] - w1;
@@ -174,24 +279,22 @@ __device__ __forceinline__ float update_pulled(const float s[9], bool solid,
                                        out);
 }
 
-// The three copies that row j's column c sends, forced where the site is
-// on the forced line and passes the guard (the deltas of
+// The three copies a cell at column c sends, its speed k at(k), as words
+// of tag into the slot to (kHalo rows of nx words), forced where the cell
+// is on the forced line (on) and passes the guard (the deltas of
 // ops/reference.forcing; a zero delta is not added). kNorth: speeds 2, 5,
 // 6 to the strip above; else 4, 7, 8 to the strip below.
-template <bool kCols, bool kNorth>
-__device__ __forceinline__ void send_cell(const float* src,
-                                          const uint8_t* m, int plane,
-                                          int j, int c, int nx, bool row_on,
-                                          int accel, float w1, float w2,
-                                          float* to) {
-    const int o = j * nx + c;
-    const bool on = kCols ? c == accel : row_on;
-    const bool g = on && guard<kCols>(src, plane, o, m[o] != 0, w1, w2);
+template <bool kCols, bool kNorth, class At>
+__device__ __forceinline__ void send_cell(const At& at, bool solid, bool on,
+                                          float w1, float w2, Word* to,
+                                          int c, int nx, unsigned tag,
+                                          bool sys) {
+    const bool g = on && guard<kCols>(at, solid, w1, w2);
     float q0, q1, q2;
     if constexpr (kNorth) {
-        q0 = src[2 * plane + o];
-        q1 = src[5 * plane + o];
-        q2 = src[6 * plane + o];
+        q0 = at(2);
+        q1 = at(5);
+        q2 = at(6);
         if (g) {
             if constexpr (kCols) {
                 q0 = q0 + w1;
@@ -203,9 +306,9 @@ __device__ __forceinline__ void send_cell(const float* src,
             }
         }
     } else {
-        q0 = src[4 * plane + o];
-        q1 = src[7 * plane + o];
-        q2 = src[8 * plane + o];
+        q0 = at(4);
+        q1 = at(7);
+        q2 = at(8);
         if (g) {
             if constexpr (kCols) {
                 q0 = q0 - w1;
@@ -217,9 +320,9 @@ __device__ __forceinline__ void send_cell(const float* src,
             }
         }
     }
-    __stcg(to + c, q0);
-    __stcg(to + nx + c, q1);
-    __stcg(to + 2 * nx + c, q2);
+    put_word(to + c, halo_word(q0, tag), sys);
+    put_word(to + nx + c, halo_word(q1, tag), sys);
+    put_word(to + 2 * nx + c, halo_word(q2, tag), sys);
 }
 
 // What a deferred store of the single-buffer mode writes: a cell's nine
@@ -314,44 +417,26 @@ __device__ __forceinline__ void inplace_waves(int n, uint64_t* bar,
     }
 }
 
-// One strip and its links. Each slot pointer is a direction's slot 0, its
-// slot 1 kHalo * nx floats on; each flag pointer a direction's flag of
-// slot 0, slot 1's the next word.
+// One strip and its links. Each slot pointer is a direction's slot 0,
+// its slot 1 kHalo * nx words on.
 struct Strip {
     int h;                // rows
     int row0;             // global row of row 0 (row-mode forcing)
     int ny;               // global rows (the wrap of the forcing flags)
-    float* to_n;          // the north neighbour's south slots
-    float* to_s;          // the south neighbour's north slots
-    unsigned* flag_n;     // the north neighbour's south flags
-    unsigned* flag_s;     // the south neighbour's north flags
-    const float* from_s;  // this strip's south slots (row -1)
-    const float* from_n;  // this strip's north slots (row h)
-    unsigned* own;        // this strip's flags, south then north
+    Word* to_n;           // the north neighbour's south slots
+    Word* to_s;           // the south neighbour's north slots
+    const Word* from_s;   // this strip's south slots (row -1)
+    const Word* from_n;   // this strip's north slots (row h)
 };
 
-// The flags' scope and the release before a publish: one card.
+// The scope of the halo words: one card, or (SystemScope, a launch where
+// some neighbour is on another card: peer pointers) the system.
 struct DeviceScope {
-    using Flag = cuda::atomic_ref<unsigned, cuda::thread_scope_device>;
-    __device__ static void release(bool) {
-        cuda::atomic_thread_fence(cuda::memory_order_release,
-                                  cuda::thread_scope_device);
-    }
+    static constexpr bool kSystem = false;
 };
 
-// Neighbours that may be on another card (peer pointers): system-scope
-// flags, and a system-scope release where some neighbour is (cross).
 struct SystemScope {
-    using Flag = cuda::atomic_ref<unsigned, cuda::thread_scope_system>;
-    __device__ static void release(bool cross) {
-        if (cross) {
-            cuda::atomic_thread_fence(cuda::memory_order_release,
-                                      cuda::thread_scope_system);
-        } else {
-            cuda::atomic_thread_fence(cuda::memory_order_release,
-                                      cuda::thread_scope_device);
-        }
-    }
+    static constexpr bool kSystem = true;
 };
 
 // gsteps steps of the strip st whose rows start at a (its row 0's speed 0;
@@ -360,21 +445,33 @@ struct SystemScope {
 // loaded), its mask rows at mask. hmax_nx and carry: the tallest strip's
 // floats and carry floats (every strip of a launch lays out its shared
 // memory alike). Step s's sum of |u| over the strip's fluid cells goes to
-// partials[s * pstride]. step_base: steps these slots and flags have run
-// before. cross: passed to Scope::release.
+// partials[s * pstride]. step_base: steps these slots have run before.
+//
+// The exchange (both modes). Step t's halo words carry tag t + 1 in slot
+// t mod 2. Two buffers: step 0 of a launch sends the loaded strip's edge
+// rows; each later step's words are sent by the thread that updates the
+// edge cell, from the new speeds in its registers, during the step before
+// (step G-1 sends nothing: the next launch sends its own first step). One
+// buffer: each step sends its edge rows, forced in place, at its start.
+// The receiver waits, thread by thread, only on the words its cell pulls,
+// until each holds the step's tag; no fence, no flag, no barrier. A word
+// a thread sends depends on the words it read (a data dependency: the new
+// speeds are computed from them; one buffer: behind the block's barrier
+// after every edge cell's update), so its reads of a slot come before its
+// send in memory order (resident_onchip.cu: the two-slot argument).
 template <bool kCols, int kMode, int kBufs, class Scope>
 __device__ __forceinline__ void strip_steps(
     const Strip& st, const float* a, float* res,
     const uint8_t* __restrict__ mask, size_t gplane, int nx, int accel,
     float w1, float w2, float omega,
     int gsteps, unsigned step_base, long long hmax_nx, long long carry,
-    float* partials, int pstride, bool cross) {
-    using Flag = typename Scope::Flag;
+    float* partials, int pstride) {
     extern __shared__ float smem[];
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const int h = st.h, r0 = st.row0, ny = st.ny;
     const int plane = h * nx;
+    constexpr bool sys = Scope::kSystem;
     float* buf0 = smem;
     float* buf1 = smem + 9 * hmax_nx;  // kBufs 2 only
     float* red = smem + 9 * kBufs * hmax_nx;
@@ -430,17 +527,18 @@ __device__ __forceinline__ void strip_steps(
             }
         }
 
-        // Send: the top row north, the bottom row south, then the flags.
-        // (One buffer: the strip is forced in place, so the copies are not.)
-        {
-            float* to_n = st.to_n + slot * hrow;
-            float* to_s = st.to_s + slot * hrow;
+        // Send from the strip: the top row north, the bottom row south (two
+        // buffers: step 0 only, the copies forced by the sender; one
+        // buffer: every step, the strip forced in place already).
+        if (kBufs == 1 || s == 0) {
+            Word* to_n = st.to_n + slot * hrow;
+            Word* to_s = st.to_s + slot * hrow;
             const bool top_on = kBufs == 2 && r0 + h - 1 == accel;
             const bool bot_on = kBufs == 2 && r0 == accel;
-            const int send_accel = kBufs == 2 ? accel : -1;
+            const int last = (h - 1) * nx;
             for (int c = tid; c < nx; c += kThreads) {
+                const bool col_on = kBufs == 2 && c == accel;
                 if constexpr (kBufs == 1 && !kCols) {
-                    const int last = (h - 1) * nx;
                     if (r0 == accel) {
                         force_in_place<false>(dst, plane, c, m[c] != 0, w1,
                                               w2);
@@ -449,18 +547,19 @@ __device__ __forceinline__ void strip_steps(
                                               m[last + c] != 0, w1, w2);
                     }
                 }
-                send_cell<kCols, true>(src, m, plane, h - 1, c, nx, top_on,
-                                       send_accel, w1, w2, to_n);
-                send_cell<kCols, false>(src, m, plane, 0, c, nx, bot_on,
-                                        send_accel, w1, w2, to_s);
+                auto top = [&](int k) { return src[k * plane + last + c]; };
+                auto bot = [&](int k) { return src[k * plane + c]; };
+                send_cell<kCols, true>(top, m[last + c] != 0,
+                                       kCols ? col_on : top_on, w1, w2, to_n,
+                                       c, nx, tag, sys);
+                send_cell<kCols, false>(bot, m[c] != 0,
+                                        kCols ? col_on : bot_on, w1, w2, to_s,
+                                        c, nx, tag, sys);
             }
-            __syncthreads();
-            if (tid == 0) {
-                // One release fence for the block's stores (ordered before
-                // it by the barrier), then both flags.
-                Scope::release(cross);
-                Flag(st.flag_n[slot]).store(tag, cuda::memory_order_relaxed);
-                Flag(st.flag_s[slot]).store(tag, cuda::memory_order_relaxed);
+            // One buffer, row mode: the interior pulls the row forced in
+            // place above (column mode: behind the forcing's barrier).
+            if (kBufs == 1 && !kCols && r0 <= accel && accel < r0 + h) {
+                __syncthreads();
             }
         }
 
@@ -561,29 +660,21 @@ __device__ __forceinline__ void strip_steps(
             }
         }
 
-        // Receive: both halo slots hold this step's rows. Two threads wait
-        // on the two flags at once; the barrier orders the block's halo
-        // loads after their acquires.
-        if (tid == 0 || tid == 32) {
-            Flag from(st.own[(tid ? 2 : 0) + slot]);
-            while (from.load(cuda::memory_order_acquire) < tag) {
-            }
-        }
-        __syncthreads();
+        // One buffer: the interior's last stores land before the edge
+        // waves pull (inplace_waves).
+        if constexpr (kBufs == 1) __syncthreads();
 
         // Edge rows 0 and h-1 (one row when h is 1), row -1 from the south
-        // slot and row h from the north slot.
-        const float* hs = st.from_s + slot * hrow;
-        const float* hn = st.from_n + slot * hrow;
+        // slot and row h from the north slot, each value once its word
+        // holds this step's tag.
+        const Word* hs = st.from_s + slot * hrow;
+        const Word* hn = st.from_n + slot * hrow;
         const int n_edge = (h == 1 ? 1 : 2) * nx;
         if constexpr (kBufs == 2) {
-            auto ld = [&](int k, int o) -> float {
-                if (o < 0) return __ldcg(hs + halo_q(k) * nx + (o + nx));
-                if (o >= plane) {
-                    return __ldcg(hn + halo_q(k) * nx + (o - plane));
-                }
-                return src[k * plane + o];
-            };
+            // Step s + 1's words, sent from the update.
+            const bool send = s + 1 < gsteps;
+            Word* to_n = st.to_n + (slot ^ 1) * hrow;
+            Word* to_s = st.to_s + (slot ^ 1) * hrow;
             auto solid = [&](int o) {
                 return o < 0 || o >= plane || m[o] != 0;
             };
@@ -593,6 +684,18 @@ __device__ __forceinline__ void strip_steps(
                 const int iw = (i == 0) ? nx - 1 : i - 1;
                 const int ie = (i == nx - 1) ? 0 : i + 1;
                 const int rj = j * nx, g = r0 + j;
+                const bool south = j == 0, north = j == h - 1;
+                float hv[6] = {};
+                pull_halo(hs, hn, south, north, nx, i, iw, ie, tag, sys, hv);
+                // A halo site is solid to the guard: only the pulled
+                // speeds 2, 5, 6 (row -1) and 4, 7, 8 (row h) are read.
+                auto ld = [&](int k, int o) -> float {
+                    if (o < 0) return k == 2 ? hv[0] : (k == 5 ? hv[1] : hv[2]);
+                    if (o >= plane) {
+                        return k == 4 ? hv[3] : (k == 7 ? hv[4] : hv[5]);
+                    }
+                    return src[k * plane + o];
+                };
                 const bool f0 = kCols ? i == accel : g == accel;
                 const bool f1 = kCols ? iw == accel : wrap(g - 1) == accel;
                 const bool f2 = kCols ? ie == accel : wrap(g + 1) == accel;
@@ -601,6 +704,20 @@ __device__ __forceinline__ void strip_steps(
                     w1, w2, omega, kMode, cell);
 #pragma unroll
                 for (int k = 0; k < 9; ++k) dst[k * plane + rj + i] = cell[k];
+                if (send) {
+                    auto at = [&](int k) { return cell[k]; };
+                    const bool sc = m[rj + i] != 0;
+                    if (north) {
+                        send_cell<kCols, true>(
+                            at, sc, kCols ? i == accel : r0 + h - 1 == accel,
+                            w1, w2, to_n, i, nx, tag + 1u, sys);
+                    }
+                    if (south) {
+                        send_cell<kCols, false>(
+                            at, sc, kCols ? i == accel : r0 == accel, w1, w2,
+                            to_s, i, nx, tag + 1u, sys);
+                    }
+                }
             }
         } else {
             // In place, in waves over edge position e: row 0 at e = i, row
@@ -623,24 +740,24 @@ __device__ __forceinline__ void strip_steps(
                     const int iw = (i == 0) ? nx - 1 : i - 1;
                     const int ie = (i == nx - 1) ? 0 : i + 1;
                     const int lo = (k - kD) * kThreads;
+                    // The cell's halo words: their loads first, the
+                    // shared memory gathers while they travel, then the
+                    // wait (a one-row strip's north words after its
+                    // south words: three words live at once).
+                    HaloWords hw{top ? hn : hs, nx, i, top ? ie : iw,
+                                 top ? iw : ie};
+                    hw.fetch(sys);
                     sp[0] = buf[o];
                     sp[1] = buf[plane + rj + iw];
                     sp[3] = (i == nx - 1 && e - nx + 1 < (k - 1) * kThreads)
                                 ? z3[r]
                                 : buf[3 * plane + rj + ie];
                     if (!top) {
-                        sp[2] = __ldcg(hs + i);
-                        sp[5] = __ldcg(hs + nx + iw);
-                        sp[6] = __ldcg(hs + 2 * nx + ie);
-                        if (h == 1) {
-                            sp[4] = __ldcg(hn + i);
-                            sp[7] = __ldcg(hn + nx + ie);
-                            sp[8] = __ldcg(hn + 2 * nx + iw);
-                        } else if (h == 2) {
+                        if (h == 2) {
                             sp[4] = buf[4 * plane + nx + i];
                             sp[7] = buf[7 * plane + nx + ie];
                             sp[8] = buf[8 * plane + nx + iw];
-                        } else {
+                        } else if (h > 2) {
                             sp[4] = carry_t[i];
                             sp[7] = carry_t[nx + ie];
                             sp[8] = carry_t[2 * nx + iw];
@@ -657,9 +774,24 @@ __device__ __forceinline__ void strip_steps(
                             sp[5] = carry_r[nx + iw];
                             sp[6] = carry_r[2 * nx + ie];
                         }
-                        sp[4] = __ldcg(hn + i);
-                        sp[7] = __ldcg(hn + nx + ie);
-                        sp[8] = __ldcg(hn + 2 * nx + iw);
+                    }
+                    hw.settle(tag, sys);
+                    if (!top) {
+                        sp[2] = hw.value(0);
+                        sp[5] = hw.value(1);
+                        sp[6] = hw.value(2);
+                        if (h == 1) {
+                            HaloWords up{hn, nx, i, ie, iw};
+                            up.fetch(sys);
+                            up.settle(tag, sys);
+                            sp[4] = up.value(0);
+                            sp[7] = up.value(1);
+                            sp[8] = up.value(2);
+                        }
+                    } else {
+                        sp[4] = hw.value(0);
+                        sp[7] = hw.value(1);
+                        sp[8] = hw.value(2);
                     }
                     if (i == 0 &&
                         e < ((e + nx - 1) / kThreads - 1) * kThreads) {
@@ -686,13 +818,18 @@ __device__ __forceinline__ void strip_steps(
         }
 
         // The block's sum of this step: warps, then the warps' sums. The
-        // two steps' scratch alternate, so warp 0 reads this step's while
-        // the others start the next.
+        // step's one barrier (two buffers) orders the warp sums before
+        // the last warp reads them and this step's cells before the next
+        // step's pulls; the two steps' scratch alternate, so the last warp
+        // reads this step's while the others start the next. The last
+        // warp: the edge cells are the first threads', which the sum would
+        // hold back where a strip's edge rows have fewer cells than the
+        // block has threads.
         acc = lbm_warp_sum(acc);
         float* wsum = red + (s & 1) * kWarps;
         if (lane == 0) wsum[warp] = acc;
         __syncthreads();
-        if (warp == 0) {
+        if (warp == kWarps - 1) {
             const float v = lbm_warp_sum(lane < kWarps ? wsum[lane] : 0.0f);
             if (lane == 0) partials[(size_t)s * pstride] = v;
         }

@@ -15,7 +15,7 @@
 // a block waits for its neighbours' rows. The design:
 //
 // - One cooperative block an SM at most (B <= SMs, co-resident, so a block
-//   may spin on another's flag). Block b owns rows [r0, r0 + h) at full
+//   may spin on another's words). Block b owns rows [r0, r0 + h) at full
 //   width, so the x wrap stays inside the block; ny is split so that
 //   strips differ by at most one row. Dynamic shared memory holds the
 //   strip's two buffers (SoA, [9][h][nx] f32) and its mask bytes, 73 B a
@@ -23,24 +23,46 @@
 //   strip is read from a once and written once, into the buffer that G's
 //   parity names (a after an even G, b after an odd one), as the
 //   device-memory form leaves it.
-// - No grid-wide barrier. Step t (slot t mod 2, tag t + 1, t counted over
-//   the launches of one wrapper): the block stores its top row's three
-//   north-going speeds (2, 5, 6) into the north neighbour's south slot and
-//   its bottom row's south-going speeds (4, 7, 8) into the south
-//   neighbour's north slot, then publishes one flag per (direction, slot)
-//   with release semantics (one fence, then relaxed stores, after the
-//   block's barrier; the waiting side: acquire loads by one thread a
-//   flag, then the barrier, as CUTLASS's GenericBarrier does); computes
-//   its interior rows while the rows travel; waits with acquire semantics
-//   until its own two flags for the slot hold the tag; computes its edge
-//   rows, reading the halo copies through L2. Blocks wrap north-south, as
-//   the lattice does.
-// - Why two slots with a flag each (ring.cu's protocol): a block writes
-//   slot s at step t only after waiting at step t-1 for both neighbours'
-//   step t-1 flags, which they published after finishing step t-2, the
-//   last step that read slot s. One flag shared by both slots lets a
-//   step-t wait pass on the step-t+1 signal
-//   (tests/test_torch_resident.py models both).
+// - No grid-wide barrier, no fence and no flag. Step t (slot t mod 2,
+//   tag t + 1, t counted over the launches of one wrapper): the block's
+//   top row's three north-going speeds (2, 5, 6) go into the north
+//   neighbour's south slot and its bottom row's south-going speeds (4, 7,
+//   8) into the south neighbour's north slot, each value one 64-bit word
+//   with the step's tag in its high half, stored with one relaxed strong
+//   access (lbm_onchip.cuh's put_word). Step 0 of a launch sends the
+//   loaded strip; step t + 1's words are sent during step t by the thread
+//   that updates the edge cell, from the new speeds in its registers, so
+//   they leave as soon as the cell is computed and step G-1 sends nothing.
+//   The block computes its interior rows while the words travel, then each
+//   thread that updates an edge cell loads the (three, or six in a
+//   one-row strip) words its cell pulls and spins on each, relaxed and
+//   strong, until it holds the step's tag: one L2 handoff from the sender's
+//   store to the value, no reload after a flag. One block barrier a step,
+//   at its end (the next step's pulls read cells other threads wrote; warp
+//   0 reads the warp sums behind it). Blocks wrap north-south, as the
+//   lattice does.
+// - Why two slots, word by word. The word of column c in slot s of a
+//   direction is written at step t (its tag t + 1) only by the thread of
+//   the sending strip that updates edge cell c at step t - 1 (or, t the
+//   launch's first step, after the block's load barrier). That update
+//   pulled the receiving strip's words of step t - 1 at columns c - 1, c
+//   and c + 1, and each of those was sent by the receiving strip's thread
+//   of that column from its update at step t - 2, which had read this
+//   slot's word c of step t - 2 (tag t - 1) beforehand: the three threads
+//   that read word c (columns c - 1, c, c + 1 pull it) are exactly those
+//   whose words the overwrite waits on. Each send depends on the words its
+//   thread read (a data dependency: the new speeds are computed from them),
+//   so a read is never ordered after its own thread's send, and the
+//   overwrite of step t lands after every read of step t - 2. A reader
+//   waits for tag == t + 1, never >=: the slot holds tag t - 1 (stale) or
+//   t + 1, never a later one. With one slot the overwrite would not wait
+//   for the reads of step t - 1, and a >= test would take the next step's
+//   value (tests/test_torch_onchip_tags.py models both, and a send placed
+//   before its thread's reads). The single-buffer mode sends at the start
+//   of each step, behind the block's barrier that follows every edge
+//   cell's reads of the step before: the same argument with the barrier in
+//   place of the thread. Across launches the tags go on (step_base), and a
+//   launch starts behind the one before on its stream.
 // - Forcing: the guard of a forced cell reads speeds 3, 6 and 7 (column
 //   mode: 4, 8, 7) of that cell before the step, which do not travel. So
 //   the owner forces the copies it sends: a site on the forced row (or
@@ -48,8 +70,8 @@
 //   neighbour would have pulled from the forced lattice. The receiver
 //   must not force it again: to lbm_cell_update's guard a halo site
 //   reports itself solid (that flag is read for no other purpose there;
-//   a cell's own obstacle flag is always in the strip). Three floats a
-//   halo cell instead of nine and a mask row.
+//   a cell's own obstacle flag is always in the strip). Three words a
+//   halo cell instead of nine floats and a mask row.
 // - tot_u: each block sums its |u| per step in a fixed order (warp
 //   butterflies, then the warps' sums by a butterfly) into
 //   partials[t][b]; the block that finishes last (an integer ticket after
@@ -65,14 +87,16 @@
 // one_step_inplace; LBM_RESIDENT_INPLACE): one [9][h][nx] buffer a strip,
 // 37 B a cell instead of 73, so strips twice as tall fit (a 4096-wide row,
 // 768x768, the transposed 1024x512). The strip map, the halo slots and
-// flags, the partials and the ticket are the two-buffer mode's; each
+// their words, the partials and the ticket are the two-buffer mode's; each
 // thread updates the cells it updates there, in the same order, so a
 // step's tot_u has the two-buffer mode's bits. What changes is the order
 // of the stores:
 // - the forced line is forced in place before the send (the guard reads
 //   the cell's own pre-step speeds; x + w is the rounding the pulled
 //   copy would get), so every pull, send and carried value below is
-//   already forced and no update forces again;
+//   already forced and no update forces again; the send is at the start of
+//   the step, from the strip, and a barrier follows it only in the strip
+//   that forced a row in place;
 // - the rows are updated in waves of kThreads cells in the two-buffer
 //   mode's order (interior rows 1..h-2, then row 0 and row h-1), one
 //   barrier phase a wave, split: a thread gathers its cell's pulls,
@@ -102,7 +126,7 @@
 // results wait in registers for the next wave's gather instead, and only
 // what crosses more than a wave goes through shared memory.
 //
-// The strip step (both modes, the sends, flags and partials) lives in
+// The strip step (both modes, the sends, the halo words and partials) lives in
 // lbm_onchip.cuh, which the on-chip ring (ring_onchip.cu) runs too; this
 // file places the strips of one lattice and binds the kernel.
 //
@@ -117,8 +141,8 @@ namespace {
 
 using namespace onchip;
 
-// halo: (B, 2, 2, kHalo, nx) floats, [block][0 south / 1 north][slot];
-// flags: (B, 2, 2) unsigned, the same order; partials: (G, B); ticket:
+// halo: (B, 2, 2, kHalo, nx) words, [block][0 south / 1 north][slot],
+// their tags below step_base + 1; partials: (G, B); ticket:
 // one unsigned, zero between launches. a and res may be the same buffer
 // (an even G, or any G with one buffer): each thread writes back exactly
 // the cells it loaded. The strip step is lbm_onchip.cuh's; this kernel
@@ -127,8 +151,8 @@ using namespace onchip;
 template <bool kCols, int kMode, int kBufs>
 __global__ void __launch_bounds__(kThreads, 1)
 resident_onchip_kernel(const float* a, float* res,
-                       const uint8_t* __restrict__ mask, float* halo,
-                       unsigned* flags, float* partials, unsigned* ticket,
+                       const uint8_t* __restrict__ mask, Word* halo,
+                       float* partials, unsigned* ticket,
                        float* __restrict__ tots, int ny, int nx, int accel,
                        float w1, float w2, float omega, int gsteps,
                        float scale, unsigned step_base) {
@@ -142,15 +166,14 @@ resident_onchip_kernel(const float* a, float* res,
     const Strip st{h, r0, ny,
                    halo + (size_t)(north * 2 + 0) * pair,
                    halo + (size_t)(south * 2 + 1) * pair,
-                   flags + (north * 2 + 0) * 2, flags + (south * 2 + 1) * 2,
                    halo + (size_t)(b * 2 + 0) * pair,
-                   halo + (size_t)(b * 2 + 1) * pair, flags + b * 4};
+                   halo + (size_t)(b * 2 + 1) * pair};
     const size_t goff = (size_t)r0 * nx;
     const long long hmax_nx = strip_floats(ny, nx, nb);
     strip_steps<kCols, kMode, kBufs, DeviceScope>(
         st, a + goff, res + goff, mask + goff, (size_t)ny * nx, nx, accel, w1,
         w2, omega, gsteps, step_base, hmax_nx, carry_floats(ny, nx, nb),
-        partials + b, nb, false);
+        partials + b, nb);
     sum_partials_last(ticket, nb, partials, tots, gsteps, scale, hmax_nx,
                       kBufs);
 }
@@ -214,13 +237,13 @@ int lbm_onchip_prepare(int axis, int mode, int bufs, long long bytes,
 // gsteps steps of the ny x nx lattice in a over blocks strips; the result
 // goes to res (the caller passes a for an even gsteps, its other buffer
 // for an odd one; any buffer in either mode). out[s] = scale * step s's
-// sum of fluid |u|. step_base: steps this scratch (halo, flags) has run
-// before; flags must hold no tag above it. axis 0 forces row accel, axis 1
+// sum of fluid |u|. step_base: steps this scratch (halo) has run before;
+// its words must hold no tag above it. axis 0 forces row accel, axis 1
 // (a transposed lattice) column accel; bufs 2 or 1 (the single-buffer
 // mode); lbm_onchip_prepare has run for the same axis, mode, bufs, bytes
 // and blocks.
 int lbm_resident_onchip(const float* a, float* res, const uint8_t* mask,
-                        float* halo, unsigned* flags, float* partials,
+                        Word* halo, float* partials,
                         unsigned* ticket, float* out, int ny, int nx,
                         int accel, float w1, float w2, float omega, int mode,
                         int gsteps, float scale, unsigned step_base,
@@ -235,7 +258,7 @@ int lbm_resident_onchip(const float* a, float* res, const uint8_t* mask,
     if (bufs == 1 && (ny + blocks - 1) / blocks >= 2 && nx + 1 > 3 * kThreads) {
         return (int)cudaErrorInvalidValue;
     }
-    void* args[] = {&a,  &res, &mask,  &halo,   &flags, &partials,
+    void* args[] = {&a,  &res,   &mask,  &halo,  &partials,
                     &ticket, &out, &ny, &nx, &accel, &w1,
                     &w2, &omega, &gsteps, &scale, &step_base};
     return launch(onchip_fn(axis, mode, bufs), blocks, args,

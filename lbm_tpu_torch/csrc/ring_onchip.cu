@@ -27,15 +27,19 @@
 // - The strips of all shards form one ring: strip lb's neighbours are lb
 //   + 1 and lb - 1 of its shard, and the top strip's north neighbour is the
 //   north shard's strip 0, the bottom strip's south neighbour the south
-//   shard's strip bps - 1. Each strip has two slots and a flag per
-//   (direction, slot) in its shard's memory; a strip at a shard's edge
-//   stores into the neighbouring shard's edge strip's slot and publishes
-//   that strip's flag, through peer pointers when that shard is on
-//   another card (system-scope flags, and a system-scope release fence in
-//   a launch where some neighbour is on another card: cross). Step tags
-//   go on across a wrapper's launches (step_base), so the slot protocol
-//   of the single-device form (two slots with a flag each) holds across
-//   shards, launches and cards.
+//   shard's strip bps - 1. Each strip has two slots a direction in its
+//   shard's memory, of halo values that carry their step's tag (one 64-bit
+//   word each, lbm_onchip.cuh); a strip at a shard's edge stores into the
+//   neighbouring shard's edge strip's slot, through peer pointers when
+//   that shard is on another card (system-scope words in a launch where
+//   some neighbour is on another card: kCross, an instantiation of its own,
+//   so that one card's launches carry no system-scope path). Step tags go
+//   on across a wrapper's launches (step_base), so the slot protocol of
+//   the single-device form (two slots, each reader waiting on its own
+//   words for its step's tag) holds across shards, launches and cards: a
+//   card's launch that starts before a neighbour's has ended writes a slot
+//   only behind that neighbour's words of the step before, as within a
+//   launch.
 // - Forcing: row mode by global row (the shard's row0 plus the strip's
 //   row), column mode at lane column nx-2 in every shard. The owner forces
 //   the copies it sends; in one buffer the line is forced in place before
@@ -53,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "lbm_onchip.cuh"
 
 namespace {
@@ -64,16 +70,13 @@ using namespace onchip;
 struct RingStripShard {
     float* cells;               // (9, h, nx), in place
     const uint8_t* mask;        // (h, nx)
-    float* halo;                // (bps, 2, 2, kHalo, nx): [strip][0 south /
-                                // 1 north][slot]
-    unsigned* flags;            // (bps, 2, 2), the same order
+    Word* halo;                 // (bps, 2, 2, kHalo, nx) words: [strip][0
+                                // south / 1 north][slot]
     float* partials;            // (gsteps, bps)
     unsigned* ticket;           // zero between launches
     float* tots;                // per-step tot_u of the shard
-    float* north_slots;         // the north shard's strip 0 south slots
-    unsigned* north_flags;      // and their flags
-    float* south_slots;         // the south shard's last strip's north slots
-    unsigned* south_flags;      // and their flags
+    Word* north_slots;          // the north shard's strip 0 south slots
+    Word* south_slots;          // the south shard's last strip's north slots
     long long row0;             // global index of row 0
 };
 
@@ -85,81 +88,89 @@ struct RingStrips {
     int gsteps;
     unsigned step_base;
     int t_out;
-    bool cross;
 };
 
-template <bool kCols, int kMode, int kBufs>
+template <bool kCols, int kMode, int kBufs, bool kCross>
 __global__ void __launch_bounds__(kThreads, 1)
 ring_onchip_kernel(const RingStrips r) {
+    using Scope = typename std::conditional<kCross, SystemScope,
+                                            DeviceScope>::type;
     const RingStripShard& sh = r.shards[blockIdx.x / r.bps];
     const int bps = r.bps, lb = blockIdx.x % bps, nx = r.nx;
     const int base = r.h / bps, rem = r.h % bps;
     const int h = base + (lb < rem ? 1 : 0);
     const int r0 = lb * base + (lb < rem ? lb : rem);
     const size_t pair = (size_t)2 * kHalo * nx;
-    float* halo = sh.halo;
-    unsigned* flags = sh.flags;
+    Word* halo = sh.halo;
     const bool top = lb + 1 == bps, bottom = lb == 0;
     const Strip st{h, (int)sh.row0 + r0, r.ny_global,
                    top ? sh.north_slots : halo + (size_t)((lb + 1) * 2) * pair,
                    bottom ? sh.south_slots
                           : halo + (size_t)((lb - 1) * 2 + 1) * pair,
-                   top ? sh.north_flags : flags + (lb + 1) * 4,
-                   bottom ? sh.south_flags : flags + (lb - 1) * 4 + 2,
                    halo + (size_t)(lb * 2) * pair,
-                   halo + (size_t)(lb * 2 + 1) * pair, flags + lb * 4};
+                   halo + (size_t)(lb * 2 + 1) * pair};
     const size_t goff = (size_t)r0 * nx;
     const long long hmax_nx = strip_floats(r.h, nx, bps);
-    strip_steps<kCols, kMode, kBufs, SystemScope>(
+    strip_steps<kCols, kMode, kBufs, Scope>(
         st, sh.cells + goff, sh.cells + goff, sh.mask + goff,
         (size_t)r.h * nx, nx, r.accel, r.w1, r.w2, r.omega, r.gsteps,
         r.step_base, hmax_nx, carry_floats(r.h, nx, bps), sh.partials + lb,
-        bps, r.cross);
+        bps);
     sum_partials_last(sh.ticket, bps, sh.partials, sh.tots + r.t_out,
                       r.gsteps, 1.0f, hmax_nx, kBufs);
 }
 
-template <int kBufs>
+template <int kBufs, bool kCross>
 const void* ring_fn_bufs(int axis, int mode) {
     if (axis) {
-        return mode == 1 ? (const void*)ring_onchip_kernel<true, 1, kBufs>
-               : mode == 2 ? (const void*)ring_onchip_kernel<true, 2, kBufs>
-                           : (const void*)ring_onchip_kernel<true, 0, kBufs>;
+        return mode == 1
+                   ? (const void*)ring_onchip_kernel<true, 1, kBufs, kCross>
+               : mode == 2
+                   ? (const void*)ring_onchip_kernel<true, 2, kBufs, kCross>
+                   : (const void*)ring_onchip_kernel<true, 0, kBufs, kCross>;
     }
-    return mode == 1 ? (const void*)ring_onchip_kernel<false, 1, kBufs>
-           : mode == 2 ? (const void*)ring_onchip_kernel<false, 2, kBufs>
-                       : (const void*)ring_onchip_kernel<false, 0, kBufs>;
+    return mode == 1 ? (const void*)ring_onchip_kernel<false, 1, kBufs, kCross>
+           : mode == 2
+               ? (const void*)ring_onchip_kernel<false, 2, kBufs, kCross>
+               : (const void*)ring_onchip_kernel<false, 0, kBufs, kCross>;
 }
 
-const void* ring_fn(int axis, int mode, int bufs) {
-    return bufs == 1 ? ring_fn_bufs<1>(axis, mode) : ring_fn_bufs<2>(axis, mode);
+const void* ring_fn(int axis, int mode, int bufs, bool cross) {
+    if (cross) {
+        return bufs == 1 ? ring_fn_bufs<1, true>(axis, mode)
+                         : ring_fn_bufs<2, true>(axis, mode);
+    }
+    return bufs == 1 ? ring_fn_bufs<1, false>(axis, mode)
+                     : ring_fn_bufs<2, false>(axis, mode);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Opt the on-chip ring kernel of forcing mode axis, association mode and
-// buffer count into bytes of dynamic shared memory a block and check that
-// blocks of them (every shard's on this card) can be co-resident. 0, or a
-// CUDA error code (cudaErrorNotSupported: no cooperative launch;
+// Opt the on-chip ring kernel of forcing mode axis, association mode,
+// buffer count and scope (cross: some neighbour on another card) into
+// bytes of dynamic shared memory a block and check that blocks of them
+// (every shard's on this card) can be co-resident. 0, or a CUDA error code
+// (cudaErrorNotSupported: no cooperative launch;
 // cudaErrorCooperativeLaunchTooLarge: too many blocks).
-int lbm_ring_onchip_prepare(int axis, int mode, int bufs, long long bytes,
-                            int blocks, int device) {
+int lbm_ring_onchip_prepare(int axis, int mode, int bufs, int cross,
+                            long long bytes, int blocks, int device) {
     if (bufs != 1 && bufs != 2) return (int)cudaErrorInvalidValue;
-    return prepare(ring_fn(axis, mode, bufs), bytes, blocks, device);
+    return prepare(ring_fn(axis, mode, bufs, cross != 0), bytes, blocks,
+                   device);
 }
 
 // gsteps steps (even) on the n_shards shards of shards (a device array of
 // RingStripShard, all on this device), bps strips each of the h x nx
 // shard, in bufs buffers (2, or 1: in place), as one cooperative launch;
-// the result is in each shard's cells. step_base: steps these slots and
-// flags have run before (every shard of the ring the same); t_out: where
+// the result is in each shard's cells. step_base: steps these slots have
+// run before (every shard of the ring the same); t_out: where
 // in each shard's tots this call's gsteps values go. axis 0 forces global
 // row ny_global - 2, axis 1 (shards of a transposed lattice) column
 // nx - 2 of every row. cross: a neighbour of some shard is on another
 // card. lbm_ring_onchip_prepare has run for the same axis, mode, bufs,
-// bytes and n_shards * bps blocks.
+// cross, bytes and n_shards * bps blocks.
 int lbm_ring_onchip(const void* shards, int n_shards, int bps, int h, int nx,
                     int ny_global, float w1, float w2, float omega, int mode,
                     int axis, int bufs, int gsteps, unsigned step_base,
@@ -176,10 +187,10 @@ int lbm_ring_onchip(const void* shards, int n_shards, int bps, int h, int nx,
     if (err != cudaSuccess) return (int)err;
     RingStrips r{(const RingStripShard*)shards, bps, h, nx, ny_global,
                  axis ? (nx - 2) % nx : (ny_global - 2) % ny_global,
-                 w1, w2, omega, gsteps, step_base, t_out, cross != 0};
+                 w1, w2, omega, gsteps, step_base, t_out};
     void* args[] = {&r};
-    return launch(ring_fn(axis, mode, bufs), n_shards * bps, args,
-                  smem_bytes(h, nx, bps, bufs), stream);
+    return launch(ring_fn(axis, mode, bufs, cross != 0), n_shards * bps,
+                  args, smem_bytes(h, nx, bps, bufs), stream);
 }
 
 }  // extern "C"

@@ -94,7 +94,7 @@ _SIGNATURES = {
         [_c_int, _c_int, _c_int, ctypes.c_longlong, _c_int, _c_int], _c_int),
     "lbm_resident_onchip": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-         _c_void_p, _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_float,
+         _c_void_p, _c_int, _c_int, _c_int, _c_float, _c_float,
          _c_float, _c_int, _c_int, _c_float, ctypes.c_uint, _c_int, _c_int,
          _c_int, _c_int, _c_void_p],
         _c_int,
@@ -118,7 +118,8 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_ring_onchip_prepare": (
-        [_c_int, _c_int, _c_int, ctypes.c_longlong, _c_int, _c_int], _c_int),
+        [_c_int, _c_int, _c_int, _c_int, ctypes.c_longlong, _c_int, _c_int],
+        _c_int),
     "lbm_ring_onchip": (
         [_c_void_p, _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
          _c_float, _c_float, _c_int, _c_int, _c_int, _c_int, ctypes.c_uint,

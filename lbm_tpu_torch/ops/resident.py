@@ -7,7 +7,8 @@ size (:func:`.plan.resident_form`):
 
 - ``"onchip"`` (``csrc/resident_onchip.cu``): each block holds its strip
   of rows in shared memory for all G steps and trades its edge rows with
-  its two neighbours through L2, under a flag per (direction, slot);
+  its two neighbours through L2, each halo value a 64-bit word that
+  carries its step's tag (two slots a direction, by step parity);
 - ``"inplace"``: the same kernel's single-buffer mode (the JAX kernel's
   in-place mode, ``LBM_RESIDENT_INPLACE``): one buffer a strip, updated in
   place in waves, what a later wave pulls from an overwritten cell carried
@@ -53,7 +54,8 @@ from lbm_tpu_torch.state import D2Q9
 # the row below it) and to the block below.
 NORTH_SPEEDS = (2, 5, 6)
 SOUTH_SPEEDS = (4, 7, 8)
-# Tags restart from zero (flags zeroed) before they would pass 2**31.
+# Tags restart from zero (the halo words zeroed) before they would pass
+# 2**31.
 _TAG_LIMIT = 1 << 31
 # Threads of an on-chip block (csrc/lbm_onchip.cuh's kThreads): the
 # cells of a wave of the single-buffer mode.
@@ -140,7 +142,7 @@ class Resident(LatticeKernel):
     residence that does not fit raises). On a CUDA mask the launch
     geometry is fixed at construction and the scratch (partials and tile
     tickets; the shift mode's step counters and edge buffer; on chip halo
-    slots, flags and the ticket) allocated once; an on-chip mode whose
+    slots and the ticket) allocated once; an on-chip mode whose
     strips do not fit the card's shared memory raises there."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, gsteps: int,
@@ -256,11 +258,10 @@ class Resident(LatticeKernel):
             self._index,
         ), f"on-chip resident form ({mode}) over {self.blocks} blocks")
         dev = self.device
+        # (B, 2, 2, 3, nx) halo words: a value's bits and its step's tag.
         self._halo = torch.zeros(self.blocks * 2 * 2 * 3 * nx,
-                                 dtype=torch.float32, device=dev)
-        # Flags and ticket as int32 words the kernel reads as unsigned.
-        self._flags = torch.zeros(self.blocks * 4, dtype=torch.int32,
-                                  device=dev)
+                                 dtype=torch.int64, device=dev)
+        # The ticket as an int32 word the kernel reads as unsigned.
         self._ticket = torch.zeros(1, dtype=torch.int32, device=dev)
         self._partials = torch.empty(self.gsteps * self.blocks,
                                      dtype=torch.float32, device=dev)
@@ -280,12 +281,11 @@ class Resident(LatticeKernel):
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
         if self.form in ("onchip", "inplace"):
             if self._step_base + g >= _TAG_LIMIT:
-                self._flags.zero_()
+                self._halo.zero_()
                 self._step_base = 0
             _build.check(lib, lib.lbm_resident_onchip(
                 a.data_ptr(), result[0].data_ptr(), self._mask_u8.data_ptr(),
-                self._halo.data_ptr(), self._flags.data_ptr(),
-                self._partials.data_ptr(), self._ticket.data_ptr(),
+                self._halo.data_ptr(), self._partials.data_ptr(), self._ticket.data_ptr(),
                 out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1,
                 self.w2, self.omega, self.mode, g, self._scale(scale),
                 self._step_base, self.blocks, self.axis, self.buffers,
@@ -855,14 +855,17 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
     """The on-chip form's strip step in plain PyTorch over the strips
     ``parts`` (``(r0, h)`` pairs that tile the rows of ``cells`` in order,
     each stepped from its own rows and two halo slots by step parity, its
-    north neighbour the next strip, wrapping). Every step each strip first
-    sends: its top row's speeds 2, 5, 6 into the north neighbour's south
-    slot, its bottom row's 4, 7, 8 into the south neighbour's north slot;
-    then it steps from the slot of that step (:func:`_halo_slot`; both
-    slots NaN before their first rows land).
+    north neighbour the next strip, wrapping). Each strip's rows of a step
+    are sent before the step: its top row's speeds 2, 5, 6 into the north
+    neighbour's south slot, its bottom row's 4, 7, 8 into the south
+    neighbour's north slot; then it steps from the slot of that step
+    (:func:`_halo_slot`; both slots NaN before their first rows land).
 
-    ``buffers`` 2: the copies are forced by the sender where the row
-    (column mode: the column) is forced and the guard passes. Then each
+    ``buffers`` 2: step 0 sends the strip's rows, and every later step's
+    rows are sent from the update of the step before (the kernel's edge
+    cells send the new speeds they hold; the last step sends nothing); the
+    copies are forced by the sender where the row (column mode: the
+    column) is forced and the guard passes. Then each
     strip steps from ``[south slot, rows, north slot]``, the six speeds no
     halo carries left NaN (a pull that read one would show), with its own
     rows forced by the rule and the halo rows not again.
@@ -891,6 +894,19 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
     slots = [[[unset, unset], [unset, unset]] for _ in parts]
     partials = torch.zeros((gsteps, blocks), dtype=cells.dtype)
     nan = torch.full((nx,), float("nan"), dtype=cells.dtype)
+    forced = buffers == 2
+
+    def send(slot):
+        for b, (r0, h) in enumerate(parts):
+            north, south = (b + 1) % blocks, (b - 1) % blocks
+            top, bot = r0 + h - 1, r0
+            slots[north][0][slot] = _sent_row(
+                state[b][:, h - 1], masks[b][h - 1], forced and top == accel,
+                d(w1), d(w2), axis if forced else 0, NORTH_SPEEDS)
+            slots[south][1][slot] = _sent_row(
+                state[b][:, 0], masks[b][0], forced and bot == accel, d(w1),
+                d(w2), axis if forced else 0, SOUTH_SPEEDS)
+
     for s in range(gsteps):
         slot = s % 2
         if buffers == 1:
@@ -901,16 +917,8 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
                 elif r0 <= accel < r0 + h:
                     state[b] = ref_ops.accelerate_flow(
                         state[b], masks[b], w1, w2, row=accel - r0)
-        for b, (r0, h) in enumerate(parts):
-            north, south = (b + 1) % blocks, (b - 1) % blocks
-            top, bot = r0 + h - 1, r0
-            forced = buffers == 2
-            slots[north][0][slot] = _sent_row(
-                state[b][:, h - 1], masks[b][h - 1], forced and top == accel,
-                d(w1), d(w2), axis if forced else 0, NORTH_SPEEDS)
-            slots[south][1][slot] = _sent_row(
-                state[b][:, 0], masks[b][0], forced and bot == accel, d(w1),
-                d(w2), axis if forced else 0, SOUTH_SPEEDS)
+        if buffers == 1 or s == 0:
+            send(slot)
         read = _halo_slot(s)
         new_state = []
         for b, (r0, h) in enumerate(parts):
@@ -938,6 +946,8 @@ def onchip_schedule(cells, obstacles, w1, w2, omega, gsteps: int, parts,
             new_state.append(torch.stack(planes))
             partials[s, b] = torch.sum(umag.masked_fill(masks[b], 0.0))
         state = new_state
+        if forced and s + 1 < gsteps:
+            send((s + 1) % 2)
     return torch.cat(state, dim=1), partials
 
 

@@ -18,8 +18,9 @@ the one TPU kernel, chosen by the shard's size (:func:`ring_form`):
   shards whose strips do not fit.
 
 One cooperative launch per card hosts every shard on that card; the
-shards' halo slots and flags are plain device memory, peer pointers for
-a neighbour on another card, so P shards on one card run the protocol of
+shards' halo slots (on chip: halo values that carry their step's tag; in
+device memory: slots and flags) are plain device memory, peer pointers
+for a neighbour on another card, so P shards on one card run the protocol of
 P cards. As in the JAX package the ring is an opt-in
 (``LBM_SHARD_RESIDENT=1``), with G from the port's preferences
 (:data:`.ops.plan.G_PREF`) or the ``LBM_RESIDENT_STEPS`` pin (even, in
@@ -156,7 +157,7 @@ class _RingShardC(ctypes.Structure):
 
 class _Ring:
     """What both forms share: the even G, the forcing constants, the
-    steps run so far (the flags' tags go on from them), the plain version
+    steps run so far (the step tags go on from them), the plain version
     on CPU tensors and, on the card, the shards grouped by card with peer
     access between the cards."""
 
@@ -204,7 +205,8 @@ class _Ring:
         """Work on the stream that ``dev``'s launches run on. Scratch
         allocated there goes back to the allocator, when its wrapper is
         freed, only behind those launches: a launch still spinning on its
-        flags keeps them whether or not its wrapper lives."""
+        flags or halo words keeps them whether or not its wrapper
+        lives."""
         return self.ss.on(self.ss.shards[self._groups[dev][0]])
 
     def _launch_all(self, launch) -> None:
@@ -350,8 +352,8 @@ class _RingStripShardC(ctypes.Structure):
     """csrc/ring_onchip.cu's RingStripShard."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "cells", "mask", "halo", "flags", "partials", "ticket", "tots",
-        "north_slots", "north_flags", "south_slots", "south_flags")] + [
+        "cells", "mask", "halo", "partials", "ticket", "tots",
+        "north_slots", "south_slots")] + [
         ("row0", ctypes.c_longlong)]
 
 
@@ -362,7 +364,7 @@ class RingOnchipImpl(_Ring):
     its ``cells`` buffer, and writes each step's tot_u into
     ``shard.tots[t:t + gsteps]``. ``form``: "onchip" (two buffers) or
     "inplace" (one). On a card the geometry (:func:`ring_blocks` strips a
-    shard) is fixed and the scratch (each strip's slots and flags, each
+    shard) is fixed and the scratch (each strip's slots, each
     shard's partials and ticket) allocated at construction; a mode whose
     strips do not fit the card's shared memory, or more blocks than can be
     co-resident, raises there."""
@@ -392,8 +394,8 @@ class RingOnchipImpl(_Ring):
                     f"shared memory a block for shards of {h}x{nx} over {b} "
                     f"strips; the card gives {smem}")
             _build.check(lib, lib.lbm_ring_onchip_prepare(
-                self.axis, self.mode, self.buffers, need, len(idxs) * b,
-                self._index[d],
+                self.axis, self.mode, self.buffers, int(self._cross), need,
+                len(idxs) * b, self._index[d],
             ), f"on-chip ring ({mode}) cooperative launch of "
                f"{len(idxs) * b} blocks")
             bps[d] = b
@@ -405,11 +407,12 @@ class RingOnchipImpl(_Ring):
                     b = bps[dev]
                     bufs[i] = {
                         "bps": b,
-                        "halo": torch.zeros(b * 2 * 2 * 3 * nx, device=dev),
-                        # Flags and ticket as int32 words the kernel reads
-                        # as unsigned.
-                        "flags": torch.zeros(b * 4, dtype=torch.int32,
-                                             device=dev),
+                        # (bps, 2, 2, 3, nx) halo words: a value's bits
+                        # and its step's tag.
+                        "halo": torch.zeros(b * 2 * 2 * 3 * nx,
+                                            dtype=torch.int64, device=dev),
+                        # The ticket as an int32 word the kernel reads as
+                        # unsigned.
                         "ticket": torch.zeros(1, dtype=torch.int32,
                                               device=dev),
                         "partials": torch.empty(self.gsteps * b, device=dev),
@@ -424,7 +427,7 @@ class RingOnchipImpl(_Ring):
         shards, bufs, n = self.ss.shards, self._bufs, len(self.ss.shards)
         key = (dev, tuple(shards[i].cells.data_ptr() for i in idxs))
         if key not in self._structs:
-            pair = 2 * 3 * self.ss.nx * 4  # bytes of a strip's (dir) slots
+            pair = 2 * 3 * self.ss.nx * 8  # bytes of a strip's (dir) slots
             arr = (_RingStripShardC * len(idxs))()
             for slot, i in enumerate(idxs):
                 sh, b = shards[i], bufs[i]
@@ -432,12 +435,11 @@ class RingOnchipImpl(_Ring):
                 last = south["bps"] - 1
                 arr[slot] = _RingStripShardC(
                     sh.cells.data_ptr(), b["mask"].data_ptr(),
-                    b["halo"].data_ptr(), b["flags"].data_ptr(),
-                    b["partials"].data_ptr(), b["ticket"].data_ptr(),
-                    sh.tots.data_ptr(), north["halo"].data_ptr(),
-                    north["flags"].data_ptr(),
+                    b["halo"].data_ptr(), b["partials"].data_ptr(),
+                    b["ticket"].data_ptr(), sh.tots.data_ptr(),
+                    north["halo"].data_ptr(),
                     south["halo"].data_ptr() + (last * 2 + 1) * pair,
-                    south["flags"].data_ptr() + (last * 4 + 2) * 4, sh.row0)
+                    sh.row0)
             raw = torch.frombuffer(bytearray(bytes(arr)), dtype=torch.uint8)
             self._structs[key] = raw.to(dev)
         return self._structs[key]
@@ -598,8 +600,9 @@ def ring_onchip_emulated(ss, gsteps: int, buffers: int, blocks: int,
     strips`); the strips of all shards, shard by shard, form one ring, the
     top strip of a shard sending north into the north shard's strip 0 and
     its strip 0 south into the south shard's top strip: the strip step of
-    :func:`.ops.resident.onchip_schedule` (sends, then interior rows and
-    edge rows from the slot of the step; in ``buffers`` 1 the line forced
+    :func:`.ops.resident.onchip_schedule` (each step's rows sent before
+    it, in two buffers from the update of the step before; interior rows
+    and edge rows from the slot of the step; in ``buffers`` 1 the line forced
     in place first and the strip updated in place in waves of ``wave``
     cells through :func:`.ops.resident._inplace_strip_step`), forced by
     global row (column mode: column nx-2 of every shard). tot_u: each

@@ -88,12 +88,30 @@ class PhaseTimers:
             self.stop(name)
 
 
+# Idle time on the host's clock left between the profiler's start and the
+# region, and between the region's last device work and the profiler's
+# stop. The profiler keeps only device events inside its host-clock
+# window, and a kernel's converted device timestamps can sit up to about
+# a millisecond before or after the host's (H100, CUDA 12.8): without the
+# margin, a trace now and then lost the region's first launches
+# (scripts/trace_drops_torch.py counts them).
+TRACE_MARGIN_S = 0.02
+
+
+def _settle(torch, margin_s: float) -> None:
+    torch.cuda.synchronize()
+    time.sleep(margin_s)
+
+
 @contextlib.contextmanager
-def trace(logdir: str, cuda: bool = False):
+def trace(logdir: str, cuda: bool = False,
+          margin_s: float = TRACE_MARGIN_S):
     """``torch.profiler`` trace around a region: CPU activities and, with
-    ``cuda``, the card's (kernels, copies). On exit the Chrome trace goes
-    to ``logdir/lbm_tpu_torch.<pid>.<ns>.trace.json`` (view in Perfetto or
-    chrome://tracing)."""
+    ``cuda``, the card's (kernels, copies), the region's device work held
+    ``margin_s`` inside the profiler's window on either side. On exit the
+    Chrome trace goes to ``logdir/lbm_tpu_torch.<pid>.<ns>.trace.json``
+    (view in Perfetto or chrome://tracing)."""
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -101,7 +119,11 @@ def trace(logdir: str, cuda: bool = False):
         activities.append(ProfilerActivity.CUDA)
     Path(logdir).mkdir(parents=True, exist_ok=True)
     with profile(activities=activities) as prof:
+        if cuda:
+            _settle(torch, margin_s)
         yield prof
+        if cuda:
+            _settle(torch, margin_s)
     prof.export_chrome_trace(str(
         Path(logdir) / f"lbm_tpu_torch.{os.getpid()}.{time.time_ns()}.trace.json"
     ))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the on-chip form's single-buffer mode (``csrc/lbm_onchip.cuh``'s
-strip step in one buffer: ``resident_onchip_kernel<., ., 1>`` and
-``ring_onchip_kernel<., ., 1>``) beside its two buffers, where they fit,
-and D = 4, at G = 100: the A/B behind rows 3i, 3ic, 4i and 4ic in PERF.md.
+"""Time the on-chip form's strip step (``csrc/lbm_onchip.cuh``) in one
+buffer (``resident_onchip_kernel<., ., 1>``, ``ring_onchip_kernel<., .,
+1>``) and in two (``<., ., 2>``), where they fit, beside D = 4 or the
+device-memory ring, at G = 100: the A/B behind rows 3o, 3i, 3ic, 4o, 4oc,
+4i and 4ic in PERF.md, and the planner's choice between the two modes.
 
 Loop and device ms per step (``chip_smoke.py``'s ``time_turns``: CUDA
 events, the median of 10 batches after a warm-up batch, configurations in
@@ -13,13 +14,14 @@ sleep) at
   row 3ic) and the physical 400x1024 (row mode, ``auto``'s, row 3i);
 - the physical 1024x640 (rows of 1024 lanes) and 768x768, where only one
   buffer fits;
-- 512x512, 640x512 and 792x528, where both fit (one buffer's tots the two
-  buffers' bits: checked);
+- 128x128, 256x256, 512x512, 640x512 and 792x528, where both fit (one
+  buffer's tots the two buffers' bits: checked);
 - the physical 1600x264 and 1200x396, strips of 2 and 3 rows wider than a
   wave (``auto`` runs both transposed);
 - over 4 shards on one card: 768x768 (row plan, row 4i), the 1024x512
-  x-plan (row 4ic), 512x512 and the 1024x384 x-plan (both fit), with the
-  device-memory ring (rounds of D = 4) beside them.
+  x-plan (row 4ic), 256x256, 512x512 (row 4o) and the 1024x384 x-plan (row
+  4oc; both fit in all three), with the device-memory ring (rounds of D =
+  4) beside them.
 
 To compare two checkouts on one card, run this script once per checkout
 in one job, in turns (parent, change, change, parent): ``--repo DIR``
@@ -48,7 +50,8 @@ REPO = Path(__file__).resolve().parent.parent
 G = 100
 # grid NXxNY: (axis of the single-device lattice, or None: not timed
 # there; axis of the 4-shard ring, or None).
-SHAPES = {"1024x512": (1, 1), "400x1024": (0, None), "1024x640": (0, None),
+SHAPES = {"128x128": (0, None), "256x256": (0, 0),
+          "1024x512": (1, 1), "400x1024": (0, None), "1024x640": (0, None),
           "768x768": (0, 0), "512x512": (0, 0), "640x512": (0, None),
           "792x528": (0, None), "1024x384": (None, 1),
           "1600x264": (0, None), "1200x396": (0, None)}

@@ -11,8 +11,14 @@ are the same, those that differ (``--skip``: name prefixes a change is
 expected to alter, reported apart) and those only one library has; exit
 code 0 when no kernel outside ``--skip`` differs or is missing.
 
+``--pin-onchip FILE`` also writes this checkout's two-buffer on-chip
+kernels' counts (``*onchip_kernel<kCols, kMode, 2...>``) to FILE, the pin that
+``tests/test_torch_cuda.py::test_two_buffer_onchip_kernels_keep_their_
+pinned_sass`` holds the build to (``docs/artifacts/
+onchip_two_buffer_sass.json``).
+
 Usage: python scripts/sass_diff_torch.py --parent DIR
-       [--skip resident_shift_kernel<] [-o artifact.json]
+       [--skip resident_shift_kernel<] [--pin-onchip FILE] [-o artifact.json]
        (The CUDA toolkit's nvcc and cuobjdump are required.)
 """
 
@@ -43,6 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--skip", action="append", default=[],
                     help="a kernel name prefix the change is expected to "
                     "alter (repeatable)")
+    ap.add_argument("--pin-onchip", metavar="FILE")
     ap.add_argument("-o", "--output")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location(
@@ -74,6 +81,17 @@ def main(argv=None) -> int:
     }
     result["ok"] = not (result["differ"] or result["only_parent"]
                         or result["only_change"])
+    if args.pin_onchip:
+        nvcc = subprocess.run(["nvcc", "--version"], capture_output=True,
+                              text=True).stdout.strip().splitlines()[-1]
+        pin = {"what": "cuobjdump -sass opcode counts, every modifier, of "
+                       "the on-chip kernels in two buffers, built by "
+                       f"lbm_tpu_torch/ops/_build.py ({nvcc}, sm_90a) on "
+                       f"{result['card']}",
+               "kernels": {k: change[k] for k in sorted(change)
+                           if "onchip_kernel<" in k and k.split("<")[1].split(
+                               ",")[2] in ("2", "2>")}}
+        Path(args.pin_onchip).write_text(json.dumps(pin, indent=0) + "\n")
     text = json.dumps(result)
     print(text, flush=True)
     if args.output:

@@ -635,7 +635,7 @@ def test_onchip_form_matches_plain(cuda, grid, axis, gsteps):
     """One launch of the on-chip form, one block an SM, against the plain
     version: every bit of the cells, tots within the bound, one launch
     counted; a second launch from the result continues bit for bit
-    (the flags' tags go on across launches)."""
+    (the halo words' tags go on across launches)."""
     from lbm_tpu_torch.state import transpose_state
 
     nx, ny = grid
@@ -801,8 +801,8 @@ def test_inplace_tots_are_the_two_buffer_bits(cuda, grid, monkeypatch):
                                          ((1024, 400), 1, 99)],
                          ids=["768x768-G100", "1024x400-columns-G99"])
 def test_inplace_200_steps_keep_every_bit(cuda, grid, axis, g):
-    """Launches from one wrapper that go on from each other (the flags'
-    tags carried across them, an odd G too), 200 steps and more on a
+    """Launches from one wrapper that go on from each other (the halo
+    words' tags carried across them, an odd G too), 200 steps and more on a
     perturbed state: the plain version's cells bit for bit."""
     from lbm_tpu_torch.ops import reference as ref_ops
 
@@ -1567,7 +1567,7 @@ def test_sharded_ring_runs_the_planned_form(cuda, env, grid, form,
 @pytest.mark.parametrize("case", ["256x256/4", "512x128/4-x-plan"])
 def test_ring_onchip_resumes_across_modes(cuda, case):
     """A call in two buffers, then a new wrapper in one buffer on the same
-    shards (its own slots and flags, tags from zero, as after a resume or
+    shards (its own slots, tags from zero, as after a resume or
     a change of pin between chunks), then the device ring: 300 plain
     steps, bit for bit."""
     from lbm_tpu_torch.parallel import resident_ring
@@ -1587,7 +1587,7 @@ def test_ring_onchip_resumes_across_modes(cuda, case):
 def _ring_scratch(ring):
     """The addresses of a ring wrapper's slots, flags and tickets."""
     return {v.data_ptr() for b in ring._bufs for k, v in b.items()
-            if k in ("halo", "flags", "ticket", "halo_s", "halo_n", "sync")}
+            if k in ("halo", "ticket", "halo_s", "halo_n", "sync")}
 
 
 @pytest.mark.cuda
@@ -1652,15 +1652,29 @@ def _sass_opcodes():
 # other. A lattice value loaded that way may come from a stale cache line.
 COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 6,
                     "ring_kernel<": 4, "probe_kernel<": 7,
-                    "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 12}
+                    "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 24}
 NONCOHERENT_LOADS = {"resident_onchip_kernel<": {"LDG.E.U8.CONSTANT": 29}}
+# The on-chip kernels' halo words (lbm_onchip.cuh's get_word): every
+# load of them is one 64-bit relaxed strong load, at device scope or (the
+# ring's instantiation for a neighbour on another card) system scope,
+# polled until its tag matches; a weak load may be served from a stale L1
+# line or hoisted out of the poll. Their other 64-bit loads: none, but the
+# ring's nine weak loads of its shard's fields (RingStripShard, the
+# launch's arguments). Their only other loads of what other blocks wrote,
+# the partials that the last block sums, are the 32-bit strong loads of
+# sum_partials_last.
+HALO_WORD_LOADS = {"LDG.E.64.STRONG.GPU", "LDG.E.64.STRONG.SYS"}
+ONCHIP_OTHER_WIDE_LOADS = {"resident_onchip_kernel<": {},
+                           "ring_onchip_kernel<": {"LDG.E.64": 9}}
+ONCHIP_PARTIAL_LOADS = {"LDG.E.STRONG.GPU": 31}
 
 
 @pytest.mark.cuda
 def test_cross_block_kernels_load_the_lattice_coherently(cuda):
     """No load of the lattice in a kernel that reads what other blocks of
     its launch wrote takes the non-coherent path; the on-chip kernels'
-    mask loads are pinned at their count."""
+    mask loads are pinned at their count, and every load of their halo
+    words is a 64-bit strong load."""
     seen = dict.fromkeys(COHERENT_KERNELS, 0)
     for name, counts in _sass_opcodes().items():
         prefix = next((k for k in COHERENT_KERNELS if name.startswith(k)),
@@ -1671,14 +1685,27 @@ def test_cross_block_kernels_load_the_lattice_coherently(cuda):
         noncoherent = {op: n for op, n in counts.items()
                        if op.startswith("LDG") and "CONSTANT" in op}
         assert noncoherent == NONCOHERENT_LOADS.get(prefix, {}), name
+        if "onchip_kernel<" in prefix:
+            wide = {op: n for op, n in counts.items()
+                    if op.startswith("LDG") and ".64" in op}
+            assert set(wide) & HALO_WORD_LOADS, (name, wide)
+            other = {op: n for op, n in wide.items()
+                     if op not in HALO_WORD_LOADS}
+            assert other == ONCHIP_OTHER_WIDE_LOADS[prefix], (name, other)
+            strong = {op: n for op, n in counts.items()
+                      if op.startswith("LDG") and ".64" not in op
+                      and "STRONG" in op}
+            assert strong == ONCHIP_PARTIAL_LOADS, (name, strong)
     assert seen == COHERENT_KERNELS
 
 
 @pytest.mark.cuda
 def test_two_buffer_onchip_kernels_keep_their_pinned_sass(cuda):
     """The on-chip kernels in two buffers: every opcode count (every
-    modifier) of the copy pinned from the build before the single-buffer
-    mode's deferred stores, which share their source file."""
+    modifier) of the copy pinned from the build of the tagged halo words
+    (``scripts/sass_diff_torch.py --pin-onchip``), so that a change to the
+    single-buffer mode, which shares their source file, leaves them
+    alone."""
     import json
     from pathlib import Path
 
@@ -1686,7 +1713,8 @@ def test_two_buffer_onchip_kernels_keep_their_pinned_sass(cuda):
                          "artifacts" / "onchip_two_buffer_sass.json")
                         .read_text())["kernels"]
     got = {k: v for k, v in _sass_opcodes().items()
-           if "onchip_kernel<" in k and k.endswith(",2>")}
+           if "onchip_kernel<" in k and k.split("<")[1].split(",")[2] in (
+               "2", "2>")}
     assert sorted(got) == sorted(pinned)
     for name in pinned:
         assert got[name] == pinned[name], name

@@ -238,22 +238,27 @@ def test_u_is_held_by_its_largest_difference_over_its_peak():
     assert full_scenes_torch.pct_of_peak(ref, sim[:2]) is None
 
 
-def test_onchip_clocks_patches_hold_on_the_strip_step():
+@pytest.mark.parametrize("bufs, schedule", [
+    (1, "one split barrier a wave, tagged words"), (2, "tagged words")])
+def test_onchip_clocks_patches_hold_on_the_strip_step(bufs, schedule):
     """scripts/onchip_clocks_torch.py instruments the strip step that
-    lbm_onchip.cuh holds: it names one schedule, and every patch of it
-    (the shared ones and the schedule's) occurs there exactly once, so a
-    change to the strip step breaks this test and not the instrument."""
+    lbm_onchip.cuh holds in ``bufs`` buffers: it names one schedule of
+    them, and every patch of it (the shared ones and the schedule's)
+    occurs there exactly once, so a change to the strip step breaks this
+    test and not the instrument; its marks cover every category but the
+    whole step."""
     import onchip_clocks_torch as clocks
 
     text = (REPO / "lbm_tpu_torch" / "csrc" / "lbm_onchip.cuh").read_text()
-    name = clocks.schedule_of(text)
-    assert name == "one split barrier a wave"
-    for old, _ in clocks._HEAD + clocks.SCHEDULES[name]["patches"]:
+    name = clocks.schedule_of(text, bufs)
+    assert name == schedule
+    for old, _ in clocks.patches(name):
         assert text.count(old) == 1, old
-    _, patched = clocks.instrument(text)
+    _, patched = clocks.instrument(text, bufs)
     marks = {int(q) for q in re.findall(r"CKW?\((\d+)\)", patched)}
-    assert marks == set(range(10))
-    assert len(clocks.SCHEDULES[name]["categories"]) == 11
+    n = len(clocks.SCHEDULES[name]["categories"])
+    assert marks == set(range(n - 1))
+    assert f"kBufs == {bufs} && threadIdx.x == 0" in patched
 
 
 def test_shift_clocks_patches_hold_on_the_shift_step():
@@ -286,3 +291,44 @@ def test_coherence_mutant_applies_to_the_shift_mode():
     for old, new in mutant.MUTATIONS:
         assert text.count(old) == 1, old
         assert "__ldg" in new
+
+
+def test_coherence_mutant_applies_to_the_halo_poll():
+    """scripts/coherence_mutant_torch.py's weak-poll mutations each occur
+    exactly once in lbm_onchip.cuh (the strip step's halo word loads, one
+    a scope), and each turns a relaxed strong load into a weak one."""
+    import coherence_mutant_torch as mutant
+
+    source, mutations = mutant.MUTANTS["weak_poll"]
+    text = (REPO / "lbm_tpu_torch" / "csrc" / source).read_text()
+    assert len(mutations) == 2
+    for old, new in mutations:
+        assert text.count(old) == 1, old
+        assert "relaxed" in old and "relaxed" not in new
+
+
+def test_trace_drops_matches_launches_to_kernels(tmp_path):
+    """scripts/trace_drops_torch.py pairs each host launch with its kernel
+    by correlation id: the launches left without one are listed by launch
+    order, and the skew is the first kernel's start less the first
+    launch's."""
+    import trace_drops_torch
+
+    def ev(name, cat, ts, corr):
+        return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": 5.0,
+                "pid": 0, "tid": 1, "args": {"correlation": corr}}
+
+    events = [ev("cudaLaunchKernel", "cuda_runtime", 100.0 + 10 * i, i)
+              for i in range(5)]
+    # The first two kernels fell before the window and are not in it.
+    events += [ev("fused_depth_kernel", "kernel", 80.0 + 10 * i, i)
+               for i in range(2, 5)]
+    events.append(ev("cudaMemcpyAsync", "cuda_runtime", 50.0, 99))
+    d = tmp_path / "t"
+    d.mkdir()
+    (d / "x.trace.json").write_text(json.dumps({"traceEvents": events}))
+    got = trace_drops_torch.drops(str(d))
+    assert got == {"launches": 5, "kernels": 3, "dropped": [0, 1],
+                   "skew_us": 0.0}
+    res = _script("trace_drops_torch.py", "--reps", "1")
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr
