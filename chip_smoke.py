@@ -203,6 +203,24 @@ printing JSON lines (any failure raises and exits non-zero):
              (in L2) and 16384x1024; the two streaming shares,
              (full - collide) / full and stream / full; each mode's blocks
              and rounds; the plain version;
+17b. mxu_kernel - the tensor-core equilibrium (csrc/mxu_eq.cu: the
+             device-memory form's rounds, the equilibria a (9, 6) x (6, N)
+             product in f64, DMMA) for one call at G = 100 against its plain
+             version (ops.mxu_eq.mxu_multi_step) at 1024x1024 (the scene's
+             mask, its column obstacle), a ragged wall-less 100x130 and
+             264x100: cells within mxu_eq.cells_atol, totals within 1e-4;
+             against the elementwise device form at the drift level
+             (check.py's formula on the totals and the pressure, 0.3 %);
+             the DMMA (or HMMA) instructions in its SASS;
+17c. mxu_scene - the 1024x1024 scene, all 20000 steps, through
+             ops.mxu_eq.MxuStep (G = 100): its final state against
+             goldens/1024x1024.final_state.f64.npz within the 0.3 %
+             budget, the margin printed; the launches are the kernels
+             line's;
+17d. mxu_timing - device ms per step of the kernel and of the
+             device-memory form at G = 100 at 1024x1024, in turns, and the
+             plain version; then scripts/mxu_probe_torch.py's main at 200
+             steps (its file under build/);
 18. resume   - the 1024x1024 scene, 20000 steps, through the CLI in
              subprocesses: --chunk-iters 3002 (even, no multiple of D = 4;
              a 1988-step tail);
@@ -248,7 +266,9 @@ device-memory form's shift mode (4096x64's scene under auto; times from
 onchip_timing's row), the on-chip resident form in two buffers and in one
 (row mode: 400x1024 through the runner; column mode: the 1024x512 scene), the on-chip ring in two buffers
 and in one (ring_onchip_scene's 512x512, 1024x384, 768x768 and 1024x512
-over 4 shards; times from shard_timing's rows), the probe's three, with its
+over 4 shards; times from shard_timing's rows), the probe's three, the
+tensor-core kernel (the mxu_scene's launches; its error the largest
+against its plain version, within its stated tolerance), with its
 launches on its path,
 error against its plain version, time, plain time and bound; the
 ring's rows also its D, its loop time and a design ceiling of one pass
@@ -2646,6 +2666,179 @@ def phase_probe_timing(torch):
     return results
 
 
+# The tensor-core equilibrium's checks: a launch of MXU_G steps against
+# its plain version on these grids (the scene's mask with its column, a
+# ragged wall-less one, the generator's walls); its timing grid.
+MXU_CASES = [("1024x1024", "scene"), ("100x130", "random"),
+             ("264x100", "walls")]
+MXU_G = 100
+MXU_PROBE_OUT = REPO / "build" / "lbm_tpu_torch" / "mxu_probe_torch.json"
+
+
+def mxu_mma():
+    """HMMA and DMMA instructions in the built mxu_resident_kernel's
+    SASS."""
+    from lbm_tpu_torch.ops import _build
+
+    return harness_script("mxu_probe_torch").mma_in_sass(
+        _build.build()[0]).get("mxu_resident_kernel", 0)
+
+
+def phase_mxu_kernel(torch, np):
+    """The tensor-core kernel for one call of MXU_G steps against its
+    plain version (cells within mxu_eq.cells_atol, totals within
+    mxu_eq.TOT_RTOL) and against the elementwise device form at the drift
+    level; the tensor-core instructions. Returns the largest cell error."""
+    from lbm_tpu_torch.obstacles import num_non_obstacles_r
+    from lbm_tpu_torch.ops import mxu_eq, resident
+    from lbm_tpu_torch import io as lio
+
+    mma = mxu_mma()
+    check(mma > 0, "no DMMA or HMMA instruction in mxu_resident_kernel's "
+          "SASS")
+    worst = 0.0
+    for i, (name, kind) in enumerate(MXU_CASES):
+        p = scene_params(name, iters=200)
+        cells, mask = random_case(torch, name, p, 70 + i, kind, "perturbed")
+        w = (p.accel_w1, p.accel_w2, p.omega)
+        with env():
+            got, tots = mxu_eq.mxu_resident(cells, mask, *w, MXU_G)
+            want, want_tots = mxu_eq.mxu_multi_step(cells, mask, *w, MXU_G)
+            dev, dev_tots = resident.resident(cells, mask, *w, MXU_G,
+                                              form="device")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"mxu output not finite at "
+              f"{name}")
+        err = float((got - want).abs().max())
+        atol = mxu_eq.cells_atol(MXU_G, p.omega)
+        tot_rel = float(((tots - want_tots).abs() / want_tots.abs()).max())
+        worst = max(worst, err)
+        # Against the elementwise step: av_vels and pressure by check.py's
+        # formula, as the drift gate compares a run with its golden.
+        m_np = mask.cpu().numpy()
+        inv = float(num_non_obstacles_r(m_np))
+        pressure = [lio.final_state_fields(p, c.cpu().numpy(), m_np)[3].ravel()
+                    for c in (got, dev)]
+        d, ok = drift(np, (dev_tots * inv).cpu().numpy(), pressure[1],
+                      (tots * inv).cpu().numpy(), pressure[0])
+        emit({"phase": "mxu_kernel", "grid": name, "mask": kind,
+              "gsteps": MXU_G, "max_abs_err": err, "cells_atol": atol,
+              "tot_rel_err": tot_rel, "tot_rtol": mxu_eq.TOT_RTOL,
+              "max_abs_vs_device_form": float((got - dev).abs().max()),
+              "vs_device_form": d, "mma_in_sass": mma})
+        check(err <= atol and tot_rel <= mxu_eq.TOT_RTOL,
+              f"mxu != plain at {name}: {err} (atol {atol}), tots {tot_rel}")
+        check(ok, f"mxu against the device form at {name}: {d}")
+        del cells, mask, got, want, dev
+        torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "mma_in_sass": mma,
+            "cells_atol": mxu_eq.cells_atol(MXU_G, 1.85)}
+
+
+def phase_mxu_scene(torch, np):
+    """The 1024x1024 scene, ITERS steps, through MxuStep at G = MXU_G: its
+    final state against the float64 golden within the drift budget.
+    Returns the launch counts of the run."""
+    from lbm_tpu_torch import io as lio
+    from lbm_tpu_torch.obstacles import num_non_obstacles_r
+    from lbm_tpu_torch.ops import fused, mxu_eq
+    from lbm_tpu_torch.state import initial_state
+
+    golden = np.load(GOLDEN)
+    p = scene_params()
+    mask = scene_mask()
+    inv = float(num_non_obstacles_r(mask))
+    mask_d = torch.from_numpy(mask).cuda()
+    cells = initial_state(p, "cuda")
+    spare = torch.empty_like(cells)
+    av = torch.zeros(ITERS, device="cuda")
+    with env():
+        kernel = mxu_eq.MxuStep(mask_d, p.accel_w1, p.accel_w2, p.omega,
+                                MXU_G)
+        fused.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(0, ITERS, MXU_G):
+            cells, spare = kernel.run(cells, spare, av, t, inv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(fused.LAUNCHES)
+    check(launches["mxu"] == ITERS // MXU_G
+          and sum(launches.values()) == launches["mxu"],
+          f"mxu scene launches {launches}")
+    check(bool(torch.isfinite(cells).all()), "mxu scene not finite")
+    pressure = lio.final_state_fields(p, cells.cpu().numpy(), mask)[3]
+    d, ok = drift(np, golden["av_vels"], golden["pressure"], av.cpu().numpy(),
+                  pressure.ravel())
+    emit({"phase": "mxu_scene", "grid": SCENE, "steps": ITERS,
+          "gsteps": MXU_G, "launches": {k: v for k, v in launches.items()
+                                        if v},
+          **d, "seconds": seconds,
+          "glups": grid(SCENE)[0] * grid(SCENE)[1] * ITERS / seconds / 1e9,
+          "reference": str(GOLDEN.relative_to(REPO))})
+    check(ok, f"mxu scene outside the drift budget: {d}")
+    return launches
+
+
+def phase_mxu_timing(torch):
+    """Device ms per step of the tensor-core kernel and of the
+    device-memory form at G = MXU_G, in turns, at 1024x1024; the plain
+    version's; then the probe script's main at 200 steps."""
+    from lbm_tpu_torch.ops import mxu_eq, resident
+
+    p = scene_params(SCENE)
+    cells, mask = random_case(torch, SCENE, p, seed=96, state="perturbed",
+                              mask_kind="scene")
+    bufs = [cells, torch.empty_like(cells)]
+    av = torch.zeros(MXU_G, device="cuda")
+    w = (p.accel_w1, p.accel_w2, p.omega)
+    with env():
+        mxu = mxu_eq.MxuStep(mask, *w, MXU_G)
+        dev = resident.Resident(mask, *w, MXU_G, form="device")
+        calls = {f"device form G={MXU_G}": (runner_call(dev, bufs, av), MXU_G,
+                                            None),
+                 f"mxu G={MXU_G}": (runner_call(mxu, bufs, av), MXU_G, None)}
+        loop, devms = time_turns(torch, calls)
+
+        def plain_steps():
+            mxu_eq.mxu_multi_step(bufs[0], mask, *w, 2)
+        plain = _median_ms(torch, plain_steps, 2, True, steps=8, batches=3)[0]
+    med = {k: statistics.median(v) for k, v in devms.items()}
+    out = {"phase": "mxu_timing", "grid": SCENE, "gsteps": MXU_G,
+           "blocks": {"mxu": mxu.blocks, "device form": dev.blocks},
+           "rounds": "+".join(f"{mxu.rounds.count(d)}x{d}" for d in (4, 2, 1)
+                              if d in mxu.rounds),
+           "loop_ms_per_step": loop, "device_ms_per_step": devms,
+           "mxu_over_device_form": med[f"mxu G={MXU_G}"]
+           / med[f"device form G={MXU_G}"],
+           "plain_device_ms_per_step": plain,
+           "state_finite_after_timing": bool(torch.isfinite(bufs[0]).all()),
+           "method": "CUDA events; median over 10 batches of 200 steps "
+                     "after one warm-up batch, configurations in turns "
+                     "(forward, then reverse); device: queue pre-filled "
+                     "behind a device sleep"}
+    emit(out)
+    check(out["state_finite_after_timing"], "mxu timing state not finite")
+    del cells, bufs, mxu, dev, calls
+    torch.cuda.empty_cache()
+    script = harness_script("mxu_probe_torch")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = script.main(["200", "--repeats", "2", "--plain-iters", "20",
+                          "-o", str(MXU_PROBE_OUT)])
+    check(rc == 0, f"mxu_probe_torch.py exit {rc}")
+    summary = json.loads(buf.getvalue().splitlines()[-1])
+    check(summary["mma_in_sass"] > 0 and summary["device_mxu"]["glups"] > 0,
+          f"mxu probe: {summary}")
+    emit({"phase": "mxu_timing", "script": "scripts/mxu_probe_torch.py",
+          **{k: summary[k] for k in ("iters", "device_elementwise",
+                                     "device_mxu", "mma_in_sass",
+                                     "mxu_over_elementwise")}})
+    out["device_ms"] = med[f"mxu G={MXU_G}"]
+    out["device_form_ms"] = med[f"device form G={MXU_G}"]
+    return out
+
+
 def _cli(args, timeout=600, background=False):
     """``python -m lbm_tpu_torch`` in a subprocess of its own, the plan
     pins cleared: the finished run, or with ``background`` the running
@@ -3197,6 +3390,9 @@ def main() -> int:
     probe_worst = run("probe_kernel", phase_probe_kernel, torch)
     probe_launches = run("probe_path", phase_probe_path, torch)
     probe_timing = run("probe_timing", phase_probe_timing, torch)
+    mxu_check = run("mxu_kernel", phase_mxu_kernel, torch, np)
+    mxu_launches = run("mxu_scene", phase_mxu_scene, torch, np)
+    mxu_timing = run("mxu_timing", phase_mxu_timing, torch)
     if launches is not None:
         run("resume", phase_resume, torch, np)
     run("debug", phase_debug, torch, np)
@@ -3248,7 +3444,9 @@ def main() -> int:
             "ring_onchip_inplace": ring_scenes["768x768"]["launches"].get(
                 "ring_onchip_inplace", 0),
             "ring_onchip_inplace_cols": ring_scenes[INPLACE_SCENE][
-                "launches"].get("ring_onchip_inplace_cols", 0)}
+                "launches"].get("ring_onchip_inplace_cols", 0),
+            # The 1024x1024 scene through MxuStep.
+            "mxu": mxu_launches["mxu"]}
     for kname, n in runs.items():
         check(n > 0, f"{kname} was not launched on its path")
     t = timing[SCENE]
@@ -3507,6 +3705,22 @@ def main() -> int:
                                               **probe_cost[m]),
                        blocks=pt["blocks"][m])
           for m in ("full", "collide", "stream")),
+        # The tensor-core equilibrium: the device form's rounds and work
+        # (its bound and ceiling are that form's: a bound reads the work,
+        # not the unit that does it); its error against the plain version
+        # is within mxu_eq.cells_atol, not 0 (the tensor cores' sums).
+        kernel_entry("mxu_resident_kernel", "lbm_tpu_torch/csrc/mxu_eq.cu",
+                     "scripts/mxu_probe.py:80", runs["mxu"],
+                     f"{SCENE} scene through ops.mxu_eq.MxuStep (G={MXU_G}, "
+                     f"rounds {rounds}), {ITERS} steps",
+                     mxu_check["max_abs_err"], mxu_timing["device_ms"],
+                     mxu_timing["plain_device_ms_per_step"],
+                     bound(cells, MXU_G),
+                     ceiling=design_ceiling(cells, MXU_G,
+                                            steps_per_pass=per_pass),
+                     cells_atol=mxu_check["cells_atol"],
+                     mma_in_sass=mxu_check["mma_in_sass"],
+                     device_form_ms=mxu_timing["device_form_ms"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,12 +18,15 @@ With periodic checkpointing on, SIGTERM or SIGINT stops the run at the
 next chunk boundary with its state saved: exit code 75, one line on stderr
 naming the ``--resume`` command, and no output files. ``--debug`` prints
 the reference's per-step block; ``--trace DIR`` writes a
-``torch.profiler`` trace of the compute phase.
+``torch.profiler`` trace of the compute phase. ``--compilation-cache DIR``
+(or ``LBM_COMPILATION_CACHE``; the flag first) builds and reuses the
+kernels' and the host module's libraries in DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 import numpy as np
@@ -31,7 +34,7 @@ import numpy as np
 from lbm_tpu_torch import io as lio
 from lbm_tpu_torch import runner
 from lbm_tpu_torch.obstacles import load_obstacles
-from lbm_tpu_torch.ops import plan
+from lbm_tpu_torch.ops import _build, plan
 from lbm_tpu_torch.parallel import halo
 from lbm_tpu_torch.parallel.decomp import visible_devices
 from lbm_tpu_torch.params import load_params
@@ -112,6 +115,13 @@ def build_parser() -> argparse.ArgumentParser:
         help="capture a torch.profiler trace of the compute phase into DIR "
              "(summarise with scripts/trace_report_torch.py)",
     )
+    p.add_argument(
+        "--compilation-cache", default=None, metavar="DIR",
+        help="build and reuse the CUDA kernels' and the host module's "
+             "libraries in DIR, an existing writable directory (also via "
+             "LBM_COMPILATION_CACHE; default build/lbm_tpu_torch beside the "
+             "package); each library is keyed by its sources' hash",
+    )
     return p
 
 
@@ -134,6 +144,9 @@ def main(argv: list[str] | None = None) -> int:
 
 def _main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
+    cache = args.compilation_cache or os.environ.get("LBM_COMPILATION_CACHE")
+    if cache:
+        _build.set_build_dir(cache)
     dtype = np.float64 if args.precision == "float64" else np.float32
     params = load_params(args.paramfile, dtype=dtype)
     obstacles = load_obstacles(args.obstaclefile, params.nx, params.ny)

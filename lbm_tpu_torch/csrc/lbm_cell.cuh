@@ -37,11 +37,13 @@
 
 #pragma once
 
+// The first half of lbm_cell_update: the cell's nine pulled speeds, the
+// copies pulled from the forced line forced, into s. The tensor-core stage
+// body (lbm_depth.cuh's kStageMxu) runs it and its own equilibrium.
 template <bool kCols, class I, class Load, class Solid>
-__device__ __forceinline__ float lbm_cell_update(
+__device__ __forceinline__ void lbm_cell_pull(
     const Load& ld, const Solid& solid, I rc, I rm, I rp, I ic, I iw, I ie,
-    bool f0, bool f1, bool f2, float w1, float w2, float omega, int mode,
-    float out[9]) {
+    bool f0, bool f1, bool f2, float w1, float w2, float (&s)[9]) {
     const float s0 = ld(0, rc + ic);
     float s1 = ld(1, rc + iw);
     float s2 = ld(2, rm + ic);
@@ -101,6 +103,20 @@ __device__ __forceinline__ float lbm_cell_update(
             }
         }
     }
+    s[0] = s0, s[1] = s1, s[2] = s2, s[3] = s3, s[4] = s4;
+    s[5] = s5, s[6] = s6, s[7] = s7, s[8] = s8;
+}
+
+template <bool kCols, class I, class Load, class Solid>
+__device__ __forceinline__ float lbm_cell_update(
+    const Load& ld, const Solid& solid, I rc, I rm, I rp, I ic, I iw, I ie,
+    bool f0, bool f1, bool f2, float w1, float w2, float omega, int mode,
+    float out[9]) {
+    float p[9];
+    lbm_cell_pull<kCols>(ld, solid, rc, rm, rp, ic, iw, ie, f0, f1, f2, w1,
+                         w2, p);
+    const float s0 = p[0], s1 = p[1], s2 = p[2], s3 = p[3], s4 = p[4];
+    const float s5 = p[5], s6 = p[6], s7 = p[7], s8 = p[8];
 
     const float rho = s0 + s1 + s2 + s3 + s4 + s5 + s6 + s7 + s8;
     const float u_x = (s1 + s5 + s8 - (s3 + s6 + s7)) / rho;

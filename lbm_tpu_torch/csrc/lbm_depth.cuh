@@ -1,9 +1,10 @@
 // The depth kernel's tile (fused_depth.cu): D D2Q9 BGK steps of a 32 x TY
 // tile of the lattice on a window of all nine speeds and the mask in
 // dynamic shared memory. Shared by the depth kernel, one block a tile, and
-// the ring (ring.cu), the device-memory resident form (resident.cu) and the
-// stream-cost probe (probe.cu), whose persistent blocks run many tiles a
-// launch: all give a cell and a step's per-tile partial the same bits.
+// the ring (ring.cu), the device-memory resident form (resident.cu), the
+// stream-cost probe (probe.cu) and the tensor-core equilibrium's kernel
+// (mxu_eq.cu), whose persistent blocks run many tiles a launch: all but the
+// last give a cell and a step's per-tile partial the same bits.
 // fused_depth.cu's header comment describes the window, the threads and
 // the stages.
 
@@ -171,25 +172,115 @@ __device__ __forceinline__ constexpr int pull_tag(int k) {
 }
 
 // The stage body of a tile, a compile-time parameter: the step every
-// kernel runs, and the two variants of it that the stream-cost probe
+// kernel runs, the two variants of it that the stream-cost probe
 // (probe.cu) times under the same window load, stages, barriers, partials
-// and stores.
+// and stores, and the step with its equilibrium on the tensor cores
+// (mxu_eq.cu).
 //   kStageFull     pull streaming, forcing of the copies pulled from the
 //                  forced line, bounce-back, BGK; partial: owned fluid |u|;
 //   kStageCollide  bounce-back and BGK of each cell's own nine speeds, read
 //                  at its own window site (no streaming, no forced line);
 //                  the same partial;
 //   kStageStream   the pulled speeds copied through (no collision, the
-//                  mask unread); partial: speed 0 of every owned cell.
+//                  mask unread); partial: speed 0 of every owned cell;
+//   kStageMxu      kStageFull's pull and forcing, the nine equilibria as a
+//                  (9, 6) x (6, N) product on the tensor cores (below), the
+//                  relaxation s + omega (feq - s) (ops/mxu_eq.py's, the
+//                  reference order's), bounce-back; the same partial. Row
+//                  mode only; one more block barrier a stage.
 constexpr int kStageFull = 0;
 constexpr int kStageCollide = 1;
 constexpr int kStageStream = 2;
+constexpr int kStageMxu = 3;
+
+// kStageMxu's equilibria. With phi = [rho, rho ux, rho uy, rho ux^2,
+// rho uy^2, rho ux uy], a cell's nine feq are W phi, W the (9, 6) map of
+// ops/mxu_eq.py's equilibrium_matrix in float32. A warp forms them for its
+// cells as products D = A B of mma.m16n8k8 in f64 on the tensor cores
+// (DMMA), one for each 8 of its cells: A is W padded to 16 x 8 (speeds x
+// features), B the 8 cells' features (features x cells), both exact in
+// f64; D their equilibria (speeds x cells), each rounded once to f32. The
+// products and sums in f64 err by ~2^-50 (the card's f64 product equals a
+// sequential fma in k order), so a cell's feq is within half an f32 ulp of
+// W phi: the f32-faithful counterpart of JAX's Precision.HIGHEST. 3xTF32 on
+// the f32 tensor path (2^-20 of |W| |phi| from exact, its sums rounded
+// toward zero) took the 1024^2 scene 0.46 % from its golden in 20000
+// steps, over the 0.3 % budget (PERF.md; scripts/mma_rounding_torch.py,
+// scripts/mxu_ab_torch.py).
+// The fragments follow the PTX ISA's layout of m16n8k8, with lane = 4 g +
+// t: A's registers a0..a3 hold (row, column) (g, t), (g + 8, t), (g, t +
+// 4), (g + 8, t + 4); B's b0, b1 hold (t, g), (t + 4, g); D's d0..d3 hold
+// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+//
+// A is a constant: W by register and lane (ops/mxu_eq.py's a_fragments),
+// 4 x 32 doubles behind the window in the block's dynamic shared memory
+// (kMxuTable). B and D go through the warp's scratch in the stage's
+// output buffer, which no thread reads during the stage: plane p of the
+// warp's cell c (2 lane + i for its cell i) at mxu_slot(p, c, P), P the
+// warp's cells (64; the last warp of a depth-2 or depth-1 window fewer).
+// The owners store their phi planes, each lane loads its B registers, and
+// D's rows 0..8 are stored over them as feq planes, which the owners load.
+// A wrong lane map shows on the CPU: ops/mxu_eq.py's mxu_device_emulated
+// runs these maps.
+
+// Floats from the start of a kStageMxu block's dynamic shared memory to its
+// A fragments, behind the depth-4 window (16-byte aligned): 4 x 32
+// doubles, registers a0..a3, each by lane.
+template <int V>
+constexpr size_t kMxuTable = (Geo<4, V>::kBytes + 15) / 16 * 4;
+constexpr int kMxuTableWords = 4 * 32 * 2;
+
+// Plane p of cell c in a warp's scratch of P cells (a power of two),
+// skewed by 8 cells a plane: the fragments' loads and stores fall on
+// distinct banks.
+__device__ __forceinline__ int mxu_slot(int p, int c, int P) {
+    return p * P + ((c + 8 * p) & (P - 1));
+}
+
+// d = A B + d for one m16n8k8 f64 product; every lane of the warp runs it.
+__device__ __forceinline__ void mma_f64(double (&d)[4], const double (&a)[4],
+                                       double b0, double b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+        : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+        : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// A warp's equilibria: its cells' phi (planes 0..5 of the scratch sc of P
+// cells) in, their feq (planes 0..8) out. Every lane of the warp calls it.
+__device__ __forceinline__ void mxu_warp_products(float* sc, int P,
+                                                  const double* table) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    double a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = table[i * 32 + lane];
+#pragma unroll
+    for (int T = 0; T < 8; ++T) {
+        if (8 * T >= P) break;  // the same for the whole warp
+        // B: features t and t + 4 (none past 5) of the tile's cell g.
+        const int c = 8 * T + g;
+        const double b0 = sc[mxu_slot(t, c, P)];
+        const double b1 = t < 2 ? sc[mxu_slot(t + 4, c, P)] : 0.0;
+        double d[4] = {0.0, 0.0, 0.0, 0.0};
+        mma_f64(d, a, b0, b1);
+        // Speed g of the tile's cells 2t and 2t + 1; speed 8 from lane g = 0
+        // (rows 9..15 are W's padding).
+        const int e = 8 * T + 2 * t;
+        *reinterpret_cast<float2*>(sc + mxu_slot(g, e, P)) =
+            make_float2(__double2float_rn(d[0]), __double2float_rn(d[1]));
+        if (g == 0) {
+            *reinterpret_cast<float2*>(sc + mxu_slot(8, e, P)) =
+                make_float2(__double2float_rn(d[2]), __double2float_rn(d[3]));
+        }
+    }
+}
 
 // One tile's D stages for a compile-time association kMode (lbm_cell.cuh's
 // mode: the update's branches on it fold away) and stage body kStage
-// (kStageFull everywhere but in the probe): load the tile's window
-// from a.src (rows outside the lattice from a.halo in seam mode), run the
-// stages in shared memory, store the tile into a.dst, and store the
+// (kStageFull everywhere but in the probe and mxu_eq.cu): load the tile's
+// window from a.src (rows outside the lattice from a.halo in seam mode), run
+// the stages in shared memory, store the tile into a.dst, and store the
 // tile's partial of stage s (its owned fluid cells' |u|, summed by thread,
 // warp, then warps in order) at rows[s * row_stride + tile]. Every thread
 // of the block calls it; the block may call it again for another tile
@@ -315,7 +406,168 @@ __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
         const bool active = has_quad && r >= s && r < WH - s &&
                             c0 + kV - 1 >= lo && c0 < WW - lo;
         float acc = 0.0f;
-        if (active) {
+        // The stage's new speeds of this thread's cells: into nxt, or at
+        // stage D, whose needed region is the tile itself, into a.dst.
+        auto store = [&](const float (&o)[9][kV]) {
+            if (s < D) {
+#pragma unroll
+                for (int k = 0; k < 9; ++k) {
+                    store_vec(nxt + k * WC + base, o[k]);
+                }
+            } else if (own) {
+                float* to = a.dst + (size_t)(y0 + r) * nx + (x0 + c0);
+                if (a.vec) {
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) {
+                        store_vec(to + k * plane, o[k]);
+                    }
+                } else {
+#pragma unroll
+                    for (int i = 0; i < kV; ++i) {
+                        if ((own >> i) & 1u) {
+#pragma unroll
+                            for (int k = 0; k < 9; ++k) {
+                                to[k * plane + i] = o[k][i];
+                            }
+                        }
+                    }
+                }
+            }
+        };
+        if constexpr (kStage == kStageMxu) {
+            static_assert(!kCols, "the tensor-core stage runs in row mode");
+            static_assert(((G::kQuads % 32) & (G::kQuads % 32 - 1)) == 0,
+                          "a warp's scratch is a power of two of cells");
+            // The pulled, forced speeds of the thread's cells and their
+            // obstacle flags. Pulled twice, before and after the products
+            // (the window is not written this stage): the 18 speeds are
+            // not held across them.
+            auto pull = [&](float (&sp)[kV][9], bool (&solid0)[kV]) {
+                const float* at = cur + base;
+                float q[9][kV];
+#pragma unroll
+                for (int k = 0; k < 9; ++k) {
+                    const int dr = (k == 2 || k == 5 || k == 6) ? -WW
+                                 : (k == 4 || k == 7 || k == 8) ? WW : 0;
+                    load_vec(at + k * WC + dr, q[k]);
+                }
+                const float e1 = at[1 * WC - 1];
+                const float e5 = at[5 * WC - WW - 1];
+                const float e8 = at[8 * WC + WW - 1];
+                const float e3 = at[3 * WC + kV];
+                const float e6 = at[6 * WC - WW + kV];
+                const float e7 = at[7 * WC + WW + kV];
+                uint8_t m[kV];
+                load_vec(wmask + base, m);
+#pragma unroll
+                for (int i = 0; i < kV; ++i) {
+                    const int iw = i == 0 ? 0 : i - 1;
+                    const int ie = i == kV - 1 ? 0 : i + 1;
+                    const float v[9] = {
+                        q[0][i],
+                        i == 0 ? e1 : q[1][iw],
+                        q[2][i],
+                        i == kV - 1 ? e3 : q[3][ie],
+                        q[4][i],
+                        i == 0 ? e5 : q[5][iw],
+                        i == kV - 1 ? e6 : q[6][ie],
+                        i == kV - 1 ? e7 : q[7][ie],
+                        i == 0 ? e8 : q[8][iw]};
+                    solid0[i] = m[i] != 0;
+                    auto ld = [&](int k, Site t) -> float {
+                        return t.tag == pull_tag(k) ? v[k]
+                                                    : cur[k * WC + t.o];
+                    };
+                    auto solid = [&](Site t) -> bool {
+                        return t.tag == 0 ? solid0[i] : wmask[t.o] != 0;
+                    };
+                    lbm_cell_pull<false, Site>(
+                        ld, solid, Site{r * WW, 0}, Site{(r - 1) * WW, 3},
+                        Site{(r + 1) * WW, 6}, Site{c0 + i, 0},
+                        Site{c0 + i - 1, 1}, Site{c0 + i + 1, 2},
+                        (fbits >> 1) & 1u, fbits & 1u, (fbits >> 2) & 1u, w1,
+                        w2, sp[i]);
+                }
+            };
+            float usq[kV] = {}, phi[6][kV] = {};
+            if (active) {
+                float sp[kV][9];
+                bool solid0[kV];
+                pull(sp, solid0);
+#pragma unroll
+                for (int i = 0; i < kV; ++i) {
+                    const float* f = sp[i];
+                    const float rho = f[0] + f[1] + f[2] + f[3] + f[4] + f[5] +
+                                      f[6] + f[7] + f[8];
+                    const float u_x = (f[1] + f[5] + f[8] - (f[3] + f[6] + f[7]))
+                                      / rho;
+                    const float u_y = (f[2] + f[5] + f[6] - (f[4] + f[7] + f[8]))
+                                      / rho;
+                    usq[i] = u_x * u_x + u_y * u_y;
+                    const float rux = rho * u_x, ruy = rho * u_y;
+                    phi[0][i] = rho;
+                    phi[1][i] = rux;
+                    phi[2][i] = ruy;
+                    phi[3][i] = rux * u_x;
+                    phi[4][i] = ruy * u_y;
+                    phi[5][i] = rux * u_y;
+                }
+            }
+            // The warp's scratch: its cells' planes in nxt, which no thread
+            // reads this stage (the last warp of a shallower window holds
+            // fewer cells; warps with none skip, as do warps with no
+            // active cell).
+            const int warp = tid >> 5, lane = tid & 31;
+            const int P = warp < G::kQuads / 32 ? 64 : 2 * (G::kQuads % 32);
+            float* sc = nxt + 9 * 64 * warp;
+            float feq[9][kV];
+            if (__any_sync(0xffffffffu, active)) {
+                if (has_quad) {
+#pragma unroll
+                    for (int p = 0; p < 6; ++p) {
+                        *reinterpret_cast<float2*>(sc +
+                                                   mxu_slot(p, 2 * lane, P)) =
+                            make_float2(phi[p][0], phi[p][1]);
+                    }
+                }
+                __syncwarp();
+                mxu_warp_products(
+                    sc, P,
+                    reinterpret_cast<const double*>(buf_a + kMxuTable<kV>));
+                __syncwarp();
+                if (has_quad) {
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) {
+                        const float2 f = *reinterpret_cast<const float2*>(
+                            sc + mxu_slot(k, 2 * lane, P));
+                        feq[k][0] = f.x;
+                        feq[k][1] = f.y;
+                    }
+                }
+            }
+            float o[9][kV];
+            if (active) {
+                float sp[kV][9];
+                bool solid0[kV];
+                pull(sp, solid0);
+                const int opp[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+#pragma unroll
+                for (int i = 0; i < kV; ++i) {
+#pragma unroll
+                    for (int k = 0; k < 9; ++k) {
+                        o[k][i] = solid0[i] ? sp[i][opp[k]]
+                                            : sp[i][k] +
+                                                  omega * (feq[k][i] - sp[i][k]);
+                    }
+                    if ((own >> i) & 1u) {
+                        acc += solid0[i] ? 0.0f : sqrtf(usq[i]);
+                    }
+                }
+            }
+            // Every warp's scratch is read by now; nxt takes the stage.
+            if (s < D) __syncthreads();
+            if (active) store(o);
+        } else if (active) {
             const float* at = cur + base;
             // Each speed's quad from the row it is pulled from: k = 0, 1,
             // 3 from the cell's row, 2, 5, 6 from the row below, 4, 7, 8
@@ -404,31 +656,7 @@ __device__ __forceinline__ void lbm_depth_tile(const Args& a, float* buf_a,
 #pragma unroll
                 for (int k = 0; k < 9; ++k) o[k][i] = out[k];
             }
-            if (s < D) {
-#pragma unroll
-                for (int k = 0; k < 9; ++k) {
-                    store_vec(nxt + k * WC + base, o[k]);
-                }
-            } else if (own) {
-                // Stage D's needed region is the tile itself.
-                float* to = a.dst + (size_t)(y0 + r) * nx + (x0 + c0);
-                if (a.vec) {
-#pragma unroll
-                    for (int k = 0; k < 9; ++k) {
-                        store_vec(to + k * plane, o[k]);
-                    }
-                } else {
-#pragma unroll
-                    for (int i = 0; i < kV; ++i) {
-                        if ((own >> i) & 1u) {
-#pragma unroll
-                            for (int k = 0; k < 9; ++k) {
-                                to[k * plane + i] = o[k][i];
-                            }
-                        }
-                    }
-                }
-            }
+            store(o);
         }
         // The stage's sum over owned cells: per thread above, per warp
         // here, one slot a warp.

@@ -4,8 +4,8 @@
 // partials summed in tile order after the last. Shared by the device-memory
 // resident form (resident.cu, the production step, whose header comment
 // gives the design and the measurements behind each choice) and the
-// stream-cost probe (probe.cu, the same loop around another stage body).
-// Also the device form's shift mode (shift_block): a step at a time over
+// stream-cost probe (probe.cu, the same loop around another stage body),
+// and the tensor-core equilibrium's kernel (mxu_eq.cu, another). Also the device form's shift mode (shift_block): a step at a time over
 // blocks that own their tiles for the launch and wait only on their
 // neighbours' step counters.
 
@@ -986,11 +986,13 @@ inline int rounds_blocks(const void* fn, int threads, size_t bytes, int ny,
     return (int)(blocks < n_tiles ? blocks : n_tiles);
 }
 
-// The cooperative launch of kernel fn over blocks blocks with r. A launch
-// of more blocks than can be co-resident is refused
+// The cooperative launch of kernel fn over blocks blocks with its one
+// parameter r (a Resident, or mxu_eq.cu's MxuResident). A launch of more
+// blocks than can be co-resident is refused
 // (cudaErrorCooperativeLaunchTooLarge).
+template <class Params>
 inline cudaError_t launch_rounds(const void* fn, int threads, size_t bytes,
-                                 Resident r, int blocks, int device,
+                                 Params r, int blocks, int device,
                                  void* stream) {
     if (blocks < 1) return cudaErrorInvalidValue;
     cudaError_t err = cudaSetDevice(device);

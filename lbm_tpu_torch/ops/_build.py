@@ -3,7 +3,8 @@
 ``nvcc`` compiles every ``lbm_tpu_torch/csrc/*.cu`` into one shared
 library with a plain C interface, on first use, into
 ``build/lbm_tpu_torch/`` beside the package (a directory ``.gitignore``
-lists): one ``nvcc -c`` per source, all started together, then one link.
+lists; :func:`set_build_dir`, the CLI's ``--compilation-cache``, names
+another): one ``nvcc -c`` per source, all started together, then one link.
 The library is named by a hash of the sources, the shared headers
 (``csrc/*.cuh``) and the flags, so an edit rebuilds it; it is loaded
 with ``ctypes``. Nothing here runs at
@@ -133,6 +134,14 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_probe_blocks": ([_c_int, _c_int, _c_int, _c_int], _c_int),
+    "lbm_mxu_blocks": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_mxu_resident": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+         _c_int, _c_int, _c_int, _c_float, _c_float, _c_float, _c_int,
+         _c_int, _c_int, _c_int, _c_float, _c_void_p, _c_int, _c_int,
+         _c_void_p],
+        _c_int,
+    ),
     "lbm_error_string": ([_c_int], ctypes.c_char_p),
 }
 
@@ -154,6 +163,20 @@ HOST_CFLAGS = ("-O2", "-shared", "-fPIC")
 
 _lib = None
 _host_libs: dict = {}
+
+
+def set_build_dir(path) -> Path:
+    """Build and reuse the kernels' and the host module's libraries in the
+    directory ``path`` from now on (each still named by its sources'
+    hash). Raises if ``path`` is not a directory this process can write."""
+    global BUILD_DIR
+    d = Path(path).resolve()
+    if not d.is_dir():
+        raise FileNotFoundError(f"compilation cache {path}: no such directory")
+    if not os.access(d, os.W_OK | os.X_OK):
+        raise PermissionError(f"compilation cache {path}: not writable")
+    BUILD_DIR = d
+    return d
 
 
 def sources() -> list[Path]:

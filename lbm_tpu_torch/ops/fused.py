@@ -32,14 +32,15 @@ from lbm_tpu_torch.state import D2Q9
 # kernels (one launch per shard) and the ring kernel (one launch per card)
 # in its device-memory form and its on-chip form (two buffers, and one:
 # "ring_onchip_inplace"), each also in column mode (the "_cols" counts:
-# the transposed lattice of a wide grid; the shift mode has none), and the
-# three modes of the stream-cost probe. Each wrapper increments its
-# kernel's count where it launches it, nowhere else.
+# the transposed lattice of a wide grid; the shift mode has none), the
+# three modes of the stream-cost probe and the tensor-core equilibrium's
+# kernel ("mxu", row mode only). Each wrapper increments its kernel's count
+# where it launches it, nowhere else.
 _KERNELS = ("step", "depth", "resident", "resident_shift", "resident_onchip",
             "resident_onchip_inplace", "step_seam", "depth_seam", "ring",
             "ring_onchip", "ring_onchip_inplace")
 LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
-            **{f"probe_{m}": 0 for m in ref_ops.PROBE_MODES}}
+            **{f"probe_{m}": 0 for m in ref_ops.PROBE_MODES}, "mxu": 0}
 
 
 def reset_launches() -> None:

@@ -152,7 +152,7 @@ def fused_depth_plain(cells, obstacles, w1, w2, omega, depth: int,
 
 def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
                          tile: tuple[int, int] | None = None, axis: int = 0,
-                         halo_x: int | None = None, stage=None):
+                         halo_x: int | None = None, stage=None, bgk=None):
     """The depth kernel's tiling in plain PyTorch: for each ``(TY, TX)``
     tile (default :data:`TILES`), gather the periodic window of
     ``depth`` rows and ``halo_x`` columns (default :data:`HALO_X`) more on
@@ -175,7 +175,12 @@ def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
     :mod:`.probe`): ``stage(win, wmask)`` gives the (9, H-2, W-2) new
     interior and the (H-2, W-2) values whose sum over the tile's in-grid
     cells, obstacles included, is the stage's total; the forcing is not
-    applied."""
+    applied.
+
+    ``bgk``: another update of the stage's pulled and forced planes in
+    place of :func:`.reference._bgk_update_planes` (same signature), as
+    the tile's ``kStageMxu`` forms the equilibria on the tensor cores
+    (:mod:`.mxu_eq`)."""
     ty, tx = TILES[depth] if tile is None else tile
     hx = HALO_X[depth] if halo_x is None else halo_x
     if hx < depth:
@@ -207,7 +212,7 @@ def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
             for s in range(depth):
                 if stage is None:
                     inner, umag, _, _ = _stage(win, wmask, forced, deltas,
-                                               guards, omega)
+                                               guards, omega, bgk)
                 else:
                     inner, umag = stage(win, wmask)
                 # The stage's results inside a ring of garbage.
@@ -222,10 +227,11 @@ def fused_depth_emulated(cells, obstacles, w1, w2, omega, depth: int,
     return new, tots
 
 
-def _stage(win, wmask, forced, deltas, guards, omega):
+def _stage(win, wmask, forced, deltas, guards, omega, bgk=None):
     """One stage on a (9, H, W) window with its mask and forced-line
     cells: the updated (9, H-2, W-2) interior, its |u|, and the
-    interior's mask and forced-line cells."""
+    interior's mask and forced-line cells. ``bgk``: the update of the
+    pulled planes (default :func:`.reference._bgk_update_planes`)."""
     h, w = win.shape[1] - 2, win.shape[2] - 2
     # The forcing guard of each source cell on the forced line.
     ok = ~wmask & forced
@@ -241,5 +247,5 @@ def _stage(win, wmask, forced, deltas, guards, omega):
             v = torch.where(ok[src], v + float(deltas[k]), v)
         pulled.append(v)
     inner = wmask[1:-1, 1:-1]
-    planes, umag = ref_ops._bgk_update_planes(pulled, inner, omega)
+    planes, umag = (bgk or ref_ops._bgk_update_planes)(pulled, inner, omega)
     return torch.stack(planes), umag, inner, forced[1:-1, 1:-1]

@@ -339,16 +339,18 @@ def resident_plain(cells, obstacles, w1, w2, omega, gsteps: int,
     return ref_ops.multi_step(cells, obstacles, w1, w2, omega, gsteps, axis)
 
 
-def _rounds_emulated(cells, obstacles, w1, w2, omega, rounds, axis):
+def _rounds_emulated(cells, obstacles, w1, w2, omega, rounds, axis,
+                     bgk=None):
     """Each round of ``rounds`` (its steps) as
     :func:`.fused_depth.fused_depth_emulated` at that depth on the depth
     kernel's 32 x 24 tile and 40-wide window (the kernel's tile at every
-    depth, 1 included), its tots summed by tile in tile order."""
+    depth, 1 included), its tots summed by tile in tile order (``bgk``:
+    the stage's update, as there)."""
     tots, c = [], cells
     for d in rounds:
         c, t = fused_depth.fused_depth_emulated(
             c, obstacles, w1, w2, omega, d, tile=fused_depth.TILES[4],
-            axis=axis, halo_x=fused_depth.HALO_X[4])
+            axis=axis, halo_x=fused_depth.HALO_X[4], bgk=bgk)
         tots.append(t)
     return c, torch.cat(tots)
 

@@ -226,7 +226,8 @@ KERNEL_NAMES = {"step": "fused_step_kernel", "reduce": "reduce_tot_kernel",
                 "ring_onchip": "ring_onchip_kernel",
                 "ring_onchip_inplace": "ring_onchip_kernel",
                 **{f"probe_{m}": "probe_kernel"
-                   for m in ("full", "collide", "stream")}}
+                   for m in ("full", "collide", "stream")},
+                "mxu": "mxu_resident_kernel"}
 
 
 def short_kernel_name(name: str) -> str:

@@ -668,8 +668,8 @@ def test_cli_checkpoint_file_without_every_warns(scene, capsys):
 
 def test_cli_default_checkpoint_file_and_plan_line(scene, capsys, monkeypatch):
     """--checkpoint-every alone writes lbm_checkpoint.npz in the working
-    directory; --debug and --chunk-iters parse; the flags the JAX CLI has
-    and the port lacks on purpose stay out."""
+    directory; --debug and --chunk-iters parse; the JAX CLI's
+    --compilation-cache is there too (the kernels' build directory)."""
     d, params, obs = scene
     monkeypatch.chdir(d)
     outputs = ["--av-vels-file", str(d / "av.dat"), "--final-state-file",
@@ -686,8 +686,7 @@ def test_cli_default_checkpoint_file_and_plan_line(scene, capsys, monkeypatch):
     assert capsys.readouterr().out.splitlines()[0] == "==timestep: 0=="
     opts = {a.dest for a in tcli.build_parser()._actions}
     assert {"debug", "checkpoint_every", "checkpoint_file", "resume",
-            "chunk_iters", "trace"} <= opts
-    assert "compilation_cache" not in opts
+            "chunk_iters", "trace", "compilation_cache"} <= opts
 
 
 def test_chunk_iters_equals_single_shot():

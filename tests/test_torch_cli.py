@@ -2,6 +2,7 @@
 contract, same output files (compared with check.py's formula), and the
 die() contract for what the port refuses."""
 
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +15,7 @@ from lbm_tpu import cli as jcli
 from lbm_tpu.io import compare_golden
 from lbm_tpu.obstacles import generate_obstacles, write_obstacles
 from lbm_tpu_torch import cli as tcli
+from lbm_tpu_torch.ops import _build
 
 torch.set_num_threads(2)
 
@@ -121,3 +123,59 @@ def test_missing_input_dies(scene, capsys):
     d, params, _ = scene
     _dies([params, str(d / "missing.dat"), "--device", "cpu"], capsys,
           "could not open")
+
+
+def test_the_flags_are_lbm_tpus_and_the_ports_device():
+    """Every flag of lbm_tpu's CLI, and the port's --device besides."""
+    def flags(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    port, jax_cli = flags(tcli.build_parser()), flags(jcli.build_parser())
+    assert port - jax_cli == {"--device"} and jax_cli <= port
+
+
+@pytest.fixture
+def build_dir(monkeypatch):
+    """The kernels' build directory, restored after the test (the CLI
+    sets it for the rest of its process)."""
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
+    monkeypatch.delenv("LBM_COMPILATION_CACHE", raising=False)
+    return _build.BUILD_DIR
+
+
+def test_compilation_cache_names_the_build_directory(scene, build_dir,
+                                                      monkeypatch, tmp_path):
+    """--compilation-cache DIR, else LBM_COMPILATION_CACHE, else the
+    default: where the libraries are built and reused. With a C compiler
+    on the machine, the host module's library lands there."""
+    d, params, obs = scene
+    flag_dir, env_dir = tmp_path / "flag", tmp_path / "env"
+    flag_dir.mkdir()
+    env_dir.mkdir()
+    run = [params, obs, "--device", "cpu", "--iters", "2", *_outputs(d, "c")]
+    assert tcli.main(run) == 0
+    assert _build.BUILD_DIR == build_dir
+    monkeypatch.setenv("LBM_COMPILATION_CACHE", str(env_dir))
+    assert tcli.main(run) == 0
+    assert _build.BUILD_DIR == env_dir.resolve()
+    assert tcli.main(run + ["--compilation-cache", str(flag_dir)]) == 0
+    assert _build.BUILD_DIR == flag_dir.resolve()
+    assert _build.library_path().parent == flag_dir.resolve()
+    if shutil.which(_build.host_compiler()):
+        for where in (env_dir, flag_dir):
+            assert [p.name for p in where.glob("liblbm_io-*.so")] == [
+                _build.host_library_path().name]
+
+
+@pytest.mark.parametrize("what", ["missing", "a file"])
+def test_compilation_cache_that_is_no_directory_dies(scene, build_dir,
+                                                     capsys, what):
+    d, params, obs = scene
+    path = d / "cache"
+    if what == "a file":
+        path.write_text("")
+    _dies([params, obs, "--device", "cpu", "--iters", "2",
+           "--compilation-cache", str(path), *_outputs(d, "x")], capsys,
+          "no such directory")
+    assert _build.BUILD_DIR == build_dir
+    assert not (d / "av_x.dat").exists()

@@ -1195,6 +1195,76 @@ def test_probe_blocks_that_cannot_be_co_resident_raise(cuda):
     assert torch.equal(a, c)
 
 
+# The tensor-core equilibrium (csrc/mxu_eq.cu): the device-memory form's
+# rounds with the equilibrium as an f64 product on the tensor cores.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gsteps", [3, 6, 100], ids=["G3", "G6", "G100"])
+@pytest.mark.parametrize("shape", [(128, 128, True), (100, 130, False),
+                                   (1024, 1024, True)],
+                         ids=["128x128", "100x130-wall-less", "1024x1024"])
+def test_mxu_kernel_matches_plain(cuda, shape, gsteps):
+    """One launch (rounds of 1, 4 + 2 and 24x4 + 2x2: every window depth
+    and its last warp) against mxu_multi_step on the card: cells within
+    cells_atol, each step's total within the trajectory rtol."""
+    from lbm_tpu_torch.ops import mxu_eq
+
+    p, cells, mask = _case(*shape, seed=gsteps, perturbed=True)
+    c = torch.from_numpy(cells).to(cuda)
+    m = torch.from_numpy(mask).to(cuda)
+    before = fused.LAUNCHES["mxu"]
+    got, tots = mxu_eq.mxu_resident(c, m, p.accel_w1, p.accel_w2, p.omega,
+                                    gsteps)
+    want, want_tots = mxu_eq.mxu_multi_step(c, m, p.accel_w1, p.accel_w2,
+                                            p.omega, gsteps)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["mxu"] == before + 1
+    assert bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= mxu_eq.cells_atol(gsteps, p.omega), err
+    np.testing.assert_allclose(tots.cpu().numpy(), want_tots.cpu().numpy(),
+                               rtol=mxu_eq.TOT_RTOL)
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_reaches_the_tensor_cores(cuda):
+    """The contraction is DMMA instructions in the kernel's SASS (the f64
+    products of each 8 cells), not a loop on the CUDA cores."""
+    counts = _sass_opcodes()["mxu_resident_kernel"]
+    assert sum(n for op, n in counts.items() if op.startswith("DMMA")) > 0
+
+
+@pytest.mark.cuda
+def test_mxu_kernel_launches_the_device_forms_rounds(cuda):
+    """The same rounds as the device-memory form, and as many blocks or
+    fewer (its block holds 1 KB more shared memory)."""
+    from lbm_tpu_torch.ops import mxu_eq
+
+    m = torch.from_numpy(generate_obstacles(1024, 1024)).to(cuda)
+    k = mxu_eq.MxuStep(m, 0.0, 0.0, 1.85, 100)
+    form = resident.Resident(m, 0.0, 0.0, 1.85, 100, form="device")
+    assert k.rounds == form.rounds == resident.device_rounds(100)
+    assert 0 < k.blocks <= form.blocks
+
+
+@pytest.mark.cuda
+def test_mxu_blocks_that_cannot_be_co_resident_raise(cuda):
+    """A cooperative launch of more blocks than the card holds at once is
+    refused; the wrapper raises and falls back to nothing."""
+    from lbm_tpu_torch.ops import mxu_eq
+
+    p, c, m = _device_form_case(cuda, 0, seed=1)
+    kernel = mxu_eq.MxuStep(m, p.accel_w1, p.accel_w2, p.omega, 16)
+    kernel.blocks = 4096
+    before = fused.LAUNCHES["mxu"]
+    a = c.clone()
+    with pytest.raises(RuntimeError, match="cooperative launch"):
+        kernel.run(a, torch.empty_like(c), torch.zeros(16, device=cuda))
+    assert fused.LAUNCHES["mxu"] == before
+    assert torch.equal(a, c)
+
+
 # The one-step seam kernel: halos read in place on one card, tot_u summed
 # in the launch.
 
@@ -1650,9 +1720,12 @@ def _sass_opcodes():
 # path (LDG...CONSTANT, what __ldg or a const __restrict__ pointer compiles to):
 # the on-chip kernels' mask bytes, loaded once into shared memory, and no
 # other. A lattice value loaded that way may come from a stale cache line.
+# (The tensor-core kernel, mxu_resident_kernel, runs the device form's
+# rounds.)
 COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 6,
                     "ring_kernel<": 4, "probe_kernel<": 7,
-                    "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 24}
+                    "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 24,
+                    "mxu_resident_kernel": 1}
 NONCOHERENT_LOADS = {"resident_onchip_kernel<": {"LDG.E.U8.CONSTANT": 29}}
 # The on-chip kernels' halo words (lbm_onchip.cuh's get_word): every
 # load of them is one 64-bit relaxed strong load, at device scope or (the

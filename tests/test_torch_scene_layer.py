@@ -57,7 +57,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "validate_scenes_torch.py", "full_scenes_torch.py",
             "sharded_overhead_torch.py", "sweep_torch.py",
             "plot_roofline_torch.py", "ab_kernel_torch.py",
-            "writer_ab_torch.py"} <= names
+            "writer_ab_torch.py", "mxu_eq.py", "mxu_probe_torch.py"} <= names
     bad = [b for path in sources for b in _foreign_imports(path)]
     assert not bad, "\n".join(bad)
 

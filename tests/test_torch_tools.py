@@ -332,3 +332,19 @@ def test_trace_drops_matches_launches_to_kernels(tmp_path):
                    "skew_us": 0.0}
     res = _script("trace_drops_torch.py", "--reps", "1")
     assert res.returncode != 0 and "needs a CUDA device" in res.stderr
+
+
+def test_mxu_ab_variants_apply_to_the_tree():
+    """scripts/mxu_ab_torch.py's variants of the tensor-core kernel: each
+    replacement occurs exactly once in its source, and the 3xTF32 ones
+    replace the f64 product with tf32 products."""
+    import mxu_ab_torch as ab
+
+    assert set(ab.VARIANTS) == {"tf32x3", "tf32x3-2"}
+    for name, replacements in ab.VARIANTS.items():
+        for source, old, new in replacements:
+            text = (REPO / "lbm_tpu_torch" / "csrc" / source).read_text()
+            assert text.count(old) == 1, (name, source)
+            if source == "lbm_depth.cuh":
+                assert "f64" in old and "f64" not in new
+                assert new.count(".tf32.tf32.f32") == 1
