@@ -14,6 +14,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import time
 
 import numpy as np
 import torch
@@ -34,8 +35,7 @@ from lbm_tpu_torch.state import D2Q9
 # "ring_onchip_inplace"), each also in column mode (the "_cols" counts:
 # the transposed lattice of a wide grid; the shift mode has none), the
 # three modes of the stream-cost probe and the tensor-core equilibrium's
-# kernel ("mxu", row mode only). Each wrapper increments its kernel's count
-# where it launches it, nowhere else.
+# kernel ("mxu", row mode only). Only :func:`launch` increments them.
 _KERNELS = ("step", "depth", "resident", "resident_shift", "resident_onchip",
             "resident_onchip_inplace", "step_seam", "depth_seam", "ring",
             "ring_onchip", "ring_onchip_inplace")
@@ -43,9 +43,30 @@ LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},
             **{f"probe_{m}": 0 for m in ref_ops.PROBE_MODES}, "mxu": 0}
 
 
+# Host nanoseconds spent inside the library's launch entry points, summed
+# over every launch of the process (:func:`launch`): the ctypes call and
+# what the entry point does on the host, cudaLaunchKernel (or its
+# cooperative form) included, also where it blocks on a full launch queue.
+LAUNCH_NS = 0
+
+
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch(lib, name: str, what: str, entry, *args) -> None:
+    """Launch a kernel: call the library's entry point ``entry(*args)``,
+    raise on the error code it returns (``what`` names the launch), count
+    one launch of ``name`` in :data:`LAUNCHES` and add the call's host
+    nanoseconds to :data:`LAUNCH_NS`. Every kernel launch of the package
+    goes through here."""
+    global LAUNCH_NS
+    t0 = time.perf_counter_ns()
+    code = entry(*args)
+    LAUNCH_NS += time.perf_counter_ns() - t0
+    _build.check(lib, code, what)
+    LAUNCHES[name] += 1
 
 
 def new_scratch(rows: int, n: int, device):
@@ -142,8 +163,11 @@ class LatticeKernel:
     def _stream(self):
         return torch.cuda.current_stream(self.device).cuda_stream
 
-    def _launched(self, kernel: str) -> None:
-        LAUNCHES[kernel + ("_cols" if self.axis else "")] += 1
+    def _launch(self, kernel: str, what: str, entry, *args) -> None:
+        """:func:`launch` of ``kernel``, counted under its column mode's
+        name in column mode."""
+        launch(self._lib, kernel + ("_cols" if self.axis else ""), what,
+               entry, *args)
 
     def _scale(self, scale) -> float:
         return float(np.float32(scale))
@@ -181,13 +205,11 @@ class FusedStep(LatticeKernel):
             out[t] = tot * self._scale(scale)
             return
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
-        stream = self._stream()
-        _build.check(lib, lib.lbm_fused_step(
+        self._launch(
+            "step", "fused step launch", lib.lbm_fused_step,
             src.data_ptr(), dst.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
-            self.omega, self.mode, self.axis, self._index, stream,
-        ), "fused step launch")
-        self._launched("step")
+            self.omega, self.mode, self.axis, self._index, self._stream())
         self._reduce(self._partials, out, t, scale)
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
@@ -199,11 +221,9 @@ class FusedStep(LatticeKernel):
         fixed-order sum, behind every launch of this kernel (the depth
         and seam kernels run that sum in the launch)."""
         lib = self._lib
-        _build.check(lib, lib.lbm_reduce_tot(
-            partials.data_ptr(), partials.numel(), np.float32(scale),
-            out.data_ptr() + 4 * t, self._index, self._stream(),
-        ), "tot_u reduce launch")
-        LAUNCHES["reduce"] += 1
+        launch(lib, "reduce", "tot_u reduce launch", lib.lbm_reduce_tot,
+               partials.data_ptr(), partials.numel(), np.float32(scale),
+               out.data_ptr() + 4 * t, self._index, self._stream())
 
 
 class SeamKernel(LatticeKernel):
@@ -341,9 +361,8 @@ class SeamStep(SeamKernel):
         def go(t: int, stream) -> None:
             if not 0 <= t < n:
                 raise ValueError(f"out[{t}] is not in a tensor of {n}")
-            _build.check(lib, lib.lbm_fused_step_seam(ref, t, index, stream),
-                         "seam step launch")
-            LAUNCHES[name] += 1
+            launch(lib, name, "seam step launch", lib.lbm_fused_step_seam,
+                   ref, t, index, stream)
 
         go.buffers = (a, b, halo_s, halo_n, out, args)
         return go

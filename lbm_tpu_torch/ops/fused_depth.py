@@ -20,10 +20,8 @@ import math
 import numpy as np
 import torch
 
-from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import reference as ref_ops
-from lbm_tpu_torch.ops.fused import (LAUNCHES, LatticeKernel,
-                                     SeamKernel, new_scratch)
+from lbm_tpu_torch.ops.fused import LatticeKernel, SeamKernel, new_scratch
 from lbm_tpu_torch.state import D2Q9
 
 # Depths the kernel is built for, each depth's (TY, TX) output tile and
@@ -70,13 +68,12 @@ class FusedDepth(LatticeKernel):
             out[t:t + d] = tots * self._scale(scale)
             return b, a
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
-        _build.check(lib, lib.lbm_fused_depth(
+        self._launch(
+            "depth", f"depth-{d} launch", lib.lbm_fused_depth,
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             self._scratch.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
             self.omega, self.mode, d, self.axis, np.float32(scale),
-            out.data_ptr() + 4 * t, self._index, self._stream(),
-        ), f"depth-{d} launch")
-        self._launched("depth")
+            out.data_ptr() + 4 * t, self._index, self._stream())
         return b, a
 
 
@@ -119,16 +116,15 @@ class FusedDepthSeam(SeamKernel):
             out[t:t + d] = tots * self._scale(scale)
             return b, a
         lib, h, nx = self._lib, self.shape[1], self.shape[2]
-        _build.check(lib, lib.lbm_fused_depth_seam(
+        self._launch(
+            "depth_seam", f"seam depth-{d} launch", lib.lbm_fused_depth_seam,
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             halo_s.data_ptr(), halo_n.data_ptr(),
             self._hmask_u8[0].data_ptr(), self._hmask_u8[1].data_ptr(),
             self.k, self._scratch.data_ptr(), h, nx, self.row0, self.ny,
             self.w1, self.w2, self.omega, self.mode, d, self.axis,
             np.float32(scale), out.data_ptr() + 4 * t, self._index,
-            self._stream(),
-        ), f"seam depth-{d} launch")
-        self._launched("depth_seam")
+            self._stream())
         return b, a
 
 

@@ -362,15 +362,14 @@ class MxuStep(LatticeKernel):
             return result
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
         rounds = self.rounds
-        _build.check(lib, lib.lbm_mxu_resident(
+        self._launch(
+            "mxu", f"mxu G={g} cooperative launch", lib.lbm_mxu_resident,
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), self._tickets.data_ptr(),
             out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1, self.w2,
             self.omega, g, rounds.count(4), rounds.count(2), rounds.count(1),
             self._scale(scale), self._a_frags.ctypes.data, self.blocks,
-            self._index, self._stream(),
-        ), f"mxu G={g} cooperative launch")
-        self._launched("mxu")
+            self._index, self._stream())
         return result
 
 

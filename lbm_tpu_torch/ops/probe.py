@@ -75,15 +75,15 @@ class Probe(LatticeKernel):
             return a, b
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
         rounds = self.rounds
-        _build.check(lib, lib.lbm_probe(
+        self._launch(
+            f"probe_{self.probe_mode}",
+            f"probe {self.probe_mode} G={g} cooperative launch", lib.lbm_probe,
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), self._tickets.data_ptr(),
             out.data_ptr() + 4 * t, ny, nx, self.omega, self.mode, g,
             rounds.count(4), rounds.count(2), rounds.count(1),
             MODES.index(self.probe_mode), self.blocks, self._index,
-            self._stream(),
-        ), f"probe {self.probe_mode} G={g} cooperative launch")
-        self._launched(f"probe_{self.probe_mode}")
+            self._stream())
         return a, b
 
 

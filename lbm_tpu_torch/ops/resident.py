@@ -283,39 +283,39 @@ class Resident(LatticeKernel):
             if self._step_base + g >= _TAG_LIMIT:
                 self._halo.zero_()
                 self._step_base = 0
-            _build.check(lib, lib.lbm_resident_onchip(
+            self._launch(
+                "resident_onchip_inplace" if self.buffers == 1
+                else "resident_onchip",
+                f"on-chip resident G={g} cooperative launch",
+                lib.lbm_resident_onchip,
                 a.data_ptr(), result[0].data_ptr(), self._mask_u8.data_ptr(),
                 self._halo.data_ptr(), self._partials.data_ptr(), self._ticket.data_ptr(),
                 out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1,
                 self.w2, self.omega, self.mode, g, self._scale(scale),
                 self._step_base, self.blocks, self.axis, self.buffers,
-                self._index, self._stream(),
-            ), f"on-chip resident G={g} cooperative launch")
+                self._index, self._stream())
             self._step_base += g
-            self._launched("resident_onchip_inplace" if self.buffers == 1
-                           else "resident_onchip")
             return result
         if self.form == "shift":
-            _build.check(lib, lib.lbm_resident_shift(
+            self._launch(
+                "resident_shift", f"resident shift G={g} cooperative launch",
+                lib.lbm_resident_shift,
                 a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
                 self._partials.data_ptr(), self._done.data_ptr(),
                 self._edges.data_ptr(), out.data_ptr() + 4 * t, ny, nx,
                 self.accel, self.w1, self.w2, self.omega, self.mode, g,
                 self._scale(scale), self.blocks, self._owners,
-                int(self.residence == "shared"), self._index, self._stream(),
-            ), f"resident shift G={g} cooperative launch")
-            self._launched("resident_shift")
+                int(self.residence == "shared"), self._index, self._stream())
             return result
         rounds = self.rounds
-        _build.check(lib, lib.lbm_resident(
+        self._launch(
+            "resident", f"resident G={g} cooperative launch", lib.lbm_resident,
             a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
             self._partials.data_ptr(), self._tickets.data_ptr(),
             out.data_ptr() + 4 * t, ny, nx, self.accel, self.w1, self.w2,
             self.omega, self.mode, g, rounds.count(4), rounds.count(2),
             rounds.count(1), self._scale(scale), self.blocks, self.axis,
-            self._index, self._stream(),
-        ), f"resident G={g} cooperative launch")
-        self._launched("resident")
+            self._index, self._stream())
         return result
 
 

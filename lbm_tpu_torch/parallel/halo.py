@@ -56,6 +56,7 @@ from lbm_tpu_torch.parallel import resident_ring
 from lbm_tpu_torch.parallel.decomp import (
     Mesh, RowDecomposition, largest_divisor_leq, make_mesh, visible_devices,
 )
+from lbm_tpu_torch.profiling import PhaseTimers
 from lbm_tpu_torch.state import D2Q9, transpose_state
 
 
@@ -683,34 +684,38 @@ class ShardedSimulation:
     step ``t0``, every shard writing its tot_u at the step's own index,
     so the fixed-order sum of :meth:`result` gives the same bits chunked
     or not. A resumed run's trajectory before ``start_step`` is ``av0``'s
-    (the per-shard sums of those steps are not in a checkpoint)."""
+    (the per-shard sums of those steps are not in a checkpoint).
+    ``timers``: the run's :class:`.profiling.PhaseTimers`, as the
+    single-device runner's."""
 
     def __init__(self, params: Params, cells: torch.Tensor, mask, mesh: Mesh,
                  kernel: str, iters: int, wrap_pad: int = 0, transposed=None,
-                 sizes=None, av0=None, start_step: int = 0):
+                 sizes=None, av0=None, start_step: int = 0, timers=None):
         if transposed is None:
             transposed = plan_sharding(params, mesh, kernel)[0]
         _check_wrap_kernel(wrap_pad, kernel, transposed)
         self.ss = ShardSet(params, cells, mask, mesh, iters, int(transposed))
         self.params, self.kernel, self.iters = params, kernel, iters
         self.wrap_pad, self.transposed = wrap_pad, transposed
+        self.timers = PhaseTimers() if timers is None else timers
         self.inv_fluid = num_non_obstacles_r(self.ss.mask_np,
                                              dtype=params.dtype)
         self._av0, self._start = av0, start_step
         self._made, self._plans = {}, {}
-        if sizes is None:
-            self.segments = self._segments(iters)
-            self._impls = self._plan(iters)
-        else:
-            for n in sizes:
-                self._plan(n)
+        with self.timers.phase("init.plan"):
+            if sizes is None:
+                self.segments = self._segments(iters)
+                self._impls = self._plan(iters)
+            else:
+                for n in sizes:
+                    self._plan(n)
 
     def _segments(self, n: int):
         return shard_segments(self.params, self.ss.decomp, self.kernel, n,
                               self.wrap_pad, self.transposed, self.ss.mesh)
 
     def _plan(self, n: int):
-        """The implementations of an ``n``-step chunk, ``[(impl, steps),
+        """The implementations of an ``n``-step chunk, ``[(impl, segment),
         ...]``."""
         if n not in self._plans:
             parts = []
@@ -718,7 +723,7 @@ class ShardedSimulation:
                 key = (seg.kernel, seg.steps_per_call, seg.form)
                 if key not in self._made:
                     self._made[key] = make_impl(seg, self.ss, self.wrap_pad)
-                parts.append((self._made[key], seg.steps))
+                parts.append((self._made[key], seg))
             self._plans[n] = parts
         return self._plans[n]
 
@@ -726,10 +731,8 @@ class ShardedSimulation:
         """``n`` steps from step ``t0`` on every shard; returns without
         waiting for the devices."""
         t = t0
-        for impl, steps in self._plan(n):
-            for _ in range(steps // impl.steps_per_call):
-                impl.run(t)
-                t += impl.steps_per_call
+        for impl, seg in self._plan(n):
+            t = self.timers.segment(seg, t, impl.run)
 
     def synchronize(self) -> None:
         self.ss.synchronize()

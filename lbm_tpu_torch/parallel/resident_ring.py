@@ -47,9 +47,8 @@ import os
 import numpy as np
 import torch
 
-from lbm_tpu_torch.ops import _build, fused_depth, plan, resident
+from lbm_tpu_torch.ops import _build, fused, fused_depth, plan, resident
 from lbm_tpu_torch.ops import reference as ref_ops
-from lbm_tpu_torch.ops.fused import LAUNCHES
 from lbm_tpu_torch.state import D2Q9
 
 def ring_prefs(local_rows: int, lanes: int) -> tuple[int, ...] | None:
@@ -332,13 +331,13 @@ class RingShardImpl(_Ring):
 
         def launch(dev, idxs, stream):
             struct, vec = self._struct(dev, idxs)
-            _build.check(lib, lib.lbm_ring(
+            fused.launch(
+                lib, "ring_cols" if self.axis else "ring",
+                f"ring G={g} D={d} cooperative launch", lib.lbm_ring,
                 struct.data_ptr(), len(idxs), self._bps[dev], ss.h, ss.nx,
                 ss.ny, self.w1, self.w2, self.omega, self.mode, self.axis,
                 d, g, self._step // d, t, int(vec), int(self._cross),
-                self._index[dev], stream,
-            ), f"ring G={g} D={d} cooperative launch")
-            LAUNCHES["ring_cols" if self.axis else "ring"] += 1
+                self._index[dev], stream)
 
         self._launch_all(launch)
         if (g // d) % 2:
@@ -453,13 +452,13 @@ class RingOnchipImpl(_Ring):
         key = "ring_onchip_inplace" if self.buffers == 1 else "ring_onchip"
 
         def launch(dev, idxs, stream):
-            _build.check(lib, lib.lbm_ring_onchip(
+            fused.launch(
+                lib, key + ("_cols" if self.axis else ""),
+                f"on-chip ring G={g} cooperative launch", lib.lbm_ring_onchip,
                 self._struct(dev, idxs).data_ptr(), len(idxs),
                 self._bps[dev], ss.h, ss.nx, ss.ny, self.w1, self.w2,
                 self.omega, self.mode, self.axis, self.buffers, g,
-                self._step, t, int(self._cross), self._index[dev], stream,
-            ), f"on-chip ring G={g} cooperative launch")
-            LAUNCHES[key + ("_cols" if self.axis else "")] += 1
+                self._step, t, int(self._cross), self._index[dev], stream)
 
         self._launch_all(launch)
         self._step += g

@@ -2,8 +2,10 @@
 (copied in part because that module imports jax):
 
 - :class:`PhaseTimers`: the init/compute/collate/total wall-clock
-  breakdown. A phase that ends on device work must synchronise the device
-  before it stops.
+  breakdown, each phase also a span ``lbm.<phase>`` on the profiler's
+  clock while a profiler records, and the launch loop of a planned
+  segment (:meth:`PhaseTimers.segment`). A phase that ends on device work
+  must synchronise the device before it stops.
 - :func:`trace`: a ``torch.profiler`` trace of a region, exported as a
   Chrome trace (``--trace DIR``; summarise with :func:`summarise` or
   ``scripts/trace_report_torch.py``).
@@ -24,6 +26,7 @@ import contextlib
 import dataclasses
 import glob
 import gzip
+import itertools
 import json
 import os
 import re
@@ -66,12 +69,30 @@ def _peaks(chip: str) -> dict:
         ) from None
 
 
+# Numbers the spans of the process in the order they open: the key of
+# each span's args in the trace's metadata.
+_SPANS = itertools.count()
+
+
 @dataclasses.dataclass
 class PhaseTimers:
-    """init/compute/collate wall-clock phases."""
+    """The wall-clock phases of one run, ``elapsed[name]`` in seconds on
+    the host's ``perf_counter``.
 
-    _marks: dict = dataclasses.field(default_factory=dict)
+    While a profiler records (``torch.autograd._profiler_enabled()``),
+    each :meth:`phase`, and each segment's launch loop
+    (:meth:`segment`), is also a span on the profiler's host clock: a
+    ``torch.profiler.record_function`` named ``lbm.<name>`` whose args
+    string starts ``run=<run>``. The Chrome trace keeps a span's name and
+    times but not its args string, so the string, after the span's name,
+    also goes into the trace's metadata under ``lbm.span.<k>``, ``k``
+    counting the process's spans in the order they open. Without a
+    profiler a phase costs one flag check and two ``perf_counter`` calls.
+    :meth:`start` and :meth:`stop` time a phase without a span."""
+
+    run: int = 0
     elapsed: dict = dataclasses.field(default_factory=dict)
+    _marks: dict = dataclasses.field(default_factory=dict)
 
     def start(self, phase: str) -> None:
         self._marks[phase] = time.perf_counter()
@@ -79,13 +100,66 @@ class PhaseTimers:
     def stop(self, phase: str) -> None:
         self.elapsed[phase] = time.perf_counter() - self._marks.pop(phase)
 
+    def _open(self, name: str, detail: str = ""):
+        """The entered span ``lbm.<name>``, or None where no profiler
+        records."""
+        import torch
+
+        if not torch.autograd._profiler_enabled():
+            return None
+        name = f"lbm.{name}"
+        args = f"run={self.run} {detail}".rstrip()
+        span = torch.profiler.record_function(name, args)
+        span.__enter__()
+        torch.autograd._add_metadata_json(f"lbm.span.{next(_SPANS)}",
+                                          json.dumps(f"{name} {args}"))
+        return span
+
     @contextlib.contextmanager
     def phase(self, name: str):
-        self.start(name)
+        """``elapsed[name]``: the block's seconds, under the span
+        ``lbm.<name>``; both end where the block raises too."""
+        span = self._open(name)
+        t0 = time.perf_counter()
         try:
             yield
         finally:
-            self.stop(name)
+            self.elapsed[name] = time.perf_counter() - t0
+            if span is not None:
+                span.__exit__(None, None, None)
+
+    def segment(self, seg, t: int, call) -> int:
+        """The launch loop of the planned segment ``seg``
+        (:class:`.ops.plan.Segment`) from step ``t``: ``call(t)`` once a
+        launch, each ``seg.steps_per_call`` steps on. Returns the step
+        after the segment. The loop is the span ``lbm.segment.<kernel>``,
+        its args the plan: ``kernel``, ``steps_per_call`` (D or G),
+        ``form`` (``-`` for none) and ``steps``. Outside the plain path it
+        adds to ``elapsed["compute.wrappers"]`` the host seconds of the
+        calls less those spent in the library's launch entry points
+        (:data:`.ops.fused.LAUNCH_NS`): the wrappers' own Python."""
+        from lbm_tpu_torch.ops import fused
+
+        span = self._open(
+            f"segment.{seg.kernel}",
+            f"kernel={seg.kernel} steps_per_call={seg.steps_per_call} "
+            f"form={seg.form or '-'} steps={seg.steps}")
+        spc, clock = seg.steps_per_call, time.perf_counter_ns
+        try:
+            ns, launch_ns = 0, fused.LAUNCH_NS
+            for _ in range(seg.launches):
+                t0 = clock()
+                call(t)
+                ns += clock() - t0
+                t += spc
+            if seg.kernel != "reference":
+                self.elapsed["compute.wrappers"] = self.elapsed.get(
+                    "compute.wrappers", 0.0) + (
+                        ns - (fused.LAUNCH_NS - launch_ns)) * 1e-9
+            return t
+        finally:
+            if span is not None:
+                span.__exit__(None, None, None)
 
 
 # Idle time on the host's clock left between the profiler's start and the

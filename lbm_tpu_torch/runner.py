@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
+import resource
 from pathlib import Path
 
 import numpy as np
@@ -50,12 +52,29 @@ from lbm_tpu_torch.state import (
 KERNELS = ("auto", "reference", "cuda")
 
 
+# Numbers the calls of run_simulation in this process: the ``run=<n>`` of
+# every span of one call.
+_RUNS = itertools.count(1)
+
+
 @dataclasses.dataclass
 class SimulationResult:
+    """What a run returns. ``timings`` is its one per-scene record of the
+    phases (:class:`.profiling.PhaseTimers`), each in seconds: ``init``
+    (with ``init.plan``, the planning and the kernels' construction),
+    ``compute`` (with ``compute.wrappers``, the wrappers' own host time in
+    the launch loop, less the library's launch calls; absent under
+    ``reference``, which launches nothing), ``collate`` (with
+    ``collate.copy``, the final lattice's copy to the host) and
+    ``total``; and one count, not seconds: ``collate.copy.minflt``, the
+    process's minor page faults during that copy (an int). ``timings`` is
+    the one record of a run that the benchmark (``lbmbench.harness.Port``)
+    copies whole, so a per-run count goes here beside the seconds."""
+
     cells: np.ndarray  # (9, ny, nx) final global state, params.dtype
     av_vels: np.ndarray  # (maxIters,) params.dtype
     reynolds: float
-    timings: dict  # init / compute / collate / total seconds
+    timings: dict
     # Graceful preemption (the checkpointing paths only): the number of
     # steps actually completed, and whether the run stopped early on
     # SIGTERM/SIGINT with its state flushed to the checkpoint file.
@@ -230,12 +249,15 @@ class _Simulation:
     with every kernel built here, kernels of the same granularity shared.
     :meth:`run_chunk` runs ``n`` steps from step ``t0`` and writes
     ``av_vels[t0:t0 + n]``; ``av0`` fills the trajectory before the first
-    chunk of a resumed run."""
+    chunk of a resumed run. ``timers``: the run's
+    :class:`.profiling.PhaseTimers`, which time the planning
+    (``init.plan``) and each segment's launch loop."""
 
     def __init__(self, params: Params, cells, mask, kernel: str, iters: int,
-                 transposed=None, sizes=None, av0=None):
+                 transposed=None, sizes=None, av0=None, timers=None):
         self.params, self.kernel = params, kernel
         self.mask = mask
+        self.timers = PhaseTimers() if timers is None else timers
         self.transposed = plan_layout(params, kernel, transposed)
         self._exec = (transpose_state(cells) if self.transposed
                       else cells.contiguous())
@@ -247,52 +269,54 @@ class _Simulation:
         if av0 is not None:
             self.av_vels.copy_(torch.from_numpy(np.asarray(av0)))
         self.iters = iters
-        self.segments = plan_run(params, kernel, iters, self.transposed,
-                                 cells.device)
         self._ref = (params.accel_w1, params.accel_w2, params.omega)
         self._kernels, self._plans = {}, {}
-        if kernel == "cuda":
-            self._exec_mask = mask.T.contiguous() if self.transposed else mask
-            self._spare = torch.empty_like(self._exec)
+        with self.timers.phase("init.plan"):
+            self.segments = plan_run(params, kernel, iters, self.transposed,
+                                     cells.device)
+            if kernel == "cuda":
+                self._exec_mask = (mask.T.contiguous() if self.transposed
+                                   else mask)
+                self._spare = torch.empty_like(self._exec)
             for n in (iters,) if sizes is None else sizes:
                 self._plan(n)
 
     def _plan(self, n: int):
-        """The kernels of an ``n``-step chunk, ``[(impl, steps), ...]``."""
+        """The kernels of an ``n``-step chunk, ``[(impl, segment), ...]``
+        (no kernel on the plain path)."""
         if n not in self._plans:
             axis = int(self.transposed)
             parts = []
             for seg in plan_run(self.params, self.kernel, n, self.transposed,
                                 self._exec.device):
                 key = (seg.kernel, seg.steps_per_call, seg.form)
-                if key not in self._kernels:
+                if self.kernel == "cuda" and key not in self._kernels:
                     self._kernels[key] = _make_impl(seg, self._exec_mask,
                                                     *self._ref, axis)
-                parts.append((self._kernels[key], seg.steps))
+                parts.append((self._kernels.get(key), seg))
             self._plans[n] = parts
         return self._plans[n]
 
     def run_chunk(self, t0: int, n: int) -> None:
         """``n`` steps from step ``t0``; returns without waiting for the
         device."""
-        cells, av, inv = self._exec, self.av_vels, self.inv_fluid
-        if self.kernel == "cuda":
-            spare, t = self._spare, t0
-            for impl, steps in self._plan(n):
-                spc = impl.steps_per_call
-                for _ in range(steps // spc):
-                    # The result may be in either buffer (an odd number
-                    # of one-step launches): keep both as they come back.
-                    cells, spare = impl.run(cells, spare, av, t, inv)
-                    t += spc
-            self._spare = spare
-        else:
-            w1, w2, omega = self._ref
-            scale = float(inv)
-            for t in range(t0, t0 + n):
-                cells, tot = ref_ops.fused_step(cells, self.mask, w1, w2, omega)
-                av[t] = tot * scale
-        self._exec = cells
+        av, inv, t = self.av_vels, self.inv_fluid, t0
+        w1, w2, omega = self._ref
+        scale = float(inv)
+
+        def plain(t):
+            self._exec, tot = ref_ops.fused_step(self._exec, self.mask, w1,
+                                                 w2, omega)
+            av[t] = tot * scale
+
+        for impl, seg in self._plan(n):
+            def launch(t, impl=impl):
+                # The result may be in either buffer (an odd number of
+                # one-step launches): keep both as they come back.
+                self._exec, self._spare = impl.run(self._exec, self._spare,
+                                                   av, t, inv)
+
+            t = self.timers.segment(seg, t, plain if impl is None else launch)
 
     def synchronize(self) -> None:
         if self._exec.device.type == "cuda":
@@ -453,75 +477,83 @@ def run_simulation(
     ``trace_dir``: capture a ``torch.profiler`` trace of the compute
     phase (:func:`.profiling.trace`; summarise with
     ``scripts/trace_report_torch.py``).
+
+    Under a profiler, the phases are spans ``lbm.init`` (with
+    ``lbm.init.plan``), ``lbm.compute`` (with one ``lbm.segment.<kernel>``
+    a planned segment a chunk) and ``lbm.collate`` (with
+    ``lbm.collate.copy``), all with the args ``run=<n>``, ``n`` this
+    call's number in the process (:class:`.profiling.PhaseTimers`).
     """
-    timers = PhaseTimers()
+    timers = PhaseTimers(run=next(_RUNS))
     timers.start("total")
-    timers.start("init")
-    if checkpoint_every is not None and checkpoint_every <= 0:
-        raise ValueError(
-            f"checkpoint_every must be a positive step count, "
-            f"got {checkpoint_every}"
-        )
-    if checkpoint_every is not None and checkpoint_file is None:
-        # Without a file the chunked path would run and save nothing: a
-        # misconfiguration, not a request. Execution-length bounding
-        # without I/O is chunk_iters' job.
-        raise ValueError(
-            "checkpoint_every requires checkpoint_file (periodic "
-            "checkpointing needs somewhere to write); to bound "
-            "execution length without saving, use chunk_iters"
-        )
-    if chunk_iters is not None and chunk_iters <= 0:
-        raise ValueError(
-            f"chunk_iters must be a positive step count, got {chunk_iters}"
-        )
-    if chunk_iters is not None and checkpoint_every is not None:
-        # Two competing strides would silently pick one; refuse.
-        raise ValueError(
-            "chunk_iters and checkpoint_every are mutually exclusive "
-            "(checkpointing already chunks at its own stride)"
-        )
-    iters = params.max_iters if n_iters is None else n_iters
-    if iters <= 0:
-        raise ValueError(f"iteration count must be positive, got {iters}")
-    obstacles = np.asarray(obstacles, dtype=bool)
-    # The scene as it is stepped: padded under a non-divisor mesh.
-    run_params, run_obstacles, pad_rows, sp = params, obstacles, 0, None
-    if mesh is not None:
-        from lbm_tpu_torch.parallel import halo
+    with timers.phase("init"):
+        if checkpoint_every is not None and checkpoint_every <= 0:
+            raise ValueError(
+                f"checkpoint_every must be a positive step count, "
+                f"got {checkpoint_every}"
+            )
+        if checkpoint_every is not None and checkpoint_file is None:
+            # Without a file the chunked path would run and save nothing: a
+            # misconfiguration, not a request. Execution-length bounding
+            # without I/O is chunk_iters' job.
+            raise ValueError(
+                "checkpoint_every requires checkpoint_file (periodic "
+                "checkpointing needs somewhere to write); to bound "
+                "execution length without saving, use chunk_iters"
+            )
+        if chunk_iters is not None and chunk_iters <= 0:
+            raise ValueError(
+                f"chunk_iters must be a positive step count, got "
+                f"{chunk_iters}")
+        if chunk_iters is not None and checkpoint_every is not None:
+            # Two competing strides would silently pick one; refuse.
+            raise ValueError(
+                "chunk_iters and checkpoint_every are mutually exclusive "
+                "(checkpointing already chunks at its own stride)"
+            )
+        iters = params.max_iters if n_iters is None else n_iters
+        if iters <= 0:
+            raise ValueError(
+                f"iteration count must be positive, got {iters}")
+        obstacles = np.asarray(obstacles, dtype=bool)
+        # The scene as it is stepped: padded under a non-divisor mesh.
+        run_params, run_obstacles, pad_rows, sp = params, obstacles, 0, None
+        if mesh is not None:
+            from lbm_tpu_torch.parallel import halo
 
-        _check_mesh(mesh, kernel)
-        sp = halo.plan_run(params, obstacles, mesh, kernel, iters)
-        run_params, run_obstacles, pad_rows = sp.params, sp.obstacles, sp.pad
-        dev = mesh.devices[0]
-    else:
-        dev = _resolve_device(device)
-        kernel = _resolve_kernel(kernel, params, dev)
+            _check_mesh(mesh, kernel)
+            sp = halo.plan_run(params, obstacles, mesh, kernel, iters)
+            run_params, run_obstacles, pad_rows = (sp.params, sp.obstacles,
+                                                   sp.pad)
+            dev = mesh.devices[0]
+        else:
+            dev = _resolve_device(device)
+            kernel = _resolve_kernel(kernel, params, dev)
 
-    start_step, av0 = 0, None
-    if resume_from is not None:
-        start_step, cells_np, av0 = _resume_state(
-            resume_from, iters, params.ny, run_params, pad_rows)
-        cells0 = torch.from_numpy(cells_np).to(dev)
-    else:
-        cells0 = initial_state(run_params, dev)
+        start_step, av0 = 0, None
+        if resume_from is not None:
+            start_step, cells_np, av0 = _resume_state(
+                resume_from, iters, params.ny, run_params, pad_rows)
+            cells0 = torch.from_numpy(cells_np).to(dev)
+        else:
+            cells0 = initial_state(run_params, dev)
 
-    checkpointing = bool(checkpoint_every and checkpoint_file is not None)
-    stride = checkpoint_every or chunk_iters
-    sizes = [1] if debug else chunk_sizes(start_step, iters, stride)
-    # Init covers allocation, upload and (first use) the kernel build of
-    # every chunk length, as lbm_tpu's init covers compilation.
-    if mesh is not None:
-        sim = halo.ShardedSimulation(
-            run_params, cells0, run_obstacles, mesh, sp.kernel, iters,
-            sp.wrap_pad, sp.transposed, sizes=sizes, av0=av0,
-            start_step=start_step)
-    else:
-        sim = _Simulation(run_params, cells0,
-                          torch.from_numpy(obstacles.copy()).to(dev), kernel,
-                          iters, sizes=sizes, av0=av0)
-    sim.synchronize()
-    timers.stop("init")
+        checkpointing = bool(checkpoint_every and checkpoint_file is not None)
+        stride = checkpoint_every or chunk_iters
+        sizes = [1] if debug else chunk_sizes(start_step, iters, stride)
+        # Init covers allocation, upload and (first use) the kernel build of
+        # every chunk length, as lbm_tpu's init covers compilation.
+        if mesh is not None:
+            sim = halo.ShardedSimulation(
+                run_params, cells0, run_obstacles, mesh, sp.kernel, iters,
+                sp.wrap_pad, sp.transposed, sizes=sizes, av0=av0,
+                start_step=start_step, timers=timers)
+        else:
+            sim = _Simulation(run_params, cells0,
+                              torch.from_numpy(obstacles.copy()).to(dev),
+                              kernel, iters, sizes=sizes, av0=av0,
+                              timers=timers)
+        sim.synchronize()
 
     def save(step: int) -> None:
         # The copies to the host are the fence.
@@ -535,8 +567,7 @@ def run_simulation(
                  if trace_dir is not None else contextlib.nullcontext())
     guard = _PreemptionGuard(enabled=checkpointing)
     tt = start_step
-    with trace_ctx:
-        timers.start("compute")
+    with trace_ctx, timers.phase("compute"):
         with guard:
             if debug:
                 tt = _debug_loop(sim, start_step, iters, pad_rows, guard,
@@ -554,7 +585,6 @@ def run_simulation(
                     # checkpoint (latency bound: one chunk).
                     break
             sim.synchronize()
-        timers.stop("compute")
 
     # Collate: device -> host copy of the final lattice and trajectory;
     # the Reynolds number is taken on the device-resident state, on the
@@ -562,7 +592,10 @@ def run_simulation(
     with timers.phase("collate"):
         cells, av = sim.result()
         cells = cells[:, pad_rows:]
-        cells_np = cells.cpu().numpy()
+        with timers.phase("collate.copy"):
+            faults = _minor_faults()
+            cells_np = cells.cpu().numpy()
+            timers.elapsed["collate.copy.minflt"] = _minor_faults() - faults
         av_np = av.cpu().numpy()
         mask = torch.from_numpy(obstacles.copy()).to(cells.device)
         reynolds = float(calc_reynolds(params, cells, mask))
@@ -575,6 +608,13 @@ def run_simulation(
         completed_steps=tt,
         preempted=guard.requested and tt < iters,
     )
+
+
+def _minor_faults() -> int:
+    """The process's minor page faults so far: the process's, not the
+    thread's, since the CUDA driver may touch a copy's pages from a thread
+    of its own."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_minflt
 
 
 def _debug_loop(sim, start_step: int, iters: int, pad_rows: int, guard,

@@ -226,7 +226,7 @@ def test_chunk_plans_shrink_below_the_preferred_granularity(monkeypatch):
 
     sim = trunner._Simulation(p, initial_state(p), mask, "cuda", 30,
                               sizes=[7, 2, 1])
-    kinds = {n: [(type(i).__name__, i.steps_per_call, s)
+    kinds = {n: [(type(i).__name__, i.steps_per_call, s.steps)
                  for i, s in sim._plans[n]] for n in (7, 2, 1)}
     assert kinds[7] == [("FusedDepth", 4, 4), ("FusedDepth", 2, 2),
                         ("FusedStep", 1, 1)]

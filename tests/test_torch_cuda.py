@@ -1792,3 +1792,60 @@ def test_two_buffer_onchip_kernels_keep_their_pinned_sass(cuda):
     for name in pinned:
         assert got[name] == pinned[name], name
 
+
+
+@pytest.mark.cuda
+def test_runner_spans_hold_the_launches_on_the_card(cuda, tmp_path):
+    """A traced 2000-step 1024^2 ``auto`` run: one ``lbm.segment.depth``
+    span, its args (in the trace's metadata) ``steps_per_call=4``, with
+    the ``cudaLaunchKernel`` of every ``fused_depth_kernel`` launch inside
+    it; the collate copy's page faults a count; the wrappers' own host
+    time below the compute phase's."""
+    import json
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbm_tpu_torch.runner import run_simulation
+
+    p = Params(nx=1024, ny=1024, max_iters=2000, reynolds_dim=10,
+               density=0.1, accel=0.01, omega=1.85)
+    mask = generate_obstacles(p.nx, p.ny)
+    mask[:, 341] = True
+    run_simulation(p, mask)  # builds or loads every kernel
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # Device work held inside the profiler's host-clock window.
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+        r = run_simulation(p, mask)
+        torch.cuda.synchronize()
+        time.sleep(0.02)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    events = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+    segs = [e for e in events if e["name"].startswith("lbm.segment.")
+            and e.get("cat") == "user_annotation"]
+    assert [e["name"] for e in segs] == ["lbm.segment.depth"]
+    args = [v for k, v in data.items() if k.startswith("lbm.span.")
+            and v.startswith("lbm.segment.")]
+    assert len(args) == 1 and args[0].endswith(
+        "kernel=depth steps_per_call=4 form=- steps=2000")
+    kernels = {e["args"]["correlation"] for e in events
+               if e.get("cat") == "kernel"
+               and "fused_depth_kernel" in e["name"]}
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e["args"].get("correlation") in kernels]
+    assert len(kernels) == len(calls) == 500
+    seg = segs[0]
+    assert all(e["name"] == "cudaLaunchKernel" and seg["ts"] <= e["ts"]
+               and e["ts"] + e["dur"] <= seg["ts"] + seg["dur"]
+               for e in calls)
+    t = r.timings
+    # A count, and no more: a host whose kernel charges a process no page
+    # faults reads 0 here (getrusage reads 0 even for the first touch of a
+    # fresh mapping on such a host).
+    assert type(t["collate.copy.minflt"]) is int
+    assert t["collate.copy.minflt"] >= 0
+    assert 0 < t["compute.wrappers"] < t["compute"]

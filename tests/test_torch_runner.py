@@ -45,7 +45,10 @@ def test_run_simulation_matches_lbm_tpu():
     np.testing.assert_allclose(got.cells, want.cells, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got.av_vels, want.av_vels, rtol=TRAJ_RTOL)
     assert np.isclose(got.reynolds, want.reynolds, rtol=TRAJ_RTOL)
-    assert set(got.timings) == {"init", "compute", "collate", "total"}
+    # The plain path launches no wrapper: no "compute.wrappers".
+    assert set(got.timings) == {"init", "init.plan", "compute", "collate",
+                                "collate.copy", "collate.copy.minflt",
+                                "total"}
     assert got.completed_steps == 200 and not got.preempted
 
 
