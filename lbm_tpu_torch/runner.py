@@ -32,6 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import mmap
 import resource
 from pathlib import Path
 
@@ -64,12 +65,16 @@ class SimulationResult:
     (with ``init.plan``, the planning and the kernels' construction),
     ``compute`` (with ``compute.wrappers``, the wrappers' own host time in
     the launch loop, less the library's launch calls; absent under
-    ``reference``, which launches nothing), ``collate`` (with
-    ``collate.copy``, the final lattice's copy to the host) and
-    ``total``; and one count, not seconds: ``collate.copy.minflt``, the
-    process's minor page faults during that copy (an int). ``timings`` is
-    the one record of a run that the benchmark (``lbmbench.harness.Port``)
-    copies whole, so a per-run count goes here beside the seconds."""
+    ``reference``, which launches nothing; and, on a CUDA device only,
+    ``compute.prefault``, the host array's preparation while the device
+    finishes its queue), ``collate`` (with ``collate.copy``, the final
+    lattice's copy to the host) and ``total``; and counts, not seconds:
+    ``collate.copy.minflt``, the process's minor page faults during that
+    copy, and on a CUDA device ``compute.prefault.hidden``, 1 where the
+    device was still busy when the preparation ended, else 0 (ints).
+    ``timings`` is the one record of a run that the benchmark
+    (``lbmbench.harness.Port``) copies whole, so a per-run count goes here
+    beside the seconds."""
 
     cells: np.ndarray  # (9, ny, nx) final global state, params.dtype
     av_vels: np.ndarray  # (maxIters,) params.dtype
@@ -480,7 +485,8 @@ def run_simulation(
 
     Under a profiler, the phases are spans ``lbm.init`` (with
     ``lbm.init.plan``), ``lbm.compute`` (with one ``lbm.segment.<kernel>``
-    a planned segment a chunk) and ``lbm.collate`` (with
+    a planned segment a chunk and, on a CUDA device,
+    ``lbm.compute.prefault``) and ``lbm.collate`` (with
     ``lbm.collate.copy``), all with the args ``run=<n>``, ``n`` this
     call's number in the process (:class:`.profiling.PhaseTimers`).
     """
@@ -584,6 +590,9 @@ def run_simulation(
                     # is flushed; stop here, the caller resumes from the
                     # checkpoint (latency bound: one chunk).
                     break
+            out = (_prepare_host(timers, dev, (D2Q9.Q, params.ny, params.nx),
+                                 params.dtype)
+                   if dev.type == "cuda" else None)
             sim.synchronize()
 
     # Collate: device -> host copy of the final lattice and trajectory;
@@ -594,7 +603,11 @@ def run_simulation(
         cells = cells[:, pad_rows:]
         with timers.phase("collate.copy"):
             faults = _minor_faults()
-            cells_np = cells.cpu().numpy()
+            if out is None:
+                cells_np = cells.cpu().numpy()
+            else:
+                cells_np = out
+                torch.from_numpy(out).copy_(cells)
             timers.elapsed["collate.copy.minflt"] = _minor_faults() - faults
         av_np = av.cpu().numpy()
         mask = torch.from_numpy(obstacles.copy()).to(cells.device)
@@ -608,6 +621,32 @@ def run_simulation(
         completed_steps=tt,
         preempted=guard.requested and tt < iters,
     )
+
+
+def prefaulted_array(shape, dtype) -> np.ndarray:
+    """A fresh C-contiguous array of ``shape`` and ``dtype`` with one byte
+    of each of its pages written, so a copy into it pays no first touch:
+    an array above the allocator's mmap threshold (the 37.7 MB of a 1024²
+    lattice) is a fresh mapping every call, each page faulted in by its
+    first write."""
+    out = np.empty(shape, dtype)
+    flat = out.reshape(-1).view(np.uint8)
+    flat[::mmap.PAGESIZE] = 0
+    flat[-1:] = 0
+    return out
+
+
+def _prepare_host(timers, device, shape, dtype) -> np.ndarray:
+    """The collate's destination, prepared while ``device`` runs the
+    launches queued so far (phase ``compute.prefault``);
+    ``compute.prefault.hidden`` says whether the device was still busy
+    when it was ready."""
+    queued = torch.cuda.Event()
+    queued.record(torch.cuda.current_stream(device))
+    with timers.phase("compute.prefault"):
+        out = prefaulted_array(shape, dtype)
+    timers.elapsed["compute.prefault.hidden"] = int(not queued.query())
+    return out
 
 
 def _minor_faults() -> int:

@@ -1849,3 +1849,43 @@ def test_runner_spans_hold_the_launches_on_the_card(cuda, tmp_path):
     assert type(t["collate.copy.minflt"]) is int
     assert t["collate.copy.minflt"] >= 0
     assert 0 < t["compute.wrappers"] < t["compute"]
+
+
+@pytest.mark.cuda
+def test_collate_destination_is_prepared_behind_the_queue(cuda, tmp_path):
+    """A whole 1024^2 scene through ``run_simulation``: the final lattice
+    bit for bit ``simulate``'s, copied into an array prepared while the
+    device ran the queued launches (``compute.prefault.hidden`` 1), under
+    the span ``lbm.compute.prefault`` inside ``lbm.compute``; each call's
+    array its own."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lbm_tpu_torch.runner import run_simulation, simulate
+
+    p = Params(nx=1024, ny=1024, max_iters=20000, reynolds_dim=10,
+               density=0.1, accel=0.01, omega=1.85)
+    mask = generate_obstacles(p.nx, p.ny)
+    mask[:, 341] = True
+    a = run_simulation(p, mask)
+    cells, _ = simulate(p, initial_state(p, cuda),
+                        torch.from_numpy(mask).to(cuda))
+    np.testing.assert_array_equal(a.cells, cells.cpu().numpy())
+    t = a.timings
+    assert t["compute.prefault.hidden"] == 1
+    assert type(t["compute.prefault.hidden"]) is int
+    assert 0 < t["compute.prefault"] < t["compute"]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        b = run_simulation(p, mask)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    compute, = [e for e in events if e["name"] == "lbm.compute"]
+    prefault, = [e for e in events if e["name"] == "lbm.compute.prefault"]
+    assert compute["ts"] <= prefault["ts"] and (
+        prefault["ts"] + prefault["dur"] <= compute["ts"] + compute["dur"])
+    np.testing.assert_array_equal(b.cells, a.cells)
+    assert not np.shares_memory(a.cells, b.cells)
+    assert b.cells.flags.c_contiguous and b.cells.flags.writeable

@@ -135,3 +135,40 @@ def test_observables_match_lbm_tpu():
     ]:
         assert got.dtype == torch.float32
         assert np.isclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("kernel", ["reference", "cuda"])
+def test_each_result_is_the_callers_own_array(kernel, monkeypatch):
+    """Two calls in a row, on the plain path and on the planned ``cuda``
+    path (its wrappers' plain versions on CPU tensors): each ``cells`` a
+    C-contiguous, writeable float32 (9, ny, nx) array, the two sharing no
+    memory."""
+    monkeypatch.setattr(trunner, "_resolve_kernel", lambda k, p, d: k)
+    p, mask = _scene(iters=5)
+    a = trunner.run_simulation(p, mask, kernel=kernel, device="cpu")
+    b = trunner.run_simulation(p, mask, kernel=kernel, device="cpu")
+    for r in (a, b):
+        assert r.cells.shape == (9, p.ny, p.nx)
+        assert r.cells.dtype == np.float32
+        assert r.cells.flags.c_contiguous and r.cells.flags.writeable
+    assert not np.shares_memory(a.cells, b.cells)
+    np.testing.assert_array_equal(a.cells, b.cells)
+    b.cells[:] = 0
+    assert a.cells.any()
+
+
+@pytest.mark.parametrize("shape, dtype", [
+    ((9, 64, 128), np.float32), ((9, 1024, 1024), np.float32),
+    ((9, 3, 5), np.float64), ((9, 0, 4), np.float32)])
+def test_prefaulted_array_is_a_fresh_destination(shape, dtype):
+    """The collate's prepared destination: a fresh C-contiguous, writeable
+    array of the shape and dtype asked for, its own memory each call."""
+    a = trunner.prefaulted_array(shape, dtype)
+    b = trunner.prefaulted_array(shape, dtype)
+    for x in (a, b):
+        assert x.shape == shape and x.dtype == dtype
+        assert x.flags.c_contiguous and x.flags.writeable
+    assert a.size == 0 or not np.shares_memory(a, b)
+    src = torch.rand(shape, dtype=torch.from_numpy(a).dtype)
+    torch.from_numpy(a).copy_(src)
+    np.testing.assert_array_equal(a, src.numpy())
