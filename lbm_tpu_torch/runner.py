@@ -62,16 +62,22 @@ _RUNS = itertools.count(1)
 class SimulationResult:
     """What a run returns. ``timings`` is its one per-scene record of the
     phases (:class:`.profiling.PhaseTimers`), each in seconds: ``init``
-    (with ``init.plan``, the planning and the kernels' construction),
-    ``compute`` (with ``compute.wrappers``, the wrappers' own host time in
-    the launch loop, less the library's launch calls; absent under
-    ``reference``, which launches nothing; and, on a CUDA device only,
-    ``compute.prefault``, the host array's preparation while the device
-    finishes its queue), ``collate`` (with ``collate.copy``, the final
-    lattice's copy to the host) and ``total``; and counts, not seconds:
-    ``collate.copy.minflt``, the process's minor page faults during that
-    copy, and on a CUDA device ``compute.prefault.hidden``, 1 where the
-    device was still busy when the preparation ended, else 0 (ints).
+    (with ``init.plan``, the planning and the kernels' construction, and
+    ``init.transpose``, the transposition of a lattice handed in to a
+    transposed run), ``compute`` (with ``compute.wrappers``, the
+    wrappers' own host time in the launch loop, less the library's launch
+    calls; absent under ``reference``, which launches nothing; and, on a
+    CUDA device only, ``compute.prefault``, the host array's preparation
+    while the device finishes its queue), ``collate`` (with
+    ``collate.copy``, the final lattice's copy to the host, and on the
+    transposed layout ``collate.transpose``, its transposition back) and
+    ``total``; on a CUDA device that transposes, ``transpose.device``,
+    the device seconds of those transpositions (CUDA events); and counts,
+    not seconds: ``collate.copy.minflt``, the process's minor page faults
+    during that copy, ``collate.copy.bytes``, the bytes it copies,
+    ``compute.launches.cols``, the run's column-mode launches, and on a
+    CUDA device ``compute.prefault.hidden``, 1 where the device was still
+    busy when the preparation ended, else 0 (ints).
     ``timings`` is the one record of a run that the benchmark
     (``lbmbench.harness.Port``) copies whole, so a per-run count goes here
     beside the seconds."""
@@ -239,6 +245,24 @@ def _make_impl(seg: plan.Segment, mask, w1, w2, omega, axis: int):
     return fused.FusedStep(mask, w1, w2, omega, axis)
 
 
+@contextlib.contextmanager
+def _transposition(timers, phase: str, device, events: list):
+    """A block that transposes a lattice: the phase ``phase`` of
+    ``timers`` and, on a CUDA ``device``, a CUDA event before and after
+    it on the current stream, the pair appended to ``events``
+    (:meth:`_Simulation.record_transposes`)."""
+    with timers.phase(phase):
+        if device.type != "cuda":
+            yield
+            return
+        stream = torch.cuda.current_stream(device)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record(stream)
+        yield
+        end.record(stream)
+    events.append((start, end))
+
+
 class _Simulation:
     """One run's device state: the ping-pong lattice buffers, the mask,
     av_vels and the planned segments' kernels, all allocated once. The
@@ -247,6 +271,10 @@ class _Simulation:
     (:func:`plan_layout`; None, the planner's rule). A transposed run
     holds the lattice and the mask transposed from construction on, its
     kernels in column mode, and transposes back only in :meth:`result`.
+    ``cells`` None: the run starts from rest, its lattice built in the
+    execution layout (:func:`.state.initial_state`), so a transposed run
+    from rest makes no physical lattice and transposes nothing in; a
+    lattice handed in is transposed under the phase ``init.transpose``.
 
     The chunk form: ``sizes`` are the chunk lengths the run will take
     (default: ``iters`` in one go), each planned on its own
@@ -264,13 +292,23 @@ class _Simulation:
         self.mask = mask
         self.timers = PhaseTimers() if timers is None else timers
         self.transposed = plan_layout(params, kernel, transposed)
-        self._exec = (transpose_state(cells) if self.transposed
-                      else cells.contiguous())
+        # The CUDA events around the timed transpositions (_transposition).
+        self.transposes = []
+        if cells is None:
+            self._exec = initial_state(params, mask.device,
+                                       transposed=self.transposed)
+        elif self.transposed:
+            with _transposition(self.timers, "init.transpose", cells.device,
+                                self.transposes):
+                self._exec = transpose_state(cells)
+        else:
+            self._exec = cells.contiguous()
         self.inv_fluid = num_non_obstacles_r(
             mask.cpu().numpy(), dtype=params.dtype
         )
         # Zeros: a preempted run returns zeros past its completed steps.
-        self.av_vels = torch.zeros(iters, dtype=cells.dtype, device=cells.device)
+        self.av_vels = torch.zeros(iters, dtype=self._exec.dtype,
+                                   device=self._exec.device)
         if av0 is not None:
             self.av_vels.copy_(torch.from_numpy(np.asarray(av0)))
         self.iters = iters
@@ -278,7 +316,7 @@ class _Simulation:
         self._kernels, self._plans = {}, {}
         with self.timers.phase("init.plan"):
             self.segments = plan_run(params, kernel, iters, self.transposed,
-                                     cells.device)
+                                     self._exec.device)
             if kernel == "cuda":
                 self._exec_mask = (mask.T.contiguous() if self.transposed
                                    else mask)
@@ -339,6 +377,14 @@ class _Simulation:
         stands and the trajectory, on the device."""
         cells = transpose_state(self._exec) if self.transposed else self._exec
         return cells, self.av_vels
+
+    def record_transposes(self) -> None:
+        """``timings["transpose.device"]``: the device seconds between the
+        CUDA events of :attr:`transposes`, where there are any. Call it
+        once the host has waited for them (the collate copy does)."""
+        if self.transposes:
+            self.timers.elapsed["transpose.device"] = 1e-3 * sum(
+                start.elapsed_time(end) for start, end in self.transposes)
 
     def av_value(self, t: int) -> float:
         """``av_vels[t]`` on the host (waits for step ``t``)."""
@@ -484,10 +530,12 @@ def run_simulation(
     ``scripts/trace_report_torch.py``).
 
     Under a profiler, the phases are spans ``lbm.init`` (with
-    ``lbm.init.plan``), ``lbm.compute`` (with one ``lbm.segment.<kernel>``
-    a planned segment a chunk and, on a CUDA device,
-    ``lbm.compute.prefault``) and ``lbm.collate`` (with
-    ``lbm.collate.copy``), all with the args ``run=<n>``, ``n`` this
+    ``lbm.init.plan`` and, where a lattice handed in is transposed,
+    ``lbm.init.transpose``), ``lbm.compute`` (with one
+    ``lbm.segment.<kernel>`` a planned segment a chunk and, on a CUDA
+    device, ``lbm.compute.prefault``) and ``lbm.collate`` (with
+    ``lbm.collate.copy`` and, on the transposed layout,
+    ``lbm.collate.transpose``), all with the args ``run=<n>``, ``n`` this
     call's number in the process (:class:`.profiling.PhaseTimers`).
     """
     timers = PhaseTimers(run=next(_RUNS))
@@ -541,8 +589,10 @@ def run_simulation(
             start_step, cells_np, av0 = _resume_state(
                 resume_from, iters, params.ny, run_params, pad_rows)
             cells0 = torch.from_numpy(cells_np).to(dev)
-        else:
+        elif mesh is not None:
             cells0 = initial_state(run_params, dev)
+        else:
+            cells0 = None  # from rest, in the run's own layout
 
         checkpointing = bool(checkpoint_every and checkpoint_file is not None)
         stride = checkpoint_every or chunk_iters
@@ -559,6 +609,7 @@ def run_simulation(
                               torch.from_numpy(obstacles.copy()).to(dev),
                               kernel, iters, sizes=sizes, av0=av0,
                               timers=timers)
+        del cells0  # the run holds its own lattice
         sim.synchronize()
 
     def save(step: int) -> None:
@@ -573,6 +624,7 @@ def run_simulation(
                  if trace_dir is not None else contextlib.nullcontext())
     guard = _PreemptionGuard(enabled=checkpointing)
     tt = start_step
+    cols = _cols_launches()
     with trace_ctx, timers.phase("compute"):
         with guard:
             if debug:
@@ -594,12 +646,17 @@ def run_simulation(
                                  params.dtype)
                    if dev.type == "cuda" else None)
             sim.synchronize()
+    timers.elapsed["compute.launches.cols"] = _cols_launches() - cols
 
     # Collate: device -> host copy of the final lattice and trajectory;
     # the Reynolds number is taken on the device-resident state, on the
     # unpadded lattice.
     with timers.phase("collate"):
-        cells, av = sim.result()
+        transposing = (
+            _transposition(timers, "collate.transpose", dev, sim.transposes)
+            if mesh is None and sim.transposed else contextlib.nullcontext())
+        with transposing:
+            cells, av = sim.result()
         cells = cells[:, pad_rows:]
         with timers.phase("collate.copy"):
             faults = _minor_faults()
@@ -609,6 +666,10 @@ def run_simulation(
                 cells_np = out
                 torch.from_numpy(out).copy_(cells)
             timers.elapsed["collate.copy.minflt"] = _minor_faults() - faults
+        timers.elapsed["collate.copy.bytes"] = (cells.numel()
+                                                * cells.element_size())
+        if mesh is None:
+            sim.record_transposes()
         av_np = av.cpu().numpy()
         mask = torch.from_numpy(obstacles.copy()).to(cells.device)
         reynolds = float(calc_reynolds(params, cells, mask))
@@ -647,6 +708,13 @@ def _prepare_host(timers, device, shape, dtype) -> np.ndarray:
         out = prefaulted_array(shape, dtype)
     timers.elapsed["compute.prefault.hidden"] = int(not queued.query())
     return out
+
+
+def _cols_launches() -> int:
+    """The column-mode launches of the process so far: the ``_cols``
+    counts of :data:`.ops.fused.LAUNCHES`."""
+    counts = fused.LAUNCHES
+    return sum(counts[name] for name in counts if name.endswith("_cols"))
 
 
 def _minor_faults() -> int:

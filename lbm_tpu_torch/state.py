@@ -65,15 +65,23 @@ def _per_speed(params: Params, dtype) -> np.ndarray:
     return np.array([w0, w1, w1, w1, w1, w2, w2, w2, w2], dtype=dtype)
 
 
-def initial_state(params: Params, device="cpu", dtype=None) -> torch.Tensor:
+def initial_state(params: Params, device="cpu", dtype=None,
+                  transposed: bool = False) -> torch.Tensor:
     """Uniform equilibrium-at-rest distributions (obstacle cells
     included), built on ``device``. ``dtype`` (numpy float type) defaults
-    to ``params.dtype``."""
+    to ``params.dtype``. ``transposed``: built in the transposed layout
+    (9, nx, ny), speed k holding physical speed ``SIGMA[k]``'s weight:
+    :func:`transpose_state` of the physical rest state, bit for bit,
+    without making the physical lattice."""
     dtype = params.dtype if dtype is None else dtype
-    per_speed = torch.from_numpy(_per_speed(params, dtype))
+    per_speed = _per_speed(params, dtype)
+    shape = (D2Q9.Q, params.ny, params.nx)
+    if transposed:
+        per_speed, shape = per_speed[list(SIGMA)], (D2Q9.Q, params.nx,
+                                                     params.ny)
     return (
-        per_speed.to(device)[:, None, None]
-        .expand(D2Q9.Q, params.ny, params.nx)
+        torch.from_numpy(per_speed).to(device)[:, None, None]
+        .expand(shape)
         .contiguous()
     )
 

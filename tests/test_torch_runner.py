@@ -48,6 +48,7 @@ def test_run_simulation_matches_lbm_tpu():
     # The plain path launches no wrapper: no "compute.wrappers".
     assert set(got.timings) == {"init", "init.plan", "compute", "collate",
                                 "collate.copy", "collate.copy.minflt",
+                                "collate.copy.bytes", "compute.launches.cols",
                                 "total"}
     assert got.completed_steps == 200 and not got.preempted
 

@@ -186,7 +186,8 @@ def test_the_wrapper_path_records_every_key(monkeypatch):
     r = trunner.run_simulation(p, mask, kernel="cuda", device="cpu")
     assert set(r.timings) == {"init", "init.plan", "compute",
                               "compute.wrappers", "collate", "collate.copy",
-                              "collate.copy.minflt", "total"}
+                              "collate.copy.minflt", "collate.copy.bytes",
+                              "compute.launches.cols", "total"}
     base = trunner.run_simulation(p, mask, kernel="reference", device="cpu")
     np.testing.assert_array_equal(r.cells, base.cells)
 
