@@ -19,7 +19,10 @@ printing JSON lines (any failure raises and exits non-zero):
              on the card, one line per grid: the one-step kernel for one
              step, the depth kernel for one call at D = 2, 4, 8 (cells max
              abs error 0; a step's tot_u the same bits at the first and at
-             the last stage of a launch, and under D = 2 and D = 4) and the
+             the last stage of a launch, and under D = 2 and D = 4), its
+             flow form wherever the planner takes it (one launch of K
+             rounds: cells max abs error 0, cells and tots those of K
+             one-round launches bit for bit) and the
              resident kernel for one call at G = 16 in both forms (the
              on-chip form wherever a strip fits; cells max abs error 0) and
              the device form's shift mode (cells max abs error 0, each
@@ -32,9 +35,12 @@ printing JSON lines (any failure raises and exits non-zero):
              strips fit (cells max abs error 0, tots the two-buffer
              mode's bits where both fit), and alone at 4096x64, 768x768,
              1024x400 and 1024x512 (the last two transposed, column mode)
-             for one call at G = 1, 2, 99 and 100; then 200 steps at
-             1024x1024 of every kernel through the runner against the
-             one-step kernel, with bit-identical repeats;
+             for one call at G = 1, 2, 99 and 100; then 204 steps at
+             1024x1024 of every plan through the runner (auto: two flow
+             launches and a one-round tail) against the one-step kernel,
+             with bit-identical repeats and the plan's launch counts, the
+             depth and resident plans' cells (D = 2's and the device
+             form's tots too) auto's bits;
 4. wide_kernel - the same calls in column mode on the transposed lattice
              at 131072x128, 16384x1024, 1024x256 and a ragged wall-less
              264x100, and all three associations at 512x128: max abs
@@ -88,7 +94,8 @@ printing JSON lines (any failure raises and exits non-zero):
              and the scene's forcing, 1000 steps through the runner:
              every depth and the resident kernel against the one-step
              kernel;
-8. timing  - per-step time of every kernel configuration at 128x128,
+8. timing  - per-step time of every kernel configuration (the depth
+             kernel's flow form, 25 rounds a launch, among them) at 128x128,
              256x256, 512x512, 1024x1024 and 16384x1024 (physical layout;
              the resident kernel in both forms where a strip fits) with
              CUDA events, as the runner drives them and as device time
@@ -322,7 +329,12 @@ KERNEL_CASES = [("1024x1024", "scene"), ("128x128", "walls"),
                 ("131072x128", "walls"), ("128x131072", "walls"),
                 ("512x512", "walls"), ("1024x256", "walls")]
 STRESS, STRESS_ITERS = "16384x1024", 1000
-TRAJ_STEPS = 200
+# Not a multiple of the flow form's 100 steps a launch: auto runs 1024x1024
+# as two launches of 25 rounds and a one-round D=4 tail.
+TRAJ_STEPS = 204
+# The flow form as the planner runs it (plan.FLOW_STEPS steps a launch).
+FLOW_ROUNDS = 25
+FLOW_LABEL = f"depth D=4 K={FLOW_ROUNDS}"
 TIMING_GRIDS = ("128x128", "256x256", "512x512", "1024x1024", "16384x1024")
 # Plans driven through the CLI on the scene; the depth pin is the depth
 # auto does not take at 1024x1024, so the scene runs every kernel.
@@ -506,6 +518,14 @@ def check_depth(r, name, where):
     if not name.startswith("depth"):
         return
     check(r["max_abs_err"] == 0.0, f"{name} cells != plain at {where}")
+    if name.startswith("depth_flow"):
+        # One launch of K rounds: the cells and every tot of K one-round
+        # launches, and its wait count within its flowing tiles.
+        check(r["equals_one_round_launches"], f"{name}: cells or tots "
+              f"differ from one-round launches at {where}")
+        check(0 <= r["waits"] <= r["flow_tiles"],
+              f"{name}: {r['waits']} waits of {r['flow_tiles']} at {where}")
+        return
     check(r["stage_bits_equal"], f"{name}: a step's tot_u depends on its "
           f"stage at {where}")
     check(r.get("equals_first_stages_of_D4", True),
@@ -524,8 +544,11 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     """Every kernel against n plain steps: the one-step kernel for one
     step of a uniform state, the many-step kernels for one call on a
     perturbed one (same seed, same mask). ``axis`` 1: on the transposed
-    lattice, the kernels and the plain version in column mode."""
-    from lbm_tpu_torch.ops import fused, fused_depth, resident
+    lattice, the kernels and the plain version in column mode. Where the
+    planner gives the depth kernel K rounds a launch (plan.flow_rounds),
+    one flow launch of K rounds too, against 4 K plain steps and against
+    K one-round launches (cells and tots, bit for bit)."""
+    from lbm_tpu_torch.ops import fused, fused_depth, plan, resident
     from lbm_tpu_torch.ops import reference as ref_ops
 
     cells, mask = random_case(torch, name, p, seed, kind, "uniform")
@@ -544,7 +567,11 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     # Plain states to keep: after each kernel's steps, and a step before
     # each depth's last (where a second depth launch starts).
     before = {d - 1 for d in DEPTHS}
-    keep = {*DEPTHS, KERNEL_G} | ({5} if odd_g else set()) | before
+    rounds = plan.flow_rounds(cells.shape[1], cells.shape[2],
+                              fused_depth.block_slots("cuda", axis), axis)
+    flow_steps = fused_depth.FLOW_DEPTH * rounds
+    gs = {KERNEL_G} | ({5} if odd_g else set())
+    keep = {*DEPTHS} | gs | before | ({flow_steps} if rounds > 1 else set())
     plain, tots, c = {}, [], cells
     for n in range(1, max(keep) + 1):
         c, tot = ref_ops.fused_step(c, *args, axis=axis)
@@ -564,9 +591,26 @@ def compare_kernels(torch, name, kind, p, seed, odd_g=False, axis=0):
     # The two depths auto plans share tile and map: D = 2 sums as D = 4.
     res["depth D=2"]["equals_first_stages_of_D4"] = bool(
         torch.equal(depth_tots[2], depth_tots[4][:2]))
+    if rounds > 1:
+        d = fused_depth.FLOW_DEPTH
+        flow = fused_depth.FusedDepth(*args, d, axis, rounds)
+        t = torch.empty(flow_steps, device="cuda")
+        got, _ = flow.run(cells.clone(), torch.empty_like(cells), t)
+        r = res[f"depth_flow D={d} K={rounds}"] = compare(
+            torch, got, t, plain[flow_steps], tots[:flow_steps])
+        one = fused_depth.FusedDepth(*args, d, axis)
+        c = [cells.clone(), torch.empty_like(cells)]
+        t1 = torch.empty(flow_steps, device="cuda")
+        for k in range(rounds):
+            c[:] = one.run(c[0], c[1], t1, d * k)
+        torch.cuda.synchronize()
+        r["equals_one_round_launches"] = bool(torch.equal(got, c[0])
+                                              and torch.equal(t, t1))
+        r["waits"], r["flow_tiles"] = flow.waits(), flow.flow_tiles
+        del flow, got, c
     onchip = onchip_fits(cells.shape[1], cells.shape[2])
     inplace = onchip_fits(cells.shape[1], cells.shape[2], buffers=1)
-    for g in sorted(keep - set(DEPTHS) - before):
+    for g in sorted(gs):
         got, dev = resident.resident(cells, *args, g, axis=axis,
                                      form="device")
         res[f"resident G={g}"] = compare(torch, got, dev, plain[g], tots[:g])
@@ -668,6 +712,7 @@ def phase_build():
 
 
 def phase_kernel(torch):
+    from lbm_tpu_torch.ops import fused, resident
     from lbm_tpu_torch.runner import simulate
     from lbm_tpu_torch.state import initial_state
 
@@ -713,21 +758,29 @@ def phase_kernel(torch):
         torch.cuda.empty_cache()
 
     # TRAJ_STEPS steps of each plan through the runner, twice, against
-    # the one-step kernel and the plain version.
+    # the one-step kernel and the plain version; auto's launches.
     n = TRAJ_STEPS
     p = scene_params(iters=n)
+    nx, ny = grid(SCENE)
     mask = torch.from_numpy(scene_mask()).cuda()
     c0 = initial_state(p, "cuda")
     with env():
         cr, ar = simulate(p, c0, mask, kernel="reference", n_iters=n)
     runs = {}
-    plans = {"step": SCENE_PLANS["step"], "resident": SCENE_PLANS["resident"],
+    plans = {"auto": {}, "step": SCENE_PLANS["step"],
+             "resident": SCENE_PLANS["resident"],
              **{f"depth D={d}": {"LBM_RESIDENT": "0",
                                  "LBM_PALLAS_DEPTH": str(d)} for d in DEPTHS}}
     for label, plan_env in plans.items():
         with env(**plan_env):
+            want = expected_launches(resident.segments(ny, nx, n, "cuda"))
+            fused.reset_launches()
             ck, ak = simulate(p, c0, mask, kernel="cuda", n_iters=n)
+            got = dict(fused.LAUNCHES)
             ck2, ak2 = simulate(p, c0, mask, kernel="cuda", n_iters=n)
+        check(got == want, f"{n} steps {label}: launches {got}, plan {want}")
+        if label == "auto":
+            auto_launches = got
         runs[label] = (ck, ak, bool(torch.equal(ck, ck2)
                                     and torch.equal(ak, ak2)))
     k1c, k1a, _ = runs["step"]
@@ -746,7 +799,25 @@ def phase_kernel(torch):
         check(out["av_vels_max_rel_err_vs_plain"] <= TRAJ_RTOL,
               f"{n}-step av_vels of {label} disagree with the plain version")
         check(same, f"two runs of {label} differ")
-    return worst
+    # Every depth and resident plan's cells are the plain version's bits
+    # (max abs error 0 a call), so each other's; auto (the flow form, then
+    # a one-round tail), D = 2 and the device form sum a step as D = 4.
+    ca, aa, _ = runs["auto"]
+    same_cells = {label: bool(torch.equal(runs[label][0], ca))
+                  for label in runs if label != "step"}
+    same_tots = {label: bool(torch.equal(runs[label][1], aa))
+                 for label in ("depth D=2", "depth D=4", "resident")}
+    emit({"phase": "kernel", "case": f"{n} steps {SCENE}, auto against the "
+          "depth and resident plans", "auto_launches":
+          {k: v for k, v in auto_launches.items() if v},
+          "cells_bit_identical_to_auto": same_cells,
+          "av_vels_bit_identical_to_auto": same_tots})
+    check(auto_launches["depth_flow"] > 0 and auto_launches["depth"] > 0,
+          f"{n} steps under auto: launches {auto_launches}")
+    check(all(same_cells.values()) and all(same_tots.values()),
+          f"{n} steps: plans differ from auto's bits: {same_cells} "
+          f"{same_tots}")
+    return worst, auto_launches
 
 
 def inplace_against_plain(torch, name, axis, seed):
@@ -1143,6 +1214,10 @@ def phase_timing(torch):
             impls = {"step": fused.FusedStep(*w),
                      **{f"depth D={d}": fused_depth.FusedDepth(*w, d)
                         for d in DEPTHS},
+                     # The flow form beside one round a launch, at every
+                     # grid (the planner takes it under FLOW_MAX_WAVES).
+                     FLOW_LABEL: fused_depth.FusedDepth(
+                         *w, fused_depth.FLOW_DEPTH, 0, FLOW_ROUNDS),
                      **{f"resident G={g}": resident.Resident(
                          *w, g, form="device") for g in (16, 100)}}
             if onchip_fits(*mask.shape):
@@ -1538,7 +1613,9 @@ def phase_inplace_scene(torch, np):
     p = scene_params(INPLACE_SCENE, INPLACE_ITERS)
     plans = {"auto": {}, "off": {"LBM_RESIDENT": "0"}}
     want_plan = {"auto": f"resident G=100 on-chip 1-buf x{INPLACE_ITERS // 100}",
-                 "off": f"depth D=4 x{INPLACE_ITERS // 4}"}
+                 # The 1024x512 scene's transposed tiles are 2.6 waves:
+                 # the depth kernel's flow form.
+                 "off": f"depth D=4 K=25 x{INPLACE_ITERS // 100}"}
     params, obs = walls_scene_files(INPLACE_SCENE, INPLACE_ITERS,
                                     INPLACE_ACCEL)
     runs, files, avs = {}, {}, {}
@@ -3139,7 +3216,7 @@ def phase_trace(torch, np):
     path's kernels by name with the plan's launches; the busy share and
     the idle gaps are printed."""
     from lbm_tpu_torch import cli, profiling, runner
-    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.ops import resident
     from lbm_tpu_torch.parallel import halo
 
     nx, ny = grid(SCENE)
@@ -3157,7 +3234,8 @@ def phase_trace(torch, np):
         tdir = root / label.replace(" ", "_").replace(",", "")
         with env(**plan_env):
             if m is None:
-                want = expected_launches(plan.segments(ny, nx, iters))
+                want = expected_launches(resident.segments(ny, nx, iters,
+                                                           "cuda"))
                 untraced = runner.run_simulation(p, mask)
                 out = io.StringIO()
                 with contextlib.redirect_stdout(out):
@@ -3369,7 +3447,7 @@ def main() -> int:
         emit({"phase_seconds": name, "seconds": time.perf_counter() - t0})
         return done[name]
 
-    worst = run("kernel", phase_kernel, torch)
+    worst, traj_launches = run("kernel", phase_kernel, torch) or (None, None)
     wide_worst = run("wide_kernel", phase_wide_kernel, torch)
     launches = run("scene", phase_scene, torch, np)
     onchip_runs = run("onchip_scene", phase_onchip_scene, torch, np)
@@ -3415,7 +3493,11 @@ def main() -> int:
             # The tot_u sum: a launch of its own behind every one-step
             # launch (and the epilogue of every depth launch).
             "reduce_tot": launches["step"]["reduce"],
-            "fused_depth": launches["auto"]["depth"],
+            # The one-round kernel's row-mode path under auto: the
+            # 1024x1024 run's tail (TRAJ_STEPS steps through the runner);
+            # the flow form's, the scene.
+            "fused_depth": traj_launches["depth"],
+            "fused_depth_flow": launches["auto"]["depth_flow"],
             "resident": launches["resident"]["resident"],
             # The shift mode's path under auto: the narrow channel's scene.
             "resident_shift": shift_runs["auto"]["auto"]["resident_shift"],
@@ -3547,9 +3629,22 @@ def main() -> int:
         # launch's partials.
         kernel_entry("fused_depth", "lbm_tpu_torch/csrc/fused_depth.cu",
                      "lbm_tpu/ops/pallas_fused.py:653", runs["fused_depth"],
-                     f"{on_scene}, auto (D=4)", worst["depth"],
+                     f"{SCENE}, auto, {TRAJ_STEPS} steps through the runner "
+                     "(the one-round D=4 tail)", worst["depth"],
                      dev["depth D=4"], plain, bound(cells, 4),
                      epilogue_sum_abs_err=t["epilogue_abs_err"]),
+        # One launch of FLOW_ROUNDS rounds of D=4, a pass over the lattice
+        # a round; each round summed by its last block.
+        kernel_entry("fused_depth_flow",
+                     "lbm_tpu_torch/csrc/fused_depth_flow.cu",
+                     "lbm_tpu/ops/pallas_fused.py:653",
+                     runs["fused_depth_flow"],
+                     f"{on_scene}, auto (D=4 K={FLOW_ROUNDS})",
+                     max(worst["depth_flow"], wide_worst["depth_flow"]),
+                     dev[FLOW_LABEL], plain, bound(cells, 4 * FLOW_ROUNDS),
+                     ceiling=design_ceiling(cells, 4 * FLOW_ROUNDS,
+                                            steps_per_pass=4),
+                     one_round_ms=dev["depth D=4"]),
         kernel_entry("resident", "lbm_tpu_torch/csrc/resident.cu",
                      "lbm_tpu/ops/pallas_resident.py:74", runs["resident"],
                      f"{on_scene}, LBM_RESIDENT=1 LBM_RESIDENT_FORM=device "

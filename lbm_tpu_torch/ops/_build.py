@@ -67,6 +67,14 @@ _SIGNATURES = {
         _c_int,
     ),
     "lbm_depth_num_partials": ([_c_int, _c_int, _c_int], _c_int),
+    "lbm_depth_block_slots": ([_c_int, _c_int], _c_int),
+    "lbm_fused_depth_flow": (
+        [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+         _c_int, _c_int, _c_float, _c_float, _c_float, _c_int, _c_int,
+         _c_float, _c_void_p, _c_int, ctypes.c_uint, _c_int, _c_int, _c_int,
+         _c_void_p],
+        _c_int,
+    ),
     "lbm_depth_max_rows": ([_c_int], _c_int),
     "lbm_resident": (
         [_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_void_p,

@@ -27,7 +27,7 @@ from lbm_tpu_torch.state import D2Q9
 # one-step kernel, the tot_u sum as a launch of its own (after every
 # launch of the periodic one-step kernel, in both of its modes; the depth
 # kernel and the seam one-step kernel sum in the launch), the depth
-# kernel, the resident kernel in its device-memory form (and its shift
+# kernel (one round a launch, and its flow form, "depth_flow"), the resident kernel in its device-memory form (and its shift
 # mode, "resident_shift") and its on-chip form (two buffers, and one:
 # "resident_onchip_inplace"), the seam modes of the one-step and depth
 # kernels (one launch per shard) and the ring kernel (one launch per card)
@@ -36,7 +36,7 @@ from lbm_tpu_torch.state import D2Q9
 # the transposed lattice of a wide grid; the shift mode has none), the
 # three modes of the stream-cost probe and the tensor-core equilibrium's
 # kernel ("mxu", row mode only). Only :func:`launch` increments them.
-_KERNELS = ("step", "depth", "resident", "resident_shift", "resident_onchip",
+_KERNELS = ("step", "depth", "depth_flow", "resident", "resident_shift", "resident_onchip",
             "resident_onchip_inplace", "step_seam", "depth_seam", "ring",
             "ring_onchip", "ring_onchip_inplace")
 LAUNCHES = {"reduce": 0, **{k + s: 0 for k in _KERNELS for s in ("", "_cols")},

@@ -5,6 +5,13 @@ mode), which also writes the ``depth`` tot_u values on the device (the
 block that started last sums the per-tile partials in a fixed order,
 ``csrc/lbm_reduce.cuh``).
 
+The flow form (``rounds`` > 1, D = :data:`FLOW_DEPTH`,
+``csrc/fused_depth_flow.cu``): one launch runs ``rounds`` rounds of D
+steps, each tile starting its next round when the tiles within
+:func:`flow_reach` of it have finished the last, with no grid barrier or
+kernel boundary between rounds; every cell and tot_u has the bits of as
+many one-round launches.
+
 A tensor on the CPU runs the plain version,
 :func:`.reference.multi_step`; a CUDA tensor launches the kernel or
 raises. :func:`fused_depth_emulated` is the kernel's tiling in plain
@@ -20,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from lbm_tpu_torch.ops import _build
 from lbm_tpu_torch.ops import reference as ref_ops
 from lbm_tpu_torch.ops.fused import LatticeKernel, SeamKernel, new_scratch
 from lbm_tpu_torch.state import D2Q9
@@ -33,48 +41,144 @@ from lbm_tpu_torch.state import D2Q9
 DEPTHS = (8, 4, 2)
 TILES = {2: (24, 32), 4: (24, 32), 8: (16, 32)}
 HALO_X = {2: 4, 4: 4, 8: 8}
+# The depth of the flow form (csrc/fused_depth_flow.cu's kFlowDepth).
+FLOW_DEPTH = 4
+
+
+def n_tiles(ny: int, nx: int, depth: int) -> int:
+    """The depth kernel's tiles over an ny x nx lattice at ``depth``."""
+    ty, tx = TILES[depth]
+    return -(-ny // ty) * -(-nx // tx)
+
+
+def flow_reach(n: int, tile: int, halo: int) -> int:
+    """Along one axis of ``n`` cells cut into tiles of ``tile`` (the last
+    one ragged), each read through a window of its nominal extent widened
+    by ``halo`` a side, periodic: the most tiles, a side, between a tile
+    and a tile that owns a cell of its window. The tiles within it of a
+    tile, both ways, hold every tile whose cells its window reads and
+    every tile whose window reads its cells; 1 wherever the last tile is
+    at least ``halo`` cells, more where it is thinner or the window
+    wraps, the tile count where a window covers the axis."""
+    tiles = -(-n // tile)
+    length = tile + 2 * halo
+    if length >= n:
+        return tiles
+    reach = 0
+    for b in range(tiles):
+        # The window's cells run from tile `first` to tile `last`, on
+        # through the wrap.
+        lo = b * tile - halo
+        o, last = (lo % n) // tile, ((lo + length - 1) % n) // tile
+        while True:
+            d = (o - b) % tiles
+            reach = max(reach, min(d, tiles - d))
+            if o == last:
+                break
+            o = (o + 1) % tiles
+    return reach
+
+
+def block_slots(device, axis: int = 0) -> int | None:
+    """The one-round depth kernel's resident blocks on a CUDA ``device``
+    at :data:`FLOW_DEPTH` in forcing mode ``axis`` (the occupancy API's
+    blocks an SM times the SMs); None off the card."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    lib = _build.load()
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    slots = lib.lbm_depth_block_slots(axis, index)
+    if slots < 0:
+        _build.check(lib, -slots, "depth kernel occupancy")
+    return slots
 
 
 class FusedDepth(LatticeKernel):
     """The depth kernel bound to one mask: ``run(a, b, out, t, scale)``
-    writes ``depth`` steps of ``a`` into ``b`` and returns ``(b, a)``."""
+    runs ``rounds`` rounds of ``depth`` steps from ``a``, ping-ponging
+    a -> b -> a ..., and returns ``(cells, spare)``: ``(b, a)`` after an
+    odd number of rounds, ``(a, b)`` after an even one. ``rounds`` > 1 is
+    the flow form, at :data:`FLOW_DEPTH` only; one round launches the
+    one-round kernel. ``flow_tiles`` counts the flowing tiles (rounds
+    after a launch's first) of every call; :meth:`waits` those whose
+    first poll found a tile behind."""
 
     def __init__(self, mask: torch.Tensor, w1, w2, omega, depth: int,
-                 axis: int = 0):
+                 axis: int = 0, rounds: int = 1):
         if depth not in DEPTHS:
             raise ValueError(f"depth {depth} not in {DEPTHS}")
+        if rounds < 1 or (rounds > 1 and depth != FLOW_DEPTH):
+            raise ValueError(f"{rounds} rounds of depth {depth}: the flow "
+                             f"form runs depth {FLOW_DEPTH}")
         super().__init__(mask, w1, w2, omega, axis)
-        self.depth = self.steps_per_call = depth
+        self.depth, self.rounds = depth, int(rounds)
+        self.steps_per_call = depth * self.rounds
+        ny, nx = mask.shape
+        self.n_tiles = n_tiles(ny, nx, depth)
+        self.flow_tiles = 0
         if self.on_cpu:
             return
-        ny, nx = mask.shape
         limit = self._lib.lbm_depth_max_rows(depth)
         if ny > limit:
             raise ValueError(
                 f"{ny} rows exceed the depth-{depth} kernel's limit of {limit}"
             )
+        n = self._lib.lbm_depth_num_partials(depth, ny, nx)
+        # The flow form's slots: D rows for each parity of round.
         self._scratch, self._partials = new_scratch(
-            depth, self._lib.lbm_depth_num_partials(depth, ny, nx),
-            self.device)
+            depth * min(self.rounds, 2), n, self.device)
+        if self.rounds > 1:
+            # Per tile the rounds it has finished, then the count of
+            # flowing tiles that waited, then the rounds summed (every
+            # round count at _base between launches).
+            self._done = torch.zeros(n + 2, dtype=torch.int32,
+                                     device=self.device)
+            self._base = 0
+            ty, tx = TILES[depth]
+            self._reach = (flow_reach(ny, ty, depth),
+                           flow_reach(nx, tx, HALO_X[depth]))
 
     def run(self, a, b, out, t: int = 0, scale=1.0):
         self._check_call(a, b, out, t)
-        d = self.depth
+        d, k = self.depth, self.rounds
+        cells, spare = (b, a) if k % 2 else (a, b)
+        self.flow_tiles += (k - 1) * self.n_tiles
         if self.on_cpu:
             new, tots = ref_ops.multi_step(
-                a, self.mask, self.w1, self.w2, self.omega, d, self.axis
+                a, self.mask, self.w1, self.w2, self.omega, d * k, self.axis
             )
-            b.copy_(new)
-            out[t:t + d] = tots * self._scale(scale)
-            return b, a
+            cells.copy_(new)
+            out[t:t + d * k] = tots * self._scale(scale)
+            return cells, spare
         lib, ny, nx = self._lib, self.shape[1], self.shape[2]
+        if k == 1:
+            self._launch(
+                "depth", f"depth-{d} launch", lib.lbm_fused_depth,
+                a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
+                self._scratch.data_ptr(), ny, nx, self.accel, self.w1,
+                self.w2, self.omega, self.mode, d, self.axis,
+                np.float32(scale), out.data_ptr() + 4 * t, self._index,
+                self._stream())
+            return cells, spare
         self._launch(
-            "depth", f"depth-{d} launch", lib.lbm_fused_depth,
-            a.data_ptr(), b.data_ptr(), self._mask_u8.data_ptr(),
-            self._scratch.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
-            self.omega, self.mode, d, self.axis, np.float32(scale),
-            out.data_ptr() + 4 * t, self._index, self._stream())
-        return b, a
+            "depth_flow", f"depth-{d} launch of {k} rounds",
+            lib.lbm_fused_depth_flow, a.data_ptr(), b.data_ptr(),
+            self._mask_u8.data_ptr(), self._scratch.data_ptr(),
+            self._done.data_ptr(), ny, nx, self.accel, self.w1, self.w2,
+            self.omega, self.mode, self.axis, np.float32(scale),
+            out.data_ptr() + 4 * t, k, self._base, *self._reach,
+            self._index, self._stream())
+        self._base = (self._base + k) % 2 ** 32
+        return cells, spare
+
+    def waits(self) -> int:
+        """The flowing tiles of every call so far whose first poll found a
+        tile within reach behind (a device word; waits for the card). 0
+        on the CPU and for one round a launch."""
+        if self.on_cpu or self.rounds == 1:
+            return 0
+        return int(self._done[-2])
 
 
 class FusedDepthSeam(SeamKernel):

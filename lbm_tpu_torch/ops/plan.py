@@ -37,7 +37,7 @@ from __future__ import annotations
 import dataclasses
 import os
 
-from lbm_tpu_torch.ops.fused_depth import DEPTHS
+from lbm_tpu_torch.ops.fused_depth import DEPTHS, FLOW_DEPTH, n_tiles
 from lbm_tpu_torch.profiling import BYTES_PER_CELL_PASS, CHIP_PEAKS
 
 # G per resident launch, most preferred first: the JAX package's list.
@@ -72,6 +72,24 @@ G_PREF = (100, 64, 50, 32, 20, 16)
 RESIDENT_AUTO_MAX_CELLS = 792 * 528
 INPLACE_MIN_ROWS = 2
 AUTO_DEPTHS = (4, 2)
+# The depth kernel's flow form (flow_rounds): rounds of FLOW_DEPTH steps,
+# FLOW_STEPS steps a launch (as the resident forms' G=100), where a
+# one-round launch is shorter than FLOW_MAX_WAVES waves of the card's
+# block slots, by forcing mode (row, column). Each launch of one round
+# pays a fixed cost (its lockstep start, partial last wave, last block's
+# epilogue and the gap to the next kernel), the flow form a cost a tile
+# (the ticket and the neighbours' polls before the window, the release
+# after the stores), higher in row mode, whose flow kernel spills more.
+# Measured with scripts/depth_ab_torch.py --flow on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md, the flow form's findings), device time a step
+# against one round a launch: row mode 0.94x at 1024^2 (5.2 waves),
+# 0.974x at 1024x1152 (5.8), 0.984x at 1024x1280 (6.5), 1.008x at
+# 1024x1536 (7.8), 1.039x at 1024x2048 (10.4), 1.077x at 1024x4096
+# (20.7); column mode 0.972x at the transposed 2048x1024
+# (10.4), 1.028x at 4096x1024 (20.7), 1.055x at 8192x1024 (41.5) and
+# 1.069x at 16384x1024 (82.8).
+FLOW_STEPS = 100
+FLOW_MAX_WAVES = (7, 15)
 # The wide-grid layout's size rule (transposed_layout), measured on the
 # H100 when the resident kernel's limit was 512x512 cells and left there
 # when that limit moved (PERF.md).
@@ -378,6 +396,9 @@ class Segment:
     steps_per_call: int
     steps: int
     form: str | None = None
+    # The depth kernel's rounds a launch (its flow form where above 1):
+    # steps_per_call = D * rounds.
+    rounds: int = 1
 
     @property
     def launches(self) -> int:
@@ -387,6 +408,8 @@ class Segment:
     def launch_key(self) -> str:
         """The kernel's name in ``ops.fused.LAUNCHES`` (without the
         column mode's "_cols")."""
+        if self.kernel == "depth" and self.rounds > 1:
+            return "depth_flow"
         if self.kernel not in ("resident", "ring"):
             return self.kernel
         return {"onchip": f"{self.kernel}_onchip",
@@ -394,7 +417,8 @@ class Segment:
                 "shift": f"{self.kernel}_shift"}.get(self.form, self.kernel)
 
     def describe(self) -> str:
-        size = {"depth": f" D={self.steps_per_call}",
+        rounds = f" K={self.rounds}" if self.rounds > 1 else ""
+        size = {"depth": f" D={self.steps_per_call // self.rounds}{rounds}",
                 "resident": f" G={self.steps_per_call}",
                 "ring": f" G={self.steps_per_call}"}.get(self.kernel, "")
         form = {"onchip": " on-chip", "inplace": " on-chip 1-buf",
@@ -503,7 +527,8 @@ def choose(n_iters: int, gprefs, depths, many: str = "resident"):
 
 
 def segments(ny: int, nx: int, iters: int, form: str | None = None,
-             limits=None) -> list[Segment]:
+             limits=None, slots: int | None = None,
+             axis: int = 0) -> list[Segment]:
     """Plan a run of ``iters`` steps as segments that sum to ``iters``.
     One segment when a preferred granularity divides ``iters``;
     otherwise a main segment and the tail re-planned, so any count runs
@@ -511,9 +536,50 @@ def segments(ny: int, nx: int, iters: int, form: str | None = None,
     example 1099 steps with the resident kernel: 1000 at G=100, 96 at
     G=32, then 2 at D=2 and 1 single step). ``form``: the resident
     kernel's form, given to its segments; ``limits``: the card's
-    (:func:`resident_prefs`)."""
-    return plan_segments(iters, resident_prefs(ny, nx, form, limits),
-                         depth_preference(ny, nx), form=form)
+    (:func:`resident_prefs`); ``slots``: the depth kernel's resident
+    blocks on the card (None off it), whose D = 4 segments then take
+    :func:`flow_rounds` rounds a launch (:func:`flow_segments`) in
+    forcing mode ``axis``."""
+    return flow_segments(
+        plan_segments(iters, resident_prefs(ny, nx, form, limits),
+                      depth_preference(ny, nx), form=form),
+        flow_rounds(ny, nx, slots, axis))
+
+
+def flow_rounds(ny: int, nx: int, slots: int | None, axis: int = 0) -> int:
+    """Rounds of :data:`FLOW_DEPTH` steps a launch of the depth kernel
+    over an ny x nx lattice in forcing mode ``axis`` on a card of
+    ``slots`` resident blocks (None: off the card, one): :data:`FLOW_STEPS`
+    steps a launch where a one-round launch is shorter than the mode's
+    :data:`FLOW_MAX_WAVES` waves of the slots, else one. A rule on the
+    launch's shape; no pin."""
+    if (not slots or n_tiles(ny, nx, FLOW_DEPTH)
+            >= FLOW_MAX_WAVES[axis] * slots):
+        return 1
+    return FLOW_STEPS // FLOW_DEPTH
+
+
+def flow_segments(parts: list[Segment], rounds: int) -> list[Segment]:
+    """``parts`` with each depth segment at :data:`FLOW_DEPTH` run
+    ``rounds`` rounds a launch: its whole launches of ``rounds`` rounds,
+    then the rest as one launch of fewer (one round: the one-round
+    kernel). Every other segment, and all of them where ``rounds`` is 1,
+    as they are; the steps still sum to the run."""
+    if rounds == 1:
+        return parts
+    out = []
+    for seg in parts:
+        if seg.kernel != "depth" or seg.steps_per_call != FLOW_DEPTH:
+            out.append(seg)
+            continue
+        spc = FLOW_DEPTH * rounds
+        main, rest = seg.steps - seg.steps % spc, seg.steps % spc
+        if main:
+            out.append(Segment("depth", spc, main, rounds=rounds))
+        if rest:
+            out.append(Segment("depth", rest, rest,
+                               rounds=rest // FLOW_DEPTH))
+    return out
 
 
 def plan_segments(iters: int, gprefs, depths, many: str = "resident",

@@ -120,10 +120,12 @@ def planned_form(ny: int, nx: int, device, axis: int = 0) -> str | None:
 def segments(ny: int, nx: int, iters: int, device, axis: int = 0) -> list:
     """:func:`.plan.segments` of ``iters`` steps of an ny x nx lattice on
     ``device`` in forcing mode ``axis``, with the resident kernel's planned
-    form and the card's limits (None off the card)."""
+    form, the card's limits and the depth kernel's block slots (None off
+    the card)."""
     limits = _limits(device)
     return plan.segments(ny, nx, iters, plan.planned_form(
-        ny, nx, limits, shift_mode=axis == 0), limits)
+        ny, nx, limits, shift_mode=axis == 0), limits,
+        fused_depth.block_slots(device, axis) if limits else None, axis)
 
 
 class Resident(LatticeKernel):

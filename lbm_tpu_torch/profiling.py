@@ -291,7 +291,9 @@ _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # launch counts' names in ``ops.fused.LAUNCHES`` (without the column
 # modes' "_cols", which run the same kernel functions).
 KERNEL_NAMES = {"step": "fused_step_kernel", "reduce": "reduce_tot_kernel",
-                "depth": "fused_depth_kernel", "resident": "resident_kernel",
+                "depth": "fused_depth_kernel",
+                "depth_flow": "fused_depth_flow_kernel",
+                "resident": "resident_kernel",
                 "resident_shift": "resident_shift_kernel",
                 "resident_onchip": "resident_onchip_kernel",
                 "resident_onchip_inplace": "resident_onchip_kernel",

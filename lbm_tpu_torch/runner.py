@@ -75,9 +75,12 @@ class SimulationResult:
     the device seconds of those transpositions (CUDA events); and counts,
     not seconds: ``collate.copy.minflt``, the process's minor page faults
     during that copy, ``collate.copy.bytes``, the bytes it copies,
-    ``compute.launches.cols``, the run's column-mode launches, and on a
+    ``compute.launches.cols``, the run's column-mode launches, on a
     CUDA device ``compute.prefault.hidden``, 1 where the device was still
-    busy when the preparation ended, else 0 (ints).
+    busy when the preparation ended, else 0, and where the run launched
+    the depth kernel's flow form, ``compute.depth.flow_tiles``, the tiles
+    of its launches' rounds after the first, and ``compute.depth.waits``,
+    those whose first poll found a neighbouring tile behind (ints).
     ``timings`` is the one record of a run that the benchmark
     (``lbmbench.harness.Port``) copies whole, so a per-run count goes here
     beside the seconds."""
@@ -240,8 +243,9 @@ def _make_impl(seg: plan.Segment, mask, w1, w2, omega, axis: int):
         return resident.Resident(mask, w1, w2, omega, seg.steps_per_call, axis,
                                  seg.form)
     if seg.kernel == "depth":
-        return fused_depth.FusedDepth(mask, w1, w2, omega, seg.steps_per_call,
-                                      axis)
+        return fused_depth.FusedDepth(mask, w1, w2, omega,
+                                      seg.steps_per_call // seg.rounds, axis,
+                                      seg.rounds)
     return fused.FusedStep(mask, w1, w2, omega, axis)
 
 
@@ -332,7 +336,7 @@ class _Simulation:
             parts = []
             for seg in plan_run(self.params, self.kernel, n, self.transposed,
                                 self._exec.device):
-                key = (seg.kernel, seg.steps_per_call, seg.form)
+                key = (seg.kernel, seg.steps_per_call, seg.form, seg.rounds)
                 if self.kernel == "cuda" and key not in self._kernels:
                     self._kernels[key] = _make_impl(seg, self._exec_mask,
                                                     *self._ref, axis)
@@ -364,6 +368,17 @@ class _Simulation:
     def synchronize(self) -> None:
         if self._exec.device.type == "cuda":
             torch.cuda.synchronize(self._exec.device)
+
+    def flow_counts(self):
+        """``(waits, flowing tiles)`` of the run's depth launches of more
+        than one round (:class:`.ops.fused_depth.FusedDepth`), or None
+        where it has none. Call it once the device is done."""
+        flows = [k for k in self._kernels.values()
+                 if isinstance(k, fused_depth.FusedDepth) and k.rounds > 1]
+        if not flows:
+            return None
+        return (sum(k.waits() for k in flows),
+                sum(k.flow_tiles for k in flows))
 
     def run(self) -> None:
         """The whole run in one chunk; ``cells`` is then the physical
@@ -647,6 +662,10 @@ def run_simulation(
                    if dev.type == "cuda" else None)
             sim.synchronize()
     timers.elapsed["compute.launches.cols"] = _cols_launches() - cols
+    flow = sim.flow_counts() if mesh is None else None
+    if flow is not None:
+        (timers.elapsed["compute.depth.waits"],
+         timers.elapsed["compute.depth.flow_tiles"]) = flow
 
     # Collate: device -> host copy of the final lattice and trajectory;
     # the Reynolds number is taken on the device-resident state, on the

@@ -11,6 +11,18 @@ sleep, median of 10 batches of ~200 steps, configurations in turns) of
 - the seam mode at D = 4 over 4 shards of 1024x1024 on one card, and the
   halo-free resident kernel at 512x512 beside D = 4 (the ``auto`` rule);
 
+With ``--flow``, only the depth kernel's flow form (D = 4, K rounds a
+launch, ``FusedDepth(..., rounds=K)``) beside one round a launch, device
+ms per step over batches of 1000 steps, at the shapes its rule
+(``ops/plan.py``'s ``FLOW_MAX_WAVES``) rests on: in row mode 1024x1024
+(5.2 waves of an H100's 264 slots; K = 5, 10, 25, 50) and the tall
+1024x1152, 1024x1280, 1024x1536, 1024x2048 and 1024x4096 (5.8, 6.5, 7.8,
+10.4 and 20.7 waves; K = 25),
+in column mode the transposed 2048x1024, 4096x1024, 8192x1024 and
+16384x1024 (10.4 to 82.8 waves; K = 25), each
+with its waves, its flow launches' wait share and, with ``--check``, the
+flow form's cells and tots against as many one-round launches (bits).
+
 and, with ``--check``, one call of every depth and mode against
 ``ops.reference.multi_step`` (cells: max abs error; totals: relative
 error) and a step's total at the first and at the last stage of a launch
@@ -29,7 +41,7 @@ with ``git archive`` into a directory that ``.gitignore`` lists) instead
 of from this checkout.
 
 Usage: python scripts/depth_ab_torch.py [--repo DIR] [--check] [--sass]
-           [--depths 2,4,8] [-o artifact.json]
+           [--depths 2,4,8] [--flow] [-o artifact.json]
        (A CUDA device is required.)
 """
 
@@ -132,6 +144,64 @@ def check_kernel(torch, cs, depths) -> dict:
     return out
 
 
+# --flow's grids (physical NXxNY, layout axis) and rounds a launch.
+FLOW_GRIDS = (("1024x1024", 0, (5, 10, 25, 50)), ("1024x1152", 0, (25,)),
+              ("1024x1280", 0, (25,)), ("1024x1536", 0, (25,)),
+              ("1024x2048", 0, (25,)), ("1024x4096", 0, (25,)),
+              ("2048x1024", 1, (25,)), ("4096x1024", 1, (25,)),
+              ("8192x1024", 1, (25,)), ("16384x1024", 1, (25,)))
+
+
+def time_flow(torch, cs, check: bool) -> dict:
+    """Device ms a step of one round a launch and of the flow form at
+    FLOW_GRIDS, in turns; each grid's tiles, waves of the card's slots,
+    and each K's waits over its flowing tiles in the timed launches."""
+    from lbm_tpu_torch.ops import fused_depth
+
+    out = {}
+    for name, axis, ks in FLOW_GRIDS:
+        p = cs.scene_params(name)
+        cells, mask = cs.random_case(
+            torch, name, p, seed=97, state="perturbed",
+            mask_kind="scene" if name == cs.SCENE else "walls")
+        if axis:
+            cells, mask = cs.transposed(cells, mask)
+        w = (mask, p.accel_w1, p.accel_w2, p.omega)
+        bufs = [cells.clone(), torch.empty_like(cells)]
+        av = torch.zeros(4 * max(ks), device="cuda")
+        with cs.env():
+            impls = {"K=1": fused_depth.FusedDepth(*w, 4, axis),
+                     **{f"K={k}": fused_depth.FusedDepth(*w, 4, axis, k)
+                        for k in ks}}
+        _, dev = cs.time_turns(torch, {
+            k: (cs.runner_call(impl, bufs, av), impl.steps_per_call, None)
+            for k, impl in impls.items()}, steps=1000)
+        torch.cuda.synchronize()
+        slots = fused_depth.block_slots("cuda", axis)
+        row = {"tiles": impls["K=1"].n_tiles, "slots": slots,
+               "waves": impls["K=1"].n_tiles / slots,
+               "device_ms_per_step": {k: statistics.median(v)
+                                      for k, v in dev.items()},
+               "wait_pct": {k: 100 * impl.waits() / impl.flow_tiles
+                            for k, impl in impls.items() if impl.flow_tiles}}
+        if check:
+            k = ks[-1]
+            a = [cells.clone(), torch.empty_like(cells)]
+            b = [cells.clone(), torch.empty_like(cells)]
+            tots_a = torch.zeros(4 * k, device="cuda")
+            tots_b = torch.zeros(4 * k, device="cuda")
+            a[:] = impls[f"K={k}"].run(a[0], a[1], tots_a, 0, 1.0)
+            for r in range(k):
+                b[:] = impls["K=1"].run(b[0], b[1], tots_b, 4 * r, 1.0)
+            torch.cuda.synchronize()
+            row["bits_equal"] = bool(torch.equal(a[0], b[0])
+                                     and torch.equal(tots_a, tots_b))
+        out[name + (" transposed" if axis else "")] = row
+        del cells, bufs, impls
+        torch.cuda.empty_cache()
+    return out
+
+
 # The kernels --sass counts, by a part of their mangled names.
 SASS_KERNELS = {"fused_depth_kernel<4,0,0>": "fused_depth_kernelILi4ELb0ELb0",
                 "resident_kernel<0,0>": "resident_kernelILb0ELi0E",
@@ -192,6 +262,8 @@ def main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--depths", default="2,4,8")
+    ap.add_argument("--flow", action="store_true",
+                    help="time the flow form alone (see above)")
     ap.add_argument("-o", "--output")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.repo).resolve()))
@@ -213,12 +285,16 @@ def main(argv=None) -> int:
               "ptxas": {k: v for k, v in cs.ptxas_table(
                   log.read_text() if log.exists() else "").items()
                   if "depth" in k or "resident_kernel" in k or "probe" in k}}
-    if args.sass:
+    if args.flow:
+        result["flow"] = time_flow(torch, cs, args.check)
+        args.check = False
+    elif args.sass:
         result["sass_opcodes"] = sass_opcodes(path)
     if args.check:
         result["check"] = check_kernel(torch, cs, depths)
-    result["device_ms_per_step"] = {**time_grids(torch, cs, depths),
-                                    **time_seam(torch, cs)}
+    if not args.flow:
+        result["device_ms_per_step"] = {**time_grids(torch, cs, depths),
+                                        **time_seam(torch, cs)}
     text = json.dumps(result)
     print(text, flush=True)
     if args.output:

@@ -567,10 +567,11 @@ def test_tot_u_is_summed_in_the_kernel(cuda, depth, axis):
 
 @pytest.mark.cuda
 def test_no_reduce_launch_on_a_depth_plan(cuda, monkeypatch):
-    """202 steps under a depth plan (D = 4 and a D = 2 tail): depth
-    launches as planned and none of the tot_u sum, which the depth kernel
-    runs in its epilogue. A 203rd step goes to the one-step kernel, whose
-    sum is a launch of its own."""
+    """202 steps under a depth plan (D = 4, on the card in the flow
+    form's launches of 25 rounds, and a D = 2 tail): depth launches as
+    planned and none of the tot_u sum, which the depth kernel runs in the
+    launch. A 203rd step goes to the one-step kernel, whose sum is a
+    launch of its own."""
     from lbm_tpu_torch.ops import plan
     from lbm_tpu_torch.runner import simulate
 
@@ -581,15 +582,17 @@ def test_no_reduce_launch_on_a_depth_plan(cuda, monkeypatch):
     c0, m = initial_state(p, cuda), torch.from_numpy(mask).to(cuda)
     assert plan.describe(plan.segments(128, 128, 202)) == \
         "depth D=4 x50, depth D=2 x1"
+    assert plan.describe(resident.segments(128, 128, 202, cuda)) == \
+        "depth D=4 K=25 x2, depth D=2 x1"
     fused.reset_launches()
     simulate(p, c0, m, kernel="cuda", n_iters=202)
-    assert fused.LAUNCHES["depth"] == 51
+    assert fused.LAUNCHES["depth_flow"] == 2 and fused.LAUNCHES["depth"] == 1
     assert fused.LAUNCHES["step"] == 0 and fused.LAUNCHES["reduce"] == 0
-    assert plan.describe(plan.segments(128, 128, 203)) == \
-        "depth D=4 x50, depth D=2 x1, step x1"
+    assert plan.describe(resident.segments(128, 128, 203, cuda)) == \
+        "depth D=4 K=25 x2, depth D=2 x1, step x1"
     fused.reset_launches()
     simulate(p, c0, m, kernel="cuda", n_iters=203)
-    assert fused.LAUNCHES["depth"] == 51
+    assert fused.LAUNCHES["depth_flow"] == 2 and fused.LAUNCHES["depth"] == 1
     assert fused.LAUNCHES["step"] == 1 and fused.LAUNCHES["reduce"] == 1
 
 
@@ -619,6 +622,143 @@ def test_even_chunks_keep_every_bit_under_the_auto_depths(cuda, monkeypatch,
                              resume_from=ck)
     np.testing.assert_array_equal(resumed.cells, base.cells)
     np.testing.assert_array_equal(resumed.av_vels, base.av_vels)
+
+
+# The depth kernel's flow form (csrc/fused_depth_flow.cu's
+# fused_depth_flow_kernel): K rounds of 4 steps a launch.
+
+
+def _flow_case(cuda, ny, nx, axis, seed):
+    """A seeded perturbed state and its mask on the card, in the layout
+    of ``axis`` (1: transposed, column mode), and the kernels' scene
+    constants."""
+    from lbm_tpu_torch.state import transpose_state
+
+    p, cells, mask = _case(nx, ny, axis == 0, seed=seed, perturbed=True)
+    c, m = torch.from_numpy(cells).to(cuda), torch.from_numpy(mask).to(cuda)
+    if axis:
+        c, m = transpose_state(c).contiguous(), m.T.contiguous()
+    return c, (m, p.accel_w1, p.accel_w2, p.omega)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+@pytest.mark.parametrize("ny,nx,rounds", [
+    (1024, 1024, 25), (128, 128, 25), (100, 130, 7), (242, 96, 25),
+    (50, 33, 3), (200, 32, 25), (200, 64, 24), (1000, 40, 2),
+    (20, 24, 25)],
+    ids=["1024x1024", "128x128", "100x130", "242x96-thin-last-tile-row",
+         "50x33", "200x32-one-tile-column", "200x64-two-tile-columns",
+         "1000x40", "20x24-one-tile"])
+def test_a_k_round_launch_gives_k_single_round_launches_bits(
+        cuda, ny, nx, rounds, axis):
+    """Two launches of K rounds give the cells and every step's tot_u of
+    2K one-round launches, bit for bit (the round counters carry on from
+    one launch to the next); each leaves its slots empty and its ticket at
+    zero, every tile's counter at the rounds run, and its wait count
+    within the flowing tiles."""
+    c, w = _flow_case(cuda, ny, nx, axis, seed=ny + nx + rounds)
+    flow = fused_depth.FusedDepth(*w, 4, axis, rounds)
+    one = fused_depth.FusedDepth(*w, 4, axis)
+    steps = 4 * rounds
+    out_flow = torch.full((2 * steps + 2,), -1.0, device=cuda)
+    out_one = out_flow.clone()
+    key = "depth_flow" + ("_cols" if axis else "")
+    before = fused.LAUNCHES[key]
+    bufs = [c.clone(), torch.empty_like(c)]
+    for k in range(2):
+        bufs[:] = flow.run(bufs[0], bufs[1], out_flow, 1 + k * steps, 0.5)
+    got = bufs[0]
+    assert fused.LAUNCHES[key] == before + 2
+    bufs = [c.clone(), torch.empty_like(c)]
+    for k in range(2 * rounds):
+        bufs[:] = one.run(bufs[0], bufs[1], out_one, 1 + 4 * k, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bufs[0])
+    assert torch.equal(out_flow, out_one)
+    assert out_flow[0] == -1 and out_flow[-1] == -1
+    n = flow.n_tiles
+    words = flow._scratch.view(torch.int32)[:8 * n + 1]
+    assert (words[:8 * n] == -1).all() and words[8 * n] == 0
+    done = flow._done.cpu()
+    assert (done[:n] == 2 * rounds).all() and done[n + 1] == 2 * rounds
+    assert 0 <= flow.waits() <= flow.flow_tiles == 2 * (rounds - 1) * n
+    # The kept partials of the last round (its parity's rows) are the
+    # one-round launches' last ones.
+    last = 4 * ((rounds - 1) % 2)
+    assert torch.equal(flow._partials[last:last + 4], one._partials)
+
+
+@pytest.mark.cuda
+def test_a_one_tile_lattice_flows_through_many_rounds(cuda):
+    """One tile, which waits on itself alone, over 40 launches of 25
+    rounds: every launch ends, and the bits are the one-round kernel's."""
+    c, w = _flow_case(cuda, 20, 24, 0, seed=3)
+    flow = fused_depth.FusedDepth(*w, 4, 0, 25)
+    assert flow.n_tiles == 1
+    out = torch.zeros(100, device=cuda)
+    bufs = [c.clone(), torch.empty_like(c)]
+    for _ in range(40):
+        bufs[:] = flow.run(bufs[0], bufs[1], out, 0, 1.0)
+    torch.cuda.synchronize()
+    want, _ = fused_depth.fused_depth_plain(c, *w, 4000)
+    assert torch.equal(bufs[0], want)
+    assert int(flow._done[0]) == int(flow._done[2]) == 1000
+    assert flow.waits() <= 40 * 24
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_flow_runs_give_the_one_round_runs_bits(cuda, axis, monkeypatch):
+    """Through the runner: 242 steps planned as the card plans them (two
+    launches of 25 rounds, one of 10, a D = 2 tail) give the cells and
+    av_vels of the one-round plan (the depth kernel's slots hidden from
+    the planner), and record their flowing tiles and waits."""
+    from lbm_tpu_torch.ops import plan
+    from lbm_tpu_torch.runner import run_simulation
+
+    for k in ("LBM_RESIDENT_STEPS", "LBM_PALLAS_DEPTH"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setenv("LBM_RESIDENT", "0")
+    p, _, mask = _case(256 if axis else 128, 128, True)
+    if axis:
+        monkeypatch.setattr(plan, "transposed_layout",
+                            lambda ny, nx: nx >= 2 * ny and nx % 8 == 0)
+    flow = run_simulation(p, mask, kernel="cuda", n_iters=242)
+    n = fused_depth.n_tiles(*((256, 128) if axis else (128, 128)), 4)
+    t = flow.timings
+    assert t["compute.depth.flow_tiles"] == (2 * 24 + 9) * n
+    assert 0 <= t["compute.depth.waits"] <= t["compute.depth.flow_tiles"]
+    assert t["compute.launches.cols"] == (4 if axis else 0)
+    monkeypatch.setattr(fused_depth, "block_slots", lambda device, axis=0: 0)
+    one = run_simulation(p, mask, kernel="cuda", n_iters=242)
+    assert "compute.depth.flow_tiles" not in one.timings
+    np.testing.assert_array_equal(flow.cells, one.cells)
+    np.testing.assert_array_equal(flow.av_vels, one.av_vels)
+
+
+@pytest.mark.cuda
+def test_flow_chunks_and_resumes_keep_the_uncut_runs_bits(cuda, tmp_path):
+    """The 1024^2 scene's first 6004 steps under ``auto`` (the flow form):
+    in chunks of 3002 (each a launch of 25 rounds short of whole, its own
+    plan) and checkpointed at 3002 and resumed, the uncut run's cells and
+    av_vels bit for bit."""
+    from lbm_tpu_torch.runner import run_simulation
+
+    p = Params(nx=1024, ny=1024, max_iters=6004, reynolds_dim=10,
+               density=0.1, accel=0.01, omega=1.85)
+    mask = generate_obstacles(p.nx, p.ny)
+    mask[:, 341] = True
+    base = run_simulation(p, mask)
+    assert base.timings["compute.depth.flow_tiles"] > 0
+    chunked = run_simulation(p, mask, chunk_iters=3002)
+    ck = tmp_path / "ck.npz"
+    run_simulation(p, mask, n_iters=3002, checkpoint_every=3002,
+                   checkpoint_file=ck)
+    resumed = run_simulation(p, mask, resume_from=ck)
+    for run in (chunked, resumed):
+        np.testing.assert_array_equal(run.cells, base.cells)
+        np.testing.assert_array_equal(run.av_vels, base.av_vels)
 
 
 # The resident kernel's on-chip form (csrc/resident_onchip.cu).
@@ -1715,14 +1855,16 @@ def _sass_opcodes():
 # The kernels that read, within one launch, what other blocks of it wrote
 # in an earlier round or step (the device-memory form and its shift mode,
 # whose two residences read the neighbours' cells, edge buffer and step
-# counters, the ring, the probe's rounds, the on-chip kernels' halo
-# slots), and the loads of each that may take the non-coherent read-only
-# path (LDG...CONSTANT, what __ldg or a const __restrict__ pointer compiles to):
+# counters, the ring, the probe's rounds, the depth kernel's flow form,
+# the on-chip kernels' halo slots), and the loads of each that may take
+# the non-coherent read-only path (LDG...CONSTANT, what __ldg or a const
+# __restrict__ pointer compiles to):
 # the on-chip kernels' mask bytes, loaded once into shared memory, and no
 # other. A lattice value loaded that way may come from a stale cache line.
 # (The tensor-core kernel, mxu_resident_kernel, runs the device form's
 # rounds.)
-COHERENT_KERNELS = {"resident_kernel<": 6, "resident_shift_kernel<": 6,
+COHERENT_KERNELS = {"fused_depth_flow_kernel<": 2,
+                    "resident_kernel<": 6, "resident_shift_kernel<": 6,
                     "ring_kernel<": 4, "probe_kernel<": 7,
                     "resident_onchip_kernel<": 12, "ring_onchip_kernel<": 24,
                     "mxu_resident_kernel": 1}
@@ -1797,10 +1939,11 @@ def test_two_buffer_onchip_kernels_keep_their_pinned_sass(cuda):
 @pytest.mark.cuda
 def test_runner_spans_hold_the_launches_on_the_card(cuda, tmp_path):
     """A traced 2000-step 1024^2 ``auto`` run: one ``lbm.segment.depth``
-    span, its args (in the trace's metadata) ``steps_per_call=4``, with
-    the ``cudaLaunchKernel`` of every ``fused_depth_kernel`` launch inside
-    it; the collate copy's page faults a count; the wrappers' own host
-    time below the compute phase's."""
+    span, its args (in the trace's metadata) ``steps_per_call=100`` (the
+    flow form's 25 rounds of 4), with the ``cudaLaunchKernel`` of every
+    ``fused_depth_flow_kernel`` launch inside it; the collate copy's page
+    faults a count; the wrappers' own host time below the compute
+    phase's."""
     import json
     import time
 
@@ -1831,13 +1974,13 @@ def test_runner_spans_hold_the_launches_on_the_card(cuda, tmp_path):
     args = [v for k, v in data.items() if k.startswith("lbm.span.")
             and v.startswith("lbm.segment.")]
     assert len(args) == 1 and args[0].endswith(
-        "kernel=depth steps_per_call=4 form=- steps=2000")
+        "kernel=depth steps_per_call=100 form=- steps=2000")
     kernels = {e["args"]["correlation"] for e in events
                if e.get("cat") == "kernel"
-               and "fused_depth_kernel" in e["name"]}
+               and "fused_depth_flow_kernel" in e["name"]}
     calls = [e for e in events if e.get("cat") == "cuda_runtime"
              and e["args"].get("correlation") in kernels]
-    assert len(kernels) == len(calls) == 500
+    assert len(kernels) == len(calls) == 20
     seg = segs[0]
     assert all(e["name"] == "cudaLaunchKernel" and seg["ts"] <= e["ts"]
                and e["ts"] + e["dur"] <= seg["ts"] + seg["dur"]

@@ -18,6 +18,7 @@ every stage of a launch and under D = 2 and D = 4 (one tile, one map).
 
 import functools
 import os
+import random
 
 import numpy as np
 import pytest
@@ -243,3 +244,233 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         kernel.run(a, b, torch.empty(5), 4)  # out[4:6] of 5
     with pytest.raises(ValueError, match="distinct"):
         kernel.run(a, a, torch.empty(5), 0)
+
+
+# The flow form: K rounds of D = 4 steps a launch (csrc/fused_depth_flow.cu).
+
+
+@pytest.mark.parametrize("rounds", [2, 3, 25])
+@pytest.mark.parametrize("axis", [0, 1], ids=["rows", "columns"])
+def test_k_round_run_equals_k_single_round_runs(rounds, axis):
+    """A K-round ``run`` on the CPU gives the cells and every step's
+    tot_u of K single-round runs, bit for bit, and hands back the
+    buffers as K single-round runs leave them: the result in ``b`` after
+    an odd K, in ``a`` after an even one."""
+    c, (mask, w1, w2, omega) = _random_case(30, 44, rounds)
+    if axis:
+        c, mask = transpose_state(c), mask.T.contiguous()
+    flow = fused_depth.FusedDepth(mask, w1, w2, omega, 4, axis, rounds)
+    one = fused_depth.FusedDepth(mask, w1, w2, omega, 4, axis)
+    assert flow.steps_per_call == 4 * rounds and flow.rounds == rounds
+    av_flow = torch.full((4 * rounds + 2,), -1.0)
+    av_one = av_flow.clone()
+    a, b = c.clone(), torch.empty_like(c)
+    got, spare = flow.run(a, b, av_flow, 1, 0.5)
+    assert (got, spare) == ((b, a) if rounds % 2 else (a, b))
+    bufs = [c.clone(), torch.empty_like(c)]
+    for k in range(rounds):
+        bufs[:] = one.run(bufs[0], bufs[1], av_one, 1 + 4 * k, 0.5)
+    assert torch.equal(got, bufs[0])
+    assert torch.equal(av_flow, av_one)
+    assert flow.n_tiles == (2 * 2 if axis == 0 else 2 * 1)
+    assert flow.flow_tiles == (rounds - 1) * flow.n_tiles
+    assert flow.waits() == 0 and one.flow_tiles == 0
+
+
+def test_the_flow_form_runs_depth_4_only():
+    mask = torch.from_numpy(generate_obstacles(16, 8))
+    for depth in (2, 8):
+        with pytest.raises(ValueError, match="flow form"):
+            fused_depth.FusedDepth(mask, 1e-5, 1e-6, 1.85, depth, rounds=2)
+    with pytest.raises(ValueError, match="flow form"):
+        fused_depth.FusedDepth(mask, 1e-5, 1e-6, 1.85, 4, rounds=0)
+
+
+def _window_owners(n, tile, halo, b):
+    """The tiles owning a cell of tile b's window, by brute force."""
+    return {(y % n) // tile
+            for y in range(b * tile - halo, (b + 1) * tile + halo)}
+
+
+@pytest.mark.parametrize("n", [1, 5, 24, 25, 26, 27, 28, 31, 32, 47, 50, 73,
+                               96, 100, 130, 242, 1000, 1024, 1026])
+@pytest.mark.parametrize("tile,halo", [(24, 4), (32, 4)])
+def test_flow_reach_holds_every_dependency_both_ways(n, tile, halo):
+    """Every tile whose cells a tile's window reads, and every tile whose
+    window reads its cells, lies within the reach of it, and the reach is
+    the least that holds them (the tile count where a window covers the
+    axis)."""
+    tiles = -(-n // tile)
+    reach = fused_depth.flow_reach(n, tile, halo)
+
+    def dist(a, b):
+        d = (a - b) % tiles
+        return min(d, tiles - d)
+
+    pairs = {(b, o) for b in range(tiles)
+             for o in _window_owners(n, tile, halo, b)}
+    pairs |= {(o, b) for b, o in pairs}
+    assert all(dist(b, o) <= reach for b, o in pairs)
+    if tile + 2 * halo >= n:
+        assert reach == tiles
+    else:
+        assert reach == max(dist(b, o) for b, o in pairs)
+        assert reach >= 1 or tiles == 1
+    if n % tile == 0 or n % tile >= halo:
+        assert reach <= 1 or 2 * reach + 1 >= tiles
+
+
+class FlowHazard(AssertionError):
+    """A block of :func:`flow_schedule_emulated` read a cell of a version
+    other than its round's input, or published a tile partial into a slot
+    whose partial of two rounds before was not yet summed."""
+
+
+def flow_schedule_emulated(ny: int, nx: int, rounds: int, slots: int,
+                           seed: int, reach=None,
+                           sum_wait: bool = True) -> int:
+    """The flow form's schedule (``csrc/fused_depth_flow.cu``) at D =
+    ``fused_depth.FLOW_DEPTH`` in plain Python, with each cell of the two
+    buffers holding the version of the lattice it is (0 in a, none in b)
+    and each partial slot the round whose partial it holds. Blocks take
+    tickets in the order they start, at most ``slots`` at once; the tile
+    of a ticket is the kernel's walk. A block of round r > 0 waits until
+    every tile within ``reach`` (default ``fused_depth.flow_reach`` by
+    axis, ``(rows, columns)``) has finished round r - 1 and, from round 2
+    on (unless not ``sum_wait``), until round r - 2 is summed; then reads
+    its window (the version r of every cell, or :class:`FlowHazard`);
+    then, later, writes version r + 1 of its owned cells into the other
+    buffer, publishes its partial into its slot of the round's parity
+    (which must be empty) and counts its round. The round's last ticket
+    then sums the round, once every partial of it is in and every round
+    before is summed, emptying the slots. Running blocks take their
+    events in an order drawn from ``seed``; a schedule in which no block
+    can move raises. Returns the flowing blocks whose first look found a
+    counter behind."""
+    depth = fused_depth.FLOW_DEPTH
+    ty, tx = fused_depth.TILES[depth]
+    hy, hx = depth, fused_depth.HALO_X[depth]
+    tiles_y, tiles_x = -(-ny // ty), -(-nx // tx)
+    n = tiles_y * tiles_x
+    ry, rx = reach or (fused_depth.flow_reach(ny, ty, hy),
+                       fused_depth.flow_reach(nx, tx, hx))
+
+    def near(b, r_, m):
+        return range(m) if 2 * r_ + 1 >= m else [
+            (b + j) % m for j in range(-r_, r_ + 1)]
+
+    def tile_of(i, r):
+        return (i + ((tiles_y // 2) * tiles_x if r % 2 else 0)) % n
+
+    def ready(r, tile):
+        by, bx = divmod(tile, tiles_x)
+        return (not sum_wait or r < 2 or summed >= r - 1) and all(
+            done[y * tiles_x + x] >= r for y in near(by, ry, tiles_y)
+            for x in near(bx, rx, tiles_x))
+
+    version = np.full((2, ny, nx), -1)
+    version[0] = 0
+    partial = np.full((2, n), -1)
+    done = np.zeros(n, dtype=int)
+    rng = random.Random(seed)
+    running, next_ticket, waits, summed = [], 0, 0, 0
+    # A block: [round, tile, state, first look, last of its round]; states
+    # 0 wait, 1 read, 2 write and publish, 3 sum.
+    while running or next_ticket < rounds * n:
+        while len(running) < slots and next_ticket < rounds * n:
+            r, i = divmod(next_ticket, n)
+            running.append([r, tile_of(i, r), 0, True, i == n - 1])
+            next_ticket += 1
+        movable = []
+        for blk in running:
+            r, tile, state, first, _ = blk
+            if state == 0:
+                ok = r == 0 or ready(r, tile)
+                if r > 0 and first:
+                    waits += not ok
+                    blk[3] = False
+            else:
+                ok = state < 3 or (summed == r
+                                   and (partial[r % 2] == r).all())
+            if ok:
+                movable.append(blk)
+        if not movable:
+            raise RuntimeError("no block of the flow schedule can move")
+        blk = rng.choice(movable)
+        r, tile, state, _, last = blk
+        by, bx = divmod(tile, tiles_x)
+        if state == 1:
+            rows = np.arange(by * ty - hy, (by + 1) * ty + hy) % ny
+            cols = np.arange(bx * tx - hx, (bx + 1) * tx + hx) % nx
+            seen = version[r % 2][np.ix_(rows, cols)]
+            if (seen != r).any():
+                raise FlowHazard(f"round {r} tile {tile} read versions "
+                                 f"{sorted(set(seen.ravel().tolist()))}")
+        elif state == 2:
+            version[(r + 1) % 2, by * ty:(by + 1) * ty,
+                    bx * tx:(bx + 1) * tx] = r + 1
+            if partial[r % 2, tile] != -1:
+                raise FlowHazard(f"round {r} tile {tile} published over "
+                                 f"round {partial[r % 2, tile]}'s partial")
+            partial[r % 2, tile] = r
+            done[tile] += 1
+            if not last:
+                running.remove(blk)
+                continue
+        elif state == 3:
+            partial[r % 2] = -1
+            summed += 1
+            running.remove(blk)
+            continue
+        blk[2] += 1
+    return waits
+
+
+@pytest.mark.parametrize("ny,nx,slots", [
+    *((ny, nx, slots)
+      for ny, nx in ((100, 130), (242, 96), (26, 40), (24, 32), (50, 33),
+                     (130, 64), (1000, 40), (40, 1000))
+      for slots in (3, 40, 10000)),
+    (1024, 1024, 3), (1024, 1024, 40)],
+    ids=lambda v: str(v))
+def test_flow_schedule_reads_each_rounds_input(ny, nx, slots):
+    """The flow schedule's blocks, in seeded orders and at few and at
+    unbounded slots, each read their round's input in every cell of the
+    window (never the round before's, never the round after's) and the
+    launch ends: tiles_x 1 and 2, rows not a multiple of 24, ragged last
+    tiles thinner than the halo, lattices smaller than a window."""
+    for seed in range(3):
+        waits = flow_schedule_emulated(ny, nx, 4, slots, seed)
+        assert 0 <= waits <= 3 * fused_depth.n_tiles(ny, nx, 4)
+
+
+@pytest.mark.parametrize("ny,nx,reach", [
+    (128, 128, (0, 1)), (128, 128, (1, 0)),
+    # The ragged last tile row holds 2 rows, fewer than the halo's 4.
+    (242, 96, (1, 1)),
+    (100, 130, (1, 1))])
+def test_flow_schedule_catches_a_reach_too_short(ny, nx, reach):
+    """One tile less of reach than flow_reach gives, along either axis,
+    lets some seeded order read a cell of the wrong round."""
+    assert reach < (fused_depth.flow_reach(ny, 24, 4),
+                    fused_depth.flow_reach(nx, 32, 4))
+    hazards = 0
+    for seed in range(8):
+        try:
+            flow_schedule_emulated(ny, nx, 3, 10000, seed, reach)
+        except FlowHazard:
+            hazards += 1
+    assert hazards
+
+
+def test_flow_schedule_catches_a_slot_reused_before_its_sum():
+    """Without the wait for round r - 2's sum, a block of round r can
+    publish its partial over one that is not yet summed."""
+    hazards = 0
+    for seed in range(4):
+        try:
+            flow_schedule_emulated(240, 320, 4, 10000, seed,
+                                               sum_wait=False)
+        except FlowHazard as e:
+            hazards += "published over" in str(e)
+    assert hazards

@@ -619,3 +619,143 @@ def test_describe_names_the_shift_mode(pins):
     seg = plan.Segment("resident", 100, 20000, "shift")
     assert seg.describe() == "resident G=100 device-memory shift x200"
     assert seg.launch_key == "resident_shift"
+
+
+# The depth kernel's flow form: rounds of D = 4 a launch, taken by the
+# launch's length in waves of the card's block slots.
+H100_DEPTH_SLOTS = 2 * 132  # two one-round depth blocks an SM
+
+
+def _flow_on_cpu(monkeypatch, slots=H100_DEPTH_SLOTS):
+    """The planned ``cuda`` path on CPU tensors, every wrapper's plain
+    version, planned as on a card of ``slots`` depth-kernel slots."""
+    from lbm_tpu_torch.ops import fused_depth, resident
+
+    monkeypatch.setattr(trunner, "_resolve_kernel", lambda k, p, d: k)
+    monkeypatch.setattr(resident, "_limits", lambda device: H100)
+    monkeypatch.setattr(fused_depth, "block_slots",
+                        lambda device, axis=0: slots)
+
+
+@pytest.mark.parametrize("rows,lanes,axis,rounds", [
+    (1024, 1024, 0, 25),     # 1376 tiles: 5.2 waves
+    (1280, 1024, 0, 25),     # 6.5 waves, row mode
+    (1536, 1024, 0, 1),      # 7.8 waves, row mode
+    (2048, 1024, 0, 1),      # 10.4 waves, row mode
+    (2048, 1024, 1, 25),     # the transposed 2048x1024: 10.4 waves
+    (4096, 1024, 1, 1),      # 20.7 waves
+    (16384, 1024, 1, 1),     # the transposed stress scene: 82.8 waves
+    (64, 64, 0, 25), (64, 64, 1, 25)], ids=lambda v: str(v))
+def test_flow_rounds_follow_a_launchs_waves(pins, rows, lanes, axis, rounds):
+    """FLOW_STEPS steps a launch (D = 4 rounds) where a one-round launch
+    is shorter than its forcing mode's FLOW_MAX_WAVES waves of the slots
+    (fewer in row mode, whose flow kernel costs more a tile), one round
+    where it is longer and off the card."""
+    from lbm_tpu_torch.ops import fused_depth
+
+    pins(LBM_RESIDENT="0")
+    waves = fused_depth.n_tiles(rows, lanes, 4) / H100_DEPTH_SLOTS
+    assert plan.FLOW_MAX_WAVES[0] < plan.FLOW_MAX_WAVES[1]
+    assert (waves < plan.FLOW_MAX_WAVES[axis]) == (rounds > 1)
+    assert plan.flow_rounds(rows, lanes, H100_DEPTH_SLOTS, axis) == rounds
+    assert plan.FLOW_STEPS == 4 * 25
+    assert plan.flow_rounds(rows, lanes, None, axis) == 1
+    segs = plan.segments(rows, lanes, 20000, slots=H100_DEPTH_SLOTS,
+                         axis=axis)
+    assert segs == [plan.Segment("depth", 4 * rounds, 20000, rounds=rounds)]
+    assert plan.describe(segs) == (
+        "depth D=4 K=25 x200" if rounds > 1 else "depth D=4 x5000")
+
+
+@pytest.mark.parametrize("env", [{}, {"LBM_RESIDENT": "0"},
+                                 {"LBM_RESIDENT": "0", "LBM_PALLAS_DEPTH": "8"},
+                                 {"LBM_RESIDENT": "1"}],
+                         ids=["auto", "no-resident", "depth-8", "resident"])
+def test_flow_segments_cover_the_run_and_divide_their_calls(pins, env):
+    """With the flow form every plan still sums to the run and divides
+    each segment's steps by its steps a call, which are D times its
+    rounds; only D = 4 segments take more than one round, at most
+    FLOW_STEPS / 4, and a D = 2 tail keeps one."""
+    pins(**env)
+    for iters in [*range(1, 230), 1099, 2002, 3002, 20000, 20001, 39999]:
+        parts = plan.segments(1024, 1024, iters, slots=H100_DEPTH_SLOTS)
+        assert sum(s.steps for s in parts) == iters
+        for s in parts:
+            assert s.steps > 0 and s.steps % s.steps_per_call == 0
+            assert s.rounds == 1 or (
+                s.kernel == "depth" and s.steps_per_call == 4 * s.rounds
+                and s.rounds <= plan.FLOW_STEPS // 4)
+            if s.kernel == "depth" and s.steps_per_call % 4:
+                assert s.rounds == 1
+        # The whole launches first, then at most one of fewer rounds.
+        flows = [s for s in parts if s.rounds > 1]
+        assert len(flows) <= 2 and all(
+            s.launches == 1 for s in flows[1:])
+    assert plan.describe(plan.segments(
+        1024, 1024, 20002, slots=H100_DEPTH_SLOTS)) == (
+        "resident G=100 x200, depth D=2 x1" if env == {"LBM_RESIDENT": "1"}
+        else "depth D=8 x2500, depth D=2 x1" if "LBM_PALLAS_DEPTH" in env
+        else "depth D=4 K=25 x200, depth D=2 x1")
+    if not env:
+        assert plan.describe(plan.segments(
+            1024, 1024, 20096, slots=H100_DEPTH_SLOTS)) == \
+            "depth D=4 K=25 x200, depth D=4 K=24 x1"
+
+
+def test_seam_and_sharded_plans_keep_one_round(pins):
+    """The sharded planner (the seam modes, whose halos are refilled at
+    every launch, and the ring) and the unsharded planner off the card
+    plan one round a launch."""
+    pins(LBM_RESIDENT="0")
+    for iters in (200, 3002, 20000):
+        for parts in (plan.plan_segments(iters, None, [4, 2]),
+                      plan.segments(1024, 1024, iters)):
+            assert all(s.rounds == 1 for s in parts)
+    assert plan.flow_segments(plan.plan_segments(202, None, [4, 2]), 1) == \
+        plan.plan_segments(202, None, [4, 2])
+
+
+@pytest.mark.parametrize("stride", [3002, 70, 42, 6])
+def test_a_chunk_boundary_falls_on_a_round_boundary(pins, stride):
+    """Each chunk length is planned on its own, so every chunk ends a
+    launch, and so a round: its segments sum to the chunk and divide by
+    their steps a call."""
+    pins(LBM_RESIDENT="0")
+    for n in trunner.chunk_sizes(0, 20000, stride):
+        parts = plan.segments(1024, 1024, n, slots=H100_DEPTH_SLOTS)
+        assert sum(s.steps for s in parts) == n
+        assert all(s.steps % s.steps_per_call == 0 for s in parts)
+        assert any(s.rounds > 1 for s in parts) == (n >= 8)
+
+
+def test_a_flow_run_equals_the_one_round_run_chunked_or_not(pins,
+                                                            monkeypatch):
+    """On CPU tensors planned as on a card: 240 steps under the flow form
+    (K=25, then a launch of fewer rounds and a D=2 tail), uncut and in
+    chunks of 70, give the one-round plan's cells and trajectory bit for
+    bit, and the run records its flowing tiles and no waits."""
+    pins(LBM_RESIDENT="0")
+    p, mask = _scene(242)
+    one = trunner.run_simulation(p, mask.numpy(), kernel="reference",
+                                 device="cpu")
+    _flow_on_cpu(monkeypatch)
+    assert plan.describe(trunner.plan_run(p, "cuda", 242, device="cpu")) == \
+        "depth D=4 K=25 x2, depth D=4 K=10 x1, depth D=2 x1"
+    flow = trunner.run_simulation(p, mask.numpy(), kernel="cuda",
+                                  device="cpu")
+    chunked = trunner.run_simulation(p, mask.numpy(), kernel="cuda",
+                                     device="cpu", chunk_iters=70)
+    for run in (flow, chunked):
+        np.testing.assert_array_equal(run.cells, one.cells)
+        np.testing.assert_array_equal(run.av_vels, one.av_vels)
+    tiles = 2 * 2  # 40 rows and 48 columns of 24 x 32 tiles
+    t = flow.timings
+    assert t["compute.depth.flow_tiles"] == (2 * 24 + 9) * tiles
+    assert t["compute.depth.waits"] == 0
+    # chunks of 70: 68 steps at D = 4 (17 rounds) and a D = 2 tail, three
+    # times, then 32 steps (8 rounds).
+    assert chunked.timings["compute.depth.flow_tiles"] == \
+        (3 * 16 + 7) * tiles
+    # A run of one round, a single launch, records neither.
+    assert "compute.depth.flow_tiles" not in trunner.run_simulation(
+        p, mask.numpy(), kernel="cuda", device="cpu", n_iters=4).timings

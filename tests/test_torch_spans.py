@@ -320,13 +320,13 @@ def test_the_mesh_path_has_the_same_spans(tmp_path):
 # answers a query or sets the card up.
 LAUNCH_ENTRIES = {
     "lbm_fused_step", "lbm_reduce_tot", "lbm_fused_depth",
-    "lbm_fused_depth_seam", "lbm_fused_step_seam", "lbm_resident",
+    "lbm_fused_depth_flow", "lbm_fused_depth_seam", "lbm_fused_step_seam", "lbm_resident",
     "lbm_resident_shift", "lbm_resident_onchip", "lbm_ring",
     "lbm_ring_onchip", "lbm_probe", "lbm_mxu_resident",
 }
 NOT_LAUNCHES = {
     "lbm_num_partials", "lbm_max_rows", "lbm_depth_num_partials",
-    "lbm_depth_max_rows", "lbm_shift_owners", "lbm_shift_smem_bytes",
+    "lbm_depth_max_rows", "lbm_depth_block_slots", "lbm_shift_owners", "lbm_shift_smem_bytes",
     "lbm_shift_edge_floats", "lbm_resident_blocks", "lbm_sm_count",
     "lbm_smem_optin", "lbm_onchip_smem_bytes", "lbm_onchip_prepare",
     "lbm_seam_num_partials", "lbm_seam_max_rows", "lbm_ring_blocks",
